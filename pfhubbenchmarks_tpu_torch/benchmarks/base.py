@@ -1,0 +1,90 @@
+"""Benchmark problem container: everything a time loop needs, declaratively.
+
+Counterpart of ``pfhubbenchmarks_tpu/benchmarks/base.py``. A benchmark is
+data: a grid, a pointwise ``terms`` function, ICs, observables and configs.
+Every factory method takes the device explicitly. ``kernel_jvp(grid, device)``
+makes the benchmark's J.v (kernel A for BM1), which serves the outer Krylov
+matvec and every multigrid level.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from pfhubbenchmarks_tpu_torch.config import SolverConfig, TimeConfig
+from pfhubbenchmarks_tpu_torch.fem.assembly import make_functional, make_residual
+from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
+
+
+@dataclasses.dataclass
+class BenchmarkProblem:
+    name: str
+    grid: CrossedTriGrid
+    field_names: tuple[str, ...]
+    terms: Callable                       # QPContext -> (source, flux)
+    ic_fns: Sequence[Callable]            # per-field fn(x, y)
+    observables: dict[str, Callable]      # name -> density(QPContext)
+    csv_columns: tuple[str, ...]
+    # (grid, device) -> jv(w, w0, dt, v, b=None), the f32 J.v
+    kernel_jvp: Callable
+    time: TimeConfig = TimeConfig()
+    solver: SolverConfig = SolverConfig()
+    dtype: torch.dtype = torch.float64
+
+    @property
+    def n_fields(self) -> int:
+        return len(self.field_names)
+
+    def initial_state(self, device: torch.device | str):
+        v, m = self.grid.interpolate(self.ic_fns)
+        return (torch.as_tensor(np.asarray(v), dtype=self.dtype, device=device),
+                torch.as_tensor(np.asarray(m), dtype=self.dtype, device=device))
+
+    def residual(self, device: torch.device | str, dtype=None):
+        return make_residual(self.grid, self.terms, self.n_fields, device=device,
+                             dtype=dtype or self.dtype)
+
+    @property
+    def mixed_precision(self) -> bool:
+        return self.solver.mixed_precision and self.dtype == torch.float64
+
+    def residual_lowp(self, device: torch.device | str):
+        """f32 true-rule residual (the linearization point of the Krylov
+        operator)."""
+        return (self.residual(device, dtype=torch.float32)
+                if self.mixed_precision else None)
+
+    def lowp_jvp_factory(self, device: torch.device | str):
+        """``factory(x_lp, wprev_lp, dt_lp) -> jvp(v)``: the outer f32 J.v
+        on the true-rule grid."""
+        jv = self.kernel_jvp(self.grid, device)
+
+        def factory(x_lp, wprev_lp, dt_lp):
+            return lambda v: jv(x_lp, wprev_lp, dt_lp, v)
+
+        return factory
+
+    def precond_builder(self, device: torch.device | str):
+        s = self.solver
+        if s.precond != "gmg":
+            raise NotImplementedError(f"precond={s.precond!r} is not yet ported")
+        from pfhubbenchmarks_tpu_torch.solve.gmg import make_gmg
+
+        return make_gmg(
+            self.grid, self.terms, self.n_fields, device=device,
+            jvp_for=lambda g: self.kernel_jvp(g, device),
+            nu_pre=s.gmg_nu_pre, nu_post=s.gmg_nu_post,
+            nu_fine_pre=s.gmg_nu_fine_pre, nu_fine_post=s.gmg_nu_fine_post,
+            coarse_sweeps=s.gmg_coarse_sweeps, max_levels=s.gmg_max_levels,
+            precond_rule=s.precond_rule, min_cells=s.gmg_min_cells,
+            dense_coarse_max_dofs=s.gmg_dense_coarse_max_dofs,
+            cycle=s.gmg_cycle, inner_mr=s.gmg_inner_mr)
+
+    def observable_fns(self, device: torch.device | str):
+        return {name: make_functional(self.grid, density, device=device,
+                                      dtype=self.dtype)
+                for name, density in self.observables.items()}

@@ -1,0 +1,80 @@
+"""Benchmark registry + shared CLI runner.
+
+Run a ported benchmark as::
+
+    python -m pfhubbenchmarks_tpu_torch.benchmarks.bench1 --device cuda \
+        [--end-time T] [--max-steps N] [--nx N --ny N] [--out CSV]
+
+``--device`` is required: there is no implicit device. The JAX CLI's other
+flags are accepted and raise "not yet ported".
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import time
+
+_BENCHMARKS = {
+    "bench1": "pfhubbenchmarks_tpu_torch.benchmarks.bench1",
+}
+
+# JAX CLI flags the PyTorch slice does not implement yet (name -> takes a value)
+_NOT_PORTED = {"--nz": True, "--f32": False, "--mesh": True,
+               "--replay": True, "--no-damped-rescue": False, "--fused": False,
+               "--checkpoint": True, "--resume": False, "--save-fields": True,
+               "--fields-dir": True, "--stats-log": True, "--trace": True}
+
+
+def get_benchmark(name: str, **kwargs):
+    if name not in _BENCHMARKS:
+        raise ValueError(f"benchmark {name!r} is not yet ported; have "
+                         f"{sorted(_BENCHMARKS)}")
+    return importlib.import_module(_BENCHMARKS[name]).make(**kwargs)
+
+
+def main(name: str, argv=None) -> None:
+    import torch
+
+    ap = argparse.ArgumentParser(description=f"PFHub {name} (PyTorch/CUDA)")
+    ap.add_argument("--device", type=str, required=True,
+                    help="torch device, e.g. cuda or cpu")
+    ap.add_argument("--end-time", type=float, default=None)
+    ap.add_argument("--max-steps", type=int, default=None)
+    ap.add_argument("--out", type=str, default=f"results/{name}_torch_out.csv")
+    ap.add_argument("--nx", type=int, default=None)
+    ap.add_argument("--ny", type=int, default=None)
+    ap.add_argument("--quiet", action="store_true")
+    for flag, takes_value in _NOT_PORTED.items():
+        if takes_value:
+            ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
+        else:
+            ap.add_argument(flag, action="store_const", const=True,
+                            default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    for flag in _NOT_PORTED:
+        if getattr(args, flag.lstrip("-").replace("-", "_")) is not None:
+            raise SystemExit(f"{flag} is not yet ported to the PyTorch package")
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available")
+
+    kwargs = {}
+    if args.nx:
+        kwargs["nx"] = args.nx
+    if args.ny:
+        kwargs["ny"] = args.ny
+    problem = get_benchmark(name, **kwargs)
+
+    from pfhubbenchmarks_tpu_torch import timeloop
+    from pfhubbenchmarks_tpu_torch.io.csvout import write_csv
+
+    t0 = time.time()
+    result = timeloop.run(problem, device=device, end_time=args.end_time,
+                          max_steps=args.max_steps, verbose=not args.quiet)
+    wall = time.time() - t0
+    write_csv(args.out, result.rows, result.columns)
+    n = len(result.rows)
+    print(f"{name}: {n} steps to t={result.rows[-1, 0]:.6g} in {wall:.2f}s "
+          f"({wall / max(n, 1):.3f}s/step) -> {args.out}")

@@ -1,0 +1,157 @@
+"""Global configuration: precision policy and solver defaults.
+
+Field-for-field counterpart of ``pfhubbenchmarks_tpu/config.py``: the
+benchmark declarations port verbatim, and a test holds the field names and
+defaults equal. The PyTorch slice implements a subset of the knobs; a knob
+the slice cannot honour is accepted at its default and raises in
+``check_supported`` when set to anything else. The notes beside each field
+say which.
+
+Precision policy: f64 Newton residuals and observables, f32 Krylov and
+multigrid, and TF32 off everywhere. The TF32 switches below are set once,
+when this module is imported: a TF32 matmul keeps ~3 decimal digits, the
+Hopper form of the reduced-precision matmul hazard the JAX package fixes
+with ``jax_default_matmul_precision='highest'``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+
+def tf32_disabled() -> bool:
+    return (not torch.backends.cuda.matmul.allow_tf32
+            and not torch.backends.cudnn.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest")
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Newton-Krylov settings (see the JAX package's config for the
+    measurements behind each default)."""
+
+    newton_atol: float = 1e-6
+    report_atol: float | None = None
+    newton_rtol: float = 1e-8
+    newton_stol: float = 1e-8
+    newton_max_iters: int = 10
+    newton_div_tol: float = 1e4
+    newton_stall_abort: int = 0
+    # 'basic' only; 'bt' and 'cp' are not yet ported.
+    line_search: str = "basic"
+    # 'fgmres' only; 'gmres', 'bicgstab' and 'richardson' are not yet ported.
+    krylov: str = "fgmres"
+    krylov_rtol: float = 1e-5
+    krylov_atol: float = 1e-50
+    krylov_atol_frac: float = 0.01
+    krylov_forcing: str = "fixed"   # 'fixed' | 'ew'
+    ew_eta0: float = 0.3
+    ew_eta_max: float = 0.9
+    ew_gamma: float = 0.9
+    ew_dt_min: float | None = None
+    krylov_max_iters: int = 400
+    gmres_restart: int = 30
+    # LGMRES augmentation: not yet ported (0 only).
+    fgmres_aug: int = 0
+    # True only: the kernels are f32, so a full-f64 Krylov solve is not ported.
+    mixed_precision: bool = True
+    # Two-stage f32/f64 Newton residual: not yet ported (False only).
+    fast_residual: bool = False
+    fast_residual_margin: float = 1000.0
+    # Only read by the bt/cp line searches, which are not yet ported: no-op.
+    fast_linesearch: bool = True
+    # TPU-only (Pallas kernel selection): no-op. On a CUDA device the port
+    # always launches its own kernels.
+    use_pallas: str = "auto"
+    # TPU-only (VMEM-tiled Pallas sweeps): no-op.
+    use_tiled_sweeps: bool = True
+    # TPU-only (grid-form Pallas kernels): no-op.
+    tiled_grid_kernels: bool = False
+    # TPU-only (3D z-slab Pallas kernels): no-op.
+    tiled_nb1_3d: bool = False
+    # TPU-only (how the V-cycle is split into Pallas calls): no-op; the port
+    # runs one launch sequence per V-cycle.
+    fuse_vcycle: str = "auto"
+    # 'gmg' only; 'none', 'block_jacobi' and 'dense' are not yet ported.
+    precond: str = "gmg"
+    # Field-split preconditioning: not yet ported (False only).
+    field_split: bool = False
+    # Only read under field_split: no-op.
+    field_split_alphas: bool = True
+    # 'newton' only; the lagged 'solve' build is not yet ported.
+    precond_lag: str = "newton"
+    # Only read by precond='dense', which is not yet ported: no-op.
+    dense_impl: str = "auto"
+    dense_refine_iters: int = 3
+    precond_rule: str | None = None
+    # 'true' only; the 'precond_rule' defect-correction operator is not yet
+    # ported.
+    krylov_operator: str = "true"
+    gmg_nu_pre: int = 2
+    gmg_nu_post: int = 2
+    gmg_nu_fine_pre: int = 0
+    gmg_nu_fine_post: int = 0
+    # 'v' only; the W-cycle is not yet ported.
+    gmg_cycle: str = "v"
+    # 1 only; GCR(s) inner acceleration is not yet ported.
+    gmg_inner_mr: int = 1
+    # 3D multigrid only: no-op in 2D.
+    gmg_kcycle: int = 1
+    # Unused by the JAX package too (step lengths are computed): no-op.
+    gmg_omega: float = 0.8
+    gmg_coarse_sweeps: int = 24
+    gmg_max_levels: int = 10
+    gmg_dense_coarse_max_dofs: int = 1500
+    gmg_min_cells: int = 7
+
+
+# knob -> the only value the slice honours
+_SLICE_ONLY = {
+    "line_search": "basic",
+    "krylov": "fgmres",
+    "fgmres_aug": 0,
+    "mixed_precision": True,
+    "fast_residual": False,
+    "precond": "gmg",
+    "field_split": False,
+    "precond_lag": "newton",
+    "krylov_operator": "true",
+    "gmg_cycle": "v",
+    "gmg_inner_mr": 1,
+}
+
+
+def check_supported(cfg: SolverConfig) -> None:
+    """Raise for a knob set to a value the PyTorch slice cannot honour."""
+    for name, ok in _SLICE_ONLY.items():
+        value = getattr(cfg, name)
+        if value != ok:
+            raise NotImplementedError(
+                f"SolverConfig.{name}={value!r} is not yet ported to the "
+                f"PyTorch package (only {ok!r})")
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeConfig:
+    """Adaptive implicit-Euler time-loop settings (dolfin/bench1.py:136-183)."""
+
+    t0: float = 0.0
+    dt0: float = 1e-1
+    dt_min: float = 1e-2
+    dt_max: float | None = None
+    end_time: float = 1e3
+    grow_threshold: int = 5
+    shrink_threshold: int | None = None
+
+
+def setup_compile_cache(directory: str | None = None) -> None:
+    """TPU-only (JAX's persistent compilation cache): no-op. The CUDA
+    kernels are built once per checkout into ``pfhubbenchmarks_tpu_torch/
+    _build`` (ops/_lib.py)."""
+    del directory

@@ -1,0 +1,48 @@
+// Kernel B, block_jacobi_apply: z = P^-1 r with the node-block inverses
+// given as F x F planes pv [F, F, ny+1, nx+1] and pm [F, F, ny, nx], f32.
+//
+// Replaces _bj_apply of pfhubbenchmarks_tpu/ops/pallas_vcycle.py (the
+// smoother's preconditioning step inside make_fused_vcycle); the planes
+// come from solve/precond.py:make_block_jacobi, built in plain torch.
+//
+// Design: one thread per node (vertex or centre) computes all F outputs,
+// each summed over j in order 0..F-1. Reads (F^2 + F) floats and writes F
+// floats per node: at BM1's 100^2 about 0.5 MB per launch, L2-resident, so
+// the launch is latency-bound; it is kept to one launch for both grids.
+
+#include "common.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(pfh::kThreads)
+bj_apply_kernel(const float* __restrict__ pv, const float* __restrict__ pm,
+                const float* __restrict__ rv, const float* __restrict__ rm,
+                float* __restrict__ zv, float* __restrict__ zm, int F,
+                long nvert, long ncell) {
+  const long idx = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= nvert + ncell) return;
+  const bool on_v = idx < nvert;
+  const long node = on_v ? idx : idx - nvert;
+  const long n = on_v ? nvert : ncell;
+  const float* P = on_v ? pv : pm;
+  const float* r = on_v ? rv : rm;
+  float* z = on_v ? zv : zm;
+  for (int i = 0; i < F; ++i) {
+    float acc = 0.f;
+    for (int j = 0; j < F; ++j)
+      acc += __ldg(P + (static_cast<long>(i) * F + j) * n + node) * __ldg(r + j * n + node);
+    z[i * n + node] = acc;
+  }
+}
+
+}  // namespace
+
+PFH_EXPORT int pfh_block_jacobi_apply(const float* pv, const float* pm,
+                                      const float* rv, const float* rm,
+                                      float* zv, float* zm, int F, long nvert,
+                                      long ncell, void* stream) {
+  const int blocks = pfh::blocks_for(nvert + ncell);
+  bj_apply_kernel<<<blocks, pfh::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      pv, pm, rv, rm, zv, zm, F, nvert, ncell);
+  return static_cast<int>(cudaGetLastError());
+}

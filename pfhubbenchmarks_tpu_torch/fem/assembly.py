@@ -1,0 +1,212 @@
+"""Matrix-free structured P1 assembly as dense tensor ops.
+
+Counterpart of ``pfhubbenchmarks_tpu/fem/assembly.py``. The weak-form
+residual
+
+    r_k = sum_cells sum_tris sum_q  w * ( s(u) * lambda_k + f(u, grad u) . grad lambda_k )
+
+is evaluated as a few small einsums over per-cell slot arrays gathered by
+slicing, followed by shifted adds (the scatter).
+
+State pair: ``w = (v, m)`` with v ``[F, ny+1, nx+1]`` (vertices) and
+m ``[F, ny, nx]`` (cell centres), in the JAX package's padded layout.
+
+Model interface: a system provides pointwise physics
+``terms(ctx) -> (source, flux)`` over a ``QPContext``; Jacobian-vector
+products come from ``torch.func.jvp`` of the assembled residual (the plain
+versions) or from the hand-written tangent in the CUDA kernels (ops/).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as tF
+
+from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
+
+
+# ---------------------------------------------------------------------------
+# gather / scatter between grids and per-cell slot arrays
+# ---------------------------------------------------------------------------
+
+def local_values(w, ny: int, nx: int):
+    """Gather cell-local slot values: (v, m) -> [5, F, ny, nx]."""
+    v, m = w
+    return torch.stack([
+        v[:, :ny, :nx],
+        v[:, :ny, 1: nx + 1],
+        v[:, 1: ny + 1, 1: nx + 1],
+        v[:, 1: ny + 1, :nx],
+        m[:, :ny, :nx],
+    ])
+
+
+def scatter_add(r_loc, vshape, mshape, ny: int, nx: int):
+    """Scatter per-cell slot contributions back: [5, F, ny, nx] -> (rv, rm).
+
+    Pad-and-add, as in the JAX package; the padding of the stored shapes
+    stays exactly zero."""
+    ey, ex = vshape[0] - (ny + 1), vshape[1] - (nx + 1)
+    # F.pad orders pads from the last dim: (x_lo, x_hi, y_lo, y_hi)
+    rv = (tF.pad(r_loc[0], (0, 1 + ex, 0, 1 + ey))
+          + tF.pad(r_loc[1], (1, ex, 0, 1 + ey))
+          + tF.pad(r_loc[2], (1, ex, 1, ey))
+          + tF.pad(r_loc[3], (0, 1 + ex, 1, ey)))
+    rm = tF.pad(r_loc[4], (0, mshape[1] - nx, 0, mshape[0] - ny))
+    return rv, rm
+
+
+# ---------------------------------------------------------------------------
+# pointwise evaluation context handed to model physics
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class QPContext:
+    """Field data at quadrature points, per field as tuples (UFL-like access)."""
+
+    u: tuple          # field i -> [4, nq, ny, nx]
+    du: tuple         # field i -> (ddx, ddy), each [4, 1, ny, nx]
+    u0: tuple | None
+    du0: tuple | None
+    dt: torch.Tensor | float | None
+
+
+def _eval_qp(Bq, Gs, loc):
+    """loc [5, F, ny, nx] -> (u_q [F, 4, nq, ny, nx], du [F, 2, 4, 1, ny, nx])."""
+    uq = torch.einsum("tqs,sfyx->ftqyx", Bq, loc)
+    du = torch.einsum("tsd,sfyx->fdtyx", Gs, loc)[:, :, :, None]
+    return uq, du
+
+
+def _as_tuples(uq, du):
+    n_fields = uq.shape[0]
+    u_t = tuple(uq[i] for i in range(n_fields))
+    du_t = tuple((du[i, 0], du[i, 1]) for i in range(n_fields))
+    return u_t, du_t
+
+
+@dataclasses.dataclass(frozen=True)
+class TabTensors:
+    """A grid's tabulation as tensors of one dtype on one device, with the
+    weight-premultiplied forms the residual contracts against."""
+
+    Bq: torch.Tensor
+    Gs: torch.Tensor
+    wq: torch.Tensor
+    WB: torch.Tensor
+    WGx: torch.Tensor
+    WGy: torch.Tensor
+
+    @staticmethod
+    def make(grid: CrossedTriGrid, dtype, device) -> "TabTensors":
+        tab = grid.tab()
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+        return TabTensors(
+            Bq=t(tab.Bq), Gs=t(tab.Gs), wq=t(tab.wq),
+            WB=t(tab.wq[:, :, None] * tab.Bq),
+            WGx=t(tab.wq[:, :, None] * tab.Gs[:, None, :, 0]),
+            WGy=t(tab.wq[:, :, None] * tab.Gs[:, None, :, 1]))
+
+
+# ---------------------------------------------------------------------------
+# residual / functional factories
+# ---------------------------------------------------------------------------
+
+def _check_grid(grid: CrossedTriGrid, dirichlet, needs_coords: bool):
+    if dirichlet:
+        raise NotImplementedError(
+            "Dirichlet rows are not yet ported to the PyTorch package")
+    if needs_coords:
+        raise NotImplementedError(
+            "coordinate-dependent terms are not yet ported to the PyTorch "
+            "package")
+    if grid.periodic:
+        raise NotImplementedError(
+            "periodic grids are not yet ported to the PyTorch package")
+
+
+def make_residual(
+    grid: CrossedTriGrid,
+    terms: Callable[[QPContext], tuple[Sequence, Sequence]],
+    n_fields: int,
+    *,
+    device: torch.device | str,
+    dirichlet=(),
+    needs_coords: bool = False,
+    dtype=torch.float64,
+):
+    """Build ``residual(w, w0, dt) -> (rv, rm)`` for a system's weak form."""
+    del n_fields  # the field count follows from the state
+    _check_grid(grid, dirichlet, needs_coords)
+    T = TabTensors.make(grid, dtype, device)
+    full_shape = (4, grid.tab().nq, grid.ny, grid.nx)
+    ny, nx = grid.ny, grid.nx
+    vshape, mshape = grid.vshape, grid.mshape
+
+    def residual(w, w0, dt):
+        uq, du = _eval_qp(T.Bq, T.Gs, local_values(w, ny, nx))
+        u_t, du_t = _as_tuples(uq, du)
+        u0q, du0 = _eval_qp(T.Bq, T.Gs, local_values(w0, ny, nx))
+        u0_t, du0_t = _as_tuples(u0q, du0)
+        source, flux = terms(QPContext(u=u_t, du=du_t, u0=u0_t, du0=du0_t,
+                                       dt=dt))
+        src = torch.stack([torch.broadcast_to(s, full_shape) for s in source])
+        fx = torch.stack([torch.broadcast_to(f[0], full_shape) for f in flux])
+        fy = torch.stack([torch.broadcast_to(f[1], full_shape) for f in flux])
+        r_loc = (torch.einsum("tqs,ftqyx->sfyx", T.WB, src)
+                 + torch.einsum("tqs,ftqyx->sfyx", T.WGx, fx)
+                 + torch.einsum("tqs,ftqyx->sfyx", T.WGy, fy))
+        return scatter_add(r_loc, vshape, mshape, ny, nx)
+
+    return residual
+
+
+def make_functional(
+    grid: CrossedTriGrid,
+    density: Callable[[QPContext], torch.Tensor],
+    *,
+    device: torch.device | str,
+    needs_coords: bool = False,
+    dtype=torch.float64,
+):
+    """Build ``value(w) -> scalar tensor`` for an integral functional."""
+    _check_grid(grid, (), needs_coords)
+    T = TabTensors.make(grid, dtype, device)
+    full_shape = (4, grid.tab().nq, grid.ny, grid.nx)
+    ny, nx = grid.ny, grid.nx
+
+    def value(w):
+        uq, du = _eval_qp(T.Bq, T.Gs, local_values(w, ny, nx))
+        u_t, du_t = _as_tuples(uq, du)
+        ctx = QPContext(u=u_t, du=du_t, u0=None, du0=None, dt=None)
+        e = torch.broadcast_to(density(ctx), full_shape)
+        return torch.einsum("tq,tqyx->", T.wq, e)
+
+    return value
+
+
+@dataclasses.dataclass(frozen=True)
+class DirichletBC:
+    """Strong BC on a vertex-grid boundary line of one field: not yet ported
+    (bench6 brings it). Constructing one raises."""
+
+    field: int
+    side: str
+    g: np.ndarray
+    index: int
+
+    def __post_init__(self):
+        raise NotImplementedError(
+            "DirichletBC is not yet ported to the PyTorch package")
+
+    @staticmethod
+    def make(grid: CrossedTriGrid, field: int, side: str, fn) -> "DirichletBC":
+        raise NotImplementedError(
+            "DirichletBC is not yet ported to the PyTorch package")

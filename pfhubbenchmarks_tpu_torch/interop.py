@@ -1,0 +1,50 @@
+"""Carry the JAX package's data across, so both packages compute the same
+thing: states as numpy pairs, configs as ``dataclasses.asdict`` dicts,
+benchmark parameters as dicts of numpy or Python scalars. Nothing here
+imports jax: the JAX side hands over plain numpy and Python values.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pfhubbenchmarks_tpu_torch.benchmarks.bench1 import Bench1Params
+from pfhubbenchmarks_tpu_torch.config import SolverConfig, TimeConfig
+
+
+def state_from_numpy(w, device: torch.device | str, dtype=torch.float64):
+    """(v, m) numpy (or array-like) pair -> tensor pair on ``device`` (a
+    copy: the source may be a read-only view of a JAX array)."""
+    return tuple(torch.tensor(np.asarray(a), dtype=dtype, device=device)
+                 for a in w)
+
+
+def state_to_numpy(w):
+    """Tensor pair -> numpy pair (copied to the host)."""
+    return tuple(a.detach().cpu().numpy() for a in w)
+
+
+def _from_dict(cls, d: dict):
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(f"{cls.__name__}: unknown fields {sorted(unknown)}")
+    return cls(**{k: (v.item() if isinstance(v, np.generic) else v)
+                  for k, v in d.items()})
+
+
+def solver_config_from_dict(d: dict) -> SolverConfig:
+    return _from_dict(SolverConfig, d)
+
+
+def time_config_from_dict(d: dict) -> TimeConfig:
+    return _from_dict(TimeConfig, d)
+
+
+def problem_params_from_numpy(d: dict) -> Bench1Params:
+    """``dataclasses.asdict`` of the JAX ``Bench1Params`` (values may be
+    numpy scalars) -> the port's ``Bench1Params``."""
+    return _from_dict(Bench1Params, {k: float(v) for k, v in d.items()})

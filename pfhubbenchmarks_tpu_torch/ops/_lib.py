@@ -1,0 +1,140 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+The sources in ``pfhubbenchmarks_tpu_torch/csrc/*.cu`` are compiled by
+``nvcc`` into one shared library with a plain C interface, at first use,
+into ``pfhubbenchmarks_tpu_torch/_build/`` (ignored by git), and loaded
+with ``ctypes``. The library name carries a hash of the sources and flags,
+so an edited source is rebuilt. Nothing here runs at import time: the CPU
+tests import every module, and a CPU tensor never reaches a kernel.
+
+Each wrapper counts its launches in ``LAUNCHES`` (one per wrapper call that
+launches its kernel), so a run can show that its main path went through the
+kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
+                           "-fPIC", "-Xptxas", "-v")
+
+KERNELS = ("ch_jvp", "block_jacobi_apply", "lmr_step", "transfer_dyadic")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+class KernelLibrary:
+    """The loaded shared library, with its build time and compiler log."""
+
+    def __init__(self, path: Path, build_seconds: float, build_log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.build_log = build_log
+        self.lib = ctypes.CDLL(str(path))
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        sig = {
+            "pfh_ch_jvp": [vp, i32] + [vp] * 8 + [i32, i32, vp],
+            "pfh_ch_jvp_param_floats": [],
+            "pfh_block_jacobi_apply": [vp] * 6 + [i32, i64, i64, vp],
+            "pfh_lmr_step": [vp] * 8 + [i64, i64, vp, i32, vp, vp],
+            "pfh_transfer": [i32] + [vp] * 4 + [i32] * 4 + [vp],
+        }
+        for name, argtypes in sig.items():
+            fn = getattr(self.lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+
+    def call(self, name: str, *args) -> None:
+        """Launch through a C launcher; raise on a nonzero CUDA error."""
+        err = getattr(self.lib, name)(*args)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+@functools.cache
+def library() -> KernelLibrary:
+    """Build (once per source hash) and load the kernel library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    out = BUILD_DIR / f"libpfhub_kernels-{h.hexdigest()[:16]}.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, out)
+    return KernelLibrary(out, time.perf_counter() - t0, log)
+
+
+def stream_handle() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check_cuda(name: str, tensors, dtype=torch.float32) -> None:
+    """The kernels take contiguous tensors of one dtype on one CUDA device."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: kernel needs CUDA tensors, got {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: non-contiguous tensor")
+
+
+def check_shapes(name: str, pair, vshape, mshape) -> None:
+    if tuple(pair[0].shape) != tuple(vshape) or tuple(pair[1].shape) != tuple(mshape):
+        raise ValueError(f"{name}: shapes {tuple(pair[0].shape)}, "
+                         f"{tuple(pair[1].shape)}; expected {vshape}, {mshape}")
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """Route to the plain version only for a CPU tensor; any other device
+    goes to the kernel, which raises if it is not CUDA."""
+    return t.device.type == "cpu"

@@ -1,0 +1,134 @@
+"""Newton(-Krylov) with PETSc SNES 'newtonls' semantics.
+
+Counterpart of ``pfhubbenchmarks_tpu/solve/newton.py:make_newton_solver``.
+The nonlinear solve is a Python loop; each Newton iteration reads its
+residual norm to the host (one sync), and the inner FGMRES one value set
+per Krylov iteration. Convergence mirrors SNES defaults:
+
+  converged: ||F|| < atol  or  ||F|| < rtol ||F0||  or  the step-size test
+             (only on a converged linear solve)
+  diverged:  ||F|| > divtol ||F0||, NaN, a linear solve that made no
+             progress, the stall abort, or max_it
+
+Mixed precision: the residual and the state are f64; the Krylov solve
+(J.v, basis, preconditioner) runs in f32. The J.v comes from
+``lowp_jvp_factory`` (kernel A on CUDA, its plain ``torch.func.jvp``
+version on CPU). Only the basic line search is ported.
+"""
+
+from __future__ import annotations
+
+import math
+import typing
+import warnings
+
+import numpy as np
+import torch
+
+from pfhubbenchmarks_tpu_torch.config import SolverConfig, check_supported
+from pfhubbenchmarks_tpu_torch.solve import tree as tr
+from pfhubbenchmarks_tpu_torch.solve.krylov import SOLVERS
+
+
+class NewtonResult(typing.NamedTuple):
+    x: typing.Any
+    iters: int                  # SNES-equivalent count under report_atol
+    converged: bool
+    res_norm: float             # final ||F||
+    krylov_iters: int           # cumulative inner iterations
+    norm_hist: list             # ||F_k|| per Newton iteration (inf-padded)
+
+
+def make_newton_solver(residual, cfg: SolverConfig, precond_build, *,
+                       lowp_jvp_factory):
+    """Build ``solve(w_guess, w_prev, dt) -> NewtonResult``.
+
+    ``residual(w, w_prev, dt)`` is the f64 assembled residual;
+    ``precond_build(w, w_prev, dt) -> Minv``; ``lowp_jvp_factory(x, w_prev,
+    dt) -> jvp(v)`` gives the f32 Krylov operator at the f32 state.
+    """
+    check_supported(cfg)
+    krylov = SOLVERS[cfg.krylov]
+    if cfg.krylov_forcing == "ew" and cfg.ew_dt_min is None:
+        warnings.warn(
+            "krylov_forcing='ew' with no ew_dt_min gate: ungated EW was "
+            "measured to break adaptive-controller parity. Set ew_dt_min to "
+            "a calibrated gate (bench1 uses 5.0) or to 0.0 to run ungated.",
+            stacklevel=2)
+    krylov_atol = max(cfg.krylov_atol, cfg.krylov_atol_frac * cfg.newton_atol)
+    krylov_kwargs = dict(rtol=cfg.krylov_rtol, atol=krylov_atol,
+                         maxiter=cfg.krylov_max_iters, restart=cfg.gmres_restart)
+    lowp = torch.float32
+
+    def solve(w_guess, w_prev, dt):
+        dt = float(dt)
+        dt_lp = float(np.float32(dt))
+        w_prev_lp = tr.cast(w_prev, lowp)
+        x = w_guess
+        F = residual(x, w_prev, dt)
+        n0 = float(tr.norm(F))
+        normF = n0
+        hist = [math.inf] * (cfg.newton_max_iters + 1)
+        hist[0] = n0
+        k = 0
+        kiters = 0
+        converged = n0 < cfg.newton_atol
+        failed = not math.isfinite(n0)
+        eta = cfg.ew_eta0
+        best, since = n0, 0
+        while not converged and not failed and k < cfg.newton_max_iters:
+            kw = krylov_kwargs
+            if cfg.krylov_forcing == "ew":
+                # dt-gated forcing: fixed KSP rtol below ew_dt_min
+                gated = cfg.ew_dt_min and not dt >= cfg.ew_dt_min
+                kw = dict(krylov_kwargs,
+                          rtol=cfg.krylov_rtol if gated else eta)
+            Minv = precond_build(x, w_prev, dt)
+            jvp_fn = lowp_jvp_factory(tr.cast(x, lowp), w_prev_lp, dt_lp)
+            sol = krylov(jvp_fn, tr.cast(tr.neg(F), lowp), Minv=Minv, **kw)
+            d = tr.cast(sol.x, x[0].dtype)
+            lam = 1.0   # basic line search: the full step
+            xn = tr.axpy(lam, d, x)
+            Fn = residual(xn, w_prev, dt)
+            nn = float(tr.norm(Fn))
+            k += 1
+            snorm = abs(lam) * float(tr.norm(d))
+            xnorm = float(tr.norm(xn))
+            converged = (nn < cfg.newton_atol or nn < cfg.newton_rtol * n0
+                         or (snorm <= cfg.newton_stol * xnorm and sol.converged))
+            # a linear solve that made no progress marks the attempt failed
+            # (SNES DIVERGED_LINEAR_SOLVE on a truly stuck KSP)
+            lin_useless = not sol.converged and sol.res_norm > 0.1 * normF
+            failed = (not math.isfinite(nn) or nn > cfg.newton_div_tol * n0
+                      or lin_useless)
+            if cfg.newton_stall_abort:
+                # doomed-attempt abort, gated so it never fires once the best
+                # ||F|| is under the SNES-equivalent acceptance threshold
+                since = 0 if nn < 0.9 * best else since + 1
+                best = min(nn, best)
+                floor = max(cfg.report_atol or 0.0, 10.0 * cfg.newton_atol)
+                failed = failed or (since >= cfg.newton_stall_abort
+                                    and best > floor and not converged)
+            if cfg.krylov_forcing == "ew":
+                # EW choice 2 with the standard safeguard, clipped to
+                # [krylov_rtol, ew_eta_max]
+                ratio = nn / max(normF, 1e-300)
+                eta_raw = cfg.ew_gamma * ratio * ratio
+                safe = cfg.ew_gamma * eta * eta
+                eta_n = max(eta_raw, safe if safe > 0.1 else 0.0)
+                eta = min(max(eta_n, cfg.krylov_rtol), cfg.ew_eta_max)
+            hist[k] = nn
+            x, F, normF = xn, Fn, nn
+            kiters += sol.iters
+        converged = converged and not failed
+        iters = k
+        if cfg.report_atol is not None:
+            # SNES-equivalent count (calibrated against the reference CSVs):
+            # the first iteration whose ||F|| fell under report_atol
+            hit = [h < cfg.report_atol for h in hist]
+            if any(hit):
+                iters = hit.index(True)
+                converged = converged or not failed
+        return NewtonResult(x, iters, converged, normF, kiters, hist)
+
+    return solve

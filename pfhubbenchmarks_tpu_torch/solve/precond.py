@@ -1,0 +1,113 @@
+"""Pointwise block-Jacobi preconditioner, derived from the model physics.
+
+Counterpart of ``pfhubbenchmarks_tpu/solve/precond.py:make_block_jacobi``.
+Per grid node, the exact F x F diagonal block of the Jacobian
+
+    P_node = dsource/du * mass_diag(node) +
+             dflux_x/d(du_x) * stiff_xx_diag(node) +
+             dflux_y/d(du_y) * stiff_yy_diag(node)
+
+with the pointwise derivative blocks from ``torch.func.jvp`` of the
+model's ``terms`` at nodal values, one-hot field tangents, then a batched
+F x F inverse. The build is plain torch (XLA in the JAX package); applying
+the inverse is kernel B (ops/lmr.block_jacobi_apply).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pfhubbenchmarks_tpu_torch.fem.assembly import QPContext
+from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
+from pfhubbenchmarks_tpu_torch.ops.lmr import block_jacobi_apply
+
+
+def _pointwise_eval(terms, u, dus, u0, dt, shape):
+    """Evaluate (source, flux_x, flux_y) stacked [3, F, ...] at nodes."""
+    n = u.shape[0]
+    zeros = torch.zeros_like(u[0])
+    ctx = QPContext(
+        u=tuple(u[i] for i in range(n)),
+        du=tuple(tuple(dus[d][i] for d in range(2)) for i in range(n)),
+        u0=tuple(u0[i] for i in range(n)),
+        du0=tuple((zeros, zeros) for _ in range(n)),
+        dt=dt)
+    s, f = terms(ctx)
+
+    def b(z):
+        return torch.broadcast_to(z, shape[1:])
+
+    return torch.stack([torch.stack([b(si) for si in s])]
+                       + [torch.stack([b(fi[d]) for fi in f]) for d in range(2)])
+
+
+def small_inv(A):
+    """Batched inverse of [..., F, F] by unrolled Gauss-Jordan, as the JAX
+    package does (the blocks are diagonally dominant: no pivoting)."""
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    aug = torch.cat([A, torch.broadcast_to(eye, A.shape)], dim=-1)
+    for i in range(n):
+        piv = aug[..., i, :] / aug[..., i, i][..., None]
+        rows = [piv if r == i else aug[..., r, :] - aug[..., r, i][..., None] * piv
+                for r in range(n)]
+        aug = torch.stack(rows, dim=-2)
+    return aug[..., :, n:]
+
+
+def make_block_jacobi(grid: CrossedTriGrid, terms, n_fields: int, *,
+                      device: torch.device | str, dtype=torch.float32):
+    """Returns ``build(w, w0, dt) -> Minv``; ``Minv(r)`` applies P^-1 and
+    ``Minv.pinv_planes`` holds the inverses as contiguous [F, F, Y, X]
+    planes (the layout kernel B reads)."""
+    diags = grid.node_diagonals()
+
+    def _pad(dv, dm):
+        """Pad diagonals to the stored shapes with 1.0 (padding blocks stay
+        well-conditioned; state and residual are zero there)."""
+        pv = np.ones(grid.vshape)
+        pv[: dv.shape[0], : dv.shape[1]] = dv
+        pm = np.ones(grid.mshape)
+        pm[: dm.shape[0], : dm.shape[1]] = dm
+        return (torch.as_tensor(pv, dtype=dtype, device=device),
+                torch.as_tensor(pm, dtype=dtype, device=device))
+
+    mass_v, mass_m = _pad(*diags["mass"])
+    sxx_v, sxx_m = _pad(*diags["stiff_xx"])
+    syy_v, syy_m = _pad(*diags["stiff_yy"])
+
+    def blocks_for(u, u0, dt, mass_d, sxx_d, syy_d):
+        """u [F, Y, X] -> P [Y, X, F, F]."""
+        shape = u.shape
+        zer = torch.zeros_like(u)
+
+        def f(uu, dx, dy):
+            return _pointwise_eval(terms, uu, (dx, dy), u0, dt, shape)
+
+        cols = []
+        for j in range(n_fields):
+            e = torch.zeros_like(u)
+            e[j] = 1.0
+            _, t_u = torch.func.jvp(lambda a: f(a, zer, zer), (u,), (e,))
+            _, t_dx = torch.func.jvp(lambda a: f(u, a, zer), (zer,), (e,))
+            _, t_dy = torch.func.jvp(lambda a: f(u, zer, a), (zer,), (e,))
+            cols.append(t_u[0] * mass_d + t_dx[1] * sxx_d + t_dy[2] * syy_d)
+        P = torch.stack(cols, dim=-1)      # [F, Y, X, F] (row, y, x, col)
+        return torch.movedim(P, 0, -2)     # [Y, X, F, F]
+
+    def build(w, w0, dt):
+        v, m = (a.to(dtype) for a in w)
+        v0, m0 = (a.to(dtype) for a in w0)
+        Pv_inv = small_inv(blocks_for(v, v0, dt, mass_v, sxx_v, syy_v))
+        Pm_inv = small_inv(blocks_for(m, m0, dt, mass_m, sxx_m, syy_m))
+        planes = (Pv_inv.permute(2, 3, 0, 1).contiguous(),
+                  Pm_inv.permute(2, 3, 0, 1).contiguous())
+
+        def Minv(r):
+            return block_jacobi_apply(planes, r)
+
+        Minv.pinv_planes = planes
+        return Minv
+
+    return build

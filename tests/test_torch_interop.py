@@ -1,0 +1,101 @@
+"""Interop between the two packages: config field parity, the state round
+trip, the params carry-over, the no-jax import rule, and the knobs the
+slice refuses."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from pfhubbenchmarks_tpu import config as jax_config
+from pfhubbenchmarks_tpu.benchmarks.bench1 import Bench1Params as JaxParams
+from pfhubbenchmarks_tpu.benchmarks.bench1 import make as make_jax
+from pfhubbenchmarks_tpu_torch import config
+from pfhubbenchmarks_tpu_torch.benchmarks.bench1 import Bench1Params
+from pfhubbenchmarks_tpu_torch.benchmarks.registry import main
+from pfhubbenchmarks_tpu_torch.interop import (problem_params_from_numpy,
+                                               solver_config_from_dict,
+                                               state_from_numpy,
+                                               state_to_numpy,
+                                               time_config_from_dict)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("name", ["SolverConfig", "TimeConfig"])
+def test_config_fields_and_defaults_match_jax(name):
+    a = dataclasses.fields(getattr(jax_config, name))
+    b = dataclasses.fields(getattr(config, name))
+    assert [(f.name, f.default) for f in a] == [(f.name, f.default) for f in b]
+
+
+def test_bench1_configs_carry_over():
+    pj = make_jax(nx=16, ny=16)
+    s = solver_config_from_dict(dataclasses.asdict(pj.solver))
+    t = time_config_from_dict(dataclasses.asdict(pj.time))
+    assert dataclasses.asdict(s) == dataclasses.asdict(pj.solver)
+    assert dataclasses.asdict(t) == dataclasses.asdict(pj.time)
+    from pfhubbenchmarks_tpu_torch.benchmarks.bench1 import make
+    assert make(nx=16, ny=16).solver == s
+    p = problem_params_from_numpy(
+        {k: np.float64(v) for k, v in dataclasses.asdict(JaxParams()).items()})
+    assert p == Bench1Params()
+
+
+def test_state_round_trip():
+    rng = np.random.default_rng(0)
+    w = (rng.standard_normal((2, 17, 17)), rng.standard_normal((2, 16, 16)))
+    t = state_from_numpy(w, "cpu")
+    assert all(a.dtype == torch.float64 and a.device.type == "cpu" for a in t)
+    for a, b in zip(state_to_numpy(t), w):
+        np.testing.assert_array_equal(a, b)
+    t32 = state_from_numpy(w, "cpu", torch.float32)
+    assert t32[0].dtype == torch.float32
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import pfhubbenchmarks_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k.startswith('pfhubbenchmarks_tpu.') or k == 'pfhubbenchmarks_tpu')\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=REPO)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(line_search="bt"), dict(krylov="gmres"), dict(precond="block_jacobi"),
+    dict(field_split=True), dict(gmg_cycle="w"), dict(gmg_inner_mr=2),
+    dict(mixed_precision=False), dict(fast_residual=True),
+])
+def test_unported_knobs_raise(knob):
+    with pytest.raises(NotImplementedError):
+        config.check_supported(config.SolverConfig(**knob))
+
+
+def test_tpu_only_knobs_are_accepted():
+    config.check_supported(config.SolverConfig(
+        use_pallas="on", fuse_vcycle="off", tiled_grid_kernels=True))
+
+
+def test_tf32_is_off():
+    assert config.tf32_disabled()
+
+
+def test_cli_cuda_without_card_fails():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main("bench1", ["--device", "cuda", "--max-steps", "1"])
+
+
+def test_cli_refuses_unported_flags():
+    with pytest.raises(SystemExit, match="not yet ported"):
+        main("bench1", ["--device", "cpu", "--replay", "x.csv"])

@@ -1,0 +1,85 @@
+"""Profile the PyTorch port's bench1 main path on a CUDA device.
+
+    python tools/torch_profile_bench1.py [--end-time 11.1] [--out-dir DIR]
+
+Runs bench1 (100x100) through ``timeloop.Runner`` after a 2-step warm-up,
+once unprofiled (wall time, counts), then once more under ``torch.profiler`` with CPU and CUDA
+activities, and prints: the card (nvidia-smi name, power limit), wall time,
+device busy time (the sum of kernel times on the device), the idle share,
+and the kernels ranked by device time. The chrome trace goes to
+``--out-dir`` when given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from pfhubbenchmarks_tpu_torch import timeloop  # noqa: E402
+from pfhubbenchmarks_tpu_torch.benchmarks.bench1 import make  # noqa: E402
+from pfhubbenchmarks_tpu_torch.ops import _lib  # noqa: E402
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--end-time", type=float, default=11.1)
+    ap.add_argument("--out-dir", type=str, default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"card: {smi}")
+    dev = torch.device("cuda", 0)
+    runner = timeloop.Runner(make(), dev)
+    _lib.library()
+    runner.run(end_time=0.3, verbose=False)   # warm-up: lazy CUDA/functorch init
+
+    for label in ("plain run", "profiled run"):
+        _lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if label == "plain run":
+            res = runner.run(end_time=args.end_time, verbose=False)
+            torch.cuda.synchronize()
+            prof = None
+        else:
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                res = runner.run(end_time=args.end_time, verbose=False)
+                torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = res.stats
+        print(f"{label}: rows={len(res.rows)} t={res.rows[-1, 0]:.6g} "
+              f"wall_s={wall:.3f} newton={sum(s.newton_iters for s in st)} "
+              f"krylov={sum(s.krylov_iters for s in st)} "
+              f"krylov_all={sum(s.krylov_iters_all for s in st)} "
+              f"launches={dict(_lib.LAUNCHES)}")
+    # device-side events only (kernels, memcpy, memset): the CPU-side aten
+    # ops also carry their kernels' device time and would count it twice
+    events = prof.key_averages()
+    rows = [(e.key, e.count, e.self_device_time_total) for e in events
+            if e.device_type != torch.autograd.DeviceType.CPU
+            and e.self_device_time_total > 0]
+    busy_us = sum(r[2] for r in rows)
+    print(f"device busy {busy_us / 1e6:.3f} s of wall {wall:.3f} s: idle "
+          f"share {1.0 - busy_us / 1e6 / wall:.3f}")
+    for key, count, us in sorted(rows, key=lambda r: -r[2])[:25]:
+        print(f"  {us / 1e3:10.2f} ms  {count:8d}x  {us / max(count, 1):8.2f} us/call"
+              f"  {key[:90]}")
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.out_dir, "bench1_trace.json"))
+
+
+if __name__ == "__main__":
+    main()
