@@ -1,10 +1,12 @@
 """Benchmark problem container: everything a time loop needs, declaratively.
 
 Counterpart of ``pfhubbenchmarks_tpu/benchmarks/base.py``. A benchmark is
-data: a grid, a pointwise ``terms`` function, ICs, observables and configs.
-Every factory method takes the device explicitly. ``kernel_jvp(grid, device)``
-makes the benchmark's J.v (kernel A for BM1), which serves the outer Krylov
-matvec and every multigrid level.
+data: a grid, a pointwise ``terms`` function, ICs, Dirichlet specs,
+observables and configs. Every factory method takes the device explicitly.
+``kernel_jvp(grid, device, dirichlet)`` makes the benchmark's J.v (kernel A
+for BM1, E for BM6) with identity rows on the Dirichlet rows, which serves
+the outer Krylov matvec (the JAX package re-sets those rows after its
+kernel, ``base.py:201-215``) and every multigrid level.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import numpy as np
 import torch
 
 from pfhubbenchmarks_tpu_torch.config import SolverConfig, TimeConfig
-from pfhubbenchmarks_tpu_torch.fem.assembly import make_functional, make_residual
+from pfhubbenchmarks_tpu_torch.fem.assembly import (DirichletBC, make_functional,
+                                                    make_residual)
 from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
 
 
@@ -29,24 +32,37 @@ class BenchmarkProblem:
     ic_fns: Sequence[Callable]            # per-field fn(x, y)
     observables: dict[str, Callable]      # name -> density(QPContext)
     csv_columns: tuple[str, ...]
-    # (grid, device) -> jv(w, w0, dt, v, b=None), the f32 J.v
+    # (grid, device, dirichlet) -> jv(w, w0, dt, v, b=None), the f32 J.v
     kernel_jvp: Callable
     time: TimeConfig = TimeConfig()
     solver: SolverConfig = SolverConfig()
+    # (field, side, fn(coord)) specs, instantiated per grid so multigrid can
+    # rebuild the BCs on coarse levels
+    dirichlet_spec: tuple = ()
     dtype: torch.dtype = torch.float64
 
     @property
     def n_fields(self) -> int:
         return len(self.field_names)
 
+    def dirichlet_for(self, grid: CrossedTriGrid) -> tuple[DirichletBC, ...]:
+        return tuple(DirichletBC.make(grid, f, side, fn)
+                     for (f, side, fn) in self.dirichlet_spec)
+
+    @property
+    def dirichlet(self) -> tuple[DirichletBC, ...]:
+        return self.dirichlet_for(self.grid)
+
     def initial_state(self, device: torch.device | str):
         v, m = self.grid.interpolate(self.ic_fns)
-        return (torch.as_tensor(np.asarray(v), dtype=self.dtype, device=device),
-                torch.as_tensor(np.asarray(m), dtype=self.dtype, device=device))
+        v = torch.as_tensor(np.asarray(v), dtype=self.dtype, device=device)
+        for bc in self.dirichlet:
+            v = bc.apply_value(v)
+        return v, torch.as_tensor(np.asarray(m), dtype=self.dtype, device=device)
 
     def residual(self, device: torch.device | str, dtype=None):
         return make_residual(self.grid, self.terms, self.n_fields, device=device,
-                             dtype=dtype or self.dtype)
+                             dirichlet=self.dirichlet, dtype=dtype or self.dtype)
 
     @property
     def mixed_precision(self) -> bool:
@@ -60,8 +76,8 @@ class BenchmarkProblem:
 
     def lowp_jvp_factory(self, device: torch.device | str):
         """``factory(x_lp, wprev_lp, dt_lp) -> jvp(v)``: the outer f32 J.v
-        on the true-rule grid."""
-        jv = self.kernel_jvp(self.grid, device)
+        on the true-rule grid, whose Dirichlet rows equal ``v``."""
+        jv = self.kernel_jvp(self.grid, device, self.dirichlet)
 
         def factory(x_lp, wprev_lp, dt_lp):
             return lambda v: jv(x_lp, wprev_lp, dt_lp, v)
@@ -76,7 +92,8 @@ class BenchmarkProblem:
 
         return make_gmg(
             self.grid, self.terms, self.n_fields, device=device,
-            jvp_for=lambda g: self.kernel_jvp(g, device),
+            jvp_for=lambda g: self.kernel_jvp(g, device, self.dirichlet_for(g)),
+            dirichlet_for=self.dirichlet_for,
             nu_pre=s.gmg_nu_pre, nu_post=s.gmg_nu_post,
             nu_fine_pre=s.gmg_nu_fine_pre, nu_fine_post=s.gmg_nu_fine_post,
             coarse_sweeps=s.gmg_coarse_sweeps, max_levels=s.gmg_max_levels,

@@ -102,10 +102,11 @@ def make(nx: int = 100, ny: int = 100, Lx: float = 200.0, Ly: float = 200.0,
         dc = ctx.du[0]
         return f_chem(c) + p.kappa / 2.0 * (dc[0] ** 2 + dc[1] ** 2)
 
-    def kernel_jvp(grid, device):
+    def kernel_jvp(grid, device, dirichlet=()):
         from pfhubbenchmarks_tpu_torch.ops.ch_jvp import make_ch_jvp
 
-        return make_ch_jvp(grid, terms, kernel_constants(p), device=device)
+        return make_ch_jvp(grid, terms, kernel_constants(p), device=device,
+                           dirichlet=dirichlet)
 
     return BenchmarkProblem(
         name="bench1",

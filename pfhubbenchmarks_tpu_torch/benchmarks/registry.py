@@ -5,6 +5,8 @@ Run a ported benchmark as::
     python -m pfhubbenchmarks_tpu_torch.benchmarks.bench1 --device cuda \
         [--end-time T] [--max-steps N] [--nx N --ny N] [--out CSV]
 
+(``bench6`` alike).
+
 ``--device`` is required: there is no implicit device. The JAX CLI's other
 flags are accepted and raise "not yet ported".
 """
@@ -17,6 +19,7 @@ import time
 
 _BENCHMARKS = {
     "bench1": "pfhubbenchmarks_tpu_torch.benchmarks.bench1",
+    "bench6": "pfhubbenchmarks_tpu_torch.benchmarks.bench6",
 }
 
 # JAX CLI flags the PyTorch slice does not implement yet (name -> takes a value)

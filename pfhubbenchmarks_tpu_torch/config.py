@@ -43,7 +43,7 @@ class SolverConfig:
     newton_max_iters: int = 10
     newton_div_tol: float = 1e4
     newton_stall_abort: int = 0
-    # 'basic' only; 'bt' and 'cp' are not yet ported.
+    # 'basic' and 'cp'; 'bt' is not yet ported.
     line_search: str = "basic"
     # 'fgmres' only; 'gmres', 'bicgstab' and 'richardson' are not yet ported.
     krylov: str = "fgmres"
@@ -64,7 +64,8 @@ class SolverConfig:
     # Two-stage f32/f64 Newton residual: not yet ported (False only).
     fast_residual: bool = False
     fast_residual_margin: float = 1000.0
-    # Only read by the bt/cp line searches, which are not yet ported: no-op.
+    # Read by the cp line search: its residual is the f32 one while ||F||
+    # stays above fast_residual_margin x the f32 noise floor (solve/newton.py).
     fast_linesearch: bool = True
     # TPU-only (Pallas kernel selection): no-op. On a CUDA device the port
     # always launches its own kernels.
@@ -75,8 +76,9 @@ class SolverConfig:
     tiled_grid_kernels: bool = False
     # TPU-only (3D z-slab Pallas kernels): no-op.
     tiled_nb1_3d: bool = False
-    # TPU-only (how the V-cycle is split into Pallas calls): no-op; the port
-    # runs one launch sequence per V-cycle.
+    # TPU-only (how the V-cycle is split into Pallas calls): no-op. Every
+    # value computes the same cycle; the port always runs it as the descend
+    # and ascend chains (ops/vcycle_chain.py) around the coarsest solve.
     fuse_vcycle: str = "auto"
     # 'gmg' only; 'none', 'block_jacobi' and 'dense' are not yet ported.
     precond: str = "gmg"
@@ -84,7 +86,8 @@ class SolverConfig:
     field_split: bool = False
     # Only read under field_split: no-op.
     field_split_alphas: bool = True
-    # 'newton' only; the lagged 'solve' build is not yet ported.
+    # 'newton' (a build per Newton iteration) and 'solve' (one build per
+    # solve, at the initial guess).
     precond_lag: str = "newton"
     # Only read by precond='dense', which is not yet ported: no-op.
     dense_impl: str = "auto"
@@ -111,16 +114,16 @@ class SolverConfig:
     gmg_min_cells: int = 7
 
 
-# knob -> the only value the slice honours
+# knob -> the values the port honours
 _SLICE_ONLY = {
-    "line_search": "basic",
+    "line_search": ("basic", "cp"),
     "krylov": "fgmres",
     "fgmres_aug": 0,
     "mixed_precision": True,
     "fast_residual": False,
     "precond": "gmg",
     "field_split": False,
-    "precond_lag": "newton",
+    "precond_lag": ("newton", "solve"),
     "krylov_operator": "true",
     "gmg_cycle": "v",
     "gmg_inner_mr": 1,
@@ -130,11 +133,12 @@ _SLICE_ONLY = {
 def check_supported(cfg: SolverConfig) -> None:
     """Raise for a knob set to a value the PyTorch slice cannot honour."""
     for name, ok in _SLICE_ONLY.items():
+        ok = ok if isinstance(ok, tuple) else (ok,)
         value = getattr(cfg, name)
-        if value != ok:
+        if value not in ok:
             raise NotImplementedError(
                 f"SolverConfig.{name}={value!r} is not yet ported to the "
-                f"PyTorch package (only {ok!r})")
+                f"PyTorch package (only {' or '.join(map(repr, ok))})")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,196 @@
+// The gather-form J.v of a crossed-P1 weak form, templated on the physics.
+//
+// Shared body of kernel A (ch_jvp.cu, BM1's Cahn-Hilliard) and kernel E
+// (chp_jvp.cu, BM6's Cahn-Hilliard + Poisson). Computes
+//     out = J(w, dt) v        (b == nullptr), or   out = b - J(w, dt) v
+// in f32, with an optional 0/1 vertex mask of Dirichlet rows: on a masked row
+// the J.v is v itself (the tangent of a constraint row u - g), so the result
+// is v, or b - v in the residual form. That is the in-kernel edge mask
+// ``av*keep + z*(1-keep)`` of pfhubbenchmarks_tpu/ops/pallas_vcycle.py.
+//
+// The Pallas kernels take jax.jvp of the element loop in-kernel; CUDA has no
+// in-kernel AD, so each physics supplies its pointwise tangent by hand
+// (Phys::tangent, mirrored by the benchmark's terms_tangent in Python). A
+// tangent reads only the first field (c) of the state, so only that plane of
+// w is an argument.
+//
+// Layout: v planes [F, ny+1, nx+1] (vertices), m planes [F, ny, nx] (cell
+// centres), unpadded storage; the mask is [F, ny+1, nx+1] floats, nonzero on
+// a Dirichlet row.
+//
+// Design: one thread per output node. A vertex node sums the two triangles
+// it belongs to in each of its (up to) four cells; a centre node sums its
+// cell's four triangles. Each node recomputes the quadrature-point tangents
+// of the triangles it touches, so there is no scatter, no atomics, and every
+// output is summed in one fixed order. The tabulation and the constants are
+// passed by value in the parameter space and the rule's point count is a
+// template parameter, so every table index is a compile-time constant.
+#pragma once
+
+#include "common.cuh"
+
+namespace pfh {
+
+constexpr int kMaxQ = 4;
+constexpr int kMaxConst = 8;
+
+struct JvpParams {
+  float Bq[4][kMaxQ][5];   // basis values at quadrature points
+  float Gs[4][5][2];       // physical basis gradients per triangle
+  float WB[4][kMaxQ][5];   // weight * basis
+  float WGx[4][kMaxQ][5];  // weight * d/dx basis
+  float WGy[4][kMaxQ][5];  // weight * d/dy basis
+  float k[kMaxConst];      // physics constants, in the physics' own order
+  float dt;
+};
+
+constexpr int kJvpParamFloats = sizeof(JvpParams) / sizeof(float);
+
+// slots of each triangle as a bit mask (S, E, N, W; centre slot 4 in all)
+__host__ __device__ constexpr bool slot_in_tri(int t, int s) {
+  return (((t == 0) ? 0b10011u : (t == 1) ? 0b10110u
+           : (t == 2) ? 0b11100u : 0b11001u) >> s) & 1u;
+}
+
+// The 5 slot values (SW, SE, NE, NW, C) of field plane (pv, pm) in cell (y, x).
+__device__ __forceinline__ void load_slots(const float* __restrict__ pv,
+                                           const float* __restrict__ pm,
+                                           int y, int x, int nx, float out[5]) {
+  const int nvx = nx + 1;
+  out[0] = __ldg(pv + y * nvx + x);
+  out[1] = __ldg(pv + y * nvx + x + 1);
+  out[2] = __ldg(pv + (y + 1) * nvx + x + 1);
+  out[3] = __ldg(pv + (y + 1) * nvx + x);
+  out[4] = __ldg(pm + y * nx + x);
+}
+
+// Contribution of cell (y, x) to its slot S, every field.
+template <class Phys, int NQ, int S>
+__device__ __forceinline__ void cell_contrib(const JvpParams& P,
+                                             const float* __restrict__ wv,
+                                             const float* __restrict__ wm,
+                                             const float* __restrict__ tv,
+                                             const float* __restrict__ tm,
+                                             int y, int x, int ny, int nx,
+                                             float (&acc)[Phys::NF]) {
+  constexpr int NF = Phys::NF;
+  const long nvert = static_cast<long>(ny + 1) * (nx + 1);
+  const long ncell = static_cast<long>(ny) * nx;
+  float wc[5], d[NF][5];
+  load_slots(wv, wm, y, x, nx, wc);  // c at the state
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+    load_slots(tv + f * nvert, tm + f * ncell, y, x, nx, d[f]);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (!slot_in_tri(t, S)) continue;
+    float gx[NF], gy[NF];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) gx[f] = gy[f] = 0.f;
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        gx[f] += P.Gs[t][s][0] * d[f][s];
+        gy[f] += P.Gs[t][s][1] * d[f][s];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      float c = 0.f, dq[NF];
+#pragma unroll
+      for (int f = 0; f < NF; ++f) dq[f] = 0.f;
+#pragma unroll
+      for (int s = 0; s < 5; ++s) {
+        c += P.Bq[t][q][s] * wc[s];
+#pragma unroll
+        for (int f = 0; f < NF; ++f) dq[f] += P.Bq[t][q][s] * d[f][s];
+      }
+      float src[NF], fx[NF], fy[NF];
+      Phys::tangent(P, c, dq, gx, gy, src, fx, fy);
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        acc[f] += P.WB[t][q][S] * src[f] + P.WGx[t][q][S] * fx[f]
+                  + P.WGy[t][q][S] * fy[f];
+    }
+  }
+}
+
+template <class Phys, int NQ>
+__global__ void __launch_bounds__(kThreads)
+fem_jvp_kernel(const JvpParams P, const float* __restrict__ wv,
+               const float* __restrict__ wm, const float* __restrict__ tv,
+               const float* __restrict__ tm, const float* __restrict__ bv,
+               const float* __restrict__ bm, const float* __restrict__ mask,
+               float* __restrict__ ov, float* __restrict__ om, int ny, int nx) {
+  constexpr int NF = Phys::NF;
+  const int nvx = nx + 1;
+  const long nvert = static_cast<long>(ny + 1) * nvx;
+  const long ncell = static_cast<long>(ny) * nx;
+  const long idx = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= nvert + ncell) return;
+  float acc[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) acc[f] = 0.f;
+  if (idx < nvert) {
+    const int iy = static_cast<int>(idx / nvx);
+    const int ix = static_cast<int>(idx % nvx);
+    // the node is slot SW of cell (iy, ix), SE of (iy, ix-1),
+    // NE of (iy-1, ix-1) and NW of (iy-1, ix)
+    if (iy < ny && ix < nx)
+      cell_contrib<Phys, NQ, 0>(P, wv, wm, tv, tm, iy, ix, ny, nx, acc);
+    if (iy < ny && ix > 0)
+      cell_contrib<Phys, NQ, 1>(P, wv, wm, tv, tm, iy, ix - 1, ny, nx, acc);
+    if (iy > 0 && ix > 0)
+      cell_contrib<Phys, NQ, 2>(P, wv, wm, tv, tm, iy - 1, ix - 1, ny, nx, acc);
+    if (iy > 0 && ix < nx)
+      cell_contrib<Phys, NQ, 3>(P, wv, wm, tv, tm, iy - 1, ix, ny, nx, acc);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const long o = f * nvert + idx;
+      float val = acc[f];
+      if (mask != nullptr && __ldg(mask + o) != 0.f) val = __ldg(tv + o);
+      if (bv != nullptr) val = __ldg(bv + o) - val;
+      ov[o] = val;
+    }
+  } else {
+    const long c = idx - nvert;
+    const int iy = static_cast<int>(c / nx);
+    const int ix = static_cast<int>(c % nx);
+    cell_contrib<Phys, NQ, 4>(P, wv, wm, tv, tm, iy, ix, ny, nx, acc);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const long o = f * ncell + c;
+      om[o] = (bm != nullptr) ? __ldg(bm + o) - acc[f] : acc[f];
+    }
+  }
+}
+
+// Host launcher. params: kJvpParamFloats floats in the order of JvpParams
+// (Bq, Gs, WB, WGx, WGy zero-padded to kMaxQ points, the constants padded to
+// kMaxConst, then dt). bv/bm and mask may be null.
+template <class Phys>
+int launch_fem_jvp(const float* params, int nq, const float* wv,
+                   const float* wm, const float* tv, const float* tm,
+                   const float* bv, const float* bm, const float* mask,
+                   float* ov, float* om, int ny, int nx, void* stream) {
+  JvpParams P;
+  const float* src = params;
+  float* dst = reinterpret_cast<float*>(&P);
+  for (int i = 0; i < kJvpParamFloats; ++i) dst[i] = src[i];
+  const long n = static_cast<long>(ny + 1) * (nx + 1) + static_cast<long>(ny) * nx;
+  const int blocks = blocks_for(n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nq == 4) {
+    fem_jvp_kernel<Phys, 4><<<blocks, kThreads, 0, s>>>(P, wv, wm, tv, tm, bv, bm,
+                                                        mask, ov, om, ny, nx);
+  } else if (nq == 3) {
+    fem_jvp_kernel<Phys, 3><<<blocks, kThreads, 0, s>>>(P, wv, wm, tv, tm, bv, bm,
+                                                        mask, ov, om, ny, nx);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace pfh

@@ -14,6 +14,13 @@
 // order of solve/transfer.py:restrict. Prolongation can accumulate into its
 // output (x += P xc, the coarse-grid correction) to save a launch.
 //
+// Dirichlet rows (BM6's phi edges): an optional 0/1 vertex mask of the
+// OUTPUT grid, [F, Yv, Xv] floats. Restriction writes 0 on the coarse BC
+// rows, and prolongation leaves the fine BC rows untouched when it
+// accumulates (writes 0 there otherwise). This is zero_bc_rows of
+// pfhubbenchmarks_tpu/solve/gmg.py:633-648 and the keep masks of
+// ops/pallas_vcycle.py:make_fused_descend_chain / make_fused_ascend_chain.
+//
 // What bounds it on the H100: a few hundred KB per call at BM1's 100^2 and
 // 50^2, L2-resident: launch latency. One launch per transfer.
 
@@ -24,8 +31,9 @@ namespace {
 // fine v [F, 2nyc+1, 2nxc+1], fine m [F, 2nyc, 2nxc] from coarse v, m
 __global__ void __launch_bounds__(pfh::kThreads)
 prolong_kernel(const float* __restrict__ vc, const float* __restrict__ mc,
-               float* __restrict__ vf, float* __restrict__ mf, int F, int nyc,
-               int nxc, int accumulate) {
+               float* __restrict__ vf, float* __restrict__ mf,
+               const float* __restrict__ mask, int F, int nyc, int nxc,
+               int accumulate) {
   const int nvxc = nxc + 1;
   const long nvc = static_cast<long>(nyc + 1) * nvxc;
   const long nmc = static_cast<long>(nyc) * nxc;
@@ -51,6 +59,7 @@ prolong_kernel(const float* __restrict__ vc, const float* __restrict__ mc,
       } else {
         val = __ldg(m + i * nxc + j);
       }
+      if (mask != nullptr && __ldg(mask + f * nvf + idx) != 0.f) val = 0.f;
       out = vf + f * nvf + idx;
     } else {
       const long c = idx - nvf;
@@ -66,8 +75,8 @@ prolong_kernel(const float* __restrict__ vc, const float* __restrict__ mc,
 // coarse = P^T fine
 __global__ void __launch_bounds__(pfh::kThreads)
 restrict_kernel(const float* __restrict__ vf, const float* __restrict__ mf,
-                float* __restrict__ vc, float* __restrict__ mc, int F, int nyc,
-                int nxc) {
+                float* __restrict__ vc, float* __restrict__ mc,
+                const float* __restrict__ mask, int F, int nyc, int nxc) {
   const int nvxc = nxc + 1;
   const long nvc = static_cast<long>(nyc + 1) * nvxc;
   const long nmc = static_cast<long>(nyc) * nxc;
@@ -91,6 +100,7 @@ restrict_kernel(const float* __restrict__ vf, const float* __restrict__ mf,
       if (I < nyc && J > 0) acc += 0.5f * __ldg(m + Y * nxf + X - 1);
       if (I > 0 && J < nxc) acc += 0.5f * __ldg(m + (Y - 1) * nxf + X);
       if (I > 0 && J > 0) acc += 0.5f * __ldg(m + (Y - 1) * nxf + X - 1);
+      if (mask != nullptr && __ldg(mask + f * nvc + idx) != 0.f) acc = 0.f;
       vc[f * nvc + idx] = acc;
     } else {
       const long c = idx - nvc;
@@ -133,9 +143,11 @@ inject_kernel(const float* __restrict__ vf, float* __restrict__ vc,
 // op 0: prolong (src coarse -> dst fine; accumulate adds into dst)
 // op 1: restrict (src fine -> dst coarse)
 // op 2: inject (src fine -> dst coarse; src_m unused)
+// mask: null, or the 0/1 Dirichlet vertex mask of dst (ops 0 and 1 only)
 PFH_EXPORT int pfh_transfer(int op, const float* src_v, const float* src_m,
-                            float* dst_v, float* dst_m, int F, int nyc, int nxc,
-                            int accumulate, void* stream) {
+                            float* dst_v, float* dst_m, const float* mask,
+                            int F, int nyc, int nxc, int accumulate,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long nvc = static_cast<long>(nyc + 1) * (nxc + 1);
   const long nmc = static_cast<long>(nyc) * nxc;
@@ -144,13 +156,14 @@ PFH_EXPORT int pfh_transfer(int op, const float* src_v, const float* src_m,
   switch (op) {
     case 0:
       prolong_kernel<<<pfh::blocks_for(nvf + nmf), pfh::kThreads, 0, s>>>(
-          src_v, src_m, dst_v, dst_m, F, nyc, nxc, accumulate);
+          src_v, src_m, dst_v, dst_m, mask, F, nyc, nxc, accumulate);
       break;
     case 1:
       restrict_kernel<<<pfh::blocks_for(nvc + nmc), pfh::kThreads, 0, s>>>(
-          src_v, src_m, dst_v, dst_m, F, nyc, nxc);
+          src_v, src_m, dst_v, dst_m, mask, F, nyc, nxc);
       break;
     case 2:
+      if (mask != nullptr) return static_cast<int>(cudaErrorInvalidValue);
       inject_kernel<<<pfh::blocks_for(nvc + nmc), pfh::kThreads, 0, s>>>(
           src_v, dst_v, dst_m, F, nyc, nxc);
       break;

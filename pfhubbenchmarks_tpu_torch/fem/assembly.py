@@ -119,10 +119,7 @@ class TabTensors:
 # residual / functional factories
 # ---------------------------------------------------------------------------
 
-def _check_grid(grid: CrossedTriGrid, dirichlet, needs_coords: bool):
-    if dirichlet:
-        raise NotImplementedError(
-            "Dirichlet rows are not yet ported to the PyTorch package")
+def _check_grid(grid: CrossedTriGrid, needs_coords: bool):
     if needs_coords:
         raise NotImplementedError(
             "coordinate-dependent terms are not yet ported to the PyTorch "
@@ -142,10 +139,12 @@ def make_residual(
     needs_coords: bool = False,
     dtype=torch.float64,
 ):
-    """Build ``residual(w, w0, dt) -> (rv, rm)`` for a system's weak form."""
+    """Build ``residual(w, w0, dt) -> (rv, rm)`` for a system's weak form.
+    The rows of each ``DirichletBC`` in ``dirichlet`` become ``u - g``."""
     del n_fields  # the field count follows from the state
-    _check_grid(grid, dirichlet, needs_coords)
+    _check_grid(grid, needs_coords)
     T = TabTensors.make(grid, dtype, device)
+    bc_g = [torch.as_tensor(bc.g, dtype=dtype, device=device) for bc in dirichlet]
     full_shape = (4, grid.tab().nq, grid.ny, grid.nx)
     ny, nx = grid.ny, grid.nx
     vshape, mshape = grid.vshape, grid.mshape
@@ -163,7 +162,10 @@ def make_residual(
         r_loc = (torch.einsum("tqs,ftqyx->sfyx", T.WB, src)
                  + torch.einsum("tqs,ftqyx->sfyx", T.WGx, fx)
                  + torch.einsum("tqs,ftqyx->sfyx", T.WGy, fy))
-        return scatter_add(r_loc, vshape, mshape, ny, nx)
+        rv, rm = scatter_add(r_loc, vshape, mshape, ny, nx)
+        for bc, g in zip(dirichlet, bc_g):
+            rv = bc.apply_residual(rv, w[0], g)
+        return rv, rm
 
     return residual
 
@@ -177,7 +179,7 @@ def make_functional(
     dtype=torch.float64,
 ):
     """Build ``value(w) -> scalar tensor`` for an integral functional."""
-    _check_grid(grid, (), needs_coords)
+    _check_grid(grid, needs_coords)
     T = TabTensors.make(grid, dtype, device)
     full_shape = (4, grid.tab().nq, grid.ny, grid.nx)
     ny, nx = grid.ny, grid.nx
@@ -192,21 +194,79 @@ def make_functional(
     return value
 
 
+# ---------------------------------------------------------------------------
+# Dirichlet boundary conditions (bench6's phi)
+# ---------------------------------------------------------------------------
+
 @dataclasses.dataclass(frozen=True)
 class DirichletBC:
-    """Strong BC on a vertex-grid boundary line of one field: not yet ported
-    (bench6 brings it). Constructing one raises."""
+    """Strong BC on a vertex-grid boundary line of one field.
+
+    side: 'left' (x=0), 'right' (x=Lx), 'bottom' (y=0), 'top' (y=Ly).
+    ``g`` holds the boundary values along the edge (host numpy, padded to
+    the stored edge length), evaluated once at construction. Residual rows
+    become ``u - g`` (FEniCS DirichletBC semantics, dolfin/bench6.py:77-90).
+    The row updates are out of place, so ``torch.func`` can trace them.
+    """
 
     field: int
     side: str
     g: np.ndarray
     index: int
 
-    def __post_init__(self):
-        raise NotImplementedError(
-            "DirichletBC is not yet ported to the PyTorch package")
-
     @staticmethod
     def make(grid: CrossedTriGrid, field: int, side: str, fn) -> "DirichletBC":
-        raise NotImplementedError(
-            "DirichletBC is not yet ported to the PyTorch package")
+        if side in ("left", "right"):
+            coord = np.arange(grid.ny + 1) * grid.hy
+            stored = grid.vshape[0]
+            index = 0 if side == "left" else grid.nx
+        elif side in ("bottom", "top"):
+            coord = np.arange(grid.nx + 1) * grid.hx
+            stored = grid.vshape[1]
+            index = 0 if side == "bottom" else grid.ny
+        else:
+            raise ValueError(f"unknown side {side!r}")
+        g = np.zeros(stored)
+        g[: coord.size] = np.broadcast_to(
+            np.asarray(fn(coord), dtype=np.float64), coord.shape)
+        return DirichletBC(field=field, side=side, g=g, index=index)
+
+    @property
+    def _dim(self) -> int:
+        """The axis of a field plane [Y, X] that the index selects."""
+        return 1 if self.side in ("left", "right") else 0
+
+    def rows(self, v: torch.Tensor) -> torch.Tensor:
+        """The BC line of a vertex array [F, Y, X]."""
+        return v[self.field].select(self._dim, self.index)
+
+    def put_rows(self, v: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """A copy of ``v`` with its BC line replaced by ``rows``."""
+        plane = torch.select_scatter(v[self.field], rows, self._dim, self.index)
+        return torch.select_scatter(v, plane, 0, self.field)
+
+    def apply_residual(self, rv, v, g=None):
+        """Replace the BC rows with ``u - g`` (padding rows stay 0 - 0 = 0);
+        ``g`` may be given as a tensor of ``rv``'s dtype and device."""
+        if g is None:
+            g = torch.as_tensor(self.g, dtype=rv.dtype, device=rv.device)
+        return self.put_rows(rv, self.rows(v) - g)
+
+    def apply_value(self, v):
+        """Set the BC values into a state array (initial guesses)."""
+        return self.put_rows(v, torch.as_tensor(self.g, dtype=v.dtype,
+                                                device=v.device))
+
+
+def bc_mask(grid: CrossedTriGrid, bcs, n_fields: int) -> np.ndarray | None:
+    """0/1 float32 mask [F, Yv, Xv] of the Dirichlet vertex rows, or None
+    without BCs (the kernels' form of ``pallas_vcycle._bc_masks``)."""
+    if not bcs:
+        return None
+    m = np.zeros((n_fields,) + grid.vshape, np.float32)
+    for bc in bcs:
+        if bc.side in ("left", "right"):
+            m[bc.field, : grid.ny + 1, bc.index] = 1.0
+        else:
+            m[bc.field, bc.index, : grid.nx + 1] = 1.0
+    return m

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from pfhubbenchmarks_tpu_torch.benchmarks.bench1 import Bench1Params
+from pfhubbenchmarks_tpu_torch.benchmarks.bench6 import Bench6Params
 from pfhubbenchmarks_tpu_torch.config import SolverConfig, TimeConfig
 
 
@@ -44,7 +45,10 @@ def time_config_from_dict(d: dict) -> TimeConfig:
     return _from_dict(TimeConfig, d)
 
 
-def problem_params_from_numpy(d: dict) -> Bench1Params:
-    """``dataclasses.asdict`` of the JAX ``Bench1Params`` (values may be
-    numpy scalars) -> the port's ``Bench1Params``."""
-    return _from_dict(Bench1Params, {k: float(v) for k, v in d.items()})
+def problem_params_from_numpy(d: dict, params_cls=Bench1Params):
+    """``dataclasses.asdict`` of a JAX benchmark's parameters (values may be
+    numpy scalars) -> the port's ``params_cls`` (``Bench1Params`` or
+    ``Bench6Params``)."""
+    if params_cls not in (Bench1Params, Bench6Params):
+        raise ValueError(f"no ported parameters {params_cls!r}")
+    return _from_dict(params_cls, {k: float(v) for k, v in d.items()})

@@ -1,15 +1,17 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The sources in ``pfhubbenchmarks_tpu_torch/csrc/*.cu`` are compiled by
-``nvcc`` into one shared library with a plain C interface, at first use,
-into ``pfhubbenchmarks_tpu_torch/_build/`` (ignored by git), and loaded
-with ``ctypes``. The library name carries a hash of the sources and flags,
+``nvcc``, one process per source, all started together, and linked into one
+shared library with a plain C interface, at first use, into
+``pfhubbenchmarks_tpu_torch/_build/`` (ignored by git), and loaded with
+``ctypes``. The library name carries a hash of the sources and flags,
 so an edited source is rebuilt. Nothing here runs at import time: the CPU
 tests import every module, and a CPU tensor never reaches a kernel.
 
 Each wrapper counts its launches in ``LAUNCHES`` (one per wrapper call that
 launches its kernel), so a run can show that its main path went through the
-kernels.
+kernels. The two V-cycle chains (ops/vcycle_chain.py) are launch sequences
+of those kernels, not kernels: they count their calls in ``CALLS``.
 """
 
 from __future__ import annotations
@@ -29,20 +31,30 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
-                           "-fPIC", "-Xptxas", "-v")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 
-KERNELS = ("ch_jvp", "block_jacobi_apply", "lmr_step", "transfer_dyadic")
+KERNELS = ("ch_jvp", "chp_jvp", "block_jacobi_apply", "lmr_step",
+           "transfer_dyadic")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+# launch sequences of the kernels that stand for one TPU kernel each
+CHAINS = ("descend_chain", "ascend_chain")
+CALLS = dict.fromkeys(CHAINS, 0)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Set every kernel's launch count and every chain's call count to 0."""
+    for counts in (LAUNCHES, CALLS):
+        for k in counts:
+            counts[k] = 0
 
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+def count_call(name: str) -> None:
+    CALLS[name] += 1
 
 
 def _nvcc() -> str:
@@ -65,11 +77,12 @@ class KernelLibrary:
         self.lib = ctypes.CDLL(str(path))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
         sig = {
-            "pfh_ch_jvp": [vp, i32] + [vp] * 8 + [i32, i32, vp],
-            "pfh_ch_jvp_param_floats": [],
+            "pfh_ch_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
+            "pfh_chp_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
+            "pfh_jvp_param_floats": [],
             "pfh_block_jacobi_apply": [vp] * 6 + [i32, i64, i64, vp],
             "pfh_lmr_step": [vp] * 8 + [i64, i64, vp, i32, vp, vp],
-            "pfh_transfer": [i32] + [vp] * 4 + [i32] * 4 + [vp],
+            "pfh_transfer": [i32] + [vp] * 5 + [i32] * 4 + [vp],
         }
         for name, argtypes in sig.items():
             fn = getattr(self.lib, name)
@@ -99,14 +112,31 @@ def library() -> KernelLibrary:
     log = ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+        nvcc = _nvcc()
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in srcs]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(srcs, objs)]
+        failed = []
+        for src, proc in zip(srcs, procs):
+            text = proc.communicate()[0]
+            log += f"== {src.name}\n{text}"
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
         os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink()
     return KernelLibrary(out, time.perf_counter() - t0, log)
 
 

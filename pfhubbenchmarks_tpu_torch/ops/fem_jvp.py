@@ -1,0 +1,100 @@
+"""The gather-form J.v kernels (``csrc/fem_jvp.cuh``): the Python side that
+kernels A (ops/ch_jvp.py) and E (ops/chp_jvp.py) share.
+
+``make_fem_jvp`` returns ``jv(w, w0, dt, v, b=None)``: ``J(w, w0, dt) v``,
+or ``b - J v`` when ``b`` is given, as an f32 pair. The Dirichlet rows of
+``dirichlet`` are identity rows: there the result is ``v`` (or ``b - v``).
+One kernel serves every quadrature rule: the tabulation of the grid (ffc3
+for the outer matvec, dunavant2 on the multigrid levels), the physics
+constants and ``dt`` are launch arguments.
+
+The plain version beside it is ``torch.func.jvp`` of the f32 residual with
+the same BC rows (fem/assembly.make_residual). The wrapper takes the plain
+version for CPU tensors only; a CUDA tensor launches the kernel.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pfhubbenchmarks_tpu_torch.fem.assembly import bc_mask, make_residual
+from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
+from pfhubbenchmarks_tpu_torch.ops import _lib
+
+MAX_Q = 4
+MAX_CONST = 8
+
+
+def pack_tabulation(grid: CrossedTriGrid) -> np.ndarray:
+    """Bq, Gs, WB, WGx, WGy as the kernel's float32 parameter block
+    (quadrature axis zero-padded to 4 points)."""
+    tab = grid.tab()
+    nq = tab.nq
+    if nq > MAX_Q:
+        raise ValueError(f"the J.v kernels take at most {MAX_Q} points, rule "
+                         f"has {nq}")
+
+    def padq(a):  # [4, nq, 5] -> [4, 4, 5]
+        out = np.zeros((4, MAX_Q, 5))
+        out[:, :nq] = a
+        return out
+
+    WB = tab.wq[:, :, None] * tab.Bq
+    WGx = tab.wq[:, :, None] * tab.Gs[:, None, :, 0]
+    WGy = tab.wq[:, :, None] * tab.Gs[:, None, :, 1]
+    parts = [padq(tab.Bq), tab.Gs, padq(WB), padq(WGx), padq(WGy)]
+    return np.concatenate([p.reshape(-1) for p in parts]).astype(np.float32)
+
+
+def make_fem_jvp(grid: CrossedTriGrid, terms, n_fields: int, *, name: str,
+                 symbol: str, constants: tuple[float, ...],
+                 device: torch.device | str, dirichlet=()):
+    """``name`` is the launch counter, ``symbol`` the C launcher,
+    ``constants`` the physics constants in the kernel's order. ``jv.plain``
+    and ``jv.kernel`` are the two versions."""
+    if grid.periodic or grid.pad_to != (1, 1):
+        raise NotImplementedError(f"{name} takes unpadded, non-periodic grids")
+    if len(constants) > MAX_CONST:
+        raise ValueError(f"{name}: at most {MAX_CONST} constants")
+    residual = make_residual(grid, terms, n_fields, device=device,
+                             dirichlet=dirichlet, dtype=torch.float32)
+    const = np.zeros(MAX_CONST, np.float32)
+    const[: len(constants)] = constants
+    params_head = np.concatenate([pack_tabulation(grid), const])
+    nq = grid.tab().nq
+    vshape, mshape = (n_fields,) + grid.vshape, (n_fields,) + grid.mshape
+    mask_np = bc_mask(grid, dirichlet, n_fields)
+    mask = (None if mask_np is None
+            else torch.as_tensor(mask_np, device=device))
+
+    def plain(w, w0, dt, v, b=None):
+        _, jv_ = torch.func.jvp(lambda u: residual(u, w0, dt), (w,), (v,))
+        return jv_ if b is None else (b[0] - jv_[0], b[1] - jv_[1])
+
+    def kernel(w, w0, dt, v, b=None):
+        del w0  # the tangents do not read the previous time level
+        ts = [*w, *v] + ([*b] if b is not None else [])
+        _lib.check_cuda(name, ts + ([mask] if mask is not None else []))
+        for pair in (w, v) if b is None else (w, v, b):
+            _lib.check_shapes(name, pair, vshape, mshape)
+        out = (torch.empty_like(v[0]), torch.empty_like(v[1]))
+        params = np.concatenate([params_head, np.array([dt], np.float32)])
+        lib = _lib.library()
+        if params.size != lib.lib.pfh_jvp_param_floats():
+            raise RuntimeError(f"{name}: parameter block does not match the "
+                               "kernel's JvpParams layout")
+        bv, bm = (None, None) if b is None else (b[0].data_ptr(), b[1].data_ptr())
+        lib.call(symbol, params.ctypes.data, nq, w[0].data_ptr(),
+                 w[1].data_ptr(), v[0].data_ptr(), v[1].data_ptr(), bv, bm,
+                 None if mask is None else mask.data_ptr(), out[0].data_ptr(),
+                 out[1].data_ptr(), grid.ny, grid.nx, _lib.stream_handle())
+        _lib.count_launch(name)
+        return out
+
+    def jv(w, w0, dt, v, b=None):
+        return (plain if _lib.on_cpu(v[0]) else kernel)(w, w0, dt, v, b)
+
+    jv.plain = plain
+    jv.kernel = kernel
+    return jv

@@ -1,26 +1,40 @@
 """Geometric multigrid V-cycle preconditioner on the crossed-grid hierarchy.
 
 Counterpart of ``pfhubbenchmarks_tpu/solve/gmg.py`` (``build_hierarchy``,
-``make_gmg``) for dyadic hierarchies. The cycle is the one of
-``ops/pallas_vcycle.py:make_fused_vcycle``:
+``make_gmg``) for dyadic hierarchies. One V-cycle serves every
+configuration: the ``split_chain`` cycle of ``gmg.py:654-662``, which does
+the arithmetic of ``ops/pallas_vcycle.py:make_fused_vcycle`` too:
 
 - per-level linearization states injected once per build (kernel D), and
   per-level node-block-Jacobi inverses (solve/precond.py);
-- local-minimal-residual smoothing: z = P^-1 r (kernel B), A z (kernel A on
-  the level's rule), the alpha step and both axpys (kernel C);
-- restriction and prolongation with the correction added in place
-  (kernel D), and the residual recomputed as b - A x in one kernel-A launch;
+- ``descend_chain`` (ops/vcycle_chain.py): every level's local-minimal-
+  residual pre-sweeps from zero (z = P^-1 r by kernel B, A z by the level's
+  J.v kernel, the alpha step and both axpys by kernel C) and restriction
+  (kernel D);
 - the coarsest level solved by ``coarse_sweeps`` LMR sweeps from zero, or by
   the exact dense inverse when its dof count is at most
   ``dense_coarse_max_dofs`` (plain ``torch.linalg``);
+- ``ascend_chain``: every level's prolongation with the correction added in
+  place (kernel D), the residual recomputed as b - A x in one J.v launch,
+  and the post-sweeps;
 - ``Minv.minv_matvec`` returns the pair (z, A z), with A z the true-rule
-  fine-level J.v (kernel A on the fine grid's own rule) that FGMRES
-  consumes in place of its outer matvec.
+  fine-level J.v (the fine grid's own rule) that FGMRES consumes in place of
+  its outer matvec.
+
+``fuse_vcycle`` only chooses how the TPU splits this cycle into Pallas
+calls, so the port does not read it.
+
+Dirichlet rows (``dirichlet_for(grid)``, BM6's phi edges): each level's
+J.v has identity rows there, its block-Jacobi blocks unit rows, and the
+transfers zero the restricted residual's coarse BC rows and add no
+correction on the fine ones (``zero_bc_rows``, ``gmg.py:633-648``). With BC
+rows on the fine level ``minv_matvec`` is not exposed, as in the JAX
+package (``gmg.py:474-477``).
 
 On CUDA tensors every step above except the dense coarse solve is a
 hand-written kernel launch; on CPU tensors the same code runs the plain
-versions. The W-cycle, GCR ``inner_mr``, field groups, Dirichlet rows and
-non-dyadic hierarchies are not yet ported.
+versions. The W-cycle, GCR ``inner_mr``, field groups and non-dyadic
+hierarchies are not yet ported.
 """
 
 from __future__ import annotations
@@ -30,13 +44,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from pfhubbenchmarks_tpu_torch.fem.assembly import make_residual
+from pfhubbenchmarks_tpu_torch.fem.assembly import bc_mask, make_residual
 from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
 from pfhubbenchmarks_tpu_torch.ops.lmr import lmr_step
+from pfhubbenchmarks_tpu_torch.ops.vcycle_chain import (make_ascend_chain,
+                                                        make_descend_chain)
 from pfhubbenchmarks_tpu_torch.solve import tree as tr
 from pfhubbenchmarks_tpu_torch.solve.precond import make_block_jacobi
-from pfhubbenchmarks_tpu_torch.solve.transfer import (inject_any, prolong_any,
-                                                      restrict_any)
+from pfhubbenchmarks_tpu_torch.solve.transfer import inject_any
 
 _RATIOS = (2, 3, 5, 7)
 
@@ -102,17 +117,21 @@ def make_dense_coarse(g: CrossedTriGrid, residual_c, n_fields: int):
 
 
 def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
-             device: torch.device | str, jvp_for, nu_pre: int = 2,
-             nu_post: int = 2, nu_fine_pre: int = 0, nu_fine_post: int = 0,
-             coarse_sweeps: int = 24, max_levels: int = 10,
-             precond_rule: str | None = None, min_cells: int = 7,
-             dense_coarse_max_dofs: int = 1500, cycle: str = "v",
-             inner_mr: int = 1):
+             device: torch.device | str, jvp_for, dirichlet_for=None,
+             nu_pre: int = 2, nu_post: int = 2, nu_fine_pre: int = 0,
+             nu_fine_post: int = 0, coarse_sweeps: int = 24,
+             max_levels: int = 10, precond_rule: str | None = None,
+             min_cells: int = 7, dense_coarse_max_dofs: int = 1500,
+             cycle: str = "v", inner_mr: int = 1):
     """Returns ``build(w, w0, dt) -> Minv`` applying one f32 V-cycle.
 
     ``jvp_for(g)`` makes the level J.v ``jv(w, w0, dt, v, b=None)`` on grid
-    ``g`` (ops/ch_jvp.make_ch_jvp for BM1). ``Minv(r)`` returns z = M^-1 r
-    and ``Minv.minv_matvec(r)`` the pair (z, A z) with the true-rule A.
+    ``g`` with the identity rows of ``dirichlet_for(g)`` (ops/ch_jvp for
+    BM1, ops/chp_jvp for BM6). ``Minv(r)`` returns z = M^-1 r and
+    ``Minv.minv_matvec(r)``, where exposed, the pair (z, A z) with the
+    true-rule A. ``build.grids`` is the hierarchy and ``build.dense_coarse``
+    says whether the coarsest level is solved by the dense inverse (else by
+    ``coarse_sweeps`` LMR sweeps).
     """
     if cycle != "v" or inner_mr != 1:
         raise NotImplementedError("only the plain V-cycle is ported")
@@ -122,18 +141,30 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
     if precond_rule:
         grids = [dataclasses.replace(g, rule_name=precond_rule) for g in grids]
     L = len(grids)
+    dirichlet_for = dirichlet_for or (lambda g: ())
+    level_bcs = [dirichlet_for(g) for g in grids]
+    masks = []
+    for g, bcs in zip(grids, level_bcs):
+        m = bc_mask(g, bcs, n_fields)
+        masks.append(None if m is None else torch.as_tensor(m, device=device))
     jvs = [jvp_for(g) for g in grids]
     mv_jv = jvp_for(grid)   # exported pair: the TRUE-rule fine-level J.v
-    bj_builders = [make_block_jacobi(g, terms, n_fields, device=device)
-                   for g in grids]
-    Ps = [prolong_any(grids[l + 1], grids[l]) for l in range(L - 1)]
-    Rs = [restrict_any(grids[l + 1], grids[l]) for l in range(L - 1)]
+    bj_builders = [make_block_jacobi(g, terms, n_fields, device=device,
+                                     dirichlet=bcs)
+                   for g, bcs in zip(grids, level_bcs)]
     injs = [inject_any(grids[l + 1], grids[l]) for l in range(L - 1)]
     dense_coarse = None
     if coarse_dof_count(grids[-1], n_fields) <= dense_coarse_max_dofs:
         residual_c = make_residual(grids[-1], terms, n_fields, device=device,
+                                   dirichlet=level_bcs[-1],
                                    dtype=torch.float32)
         dense_coarse = make_dense_coarse(grids[-1], residual_c, n_fields)
+    chain = None
+    if L >= 2:
+        chain = (make_descend_chain(grids, jvs, nu=nu_pre, nu_fine=nfp,
+                                    masks=masks),
+                 make_ascend_chain(grids, jvs, nu=nu_post, nu_fine=nfo,
+                                   masks=masks))
 
     def build(w, w0, dt):
         dtf = float(np.float32(dt))
@@ -149,40 +180,37 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
         Jinv_coarse = (dense_coarse[0](wl, w0l, dtf)
                        if dense_coarse is not None else None)
 
-        def Az(l, z, b=None):
-            return jvs[l](states[l][0], states[l][1], dtf, z, b)
+        # the chains' per-level inputs: levels 0..L-2
+        chain_states = ([st[0] for st in states[:-1]],
+                        [st[1] for st in states[:-1]])
+        pinvs = [bj.pinv_planes for bj in bjs[:-1]]
 
-        def sweeps(l, x, r, n):
-            """n LMR sweeps on (x, r), in place."""
-            for _ in range(n):
-                z = bjs[l](r)
-                lmr_step(x, r, z, Az(l, z))
-
-        def smooth_from_zero(l, b, n):
+        def coarse_solve(b):
+            if Jinv_coarse is not None:
+                return dense_coarse[1](Jinv_coarse, b)
             x = tr.zeros_like(b)
             r = tuple(t.clone() for t in b)
-            sweeps(l, x, r, n)
-            return x, r
-
-        def vcycle(l, b):
-            if l == L - 1:
-                if Jinv_coarse is not None:
-                    return dense_coarse[1](Jinv_coarse, b)
-                return smooth_from_zero(l, b, coarse_sweeps)[0]
-            x, r = smooth_from_zero(l, b, nfp if l == 0 else nu_pre)
-            Ps[l](vcycle(l + 1, Rs[l](r)), out=x)   # x += P xc
-            r = Az(l, x, b=b)                         # r = b - A x
-            sweeps(l, x, r, nfo if l == 0 else nu_post)
+            for _ in range(coarse_sweeps):
+                z = bjs[-1](r)
+                lmr_step(x, r, z, jvs[-1](wl, w0l, dtf, z))
             return x
 
         def Minv(r):
-            return vcycle(0, tr.cast(r, torch.float32))
+            b = tr.cast(r, torch.float32)
+            if chain is None:
+                return coarse_solve(b)
+            xs, bs, bc = chain[0](b, *chain_states, dtf, pinvs)
+            return chain[1]([b] + bs, xs, coarse_solve(bc), *chain_states,
+                            dtf, pinvs)
 
         def minv_matvec(r):
             z = Minv(r)
             return z, mv_jv(states[0][0], states[0][1], dtf, z)
 
-        Minv.minv_matvec = minv_matvec
+        if not level_bcs[0]:
+            Minv.minv_matvec = minv_matvec
         return Minv
 
+    build.grids = grids
+    build.dense_coarse = dense_coarse is not None
     return build

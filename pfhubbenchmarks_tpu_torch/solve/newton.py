@@ -12,8 +12,17 @@ per Krylov iteration. Convergence mirrors SNES defaults:
 
 Mixed precision: the residual and the state are f64; the Krylov solve
 (J.v, basis, preconditioner) runs in f32. The J.v comes from
-``lowp_jvp_factory`` (kernel A on CUDA, its plain ``torch.func.jvp``
-version on CPU). Only the basic line search is ported.
+``lowp_jvp_factory`` (kernel A or E on CUDA, its plain ``torch.func.jvp``
+version on CPU).
+
+Line searches: 'basic' (the full step) and 'cp' (one secant step on
+``<F(x + l d), d>``, ``newton.py:60-79``). With ``fast_linesearch`` the cp
+residual is the f32 one while ``||F||`` stays far above the f32 noise floor
+measured at the initial guess (``newton.py:197-214``). ``precond_lag``:
+'newton' builds the preconditioner at every Newton iterate, 'solve' once
+per solve at the initial guess (``newton.py:217-227``); a lagged
+preconditioner never hands FGMRES its (z, A z) pair, whose A z would be
+linearized at the lagged state.
 """
 
 from __future__ import annotations
@@ -39,13 +48,29 @@ class NewtonResult(typing.NamedTuple):
     norm_hist: list             # ||F_k|| per Newton iteration (inf-padded)
 
 
+def _cp_step(res_ls, x, d, F, normF) -> float:
+    """PETSc SNESLineSearchCP with max_its=1: one secant update for the root
+    of g(l) = <F(x + l d), d> from (0, g0) and (1, g1). A degenerate secant
+    (|l| < 1e-3 or non-finite) falls back to the full step, as the JAX
+    package does (the nonsymmetric CH system can make <F, d> vanish along a
+    good Newton direction)."""
+    g0 = float(tr.vdot(F, d))
+    g1 = float(tr.vdot(res_ls(tr.add(x, d), normF), d))
+    denom = g1 - g0
+    lam = -g0 / denom if denom != 0 else 1.0
+    if not math.isfinite(lam) or abs(lam) < 1e-3:
+        return 1.0
+    return lam
+
+
 def make_newton_solver(residual, cfg: SolverConfig, precond_build, *,
-                       lowp_jvp_factory):
+                       lowp_jvp_factory, residual_lowp=None):
     """Build ``solve(w_guess, w_prev, dt) -> NewtonResult``.
 
     ``residual(w, w_prev, dt)`` is the f64 assembled residual;
     ``precond_build(w, w_prev, dt) -> Minv``; ``lowp_jvp_factory(x, w_prev,
-    dt) -> jvp(v)`` gives the f32 Krylov operator at the f32 state.
+    dt) -> jvp(v)`` gives the f32 Krylov operator at the f32 state;
+    ``residual_lowp`` is the f32 residual the fast cp line search reads.
     """
     check_supported(cfg)
     krylov = SOLVERS[cfg.krylov]
@@ -59,6 +84,8 @@ def make_newton_solver(residual, cfg: SolverConfig, precond_build, *,
     krylov_kwargs = dict(rtol=cfg.krylov_rtol, atol=krylov_atol,
                          maxiter=cfg.krylov_max_iters, restart=cfg.gmres_restart)
     lowp = torch.float32
+    fast_ls = (residual_lowp is not None and cfg.fast_linesearch
+               and cfg.line_search != "basic")
 
     def solve(w_guess, w_prev, dt):
         dt = float(dt)
@@ -67,6 +94,23 @@ def make_newton_solver(residual, cfg: SolverConfig, precond_build, *,
         x = w_guess
         F = residual(x, w_prev, dt)
         n0 = float(tr.norm(F))
+
+        def res_ls(xl, gate):
+            """The line search's residual: the f32 one while both ``gate``
+            (the current ||F||) and its own norm stay above the switch."""
+            if fast_ls:
+                F32 = residual_lowp(tr.cast(xl, lowp), w_prev_lp, dt_lp)
+                if not (gate < switch_ls or float(tr.norm(F32)) < switch_ls):
+                    return tr.cast(F32, w_guess[0].dtype)
+            return residual(xl, w_prev, dt)
+
+        if fast_ls:
+            # the f32 assembly's noise floor at the initial guess
+            F0_32 = residual_lowp(tr.cast(x, lowp), w_prev_lp, dt_lp)
+            floor_ls = float(tr.norm(tr.sub(tr.cast(F0_32, w_guess[0].dtype), F)))
+            switch_ls = max(cfg.fast_residual_margin * floor_ls,
+                            cfg.newton_atol * 100.0,
+                            (cfg.report_atol or 0.0) * 10.0)
         normF = n0
         hist = [math.inf] * (cfg.newton_max_iters + 1)
         hist[0] = n0
@@ -76,6 +120,10 @@ def make_newton_solver(residual, cfg: SolverConfig, precond_build, *,
         failed = not math.isfinite(n0)
         eta = cfg.ew_eta0
         best, since = n0, 0
+        Minv_lagged = None
+        if cfg.precond_lag == "solve" and not converged and not failed:
+            M = precond_build(w_guess, w_prev, dt)
+            Minv_lagged = (lambda r: M(r)) if hasattr(M, "minv_matvec") else M
         while not converged and not failed and k < cfg.newton_max_iters:
             kw = krylov_kwargs
             if cfg.krylov_forcing == "ew":
@@ -83,11 +131,13 @@ def make_newton_solver(residual, cfg: SolverConfig, precond_build, *,
                 gated = cfg.ew_dt_min and not dt >= cfg.ew_dt_min
                 kw = dict(krylov_kwargs,
                           rtol=cfg.krylov_rtol if gated else eta)
-            Minv = precond_build(x, w_prev, dt)
+            Minv = (Minv_lagged if Minv_lagged is not None
+                    else precond_build(x, w_prev, dt))
             jvp_fn = lowp_jvp_factory(tr.cast(x, lowp), w_prev_lp, dt_lp)
             sol = krylov(jvp_fn, tr.cast(tr.neg(F), lowp), Minv=Minv, **kw)
             d = tr.cast(sol.x, x[0].dtype)
-            lam = 1.0   # basic line search: the full step
+            lam = (_cp_step(res_ls, x, d, F, normF)
+                   if cfg.line_search == "cp" else 1.0)
             xn = tr.axpy(lam, d, x)
             Fn = residual(xn, w_prev, dt)
             nn = float(tr.norm(Fn))

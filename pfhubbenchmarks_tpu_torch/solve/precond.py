@@ -57,10 +57,13 @@ def small_inv(A):
 
 
 def make_block_jacobi(grid: CrossedTriGrid, terms, n_fields: int, *,
-                      device: torch.device | str, dtype=torch.float32):
+                      device: torch.device | str, dirichlet=(),
+                      dtype=torch.float32):
     """Returns ``build(w, w0, dt) -> Minv``; ``Minv(r)`` applies P^-1 and
     ``Minv.pinv_planes`` holds the inverses as contiguous [F, F, Y, X]
-    planes (the layout kernel B reads)."""
+    planes (the layout kernel B reads). On the vertex blocks of each
+    ``DirichletBC`` row, row ``field`` of the block is the unit row (the
+    residual row is ``u - g``), set before the inverse."""
     diags = grid.node_diagonals()
 
     def _pad(dv, dm):
@@ -99,7 +102,15 @@ def make_block_jacobi(grid: CrossedTriGrid, terms, n_fields: int, *,
     def build(w, w0, dt):
         v, m = (a.to(dtype) for a in w)
         v0, m0 = (a.to(dtype) for a in w0)
-        Pv_inv = small_inv(blocks_for(v, v0, dt, mass_v, sxx_v, syy_v))
+        Pv = blocks_for(v, v0, dt, mass_v, sxx_v, syy_v)
+        for bc in dirichlet:
+            row = torch.zeros(n_fields, dtype=dtype, device=Pv.device)
+            row[bc.field] = 1.0
+            if bc.side in ("left", "right"):
+                Pv[:, bc.index, bc.field, :] = row
+            else:
+                Pv[bc.index, :, bc.field, :] = row
+        Pv_inv = small_inv(Pv)
         Pm_inv = small_inv(blocks_for(m, m0, dt, mass_m, sxx_m, syy_m))
         planes = (Pv_inv.permute(2, 3, 0, 1).contiguous(),
                   Pm_inv.permute(2, 3, 0, 1).contiguous())

@@ -1,14 +1,14 @@
 """Grid-transfer operators for the nested crossed-triangle hierarchy.
 
 Counterpart of ``pfhubbenchmarks_tpu/solve/transfer.py`` for dyadic pairs:
-a 2h crossed mesh is exactly refined by the h crossed mesh, so prolongation
-is pointwise P1 interpolation, restriction its exact transpose, and
-injection restricts states for coarse rediscretization. Each factory
-returns a function of a pair; the work is done by kernel D
-(ops/transfer.py), or its plain version for CPU tensors.
+a 2h crossed mesh is exactly refined by the h crossed mesh, so injection
+restricts states for coarse rediscretization (coarse nodes are fine nodes).
+The V-cycle's prolongation and restriction run inside the chains
+(ops/vcycle_chain.py); the work is done by kernel D (ops/transfer.py), or
+its plain version for CPU tensors.
 
 The general odd-ratio and periodic transfers are not yet ported:
-``inject_any`` and friends raise for those pairs.
+``inject_any`` raises for those pairs.
 """
 
 from __future__ import annotations
@@ -25,16 +25,6 @@ def ratios(coarse: CrossedTriGrid, fine: CrossedTriGrid) -> tuple[int, int]:
     return rx, ry
 
 
-def prolong(coarse: CrossedTriGrid, fine: CrossedTriGrid):
-    """Returns P(w_c, out=None) -> w_f; ``out`` accumulates in place."""
-    return lambda wc, out=None: kt.prolong(wc, coarse, fine, out)
-
-
-def restrict(coarse: CrossedTriGrid, fine: CrossedTriGrid):
-    """Returns R(r_f) -> r_c, the exact transpose of ``prolong``."""
-    return lambda wf: kt.restrict(wf, coarse, fine)
-
-
 def inject_state(coarse: CrossedTriGrid, fine: CrossedTriGrid):
     """State restriction by injection (coarse nodes are fine nodes)."""
     return lambda wf: kt.inject(wf, coarse, fine)
@@ -45,16 +35,6 @@ def _dyadic_only(coarse: CrossedTriGrid, fine: CrossedTriGrid) -> None:
         raise NotImplementedError(
             "only dyadic, non-periodic transfers are ported to the PyTorch "
             f"package ({fine.ny}x{fine.nx} -> {coarse.ny}x{coarse.nx})")
-
-
-def prolong_any(coarse: CrossedTriGrid, fine: CrossedTriGrid):
-    _dyadic_only(coarse, fine)
-    return prolong(coarse, fine)
-
-
-def restrict_any(coarse: CrossedTriGrid, fine: CrossedTriGrid):
-    _dyadic_only(coarse, fine)
-    return restrict(coarse, fine)
 
 
 def inject_any(coarse: CrossedTriGrid, fine: CrossedTriGrid):

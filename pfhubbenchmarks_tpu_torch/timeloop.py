@@ -63,7 +63,8 @@ class Runner:
         self.newton = make_newton_solver(
             problem.residual(self.device), problem.solver,
             problem.precond_builder(self.device),
-            lowp_jvp_factory=problem.lowp_jvp_factory(self.device))
+            lowp_jvp_factory=problem.lowp_jvp_factory(self.device),
+            residual_lowp=problem.residual_lowp(self.device))
         self.obs_fns = problem.observable_fns(self.device)
         self.columns = problem.csv_columns[1:]
 

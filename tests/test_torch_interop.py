@@ -14,8 +14,11 @@ import torch
 from pfhubbenchmarks_tpu import config as jax_config
 from pfhubbenchmarks_tpu.benchmarks.bench1 import Bench1Params as JaxParams
 from pfhubbenchmarks_tpu.benchmarks.bench1 import make as make_jax
+from pfhubbenchmarks_tpu.benchmarks.bench6 import Bench6Params as JaxParams6
+from pfhubbenchmarks_tpu.benchmarks.bench6 import make as make_jax6
 from pfhubbenchmarks_tpu_torch import config
 from pfhubbenchmarks_tpu_torch.benchmarks.bench1 import Bench1Params
+from pfhubbenchmarks_tpu_torch.benchmarks.bench6 import Bench6Params
 from pfhubbenchmarks_tpu_torch.benchmarks.registry import main
 from pfhubbenchmarks_tpu_torch.interop import (problem_params_from_numpy,
                                                solver_config_from_dict,
@@ -44,6 +47,24 @@ def test_bench1_configs_carry_over():
     p = problem_params_from_numpy(
         {k: np.float64(v) for k, v in dataclasses.asdict(JaxParams()).items()})
     assert p == Bench1Params()
+
+
+def test_bench6_configs_and_params_carry_over():
+    pj = make_jax6(nx=16, ny=16)
+    s = solver_config_from_dict(dataclasses.asdict(pj.solver))
+    t = time_config_from_dict(dataclasses.asdict(pj.time))
+    from pfhubbenchmarks_tpu_torch.benchmarks.bench6 import make
+    pt = make(nx=16, ny=16)
+    assert pt.solver == s and pt.time == t
+    config.check_supported(s)   # cp, the lagged build and split_chain
+    assert [(f, side) for f, side, _ in pt.dirichlet_spec] == [
+        (f, side) for f, side, _ in pj.dirichlet_spec]
+    p = problem_params_from_numpy(
+        {k: np.float64(v) for k, v in dataclasses.asdict(JaxParams6()).items()},
+        Bench6Params)
+    assert p == Bench6Params()
+    with pytest.raises(ValueError):
+        problem_params_from_numpy({}, dict)
 
 
 def test_state_round_trip():

@@ -210,5 +210,6 @@ def test_launch_counters_untouched_by_plain_versions():
     rng = np.random.default_rng(17)
     prolong(_t(_rand_pair(coarse, rng)), coarse, fine)
     assert all(n == 0 for n in _lib.LAUNCHES.values())
-    assert set(_lib.LAUNCHES) == {"ch_jvp", "block_jacobi_apply", "lmr_step",
-                                  "transfer_dyadic"}
+    assert set(_lib.LAUNCHES) == {"ch_jvp", "chp_jvp", "block_jacobi_apply",
+                                  "lmr_step", "transfer_dyadic"}
+    assert set(_lib.CALLS) == {"descend_chain", "ascend_chain"}

@@ -1,8 +1,11 @@
-"""Profile the PyTorch port's bench1 main path on a CUDA device.
+"""Profile a main path of the PyTorch port on a CUDA device.
 
-    python tools/torch_profile_bench1.py [--end-time 11.1] [--out-dir DIR]
+    python tools/torch_profile_bench1.py [--bench bench1|bench6]
+        [--end-time T] [--out-dir DIR]
 
-Runs bench1 (100x100) through ``timeloop.Runner`` after a 2-step warm-up,
+Runs the benchmark at its published size (100x100) through
+``timeloop.Runner`` (bench1 to t = 11.1, bench6 to its end time 3.0 by
+default) after a short warm-up,
 once unprofiled (wall time, counts), then once more under ``torch.profiler`` with CPU and CUDA
 activities, and prints: the card (nvidia-smi name, power limit), wall time,
 device busy time (the sum of kernel times on the device), the idle share,
@@ -23,13 +26,14 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from pfhubbenchmarks_tpu_torch import timeloop  # noqa: E402
-from pfhubbenchmarks_tpu_torch.benchmarks.bench1 import make  # noqa: E402
+from pfhubbenchmarks_tpu_torch.benchmarks.registry import get_benchmark  # noqa: E402
 from pfhubbenchmarks_tpu_torch.ops import _lib  # noqa: E402
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--end-time", type=float, default=11.1)
+    ap.add_argument("--bench", choices=("bench1", "bench6"), default="bench1")
+    ap.add_argument("--end-time", type=float, default=None)
     ap.add_argument("--out-dir", type=str, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -39,23 +43,24 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}")
     dev = torch.device("cuda", 0)
-    runner = timeloop.Runner(make(), dev)
+    end_time = args.end_time or {"bench1": 11.1, "bench6": None}[args.bench]
+    runner = timeloop.Runner(get_benchmark(args.bench), dev)
     _lib.library()
-    runner.run(end_time=0.3, verbose=False)   # warm-up: lazy CUDA/functorch init
+    runner.run(max_steps=2, verbose=False)   # warm-up: lazy CUDA/functorch init
 
     for label in ("plain run", "profiled run"):
         _lib.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if label == "plain run":
-            res = runner.run(end_time=args.end_time, verbose=False)
+            res = runner.run(end_time=end_time, verbose=False)
             torch.cuda.synchronize()
             prof = None
         else:
             acts = [torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]
             with torch.profiler.profile(activities=acts) as prof:
-                res = runner.run(end_time=args.end_time, verbose=False)
+                res = runner.run(end_time=end_time, verbose=False)
                 torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         st = res.stats
@@ -63,7 +68,7 @@ def main() -> None:
               f"wall_s={wall:.3f} newton={sum(s.newton_iters for s in st)} "
               f"krylov={sum(s.krylov_iters for s in st)} "
               f"krylov_all={sum(s.krylov_iters_all for s in st)} "
-              f"launches={dict(_lib.LAUNCHES)}")
+              f"launches={dict(_lib.LAUNCHES)} chain_calls={dict(_lib.CALLS)}")
     # device-side events only (kernels, memcpy, memset): the CPU-side aten
     # ops also carry their kernels' device time and would count it twice
     events = prof.key_averages()
@@ -78,7 +83,8 @@ def main() -> None:
               f"  {key[:90]}")
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.out_dir, "bench1_trace.json"))
+        prof.export_chrome_trace(os.path.join(args.out_dir,
+                                              f"{args.bench}_trace.json"))
 
 
 if __name__ == "__main__":
