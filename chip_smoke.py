@@ -10,21 +10,36 @@ Phases, each printing its results; any failure raises (non-zero exit):
    ``nvcc`` per source, in parallel).
 3. holds each kernel against its plain PyTorch version on the card, on
    seeded inputs at bench1's shapes (J.v at 100^2/50^2/25^2 for both
-   quadrature rules, block-Jacobi and LMR at every level, transfers
-   100<->50 and 50<->25), with CUDA-event times of both.
+   quadrature rules, at 100^2 also against ``torch.func.jvp`` of the
+   residual, block-Jacobi and LMR at every level, transfers 100<->50 and
+   50<->25), with CUDA-event times of both.
 4. bench1's main path: the port's bench1 at full size (100x100) through
    ``Runner.run`` to t = 11.1; the 10 rows against the committed
    ``results/bench1_out.csv`` (time column rtol 1e-9, TFE rel 1e-6, solute
    rel 1e-9); each kernel and chain of that path must have run in that run.
 5. the same checks at bench6's shapes (F = 3, levels 100^2/50^2/25^2): the
    CH+Poisson J.v (kernel E) for both rules, J.v and b - J.v forms, with
-   and without the Dirichlet mask; the masked transfers; the descend and
-   ascend chains against their plain twins.
+   and without the Dirichlet mask, at 100^2 also against ``torch.func.jvp``
+   of the residual; the masked transfers; the descend and ascend chains
+   against their plain twins.
 6. bench6's main path: the port's bench6 at full size (100x100) through
    ``Runner.run`` to t = 3.19; the 14 rows against the committed
    ``results/bench6_out.csv`` (time column rtol 1e-9, TFE rel 1e-6, solute
    rel 1e-9); each kernel and chain of that path must have launched.
-7. prints the card line, the per-kernel JSON line, then
+7. the same checks at bench2's shapes (F = 6, levels 100^2/50^2/25^2): the
+   CH+AC J.v (kernel F), coupled at ffc3 and field-split at dunavant1, both
+   forms, with 4 order parameters at every level and with 1 and 2 at 100^2,
+   also against ``torch.func.jvp`` of the residual; block-Jacobi and LMR
+   with the field groups; the sweep loop (8 sweeps at 25^2); both chains
+   with the groups; and the time of one block-Jacobi build of the
+   hierarchy.
+8. bench2's main path: the port's bench2 at full size (100x100, six
+   fields) through ``Runner.run`` to t = 6.63; the 28 rows against the
+   committed ``results/bench2_out.csv`` (time column rtol 1e-9, TFE rel
+   1e-5, solute rel 1e-9); each kernel, the sweep loop and both chains
+   must have run; the seconds of its multigrid builds (plain torch), timed
+   inside the run, and their share of its wall.
+9. prints the card line, the per-kernel JSON line, then
    ``{"ok": true, "device": ...}``.
 
 In the kernel line, ``kernels`` lists the CUDA kernels: ``launches`` is the
@@ -35,11 +50,12 @@ card could take for that case: the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its f32 operations over
 67 TFLOP/s (H100 SXM data sheet), with ``bound_by`` naming which.
 ``library_ms`` is one PyTorch call computing the same function where there
-is one (block-Jacobi's einsum pair), else null. ``chains`` lists the two
-V-cycle chains, launch sequences of those kernels that stand for TPU
-kernels 7 and 8, with the same keys, except ``calls`` (chain calls on the
-main paths) in place of ``launches`` and ``sequence_of`` in place of
-``route``; their arithmetic is counted again under the kernels.
+is one (block-Jacobi's einsum pair), else null. ``chains`` lists the LMR
+sweep loop and the two V-cycle chains, launch sequences of those kernels
+that stand for TPU kernels 3, 4 and 11 (the sweep loop) and 7 and 8, with
+the same keys, except ``calls`` (calls on the main paths) in place of
+``launches`` and ``sequence_of`` in place of ``route``; their arithmetic is
+counted again under the kernels.
 """
 
 from __future__ import annotations
@@ -58,13 +74,43 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH1_END, BENCH1_ROWS = 11.1, 10   # rows 1-10 of results/bench1_out.csv
 BENCH6_ROWS = 14                      # results/bench6_out.csv, to t = 3.19
+BENCH2_END, BENCH2_ROWS = 6.63, 28    # rows 1-28 of results/bench2_out.csv
 TOL_F32 = dict(rtol=2e-4, atol_scale=2e-5)   # tests/test_pallas_vcycle.py
 TOL_EXACT = dict(rtol=0.0, atol_scale=0.0)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-# f32 operations of one pointwise tangent as written, negations folded into
-# the contraction: ch_jvp.cu's CH (F = 2), chp_jvp.cu's CH+Poisson (F = 3)
-TANGENT_OPS = {2: 16, 3: 20}
+
+
+def chac_tangent_ops(ne: int, split: bool) -> int:
+    """f32 operations per point of BM2's tangent (chac_jvp.cu, ``ne`` order
+    parameters), counted as in TANGENT_OPS. Both operators: the c row and
+    the mu flux 5; f_b - f_a = rho^2 (c_a - c_b)(2c - c_a - c_b), linear in
+    c, 2; per eta e^2, t = e - e^2 and h'' = 60 t (1 - 2e), 6; sum_j e_j^2,
+    ne - 1; per eta row 13: sum_{j!=i} e_j^2 as the total minus e_i^2 (1),
+    w dwell' = 2w - 12w t (2), the diagonal factor (4), times de_i (1), the
+    source with de_i/dt (3) and the flux (2). Split: the mu source
+    dmu - 2 rho^2 dc, 2. Coupled adds per eta h' = 30 t^2 (2), e_i de_i (1),
+    h' de_i (1) and their sums (2 (ne - 1)), 2 rho^2 (c_a - c_b) dc once
+    (1), the two eta terms of the mu source (2), and per eta row 6:
+    sum_{j!=i} e_j de_j as the total minus e_i de_i (1), 4 w alpha e_i times
+    it (2), h'(e_i) times the dc term (1) and two adds."""
+    ops = 5 + 2 + 6 * ne + (ne - 1) + 13 * ne + 2
+    if not split:
+        ops += 4 * ne + 2 * (ne - 1) + 1 + 2 + 6 * ne
+    return ops
+
+
+# f32 operations of one pointwise tangent, counted as what the function
+# needs: a mul or an add is 1 (negations fold into the contraction),
+# products of the physics constants and 1/dt are per-launch constants,
+# shared subexpressions count once, a polynomial of the state takes its
+# cheapest form, and a sum over j != i is the total minus its own term.
+# CH (ch_jvp.cu, F = 2): dc/dt 1, the two fluxes 4, f''(c) (quadratic, by
+# Horner) 4, dmu - f'' dc 2. CH+Poisson (chp_jvp.cu, F = 3): CH's, the k
+# dphi term of the mu source 2, the phi source (k/eps) dc 1. CH + 4 AC
+# (chac_jvp.cu, F = 6): chac_tangent_ops.
+TANGENT_OPS = {2: 11, 3: 14, (6, "coupled"): chac_tangent_ops(4, False),
+               (6, "split"): chac_tangent_ops(4, True)}
 
 
 def smi_line() -> str:
@@ -97,24 +143,26 @@ def nodes(g) -> int:
     return (g.ny + 1) * (g.nx + 1) + g.ny * g.nx
 
 
-def jvp_work(g, F, masked=False, with_b=False):
-    """(bytes, flops) of one J.v: c plane + F tangent planes (+ b, mask) in,
-    F planes out. Per triangle (4 per cell, 3 nodes each): the F gradients
-    (2 * (3 mul + 2 add) per field), and per quadrature point the
-    interpolation of c and the F tangents (3 mul + 2 add each), the tangent
-    (TANGENT_OPS) and the test-function contraction (3 nodes x 3 terms x
-    mul + add per field)."""
+def jvp_work(g, F, masked=False, with_b=False, ops=None, ns=1):
+    """(bytes, flops) of one J.v: ``ns`` state planes + F tangent planes (+
+    b, mask) in, F planes out. Per triangle (4 per cell, 3 nodes each): the
+    F gradients (2 * (3 mul + 2 add) per field), and per quadrature point the
+    interpolation of the state and the F tangents (3 mul + 2 add each), the
+    tangent (``ops``, default TANGENT_OPS[F]) and the test-function
+    contraction (3 nodes x 3 terms x mul + add per field)."""
     N, nq = nodes(g), g.tab().nq
-    byts = 4 * (N + 2 * F * N + (F * N if with_b else 0)
+    ops = TANGENT_OPS[F] if ops is None else ops
+    byts = 4 * (ns * N + 2 * F * N + (F * N if with_b else 0)
                 + (F * (g.ny + 1) * (g.nx + 1) if masked else 0))
-    flops = g.ny * g.nx * 4 * (10 * F + nq * (5 * (1 + F) + TANGENT_OPS[F]
-                                              + 18 * F))
+    flops = g.ny * g.nx * 4 * (10 * F + nq * (5 * (ns + F) + ops + 18 * F))
     return byts, flops
 
 
-def bj_work(g, F):
+def bj_work(g, F, groups=None):
+    """Reads the in-group planes (all F^2 without groups) and r, writes z."""
     N = nodes(g)
-    return 4 * (F * F * N + 2 * F * N), 2 * F * F * N
+    planes = F * F if groups is None else sum(len(gr) ** 2 for gr in groups)
+    return 4 * (planes * N + 2 * F * N), 2 * planes * N
 
 
 def lmr_work(g, F):
@@ -131,22 +179,35 @@ def transfer_work(coarse, fine, F, op, masked=False, accumulate=False):
     return 4 * (F * nf + F * nc + mask), 2 * F * nf
 
 
-def chain_work(grids, F, nu, nu_fine, ascend: bool):
-    """Inputs once (rhs, per-level c planes, block planes, masks, and for the
-    ascent the iterates and coarse correction), outputs once; the flops of
-    its sweeps, residuals and transfers."""
+def sweep_work(g, F, n, jv_kw=None, groups=None):
+    """n sweeps: state, block planes and (x, r) in once, (x, r) out once;
+    the flops of n block-Jacobi applies, J.v and LMR steps."""
+    jv_kw = jv_kw or {}
+    N, ns = nodes(g), jv_kw.get("ns", 1)
+    byts = 4 * (ns * N + bj_work(g, F, groups)[0] // 4 - 2 * F * N + 4 * F * N)
+    flops = n * (jvp_work(g, F, **jv_kw)[1] + bj_work(g, F, groups)[1]
+                 + lmr_work(g, F)[1])
+    return byts, flops
+
+
+def chain_work(grids, F, nu, nu_fine, ascend: bool, jv_kw=None, groups=None):
+    """Inputs once (rhs, per-level state planes, block planes, masks, and for
+    the ascent the iterates and coarse correction), outputs once; the flops
+    of its sweeps, residuals and transfers."""
+    jv_kw = jv_kw or {}
     K = len(grids) - 1
     byts = flops = 0
     for l in range(K):
         g, N = grids[l], nodes(grids[l])
         n = nu_fine if l == 0 else nu
-        byts += 4 * (N + F * F * N + F * (g.ny + 1) * (g.nx + 1))
+        byts += 4 * (jv_kw.get("ns", 1) * N + bj_work(g, F, groups)[0] // 4
+                     - 2 * F * N + F * (g.ny + 1) * (g.nx + 1))
         byts += 4 * F * N * (2 if ascend else 1)   # rhs (+ iterate) in
-        flops += n * (jvp_work(g, F)[1] + bj_work(g, F)[1] + lmr_work(g, F)[1])
+        flops += sweep_work(g, F, n, jv_kw, groups)[1]
         op = "prolong" if ascend else "restrict"
         flops += transfer_work(grids[l + 1], g, F, op)[1]
         if ascend:
-            flops += jvp_work(g, F)[1]
+            flops += jvp_work(g, F, **jv_kw)[1]
         elif l + 1 < K:
             byts += 4 * F * nodes(grids[l + 1])   # restricted rhs out
     if ascend:
@@ -213,23 +274,29 @@ class Kernel:
 class Chain(Kernel):
     """A launch sequence of the kernels that stands for one TPU kernel."""
 
-    def __init__(self, name, replaces, sequence_of):
-        super().__init__(name, "pfhubbenchmarks_tpu_torch/ops/vcycle_chain.py",
-                         replaces)
+    def __init__(self, name, replaces, sequence_of,
+                 source="pfhubbenchmarks_tpu_torch/ops/vcycle_chain.py",
+                 also_replaces=()):
+        super().__init__(name, source, replaces)
         self.sequence_of = sequence_of
+        self.also_replaces = also_replaces
 
     def record(self, paths: dict):
         rec = super().record(paths)
         del rec["route"]
         rec["calls"] = rec.pop("launches")
         rec["sequence_of"] = list(self.sequence_of)
+        if self.also_replaces:
+            rec["also_replaces"] = list(self.also_replaces)
         return rec
 
 
-def run_main_path(label, runner, end_time, ref_csv, n_rows, required):
-    """Drive ``runner`` to ``end_time`` with the launch and chain-call counts
-    set to 0 just before and read just after; hold its rows against
-    ``ref_csv``."""
+def run_main_path(label, runner, end_time, ref_csv, n_rows, required,
+                  tfe_tol=1e-6):
+    """Drive ``runner`` to ``end_time`` (at most ``n_rows`` steps) with the
+    launch and chain-call counts and the stage seconds set to 0 just before
+    and read just after; hold its rows against ``ref_csv``. Returns the
+    counts, the run's result, its wall seconds and the stage seconds."""
     from pfhubbenchmarks_tpu_torch.io.csvout import read_csv
     from pfhubbenchmarks_tpu_torch.ops import _lib
 
@@ -238,11 +305,12 @@ def run_main_path(label, runner, end_time, ref_csv, n_rows, required):
     torch.cuda.synchronize()
     _lib.reset_launches()
     t0 = time.perf_counter()
-    result = runner.run(end_time=end_time, verbose=True)
+    result = runner.run(end_time=end_time, max_steps=n_rows, verbose=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_lib.LAUNCHES)
     calls = dict(_lib.CALLS)
+    seconds = dict(_lib.SECONDS)
     rows = result.rows
     st = result.stats
     print(f"{label}: {runner.problem.grid.ny}x{runner.problem.grid.nx} to "
@@ -251,29 +319,33 @@ def run_main_path(label, runner, end_time, ref_csv, n_rows, required):
           f"krylov={sum(s.krylov_iters for s in st)} "
           f"newton_all={sum(s.newton_iters_all for s in st)} "
           f"krylov_all={sum(s.krylov_iters_all for s in st)} "
-          f"wall_s={wall:.3f} launches={launches} chain_calls={calls}",
-          flush=True)
+          f"wall_s={wall:.3f} launches={launches} chain_calls={calls} "
+          f"stage_s={seconds}", flush=True)
     print(f"{label}: krylov per step {[s.krylov_iters for s in st]}, "
-          f"newton per step {[s.newton_iters for s in st]}", flush=True)
+          f"newton per step {[s.newton_iters for s in st]}, "
+          f"krylov_all per step {[s.krylov_iters_all for s in st]}, "
+          f"newton_all per step {[s.newton_iters_all for s in st]}, "
+          f"retries per step {[s.retries for s in st]}", flush=True)
     if list(result.columns) != cols:
         raise AssertionError(f"columns {result.columns} != {cols}")
     if rows.shape != ref_rows.shape or not np.isfinite(rows).all():
         raise AssertionError(f"rows {rows.shape} vs reference {ref_rows.shape}")
+    print(f"{label}: time column {rows[:, 0].tolist()}", flush=True)
     np.testing.assert_allclose(rows[:, 0], ref_rows[:, 0], rtol=1e-9, atol=0)
     tfe_rel = float(np.max(np.abs(rows[:, 1] - ref_rows[:, 1])
                            / np.abs(ref_rows[:, 1])))
     sol_rel = float(np.max(np.abs(rows[:, 2] - ref_rows[:, 2])
                            / np.abs(ref_rows[:, 2])))
     print(f"{label}: vs results/{ref_csv} rows 1-{n_rows}: time column "
-          f"equal, tfe_rel={tfe_rel:.3e} (<=1e-6), solute_rel={sol_rel:.3e} "
-          f"(<=1e-9)", flush=True)
-    if tfe_rel > 1e-6 or sol_rel > 1e-9:
+          f"equal, tfe_rel={tfe_rel:.3e} (<={tfe_tol:g}), "
+          f"solute_rel={sol_rel:.3e} (<=1e-9)", flush=True)
+    if tfe_rel > tfe_tol or sol_rel > 1e-9:
         raise AssertionError(f"{label}: rows disagree with results/{ref_csv}")
     counts = {**launches, **calls}
     missing = [k for k in required if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{label}: did not run on the main path: {missing}")
-    return counts
+    return counts, result, wall, seconds
 
 
 def main() -> None:
@@ -282,12 +354,10 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, HERE)
     from pfhubbenchmarks_tpu_torch import config, timeloop
-    from pfhubbenchmarks_tpu_torch.benchmarks import bench1, bench6
-    from pfhubbenchmarks_tpu_torch.fem.assembly import bc_mask
+    from pfhubbenchmarks_tpu_torch.benchmarks import bench1, bench2, bench6
+    from pfhubbenchmarks_tpu_torch.fem.assembly import bc_mask, make_residual
     from pfhubbenchmarks_tpu_torch.ops import _lib, lmr
     from pfhubbenchmarks_tpu_torch.ops import transfer as kt
-    from pfhubbenchmarks_tpu_torch.ops.ch_jvp import make_ch_jvp
-    from pfhubbenchmarks_tpu_torch.ops.chp_jvp import make_chp_jvp
     from pfhubbenchmarks_tpu_torch.ops.vcycle_chain import (make_ascend_chain,
                                                             make_descend_chain)
     from pfhubbenchmarks_tpu_torch.solve.gmg import build_hierarchy
@@ -318,15 +388,21 @@ def main() -> None:
     K = {
         "ch_jvp": Kernel("ch_jvp", csrc + "ch_jvp.cu", replaces_jv),
         "chp_jvp": Kernel("chp_jvp", csrc + "chp_jvp.cu", replaces_jv),
+        "chac_jvp": Kernel("chac_jvp", csrc + "chac_jvp.cu", replaces_jv),
         "block_jacobi_apply": Kernel("block_jacobi_apply",
                                      csrc + "block_jacobi.cu", replaces_vc),
         "lmr_step": Kernel("lmr_step", csrc + "lmr.cu", replaces_vc),
         "transfer_dyadic": Kernel("transfer_dyadic", csrc + "transfer.cu",
                                   replaces_vc),
     }
-    seq = ("level J.v (ch_jvp or chp_jvp)", "block_jacobi_apply", "lmr_step",
-           "transfer_dyadic")
+    seq = ("level J.v (ch_jvp, chp_jvp or chac_jvp)", "block_jacobi_apply",
+           "lmr_step", "transfer_dyadic")
     C = {
+        "lmr_sweep_loop": Chain(
+            "lmr_sweep_loop", "pfhubbenchmarks_tpu/ops/pallas_residual.py:247",
+            seq[:3], source="pfhubbenchmarks_tpu_torch/ops/lmr.py",
+            also_replaces=("pfhubbenchmarks_tpu/ops/pallas_residual.py:333",
+                           "pfhubbenchmarks_tpu/ops/pallas_tiled.py:189")),
         "descend_chain": Chain("descend_chain",
                                "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:652",
                                seq),
@@ -352,6 +428,13 @@ def main() -> None:
             v = bc.apply_value(v)
         return v.contiguous(), m
 
+    def residual_jvp(problem, g, w, dt_, v, terms=None, dirichlet=()):
+        """``torch.func.jvp`` of the f32 residual: the J.v kernels' reference
+        independent of the hand-written tangents of their plain versions."""
+        res = make_residual(g, terms or problem.terms, problem.n_fields,
+                            device=dev, dirichlet=dirichlet, dtype=torch.float32)
+        return torch.func.jvp(lambda u: res(u, w, dt_), (w,), (v,))[1]
+
     problem1 = bench1.make()
     dt = 0.5
     grids1 = build_hierarchy(problem1.grid,
@@ -362,9 +445,7 @@ def main() -> None:
     for rule in ("ffc3", "dunavant2"):
         for g0 in grids1:
             g = dataclasses.replace(g0, rule_name=rule)
-            jv = make_ch_jvp(g, problem1.terms,
-                             bench1.kernel_constants(bench1.Bench1Params()),
-                             device=dev)
+            jv = problem1.kernel_jvp(g, dev)
             w, v, b = state_on(problem1, g), noise_pair(g, 2), noise_pair(g, 2)
             timing = (cuda_ms(lambda: jv.kernel(w, w, dt, v)),
                       cuda_ms(lambda: jv.plain(w, w, dt, v), reps=10))
@@ -375,31 +456,42 @@ def main() -> None:
                 K["ch_jvp"].check(f"{rule} {g.ny}x{g.nx} b-Jv",
                                   jv.kernel(w, w, dt, v, b=b),
                                   jv.plain(w, w, dt, v, b=b), TOL_F32)
+                K["ch_jvp"].check(f"{rule} {g.ny}x{g.nx} Jv vs torch.func.jvp",
+                                  jv.kernel(w, w, dt, v),
+                                  residual_jvp(problem1, g, w, dt, v), TOL_F32)
 
-    def check_bj_lmr(problem, grids, F, label):
+    def check_bj_lmr(problem, grids, F, label, rule="dunavant2", terms=None,
+                     groups=None):
+        """B and C at each level; ``terms`` (default the problem's) builds
+        the block planes, ``groups`` are B's and C's field groups."""
         for g0 in grids:
-            g = dataclasses.replace(g0, rule_name="dunavant2")
+            g = dataclasses.replace(g0, rule_name=rule)
             w = state_on(problem, g)
             planes = make_block_jacobi(
-                g, problem.terms, F, device=dev,
+                g, terms or problem.terms, F, device=dev,
                 dirichlet=problem.dirichlet_for(g))(w, w, dt).pinv_planes
             r = noise_pair(g, F)
-            plain_ms = cuda_ms(lambda: lmr.block_jacobi_apply_plain(planes, r))
-            timing = (cuda_ms(lambda: lmr.block_jacobi_apply_kernel(planes, r)),
-                      plain_ms)
+            # the library call: one einsum pair over all F^2 planes (the same
+            # function where the cross-group planes are 0)
+            library_ms = cuda_ms(lambda: lmr.block_jacobi_apply_plain(planes, r))
+            timing = (cuda_ms(lambda: lmr.block_jacobi_apply_kernel(planes, r,
+                                                                    groups)),
+                      cuda_ms(lambda: lmr.block_jacobi_apply_plain(planes, r,
+                                                                   groups)))
             K["block_jacobi_apply"].check(
-                f"{label} {g.ny}x{g.nx}", lmr.block_jacobi_apply_kernel(planes, r),
-                lmr.block_jacobi_apply_plain(planes, r), TOL_F32, timing,
-                bj_work(g, F), library_ms=plain_ms)
+                f"{label} {g.ny}x{g.nx}",
+                lmr.block_jacobi_apply_kernel(planes, r, groups),
+                lmr.block_jacobi_apply_plain(planes, r, groups), TOL_F32, timing,
+                bj_work(g, F, groups), library_ms=library_ms)
 
             x, r, z, az = (noise_pair(g, F) for _ in range(4))
             xk, rk = [tuple(t.clone() for t in p) for p in (x, r)]
             xp, rp = [tuple(t.clone() for t in p) for p in (x, r)]
-            lmr.lmr_step_kernel(xk, rk, z, az)
-            lmr.lmr_step_plain(xp, rp, z, az)
+            lmr.lmr_step_kernel(xk, rk, z, az, groups)
+            lmr.lmr_step_plain(xp, rp, z, az, groups)
             xs, rs = [tuple(t.clone() for t in p) for p in (x, r)]  # scratch
-            timing = (cuda_ms(lambda: lmr.lmr_step_kernel(xs, rs, z, az)),
-                      cuda_ms(lambda: lmr.lmr_step_plain(xs, rs, z, az)))
+            timing = (cuda_ms(lambda: lmr.lmr_step_kernel(xs, rs, z, az, groups)),
+                      cuda_ms(lambda: lmr.lmr_step_plain(xs, rs, z, az, groups)))
             K["lmr_step"].check(f"{label} {g.ny}x{g.nx}", xk + rk, xp + rp,
                                 TOL_F32, timing, lmr_work(g, F))
 
@@ -436,11 +528,11 @@ def main() -> None:
 
     # ---- phase 4: bench1's main path at 100x100 -------------------------
     paths = {}
-    paths["bench1"] = run_main_path(
+    paths["bench1"], _, _, _ = run_main_path(
         "phase 4: bench1", timeloop.Runner(problem1, dev), BENCH1_END,
         "bench1_out.csv", BENCH1_ROWS,
         ("ch_jvp", "block_jacobi_apply", "lmr_step", "transfer_dyadic",
-         "descend_chain", "ascend_chain"))
+         "lmr_sweep_loop", "descend_chain", "ascend_chain"))
 
     # ---- phase 5: kernels and chains at bench6's shapes -----------------
     problem6 = bench6.make()
@@ -451,15 +543,13 @@ def main() -> None:
     assert [g.nx for g in grids6] == [100, 50, 25], [g.nx for g in grids6]
     dt6 = 0.32
     t5 = time.perf_counter()
-    const6 = bench6.kernel_constants(bench6.Bench6Params())
     for rule in ("ffc3", "dunavant2"):
         for g0 in grids6:
             g = dataclasses.replace(g0, rule_name=rule)
             w, v, b = (state_on(problem6, g), noise_pair(g, F6),
                        noise_pair(g, F6))
             for bcs in (problem6.dirichlet_for(g), ()):
-                jv = make_chp_jvp(g, problem6.terms, const6, device=dev,
-                                  dirichlet=bcs)
+                jv = problem6.kernel_jvp(g, dev, bcs)
                 lab = f"{rule} {g.ny}x{g.nx} {'masked' if bcs else 'unmasked'}"
                 timing = work = None
                 if g.nx == 100 and bcs:
@@ -470,6 +560,11 @@ def main() -> None:
                                    jv.plain(w, w, dt6, v), TOL_F32, timing, work)
                 K["chp_jvp"].check(f"{lab} b-Jv", jv.kernel(w, w, dt6, v, b=b),
                                    jv.plain(w, w, dt6, v, b=b), TOL_F32)
+                if g.nx == 100:
+                    K["chp_jvp"].check(
+                        f"{lab} Jv vs torch.func.jvp", jv.kernel(w, w, dt6, v),
+                        residual_jvp(problem6, g, w, dt6, v, dirichlet=bcs),
+                        TOL_F32)
 
     check_bj_lmr(problem6, grids6, F6, "bench6")
     check_transfers(problem6, grids6, F6, "bench6")
@@ -521,12 +616,152 @@ def main() -> None:
     print(f"phase 6: hierarchy {[g.nx for g in build.grids]}, coarsest solve "
           f"{'dense' if build.dense_coarse else f'{s6.gmg_coarse_sweeps} LMR sweeps'}",
           flush=True)
-    paths["bench6"] = run_main_path(
+    paths["bench6"], _, _, _ = run_main_path(
         "phase 6: bench6", runner6, None, "bench6_out.csv", BENCH6_ROWS,
         ("chp_jvp", "descend_chain", "ascend_chain", "block_jacobi_apply",
-         "lmr_step", "transfer_dyadic"))
+         "lmr_step", "transfer_dyadic", "lmr_sweep_loop"))
 
-    # ---- phase 7: summary ------------------------------------------------
+    # ---- phase 7: kernels, sweep loop and chains at bench2's shapes -----
+    problem2 = bench2.make()
+    F2 = problem2.n_fields
+    s2 = problem2.solver
+    groups2 = problem2.field_groups
+    grids2 = [dataclasses.replace(g, rule_name=s2.precond_rule)
+              for g in build_hierarchy(problem2.grid, min_cells=s2.gmg_min_cells)]
+    assert [g.nx for g in grids2] == [100, 50, 25], [g.nx for g in grids2]
+    dt2 = 0.16
+    t7 = time.perf_counter()
+    for num_eta in (4, 2, 1):
+        pb = problem2 if num_eta == 4 else bench2.make(num_eta=num_eta)
+        Fb = pb.n_fields
+        for split in (False, True):
+            rule = "dunavant1" if split else "ffc3"
+            for g0 in (grids2 if num_eta == 4 else grids2[:1]):
+                g = dataclasses.replace(g0, rule_name=rule)
+                w, v, b = state_on(pb, g), noise_pair(g, Fb), noise_pair(g, Fb)
+                jv = pb.kernel_jvp(g, dev, split=split)
+                lab = (f"NE={num_eta} {'split' if split else 'coupled'} {rule} "
+                       f"{g.ny}x{g.nx}")
+                timing = work = None
+                if g.nx == 100 and num_eta == 4:
+                    timing = (cuda_ms(lambda: jv.kernel(w, w, dt2, v)),
+                              cuda_ms(lambda: jv.plain(w, w, dt2, v), reps=10))
+                    work = jvp_work(g, Fb, ns=1 + num_eta, ops=TANGENT_OPS[
+                        (Fb, "split" if split else "coupled")])
+                K["chac_jvp"].check(f"{lab} Jv", jv.kernel(w, w, dt2, v),
+                                    jv.plain(w, w, dt2, v), TOL_F32, timing, work)
+                K["chac_jvp"].check(f"{lab} b-Jv", jv.kernel(w, w, dt2, v, b=b),
+                                    jv.plain(w, w, dt2, v, b=b), TOL_F32)
+                if g.nx == 100:
+                    K["chac_jvp"].check(
+                        f"{lab} Jv vs torch.func.jvp", jv.kernel(w, w, dt2, v),
+                        residual_jvp(pb, g, w, dt2, v,
+                                     pb.terms_precond if split else None),
+                        TOL_F32)
+
+    check_bj_lmr(problem2, grids2, F2, "bench2 groups", rule=s2.precond_rule,
+                 terms=problem2.terms_precond, groups=groups2)
+
+    # the per-level split states, block planes and J.v of the cycle
+    jvs2 = [problem2.kernel_jvp(g, dev, split=True) for g in grids2]
+    bj_builders2 = [make_block_jacobi(g, problem2.terms_precond, F2, device=dev)
+                    for g in grids2]
+
+    def build_hierarchy_planes(w):
+        w_ls, pinvs = [], []
+        for l, g in enumerate(grids2):
+            w_ls.append(w)
+            pinvs.append(bj_builders2[l](w, w, dt2).pinv_planes)
+            if l + 1 < len(grids2):
+                w = kt.inject_plain(w, grids2[l + 1], g)
+        return w_ls, pinvs
+
+    # the first build pays one-time costs (torch.func set-up, allocations);
+    # the main path builds once per Newton iteration, so the second is timed
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t_bj = time.perf_counter()
+        w_ls2, pinvs2 = build_hierarchy_planes(state_on(problem2, grids2[0]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t_bj)
+    bj_build_s = times[-1]
+    print(f"phase 7: block-Jacobi build of the 100/50/25 hierarchy (plain "
+          f"torch, {F2} fields, with the injections): first "
+          f"{times[0] * 1e3:.1f} ms, then {bj_build_s * 1e3:.1f} ms", flush=True)
+
+    jv_kw2 = dict(ns=5, ops=TANGENT_OPS[(F2, "split")])
+    g25 = grids2[-1]
+    n_coarse = s2.gmg_coarse_sweeps
+    sweep = lmr.make_lmr_sweep_loop(jvs2[-1], n_coarse, groups2)
+    b25 = noise_pair(g25, F2)
+
+    def run_sweep(fn):
+        x = tuple(torch.zeros_like(t) for t in b25)
+        r = tuple(t.clone() for t in b25)
+        return fn(x, r, w_ls2[-1], w_ls2[-1], dt2, *pinvs2[-1])
+
+    xk, rk = run_sweep(sweep.kernel)
+    xp, rp = run_sweep(sweep.plain)
+    timing = (cuda_ms(lambda: run_sweep(sweep.kernel), reps=10),
+              cuda_ms(lambda: run_sweep(sweep.plain), reps=5))
+    C["lmr_sweep_loop"].check(f"{g25.ny}x{g25.nx} n={n_coarse} groups",
+                              xk + rk, xp + rp, TOL_F32, timing,
+                              sweep_work(g25, F2, n_coarse, jv_kw2, groups2))
+
+    nus2 = dict(nu=s2.gmg_nu_pre, nu_fine=s2.gmg_nu_fine_pre or s2.gmg_nu_pre)
+    nua2 = dict(nu=s2.gmg_nu_post, nu_fine=s2.gmg_nu_fine_post or s2.gmg_nu_post)
+    descend2 = make_descend_chain(grids2, jvs2, **nus2, field_groups=groups2)
+    ascend2 = make_ascend_chain(grids2, jvs2, **nua2, field_groups=groups2)
+    wk2, pk2 = w_ls2[:-1], pinvs2[:-1]
+    b0 = noise_pair(grids2[0], F2)
+    xs_k, bs_k, bc_k = descend2.kernel(b0, wk2, wk2, dt2, pk2)
+    xs_p, bs_p, bc_p = descend2.plain(b0, wk2, wk2, dt2, pk2)
+    timing = (cuda_ms(lambda: descend2.kernel(b0, wk2, wk2, dt2, pk2), reps=10),
+              cuda_ms(lambda: descend2.plain(b0, wk2, wk2, dt2, pk2), reps=3))
+    C["descend_chain"].check(
+        "bench2 100/50/25 groups", [t for p in xs_k + bs_k + [bc_k] for t in p],
+        [t for p in xs_p + bs_p + [bc_p] for t in p], TOL_F32, timing,
+        chain_work(grids2, F2, ascend=False, jv_kw=jv_kw2, groups=groups2,
+                   **nus2))
+    xc = noise_pair(grids2[-1], F2)
+    bs_in = [b0] + bs_p
+    timing = (cuda_ms(lambda: ascend2.kernel(bs_in, xs_p, xc, wk2, wk2, dt2, pk2),
+                      reps=10),
+              cuda_ms(lambda: ascend2.plain(bs_in, xs_p, xc, wk2, wk2, dt2, pk2),
+                      reps=3))
+    C["ascend_chain"].check(
+        "bench2 100/50/25 groups",
+        ascend2.kernel(bs_in, xs_p, xc, wk2, wk2, dt2, pk2),
+        ascend2.plain(bs_in, xs_p, xc, wk2, wk2, dt2, pk2), TOL_F32, timing,
+        chain_work(grids2, F2, ascend=True, jv_kw=jv_kw2, groups=groups2,
+                   **nua2))
+    torch.cuda.synchronize()
+    print(f"phase 7: bench2-shape kernels, sweep loop and chains agree with "
+          f"their plain versions ({time.perf_counter() - t7:.1f} s)", flush=True)
+
+    # ---- phase 8: bench2's main path at 100x100 -------------------------
+    runner2 = timeloop.Runner(problem2, dev)
+    build = runner2.problem.precond_builder(dev)
+    print(f"phase 8: hierarchy {[g.nx for g in build.grids]} at "
+          f"{s2.precond_rule}, field groups {groups2}, coarsest solve "
+          f"{'dense' if build.dense_coarse else f'{n_coarse} LMR sweeps'}",
+          flush=True)
+    paths["bench2"], result2, wall2, seconds2 = run_main_path(
+        "phase 8: bench2", runner2, BENCH2_END, "bench2_out.csv", BENCH2_ROWS,
+        ("chac_jvp", "block_jacobi_apply", "lmr_step", "transfer_dyadic",
+         "lmr_sweep_loop", "descend_chain", "ascend_chain"), tfe_tol=1e-5)
+    # precond_lag 'newton': one multigrid build (block-Jacobi planes of every
+    # level, injections) per Newton iteration, over every attempt, timed
+    # inside the run by solve/gmg.py
+    n_builds = sum(st.newton_iters_all for st in result2.stats)
+    build_s = seconds2["precond_build"]
+    print(f"phase 8: multigrid builds on the main path: {n_builds} builds, "
+          f"{build_s:.3f} s measured ({build_s / n_builds * 1e3:.1f} ms each; "
+          f"phase 7's warm build {bj_build_s * 1e3:.1f} ms), share "
+          f"{build_s / wall2:.4f} of the {wall2:.3f} s run", flush=True)
+
+    # ---- phase 9: summary ------------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": [K[k].record(paths) for k in _lib.KERNELS],
                       "chains": [C[k].record(paths) for k in _lib.CHAINS]}),

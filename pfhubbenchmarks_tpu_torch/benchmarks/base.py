@@ -3,10 +3,13 @@
 Counterpart of ``pfhubbenchmarks_tpu/benchmarks/base.py``. A benchmark is
 data: a grid, a pointwise ``terms`` function, ICs, Dirichlet specs,
 observables and configs. Every factory method takes the device explicitly.
-``kernel_jvp(grid, device, dirichlet)`` makes the benchmark's J.v (kernel A
-for BM1, E for BM6) with identity rows on the Dirichlet rows, which serves
-the outer Krylov matvec (the JAX package re-sets those rows after its
-kernel, ``base.py:201-215``) and every multigrid level.
+``kernel_jvp(grid, device, dirichlet, split=False)`` makes the benchmark's
+J.v (kernel A for BM1, E for BM6, F for BM2, each with the benchmark's
+hand-written pointwise tangent as its plain version) with identity rows on
+the Dirichlet rows, which serves the outer Krylov matvec (the JAX package
+re-sets those rows after its kernel, ``base.py:201-215``) and every
+multigrid level; ``split=True`` gives the J.v of ``terms_precond``, the
+field-split operator of ``SolverConfig.field_split``.
 """
 
 from __future__ import annotations
@@ -32,13 +35,21 @@ class BenchmarkProblem:
     ic_fns: Sequence[Callable]            # per-field fn(x, y)
     observables: dict[str, Callable]      # name -> density(QPContext)
     csv_columns: tuple[str, ...]
-    # (grid, device, dirichlet) -> jv(w, w0, dt, v, b=None), the f32 J.v
+    # (grid, device, dirichlet, split=False) -> jv(w, w0, dt, v, b=None),
+    # the f32 J.v of terms (split: of terms_precond)
     kernel_jvp: Callable
     time: TimeConfig = TimeConfig()
     solver: SolverConfig = SolverConfig()
     # (field, side, fn(coord)) specs, instantiated per grid so multigrid can
     # rebuild the BCs on coarse levels
     dirichlet_spec: tuple = ()
+    # Field-split preconditioning (SolverConfig.field_split): a copy of
+    # ``terms`` with the cross-group couplings detached, so every
+    # preconditioner linearization is block diagonal by ``field_groups``
+    # (contiguous field ranges). The outer residual and Krylov operator
+    # always use ``terms``.
+    terms_precond: Callable | None = None
+    field_groups: tuple | None = None
     dtype: torch.dtype = torch.float64
 
     @property
@@ -90,9 +101,15 @@ class BenchmarkProblem:
             raise NotImplementedError(f"precond={s.precond!r} is not yet ported")
         from pfhubbenchmarks_tpu_torch.solve.gmg import make_gmg
 
+        # field split: the hierarchy linearizes terms_precond (block
+        # diagonal); the exported A z stays the coupled terms
+        field_split = s.field_split and self.terms_precond is not None
         return make_gmg(
-            self.grid, self.terms, self.n_fields, device=device,
-            jvp_for=lambda g: self.kernel_jvp(g, device, self.dirichlet_for(g)),
+            self.grid, self.terms_precond if field_split else self.terms,
+            self.n_fields, device=device,
+            jvp_for=lambda g, split: self.kernel_jvp(
+                g, device, self.dirichlet_for(g), split=split),
+            field_groups=self.field_groups if field_split else None,
             dirichlet_for=self.dirichlet_for,
             nu_pre=s.gmg_nu_pre, nu_post=s.gmg_nu_post,
             nu_fine_pre=s.gmg_nu_fine_pre, nu_fine_post=s.gmg_nu_fine_post,

@@ -95,18 +95,20 @@ def kernel_constants(p: Bench1Params) -> dict:
 def make(nx: int = 100, ny: int = 100, Lx: float = 200.0, Ly: float = 200.0,
          params: Bench1Params = Bench1Params(), **overrides) -> BenchmarkProblem:
     p = params
-    terms, _, _, f_chem = make_terms(p)
+    terms, terms_tangent, _, f_chem = make_terms(p)
 
     def tfe_density(ctx):
         c = ctx.u[0]
         dc = ctx.du[0]
         return f_chem(c) + p.kappa / 2.0 * (dc[0] ** 2 + dc[1] ** 2)
 
-    def kernel_jvp(grid, device, dirichlet=()):
+    def kernel_jvp(grid, device, dirichlet=(), split=False):
+        if split:
+            raise NotImplementedError("bench1 has no field-split operator")
         from pfhubbenchmarks_tpu_torch.ops.ch_jvp import make_ch_jvp
 
-        return make_ch_jvp(grid, terms, kernel_constants(p), device=device,
-                           dirichlet=dirichlet)
+        return make_ch_jvp(grid, terms_tangent, kernel_constants(p),
+                           device=device, dirichlet=dirichlet)
 
     return BenchmarkProblem(
         name="bench1",

@@ -15,8 +15,8 @@ has 3 (26^2 + 25^2) = 3903 dofs, above the 3000-dof cap for a dense
 inverse, so the coarsest level is solved by ``gmg_coarse_sweeps`` (24) LMR
 sweeps, in the JAX package as here.
 
-The field-split preconditioner terms (``terms_precond``) are not ported:
-``field_split`` is off for BM6.
+BM6's field-split preconditioner terms (``terms_precond``) are not ported:
+``field_split`` is off for BM6 (BM2 runs it, benchmarks/bench2.py).
 
 Run: ``python -m pfhubbenchmarks_tpu_torch.benchmarks.bench6 --device cuda``.
 """
@@ -119,7 +119,7 @@ def kernel_constants(p: Bench6Params) -> dict:
 def make(nx: int = 100, ny: int = 100, Lx: float = 100.0, Ly: float = 100.0,
          params: Bench6Params = Bench6Params(), **overrides) -> BenchmarkProblem:
     p = params
-    terms, _, f_chem = make_terms(p)
+    terms, terms_tangent, f_chem = make_terms(p)
 
     def tfe_density(ctx):
         c, _, phi = ctx.u
@@ -127,11 +127,13 @@ def make(nx: int = 100, ny: int = 100, Lx: float = 100.0, Ly: float = 100.0,
         return (f_chem(c) + p.k * c * phi / 2.0
                 + p.kappa / 2.0 * (dc[0] ** 2 + dc[1] ** 2))
 
-    def kernel_jvp(grid, device, dirichlet=()):
+    def kernel_jvp(grid, device, dirichlet=(), split=False):
+        if split:
+            raise NotImplementedError("bench6 has no field-split operator")
         from pfhubbenchmarks_tpu_torch.ops.chp_jvp import make_chp_jvp
 
-        return make_chp_jvp(grid, terms, kernel_constants(p), device=device,
-                            dirichlet=dirichlet)
+        return make_chp_jvp(grid, terms_tangent, kernel_constants(p),
+                            device=device, dirichlet=dirichlet)
 
     return BenchmarkProblem(
         name="bench6",

@@ -5,7 +5,8 @@ Run a ported benchmark as::
     python -m pfhubbenchmarks_tpu_torch.benchmarks.bench1 --device cuda \
         [--end-time T] [--max-steps N] [--nx N --ny N] [--out CSV]
 
-(``bench6`` alike).
+(``bench2`` and ``bench6`` alike; ``bench2_eta1`` and ``bench2_eta2`` are
+BM2 with 1 and 2 order parameters, the reference's reduced variants).
 
 ``--device`` is required: there is no implicit device. The JAX CLI's other
 flags are accepted and raise "not yet ported".
@@ -19,6 +20,7 @@ import time
 
 _BENCHMARKS = {
     "bench1": "pfhubbenchmarks_tpu_torch.benchmarks.bench1",
+    "bench2": "pfhubbenchmarks_tpu_torch.benchmarks.bench2",
     "bench6": "pfhubbenchmarks_tpu_torch.benchmarks.bench6",
 }
 
@@ -30,6 +32,10 @@ _NOT_PORTED = {"--nz": True, "--f32": False, "--mesh": True,
 
 
 def get_benchmark(name: str, **kwargs):
+    # reduced BM2 variants (dolfin/bench2_eta1.py / bench2_eta2.py)
+    if name in ("bench2_eta1", "bench2_eta2"):
+        kwargs.setdefault("num_eta", int(name[-1]))
+        name = "bench2"
     if name not in _BENCHMARKS:
         raise ValueError(f"benchmark {name!r} is not yet ported; have "
                          f"{sorted(_BENCHMARKS)}")

@@ -82,9 +82,12 @@ class SolverConfig:
     fuse_vcycle: str = "auto"
     # 'gmg' only; 'none', 'block_jacobi' and 'dense' are not yet ported.
     precond: str = "gmg"
-    # Field-split preconditioning: not yet ported (False only).
+    # Field-split preconditioning: the V-cycle linearizes the problem's
+    # terms_precond (block diagonal by its field_groups); the exported A z
+    # stays the coupled operator (solve/gmg.py).
     field_split: bool = False
-    # Only read under field_split: no-op.
+    # True only (one LMR step length per field group under field_split); a
+    # single global step length with field groups is not yet ported.
     field_split_alphas: bool = True
     # 'newton' (a build per Newton iteration) and 'solve' (one build per
     # solve, at the initial guess).
@@ -122,11 +125,11 @@ _SLICE_ONLY = {
     "mixed_precision": True,
     "fast_residual": False,
     "precond": "gmg",
-    "field_split": False,
     "precond_lag": ("newton", "solve"),
     "krylov_operator": "true",
     "gmg_cycle": "v",
     "gmg_inner_mr": 1,
+    "field_split_alphas": True,
 }
 
 

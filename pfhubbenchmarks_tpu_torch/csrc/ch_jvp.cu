@@ -24,11 +24,14 @@ namespace {
 // with f'(c) = 2 rho_s (c - c_a)(c_b - c)((c_b - c) - (c - c_a)).
 struct CH {
   static constexpr int NF = 2;
+  static constexpr int NS = 1;  // the tangent reads c only
+  __host__ __device__ static constexpr int state_field(int) { return 0; }
   __device__ __forceinline__ static void tangent(
-      const pfh::JvpParams& P, float c, const float (&d)[NF],
+      const pfh::JvpParams& P, const float (&u)[NS], const float (&d)[NF],
       const float (&gx)[NF], const float (&gy)[NF], float (&src)[NF],
       float (&fx)[NF], float (&fy)[NF]) {
     const float M = P.k[0], kappa = P.k[1], rho_s = P.k[2];
+    const float c = u[0];
     const float a = c - P.k[3];
     const float b = P.k[4] - c;
     const float fpp = 2.0f * rho_s * ((b - a) * (b - a) - 2.0f * a * b);

@@ -26,12 +26,15 @@ namespace {
 // with f_chem = rho (c - c_a)^2 (c_b - c)^2.
 struct CHP {
   static constexpr int NF = 3;
+  static constexpr int NS = 1;  // the tangent reads c only
+  __host__ __device__ static constexpr int state_field(int) { return 0; }
   __device__ __forceinline__ static void tangent(
-      const pfh::JvpParams& P, float c, const float (&d)[NF],
+      const pfh::JvpParams& P, const float (&u)[NS], const float (&d)[NF],
       const float (&gx)[NF], const float (&gy)[NF], float (&src)[NF],
       float (&fx)[NF], float (&fy)[NF]) {
     const float M = P.k[0], kappa = P.k[1], rho = P.k[2];
     const float kk = P.k[5], eps = P.k[6];
+    const float c = u[0];
     const float a = c - P.k[3];
     const float b = P.k[4] - c;
     const float fpp = 2.0f * rho * ((b - a) * (b - a) - 2.0f * a * b);

@@ -19,4 +19,40 @@ inline int blocks_for(long n, int threads = kThreads) {
   return static_cast<int>((n + threads - 1) / threads);
 }
 
+// Contiguous field groups of a field-split operator (SolverConfig.
+// field_split): group g holds fields start[g] .. start[g+1]-1. No groups is
+// the single group {0, F}. Passed by value, so the kernels index it in the
+// parameter space.
+constexpr int kMaxGroups = 8;
+
+struct FieldGroups {
+  int n;
+  int start[kMaxGroups + 1];
+};
+
+// Host side: the groups from n starts (start[n] == F), or nullptr for one
+// group of all F fields. Returns false if they are not a valid partition.
+inline bool make_groups(int F, int n, const int* starts, FieldGroups* out) {
+  if (starts == nullptr) {
+    out->n = 1;
+    out->start[0] = 0;
+    out->start[1] = F;
+    return F > 0;
+  }
+  if (n < 1 || n > kMaxGroups || starts[0] != 0 || starts[n] != F) return false;
+  out->n = n;
+  for (int g = 0; g <= n; ++g) {
+    if (g > 0 && starts[g] <= starts[g - 1]) return false;
+    out->start[g] = starts[g];
+  }
+  return true;
+}
+
+// The group of field f.
+__device__ __forceinline__ int group_of(const FieldGroups& G, int f) {
+  int g = 0;
+  while (g + 1 < G.n && f >= G.start[g + 1]) ++g;
+  return g;
+}
+
 }  // namespace pfh

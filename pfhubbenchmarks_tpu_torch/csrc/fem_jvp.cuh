@@ -1,7 +1,8 @@
 // The gather-form J.v of a crossed-P1 weak form, templated on the physics.
 //
-// Shared body of kernel A (ch_jvp.cu, BM1's Cahn-Hilliard) and kernel E
-// (chp_jvp.cu, BM6's Cahn-Hilliard + Poisson). Computes
+// Shared body of kernel A (ch_jvp.cu, BM1's Cahn-Hilliard), kernel E
+// (chp_jvp.cu, BM6's Cahn-Hilliard + Poisson) and kernel F (chac_jvp.cu,
+// BM2's Cahn-Hilliard + Allen-Cahn). Computes
 //     out = J(w, dt) v        (b == nullptr), or   out = b - J(w, dt) v
 // in f32, with an optional 0/1 vertex mask of Dirichlet rows: on a masked row
 // the J.v is v itself (the tangent of a constraint row u - g), so the result
@@ -11,8 +12,8 @@
 // The Pallas kernels take jax.jvp of the element loop in-kernel; CUDA has no
 // in-kernel AD, so each physics supplies its pointwise tangent by hand
 // (Phys::tangent, mirrored by the benchmark's terms_tangent in Python). A
-// tangent reads only the first field (c) of the state, so only that plane of
-// w is an argument.
+// tangent reads Phys::NS state planes, fields Phys::state_field(0..NS-1) of
+// w (c alone for CH and CH+Poisson; c and every eta for CH+AC).
 //
 // Layout: v planes [F, ny+1, nx+1] (vertices), m planes [F, ny, nx] (cell
 // centres), unpadded storage; the mask is [F, ny+1, nx+1] floats, nonzero on
@@ -24,7 +25,8 @@
 // of the triangles it touches, so there is no scatter, no atomics, and every
 // output is summed in one fixed order. The tabulation and the constants are
 // passed by value in the parameter space and the rule's point count is a
-// template parameter, so every table index is a compile-time constant.
+// template parameter (1, 3 or 4 points), so every table index is a
+// compile-time constant.
 #pragma once
 
 #include "common.cuh"
@@ -32,7 +34,7 @@
 namespace pfh {
 
 constexpr int kMaxQ = 4;
-constexpr int kMaxConst = 8;
+constexpr int kMaxConst = 12;
 
 struct JvpParams {
   float Bq[4][kMaxQ][5];   // basis values at quadrature points
@@ -74,10 +76,14 @@ __device__ __forceinline__ void cell_contrib(const JvpParams& P,
                                              int y, int x, int ny, int nx,
                                              float (&acc)[Phys::NF]) {
   constexpr int NF = Phys::NF;
+  constexpr int NS = Phys::NS;
   const long nvert = static_cast<long>(ny + 1) * (nx + 1);
   const long ncell = static_cast<long>(ny) * nx;
-  float wc[5], d[NF][5];
-  load_slots(wv, wm, y, x, nx, wc);  // c at the state
+  float wc[NS][5], d[NF][5];
+#pragma unroll
+  for (int s = 0; s < NS; ++s)  // the state planes the tangent reads
+    load_slots(wv + Phys::state_field(s) * nvert,
+               wm + Phys::state_field(s) * ncell, y, x, nx, wc[s]);
 #pragma unroll
   for (int f = 0; f < NF; ++f)
     load_slots(tv + f * nvert, tm + f * ncell, y, x, nx, d[f]);
@@ -97,17 +103,20 @@ __device__ __forceinline__ void cell_contrib(const JvpParams& P,
     }
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
-      float c = 0.f, dq[NF];
+      float u[NS], dq[NF];
+#pragma unroll
+      for (int f = 0; f < NS; ++f) u[f] = 0.f;
 #pragma unroll
       for (int f = 0; f < NF; ++f) dq[f] = 0.f;
 #pragma unroll
       for (int s = 0; s < 5; ++s) {
-        c += P.Bq[t][q][s] * wc[s];
+#pragma unroll
+        for (int f = 0; f < NS; ++f) u[f] += P.Bq[t][q][s] * wc[f][s];
 #pragma unroll
         for (int f = 0; f < NF; ++f) dq[f] += P.Bq[t][q][s] * d[f][s];
       }
       float src[NF], fx[NF], fy[NF];
-      Phys::tangent(P, c, dq, gx, gy, src, fx, fy);
+      Phys::tangent(P, u, dq, gx, gy, src, fx, fy);
 #pragma unroll
       for (int f = 0; f < NF; ++f)
         acc[f] += P.WB[t][q][S] * src[f] + P.WGx[t][q][S] * fx[f]
@@ -186,6 +195,9 @@ int launch_fem_jvp(const float* params, int nq, const float* wv,
                                                         mask, ov, om, ny, nx);
   } else if (nq == 3) {
     fem_jvp_kernel<Phys, 3><<<blocks, kThreads, 0, s>>>(P, wv, wm, tv, tm, bv, bm,
+                                                        mask, ov, om, ny, nx);
+  } else if (nq == 1) {
+    fem_jvp_kernel<Phys, 1><<<blocks, kThreads, 0, s>>>(P, wv, wm, tv, tm, bv, bm,
                                                         mask, ov, om, ny, nx);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -1,24 +1,33 @@
 // Kernel C, lmr_step: one local-minimal-residual update, in place, f32.
 //
-//   alpha = <Az, r> / <Az, Az>   (0 when <Az, Az> == 0)
-//   x += alpha z,   r -= alpha Az
+//   alpha_g = <Az, r>_g / <Az, Az>_g   (0 when <Az, Az>_g == 0)
+//   x += alpha_g z,   r -= alpha_g Az   on the fields of group g
 //
-// over the v and m planes together. Replaces _lmr_alpha and the axpys of
-// the LMR sweep body in pfhubbenchmarks_tpu/ops/pallas_vcycle.py
-// (make_fused_vcycle's sweeps, :311-325 and :503-517).
+// over the v and m planes together. Without field groups there is one group
+// of all fields, a single alpha. Replaces _lmr_alpha (with or without its
+// groups) and the axpys of the LMR sweep body in
+// pfhubbenchmarks_tpu/ops/pallas_vcycle.py (make_fused_vcycle's sweeps,
+// :311-325 and :503-540), of make_pallas_lmr_sweep_loop and
+// make_pallas_lmr_sweep (ops/pallas_residual.py), and the partial dots of
+// make_tiled_lmr_sweep (ops/pallas_tiled.py), whose alpha is formed outside
+// its kernel as stage 2 does here.
 //
 // Design: a deterministic two-stage reduction. Stage 1 (lmr_partials): a
-// fixed number of blocks, chosen from the vector length alone, each
-// reduces a fixed strided subset into two double partials with a fixed
-// shared-memory tree. Stage 2 (lmr_update): thread 0 of every block sums the
-// partials in index order and forms alpha (so every block computes the
-// same alpha), then the block applies the two axpys. No atomics: the same
-// inputs give the same bits on every run. alpha stays in device memory
-// (also written to alpha_out for inspection) and never goes to the host.
+// grid of nb x G blocks, nb chosen from the vector length alone; block
+// (b, g) reduces a fixed strided subset of group g's entries (its v planes,
+// then its m planes) into two double partials with a fixed shared-memory
+// tree. Stage 2 (lmr_update): threads 0..G-1 of every block sum their
+// group's partials in index order and form alpha_g (so every block computes
+// the same alphas), then the block applies the two axpys. No atomics: the
+// same inputs give the same bits on every run, and with one group the
+// partials, their order and the result are those of the ungrouped kernel.
+// The alphas stay in device memory (also written to alpha_out for
+// inspection) and never go to the host.
 //
 // What bounds it on the H100: ~0.3 MB read and 0.3 MB written per step at
-// 100^2, L2-resident; the step is two launches of latency, which the
-// design accepts in exchange for determinism without a grid-wide sync.
+// BM1's 100^2 (0.9 MB and 0.5 MB at BM2's six fields), L2-resident; the
+// step is two launches of latency, which the design accepts in exchange for
+// determinism without a grid-wide sync.
 
 #include "common.cuh"
 
@@ -26,22 +35,27 @@ namespace {
 
 constexpr int kRedThreads = 256;
 
-__device__ __forceinline__ float at(const float* a, const float* b, long nv, long i) {
-  return i < nv ? __ldg(a + i) : __ldg(b + (i - nv));
-}
-
 __global__ void __launch_bounds__(kRedThreads)
 lmr_partials_kernel(const float* __restrict__ azv, const float* __restrict__ azm,
                     const float* __restrict__ rv, const float* __restrict__ rm,
-                    long nv, long nm, double* __restrict__ partials) {
+                    long nvert, long ncell, const pfh::FieldGroups G,
+                    double* __restrict__ partials) {
   __shared__ double s_num[kRedThreads];
   __shared__ double s_den[kRedThreads];
-  const long n = nv + nm;
+  const int g = blockIdx.y;
+  const long f0 = G.start[g];
+  const long nf = G.start[g + 1] - f0;
+  const long nv = nf * nvert;           // the group's v entries come first
+  const long n = nv + nf * ncell;
+  const float* av = azv + f0 * nvert;
+  const float* am = azm + f0 * ncell;
+  const float* qv = rv + f0 * nvert;
+  const float* qm = rm + f0 * ncell;
   double num = 0.0, den = 0.0;
   for (long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += static_cast<long>(gridDim.x) * blockDim.x) {
-    const double a = at(azv, azm, nv, i);
-    num += a * at(rv, rm, nv, i);
+    const double a = i < nv ? __ldg(av + i) : __ldg(am + (i - nv));
+    num += a * (i < nv ? __ldg(qv + i) : __ldg(qm + (i - nv)));
     den += a * a;
   }
   s_num[threadIdx.x] = num;
@@ -55,8 +69,9 @@ lmr_partials_kernel(const float* __restrict__ azv, const float* __restrict__ azm
     __syncthreads();
   }
   if (threadIdx.x == 0) {
-    partials[blockIdx.x] = s_num[0];
-    partials[gridDim.x + blockIdx.x] = s_den[0];
+    const int nb = gridDim.x;
+    partials[g * nb + blockIdx.x] = s_num[0];
+    partials[(G.n + g) * nb + blockIdx.x] = s_den[0];
   }
 }
 
@@ -66,25 +81,29 @@ lmr_update_kernel(const double* __restrict__ partials, int nb,
                   float* __restrict__ rv, float* __restrict__ rm,
                   const float* __restrict__ zv, const float* __restrict__ zm,
                   const float* __restrict__ azv, const float* __restrict__ azm,
-                  long nv, long nm, float* __restrict__ alpha_out) {
-  __shared__ float s_alpha;
-  if (threadIdx.x == 0) {
+                  long nvert, long ncell, int F, const pfh::FieldGroups G,
+                  float* __restrict__ alpha_out) {
+  __shared__ float s_alpha[pfh::kMaxGroups];
+  if (threadIdx.x < G.n) {
+    const int g = threadIdx.x;
     double num = 0.0, den = 0.0;
     for (int b = 0; b < nb; ++b) {
-      num += partials[b];
-      den += partials[nb + b];
+      num += partials[g * nb + b];
+      den += partials[(G.n + g) * nb + b];
     }
-    s_alpha = den > 0.0 ? static_cast<float>(num / den) : 0.0f;
-    if (blockIdx.x == 0) alpha_out[0] = s_alpha;
+    s_alpha[g] = den > 0.0 ? static_cast<float>(num / den) : 0.0f;
+    if (blockIdx.x == 0) alpha_out[g] = s_alpha[g];
   }
   __syncthreads();
-  const float alpha = s_alpha;
+  const long nv = F * nvert;
   const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i < nv) {
+    const float alpha = s_alpha[pfh::group_of(G, static_cast<int>(i / nvert))];
     xv[i] += alpha * zv[i];
     rv[i] -= alpha * azv[i];
-  } else if (i < nv + nm) {
+  } else if (i < nv + F * ncell) {
     const long j = i - nv;
+    const float alpha = s_alpha[pfh::group_of(G, static_cast<int>(j / ncell))];
     xm[j] += alpha * zm[j];
     rm[j] -= alpha * azm[j];
   }
@@ -92,18 +111,25 @@ lmr_update_kernel(const double* __restrict__ partials, int nb,
 
 }  // namespace
 
-// partials: device scratch of 2 * nb doubles, nb in [1, 64]; alpha_out: one
-// device float.
+// nvert, ncell: the entries of one field's v and m planes; starts: n_groups
+// + 1 host ints (pfh::make_groups), or null for one group; partials: device
+// scratch of 2 * n_groups * nb doubles, nb in [1, 64]; alpha_out: n_groups
+// device floats.
 PFH_EXPORT int pfh_lmr_step(float* xv, float* xm, float* rv, float* rm,
                             const float* zv, const float* zm, const float* azv,
-                            const float* azm, long nv, long nm, double* partials,
+                            const float* azm, long nvert, long ncell, int F,
+                            int n_groups, const int* starts, double* partials,
                             int nb, float* alpha_out, void* stream) {
-  if (nb < 1 || nb > 64) return static_cast<int>(cudaErrorInvalidValue);
+  pfh::FieldGroups G;
+  if (nb < 1 || nb > 64 || !pfh::make_groups(F, n_groups, starts, &G))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  lmr_partials_kernel<<<nb, kRedThreads, 0, s>>>(azv, azm, rv, rm, nv, nm, partials);
+  lmr_partials_kernel<<<dim3(nb, G.n), kRedThreads, 0, s>>>(
+      azv, azm, rv, rm, nvert, ncell, G, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  lmr_update_kernel<<<pfh::blocks_for(nv + nm), pfh::kThreads, 0, s>>>(
-      partials, nb, xv, xm, rv, rm, zv, zm, azv, azm, nv, nm, alpha_out);
+  lmr_update_kernel<<<pfh::blocks_for(F * (nvert + ncell)), pfh::kThreads, 0, s>>>(
+      partials, nb, xv, xm, rv, rm, zv, zm, azv, azm, nvert, ncell, F, G,
+      alpha_out);
   return static_cast<int>(cudaGetLastError());
 }

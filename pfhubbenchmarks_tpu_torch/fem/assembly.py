@@ -145,29 +145,60 @@ def make_residual(
     _check_grid(grid, needs_coords)
     T = TabTensors.make(grid, dtype, device)
     bc_g = [torch.as_tensor(bc.g, dtype=dtype, device=device) for bc in dirichlet]
-    full_shape = (4, grid.tab().nq, grid.ny, grid.nx)
-    ny, nx = grid.ny, grid.nx
-    vshape, mshape = grid.vshape, grid.mshape
 
     def residual(w, w0, dt):
-        uq, du = _eval_qp(T.Bq, T.Gs, local_values(w, ny, nx))
-        u_t, du_t = _as_tuples(uq, du)
-        u0q, du0 = _eval_qp(T.Bq, T.Gs, local_values(w0, ny, nx))
-        u0_t, du0_t = _as_tuples(u0q, du0)
-        source, flux = terms(QPContext(u=u_t, du=du_t, u0=u0_t, du0=du0_t,
-                                       dt=dt))
-        src = torch.stack([torch.broadcast_to(s, full_shape) for s in source])
-        fx = torch.stack([torch.broadcast_to(f[0], full_shape) for f in flux])
-        fy = torch.stack([torch.broadcast_to(f[1], full_shape) for f in flux])
-        r_loc = (torch.einsum("tqs,ftqyx->sfyx", T.WB, src)
-                 + torch.einsum("tqs,ftqyx->sfyx", T.WGx, fx)
-                 + torch.einsum("tqs,ftqyx->sfyx", T.WGy, fy))
-        rv, rm = scatter_add(r_loc, vshape, mshape, ny, nx)
+        rv, rm = _assemble(T, grid, terms(_context(T, grid, w, w0, dt)))
         for bc, g in zip(dirichlet, bc_g):
             rv = bc.apply_residual(rv, w[0], g)
         return rv, rm
 
     return residual
+
+
+def _context(T: "TabTensors", grid: CrossedTriGrid, w, w0, dt) -> QPContext:
+    uq, du = _eval_qp(T.Bq, T.Gs, local_values(w, grid.ny, grid.nx))
+    u_t, du_t = _as_tuples(uq, du)
+    if w0 is None:
+        return QPContext(u=u_t, du=du_t, u0=None, du0=None, dt=dt)
+    u0q, du0 = _eval_qp(T.Bq, T.Gs, local_values(w0, grid.ny, grid.nx))
+    u0_t, du0_t = _as_tuples(u0q, du0)
+    return QPContext(u=u_t, du=du_t, u0=u0_t, du0=du0_t, dt=dt)
+
+
+def _assemble(T: "TabTensors", grid: CrossedTriGrid, source_flux):
+    """sum over quadrature points of w (s lambda + f . grad lambda), scattered
+    to the (v, m) pair."""
+    source, flux = source_flux
+    full_shape = (4, grid.tab().nq, grid.ny, grid.nx)
+    src = torch.stack([torch.broadcast_to(s, full_shape) for s in source])
+    fx = torch.stack([torch.broadcast_to(f[0], full_shape) for f in flux])
+    fy = torch.stack([torch.broadcast_to(f[1], full_shape) for f in flux])
+    r_loc = (torch.einsum("tqs,ftqyx->sfyx", T.WB, src)
+             + torch.einsum("tqs,ftqyx->sfyx", T.WGx, fx)
+             + torch.einsum("tqs,ftqyx->sfyx", T.WGy, fy))
+    return scatter_add(r_loc, grid.vshape, grid.mshape, grid.ny, grid.nx)
+
+
+def make_tangent_jvp(grid: CrossedTriGrid, tangent, *,
+                     device: torch.device | str, dirichlet=(),
+                     dtype=torch.float64):
+    """Build ``jv(w, w0, dt, v) -> (rv, rm)``, the J.v of ``make_residual``
+    assembled from a hand-written pointwise ``tangent(ctx, tctx) -> (source,
+    flux)`` (``tctx`` holds v and its gradients at the quadrature points):
+    the same function as ``torch.func.jvp`` of the residual, without forward
+    AD. The rows of each ``DirichletBC`` are identity rows (the tangent of
+    ``u - g``)."""
+    _check_grid(grid, False)
+    T = TabTensors.make(grid, dtype, device)
+
+    def jv(w, w0, dt, v):
+        rv, rm = _assemble(T, grid, tangent(_context(T, grid, w, w0, dt),
+                                            _context(T, grid, v, None, None)))
+        for bc in dirichlet:
+            rv = bc.put_rows(rv, bc.rows(v[0]))
+        return rv, rm
+
+    return jv
 
 
 def make_functional(

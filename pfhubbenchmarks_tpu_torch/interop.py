@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from pfhubbenchmarks_tpu_torch.benchmarks.bench1 import Bench1Params
+from pfhubbenchmarks_tpu_torch.benchmarks.bench2 import Bench2Params
 from pfhubbenchmarks_tpu_torch.benchmarks.bench6 import Bench6Params
 from pfhubbenchmarks_tpu_torch.config import SolverConfig, TimeConfig
 
@@ -47,8 +48,8 @@ def time_config_from_dict(d: dict) -> TimeConfig:
 
 def problem_params_from_numpy(d: dict, params_cls=Bench1Params):
     """``dataclasses.asdict`` of a JAX benchmark's parameters (values may be
-    numpy scalars) -> the port's ``params_cls`` (``Bench1Params`` or
-    ``Bench6Params``)."""
-    if params_cls not in (Bench1Params, Bench6Params):
+    numpy scalars) -> the port's ``params_cls`` (``Bench1Params``,
+    ``Bench2Params`` or ``Bench6Params``)."""
+    if params_cls not in (Bench1Params, Bench2Params, Bench6Params):
         raise ValueError(f"no ported parameters {params_cls!r}")
     return _from_dict(params_cls, {k: float(v) for k, v in d.items()})

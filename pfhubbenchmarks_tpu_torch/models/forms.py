@@ -75,3 +75,9 @@ def h(u):
 def dh(u):
     """Its derivative (dolfin/pfbase.py:471-472)."""
     return 3.0 * u**2 * (6.0 * u**2 - 15.0 * u + 10.0) + u**3 * (12.0 * u - 15.0)
+
+
+def d2h(u):
+    """The derivative of ``dh`` as written (for the hand-written tangents)."""
+    return (6.0 * u * (6.0 * u**2 - 15.0 * u + 10.0)
+            + 6.0 * u**2 * (12.0 * u - 15.0) + 12.0 * u**3)

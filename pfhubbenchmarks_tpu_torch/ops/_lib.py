@@ -10,12 +10,16 @@ tests import every module, and a CPU tensor never reaches a kernel.
 
 Each wrapper counts its launches in ``LAUNCHES`` (one per wrapper call that
 launches its kernel), so a run can show that its main path went through the
-kernels. The two V-cycle chains (ops/vcycle_chain.py) are launch sequences
-of those kernels, not kernels: they count their calls in ``CALLS``.
+kernels. The LMR sweep loop (ops/lmr.py) and the two V-cycle chains
+(ops/vcycle_chain.py) are launch sequences of those kernels, not kernels:
+they count their calls in ``CALLS``. ``SECONDS`` holds the host seconds
+of plain-torch stages (the multigrid build), so a run can say what share of
+its wall they take.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -34,19 +38,24 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
 
-KERNELS = ("ch_jvp", "chp_jvp", "block_jacobi_apply", "lmr_step",
+KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "block_jacobi_apply", "lmr_step",
            "transfer_dyadic")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # launch sequences of the kernels that stand for one TPU kernel each
-CHAINS = ("descend_chain", "ascend_chain")
+CHAINS = ("lmr_sweep_loop", "descend_chain", "ascend_chain")
 CALLS = dict.fromkeys(CHAINS, 0)
 
 
+# host seconds of plain-torch stages on the main path
+SECONDS = {"precond_build": 0.0}
+
+
 def reset_launches() -> None:
-    """Set every kernel's launch count and every chain's call count to 0."""
-    for counts in (LAUNCHES, CALLS):
+    """Set every kernel's launch count, every chain's call count and every
+    stage's seconds to 0."""
+    for counts in (LAUNCHES, CALLS, SECONDS):
         for k in counts:
-            counts[k] = 0
+            counts[k] = type(counts[k])(0)
 
 
 def count_launch(name: str) -> None:
@@ -55,6 +64,21 @@ def count_launch(name: str) -> None:
 
 def count_call(name: str) -> None:
     CALLS[name] += 1
+
+
+@contextlib.contextmanager
+def timed(name: str, probe: torch.Tensor):
+    """Adds the seconds of the block to ``SECONDS[name]``. For a CUDA
+    ``probe`` the card is synchronized at both ends, so the block's queued
+    device work counts and earlier work does not."""
+    on_card = not on_cpu(probe)
+    if on_card:
+        torch.cuda.synchronize(probe.device)
+    t0 = time.perf_counter()
+    yield
+    if on_card:
+        torch.cuda.synchronize(probe.device)
+    SECONDS[name] += time.perf_counter() - t0
 
 
 def _nvcc() -> str:
@@ -79,9 +103,11 @@ class KernelLibrary:
         sig = {
             "pfh_ch_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
             "pfh_chp_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
+            "pfh_chac_jvp": [vp, i32, i32, i32] + [vp] * 9 + [i32, i32, vp],
             "pfh_jvp_param_floats": [],
-            "pfh_block_jacobi_apply": [vp] * 6 + [i32, i64, i64, vp],
-            "pfh_lmr_step": [vp] * 8 + [i64, i64, vp, i32, vp, vp],
+            "pfh_block_jacobi_apply": [vp] * 6 + [i32, i64, i64, i32, vp, vp],
+            "pfh_lmr_step": [vp] * 8 + [i64, i64, i32, i32, vp, vp, i32, vp,
+                                        vp],
             "pfh_transfer": [i32] + [vp] * 5 + [i32] * 4 + [vp],
         }
         for name, argtypes in sig.items():

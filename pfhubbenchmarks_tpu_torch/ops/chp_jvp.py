@@ -6,8 +6,9 @@ BM6's physics (the outer Krylov J.v, whose BC rows the JAX package re-sets
 after the kernel, ``benchmarks/base.py:201-215``) and the in-kernel masked
 A.z of ``ops/pallas_vcycle.py:make_fused_descend_chain`` and
 ``make_fused_ascend_chain``. The wrapper, its plain version
-(``torch.func.jvp`` of the f32 residual with the BC rows) and the parameter
-block are ops/fem_jvp.py's.
+(benchmarks/bench6.py's hand-written tangent, which ``CHP::tangent``
+mirrors, assembled in f32 with the BC rows) and the parameter block are
+ops/fem_jvp.py's.
 """
 
 from __future__ import annotations
@@ -21,10 +22,11 @@ from pfhubbenchmarks_tpu_torch.ops.fem_jvp import make_fem_jvp
 CONSTANTS = ("M", "kappa", "rho", "c_alpha", "c_beta", "k", "epsilon")
 
 
-def make_chp_jvp(grid: CrossedTriGrid, terms, constants: dict, *,
+def make_chp_jvp(grid: CrossedTriGrid, tangent, constants: dict, *,
                  device: torch.device | str, dirichlet=()):
     """Returns ``jv(w, w0, dt, v, b=None)`` (ops/fem_jvp.make_fem_jvp) for
-    the 3-field (c, mu, phi) system."""
-    return make_fem_jvp(grid, terms, 3, name="chp_jvp", symbol="pfh_chp_jvp",
+    the 3-field (c, mu, phi) system; ``tangent`` is bench6's
+    ``terms_tangent``."""
+    return make_fem_jvp(grid, tangent, 3, name="chp_jvp", symbol="pfh_chp_jvp",
                         constants=tuple(constants[k] for k in CONSTANTS),
                         device=device, dirichlet=dirichlet)

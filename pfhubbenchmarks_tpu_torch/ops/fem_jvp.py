@@ -1,16 +1,23 @@
 """The gather-form J.v kernels (``csrc/fem_jvp.cuh``): the Python side that
-kernels A (ops/ch_jvp.py) and E (ops/chp_jvp.py) share.
+kernels A (ops/ch_jvp.py), E (ops/chp_jvp.py) and F (ops/chac_jvp.py)
+share.
 
 ``make_fem_jvp`` returns ``jv(w, w0, dt, v, b=None)``: ``J(w, w0, dt) v``,
 or ``b - J v`` when ``b`` is given, as an f32 pair. The Dirichlet rows of
 ``dirichlet`` are identity rows: there the result is ``v`` (or ``b - v``).
-One kernel serves every quadrature rule: the tabulation of the grid (ffc3
-for the outer matvec, dunavant2 on the multigrid levels), the physics
-constants and ``dt`` are launch arguments.
+One kernel serves every quadrature rule of at most 4 points: the
+tabulation of the grid (ffc3 for the outer matvec, dunavant2 or dunavant1 on
+the multigrid levels), the physics constants and ``dt`` are launch
+arguments.
 
-The plain version beside it is ``torch.func.jvp`` of the f32 residual with
-the same BC rows (fem/assembly.make_residual). The wrapper takes the plain
-version for CPU tensors only; a CUDA tensor launches the kernel.
+The plain version beside it is the benchmark's hand-written pointwise
+``tangent`` (which the kernel's ``Phys::tangent`` mirrors) assembled in f32
+by the residual's einsums with the same BC rows
+(fem/assembly.make_tangent_jvp): the function ``torch.func.jvp`` of the
+residual computes, without forward AD, whose per-op overhead makes a
+6-field J.v ~50 ms on a CPU at any size. The tests hold each tangent
+against ``torch.func.jvp``. The wrapper takes the plain version for CPU
+tensors only; a CUDA tensor launches the kernel.
 """
 
 from __future__ import annotations
@@ -18,12 +25,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pfhubbenchmarks_tpu_torch.fem.assembly import bc_mask, make_residual
+from pfhubbenchmarks_tpu_torch.fem.assembly import bc_mask, make_tangent_jvp
 from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
 from pfhubbenchmarks_tpu_torch.ops import _lib
 
 MAX_Q = 4
-MAX_CONST = 8
+MAX_CONST = 12
 
 
 def pack_tabulation(grid: CrossedTriGrid) -> np.ndarray:
@@ -47,18 +54,21 @@ def pack_tabulation(grid: CrossedTriGrid) -> np.ndarray:
     return np.concatenate([p.reshape(-1) for p in parts]).astype(np.float32)
 
 
-def make_fem_jvp(grid: CrossedTriGrid, terms, n_fields: int, *, name: str,
+def make_fem_jvp(grid: CrossedTriGrid, tangent, n_fields: int, *, name: str,
                  symbol: str, constants: tuple[float, ...],
-                 device: torch.device | str, dirichlet=()):
-    """``name`` is the launch counter, ``symbol`` the C launcher,
-    ``constants`` the physics constants in the kernel's order. ``jv.plain``
-    and ``jv.kernel`` are the two versions."""
+                 device: torch.device | str, dirichlet=(), variant=()):
+    """``tangent(ctx, tctx) -> (source, flux)`` is the pointwise tangent of
+    the benchmark's terms that the kernel computes, ``name`` the launch
+    counter, ``symbol`` the C launcher, ``constants`` the physics constants
+    in the kernel's order, ``variant`` the launcher's int arguments after
+    the point count (kernel F's field count and operator). ``jv.plain`` and
+    ``jv.kernel`` are the two versions."""
     if grid.periodic or grid.pad_to != (1, 1):
         raise NotImplementedError(f"{name} takes unpadded, non-periodic grids")
     if len(constants) > MAX_CONST:
         raise ValueError(f"{name}: at most {MAX_CONST} constants")
-    residual = make_residual(grid, terms, n_fields, device=device,
-                             dirichlet=dirichlet, dtype=torch.float32)
+    tangent_jv = make_tangent_jvp(grid, tangent, device=device,
+                                  dirichlet=dirichlet, dtype=torch.float32)
     const = np.zeros(MAX_CONST, np.float32)
     const[: len(constants)] = constants
     params_head = np.concatenate([pack_tabulation(grid), const])
@@ -69,7 +79,7 @@ def make_fem_jvp(grid: CrossedTriGrid, terms, n_fields: int, *, name: str,
             else torch.as_tensor(mask_np, device=device))
 
     def plain(w, w0, dt, v, b=None):
-        _, jv_ = torch.func.jvp(lambda u: residual(u, w0, dt), (w,), (v,))
+        jv_ = tangent_jv(w, w0, dt, v)
         return jv_ if b is None else (b[0] - jv_[0], b[1] - jv_[1])
 
     def kernel(w, w0, dt, v, b=None):
@@ -85,7 +95,7 @@ def make_fem_jvp(grid: CrossedTriGrid, terms, n_fields: int, *, name: str,
             raise RuntimeError(f"{name}: parameter block does not match the "
                                "kernel's JvpParams layout")
         bv, bm = (None, None) if b is None else (b[0].data_ptr(), b[1].data_ptr())
-        lib.call(symbol, params.ctypes.data, nq, w[0].data_ptr(),
+        lib.call(symbol, params.ctypes.data, nq, *variant, w[0].data_ptr(),
                  w[1].data_ptr(), v[0].data_ptr(), v[1].data_ptr(), bv, bm,
                  None if mask is None else mask.data_ptr(), out[0].data_ptr(),
                  out[1].data_ptr(), grid.ny, grid.nx, _lib.stream_handle())

@@ -16,14 +16,16 @@ same signatures and outputs:
   (nothing added on the fine Dirichlet rows), ``r = bs[l] - A x``, ``nu``
   LMR sweeps; ``bs[0]`` is the fine right-hand side.
 
-``nu_fine`` (0: ``nu``) is the sweep count of level 0. On the card each
-chain is a launch sequence of the port's kernels: the level J.v (kernel E
-for BM6, with its Dirichlet mask; A for BM1), B (block-Jacobi), C (LMR
-step) and D (transfers with the Dirichlet masks), the form in which
-``make_fused_vcycle`` was ported. ``.plain`` is the same sequence through
+``nu_fine`` (0: ``nu``) is the sweep count of level 0. ``field_groups``
+are the sweeps' (ops/lmr.make_lmr_sweep_loop): the in-group block-Jacobi
+planes and one LMR step length per group of a field-split cycle (BM2). On
+the card each chain is a launch sequence of the port's kernels: per level a
+sweep loop of the level J.v (kernel F for BM2, E for BM6 with its Dirichlet
+mask, A for BM1), B (block-Jacobi) and C (LMR step), and D (transfers with
+the Dirichlet masks), the form in which ``make_fused_vcycle`` was ported. ``.plain`` is the same sequence through
 the plain versions; the wrapper takes it for CPU tensors only. A call of
 ``.kernel`` counts one ``descend_chain`` or ``ascend_chain`` call in
-``_lib.CALLS``; its kernels count their own launches.
+``_lib.CALLS``; its sweep loops and kernels count their own.
 """
 
 from __future__ import annotations
@@ -33,20 +35,21 @@ import types
 from pfhubbenchmarks_tpu_torch.ops import _lib, lmr
 from pfhubbenchmarks_tpu_torch.ops import transfer as kt
 
-# the steps of a chain, as kernels or as plain versions
+# the steps of a chain, as kernels or as plain versions; ``version`` names
+# the attribute of a J.v or sweep loop
 _KERNEL = types.SimpleNamespace(
-    jv="kernel", bj=lmr.block_jacobi_apply_kernel, lmr=lmr.lmr_step_kernel,
-    restrict=kt.restrict_kernel, prolong_acc=kt.prolong_kernel)
+    version="kernel", restrict=kt.restrict_kernel,
+    prolong_acc=kt.prolong_kernel)
 _PLAIN = types.SimpleNamespace(
-    jv="plain", bj=lmr.block_jacobi_apply_plain, lmr=lmr.lmr_step_plain,
-    restrict=kt.restrict_plain, prolong_acc=kt.prolong_accumulate_plain)
+    version="plain", restrict=kt.restrict_plain,
+    prolong_acc=kt.prolong_accumulate_plain)
 
 
-def _sweeps(o, jv, x, r, w, w0, dt, pinv, n) -> None:
-    """n LMR sweeps on (x, r), in place."""
-    for _ in range(n):
-        z = o.bj(pinv, r)
-        o.lmr(x, r, z, getattr(jv, o.jv)(w, w0, dt, z))
+def _level_sweeps(jvs, nu, nu_fine, field_groups):
+    """The sweep loop of each level above the coarsest."""
+    return [lmr.make_lmr_sweep_loop(jvs[l], (nu_fine or nu) if l == 0 else nu,
+                                    field_groups)
+            for l in range(len(jvs) - 1)]
 
 
 def _wrap(name, body, probe):
@@ -66,7 +69,8 @@ def _wrap(name, body, probe):
     return chain
 
 
-def make_descend_chain(grids, jvs, *, nu: int, nu_fine: int = 0, masks=None):
+def make_descend_chain(grids, jvs, *, nu: int, nu_fine: int = 0, masks=None,
+                       field_groups=None):
     """``jvs[l]``: level l's J.v (ops/fem_jvp.make_fem_jvp, with the level's
     Dirichlet rows); ``masks[l]``: level l's Dirichlet vertex mask tensor or
     None (fem/assembly.bc_mask)."""
@@ -74,14 +78,15 @@ def make_descend_chain(grids, jvs, *, nu: int, nu_fine: int = 0, masks=None):
     if K < 1:
         raise ValueError("a chain needs at least two levels")
     masks = masks or [None] * len(grids)
+    sweeps = _level_sweeps(jvs, nu, nu_fine, field_groups)
 
     def body(o, b, w_levels, w0_levels, dt, pinvs):
         xs, bs = [], []
         for l in range(K):
             x = tuple(t.new_zeros(t.shape) for t in b)
             r = tuple(t.clone() for t in b)
-            _sweeps(o, jvs[l], x, r, w_levels[l], w0_levels[l], dt, pinvs[l],
-                    (nu_fine or nu) if l == 0 else nu)
+            getattr(sweeps[l], o.version)(x, r, w_levels[l], w0_levels[l], dt,
+                                          *pinvs[l])
             xs.append(x)
             b = o.restrict(r, grids[l + 1], grids[l], masks[l + 1])
             if l + 1 < K:
@@ -91,21 +96,23 @@ def make_descend_chain(grids, jvs, *, nu: int, nu_fine: int = 0, masks=None):
     return _wrap("descend_chain", body, lambda a: a[0][0])
 
 
-def make_ascend_chain(grids, jvs, *, nu: int, nu_fine: int = 0, masks=None):
+def make_ascend_chain(grids, jvs, *, nu: int, nu_fine: int = 0, masks=None,
+                      field_groups=None):
     """Arguments as for ``make_descend_chain``."""
     K = len(grids) - 1
     if K < 1:
         raise ValueError("a chain needs at least two levels")
     masks = masks or [None] * len(grids)
+    sweeps = _level_sweeps(jvs, nu, nu_fine, field_groups)
 
     def body(o, bs, xs, xc, w_levels, w0_levels, dt, pinvs):
         for l in range(K - 1, -1, -1):
             x = tuple(t.clone() for t in xs[l])
             o.prolong_acc(xc, grids[l + 1], grids[l], x, masks[l])
-            r = getattr(jvs[l], o.jv)(w_levels[l], w0_levels[l], dt, x,
-                                      b=bs[l])
-            _sweeps(o, jvs[l], x, r, w_levels[l], w0_levels[l], dt, pinvs[l],
-                    (nu_fine or nu) if l == 0 else nu)
+            r = getattr(jvs[l], o.version)(w_levels[l], w0_levels[l], dt, x,
+                                           b=bs[l])
+            getattr(sweeps[l], o.version)(x, r, w_levels[l], w0_levels[l], dt,
+                                          *pinvs[l])
             xc = x
         return xc
 

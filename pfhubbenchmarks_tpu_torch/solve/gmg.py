@@ -8,12 +8,12 @@ the arithmetic of ``ops/pallas_vcycle.py:make_fused_vcycle`` too:
 - per-level linearization states injected once per build (kernel D), and
   per-level node-block-Jacobi inverses (solve/precond.py);
 - ``descend_chain`` (ops/vcycle_chain.py): every level's local-minimal-
-  residual pre-sweeps from zero (z = P^-1 r by kernel B, A z by the level's
-  J.v kernel, the alpha step and both axpys by kernel C) and restriction
-  (kernel D);
-- the coarsest level solved by ``coarse_sweeps`` LMR sweeps from zero, or by
-  the exact dense inverse when its dof count is at most
-  ``dense_coarse_max_dofs`` (plain ``torch.linalg``);
+  residual pre-sweeps from zero (the sweep loop of ops/lmr.py: z = P^-1 r
+  by kernel B, A z by the level's J.v kernel, the alpha step and both axpys
+  by kernel C) and restriction (kernel D);
+- the coarsest level solved by ``coarse_sweeps`` LMR sweeps from zero (one
+  call of the same sweep loop), or by the exact dense inverse when its dof
+  count is at most ``dense_coarse_max_dofs`` (plain ``torch.linalg``);
 - ``ascend_chain``: every level's prolongation with the correction added in
   place (kernel D), the residual recomputed as b - A x in one J.v launch,
   and the post-sweeps;
@@ -24,6 +24,16 @@ the arithmetic of ``ops/pallas_vcycle.py:make_fused_vcycle`` too:
 ``fuse_vcycle`` only chooses how the TPU splits this cycle into Pallas
 calls, so the port does not read it.
 
+Field split (BM2, ``gmg.py:155-179``): ``terms`` is then the split
+``terms_precond``, whose Jacobian is block diagonal by ``field_groups``: the
+levels' J.v (``jvp_for(g, True)``), their block-Jacobi inverses and the
+dense coarse linearize it, the block-Jacobi apply reads only the in-group
+planes, and every LMR step takes one step length per group (the JAX
+package's ``field_split_alphas=True``; a global step length with groups is
+not ported). The exported A z stays the coupled operator
+(``jvp_for(grid, False)``) on the true-rule fine grid: the split one there
+breaks FGMRES's Arnoldi relation (``gmg.py:514-521``).
+
 Dirichlet rows (``dirichlet_for(grid)``, BM6's phi edges): each level's
 J.v has identity rows there, its block-Jacobi blocks unit rows, and the
 transfers zero the restricted residual's coarse BC rows and add no
@@ -33,8 +43,8 @@ package (``gmg.py:474-477``).
 
 On CUDA tensors every step above except the dense coarse solve is a
 hand-written kernel launch; on CPU tensors the same code runs the plain
-versions. The W-cycle, GCR ``inner_mr``, field groups and non-dyadic
-hierarchies are not yet ported.
+versions. The W-cycle, GCR ``inner_mr`` and non-dyadic hierarchies are not
+yet ported.
 """
 
 from __future__ import annotations
@@ -46,7 +56,8 @@ import torch
 
 from pfhubbenchmarks_tpu_torch.fem.assembly import bc_mask, make_residual
 from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
-from pfhubbenchmarks_tpu_torch.ops.lmr import lmr_step
+from pfhubbenchmarks_tpu_torch.ops import _lib
+from pfhubbenchmarks_tpu_torch.ops.lmr import make_lmr_sweep_loop
 from pfhubbenchmarks_tpu_torch.ops.vcycle_chain import (make_ascend_chain,
                                                         make_descend_chain)
 from pfhubbenchmarks_tpu_torch.solve import tree as tr
@@ -122,21 +133,25 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
              nu_fine_post: int = 0, coarse_sweeps: int = 24,
              max_levels: int = 10, precond_rule: str | None = None,
              min_cells: int = 7, dense_coarse_max_dofs: int = 1500,
-             cycle: str = "v", inner_mr: int = 1):
+             cycle: str = "v", inner_mr: int = 1, field_groups=None):
     """Returns ``build(w, w0, dt) -> Minv`` applying one f32 V-cycle.
 
-    ``jvp_for(g)`` makes the level J.v ``jv(w, w0, dt, v, b=None)`` on grid
+    ``jvp_for(g, split)`` makes the J.v ``jv(w, w0, dt, v, b=None)`` on grid
     ``g`` with the identity rows of ``dirichlet_for(g)`` (ops/ch_jvp for
-    BM1, ops/chp_jvp for BM6). ``Minv(r)`` returns z = M^-1 r and
-    ``Minv.minv_matvec(r)``, where exposed, the pair (z, A z) with the
-    true-rule A. ``build.grids`` is the hierarchy and ``build.dense_coarse``
-    says whether the coarsest level is solved by the dense inverse (else by
-    ``coarse_sweeps`` LMR sweeps).
+    BM1, ops/chp_jvp for BM6, ops/chac_jvp for BM2): of the field-split
+    operator (the linearization of ``terms``) for the levels when
+    ``field_groups`` are given, else of the coupled one. ``Minv(r)`` returns
+    z = M^-1 r and ``Minv.minv_matvec(r)``, where exposed, the pair (z, A z)
+    with the coupled true-rule A. ``build.grids`` is the hierarchy and
+    ``build.dense_coarse`` says whether the coarsest level is solved by the
+    dense inverse (else by ``coarse_sweeps`` LMR sweeps). Each build adds
+    its seconds to ``_lib.SECONDS['precond_build']``.
     """
     if cycle != "v" or inner_mr != 1:
         raise NotImplementedError("only the plain V-cycle is ported")
     nfp = nu_fine_pre or nu_pre
     nfo = nu_fine_post or nu_post
+    split = field_groups is not None
     grids = build_hierarchy(grid, max_levels=max_levels, min_cells=min_cells)
     if precond_rule:
         grids = [dataclasses.replace(g, rule_name=precond_rule) for g in grids]
@@ -147,8 +162,9 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
     for g, bcs in zip(grids, level_bcs):
         m = bc_mask(g, bcs, n_fields)
         masks.append(None if m is None else torch.as_tensor(m, device=device))
-    jvs = [jvp_for(g) for g in grids]
-    mv_jv = jvp_for(grid)   # exported pair: the TRUE-rule fine-level J.v
+    jvs = [jvp_for(g, split) for g in grids]
+    # exported pair: the TRUE-rule fine-level J.v of the coupled operator
+    mv_jv = jvp_for(grid, False)
     bj_builders = [make_block_jacobi(g, terms, n_fields, device=device,
                                      dirichlet=bcs)
                    for g, bcs in zip(grids, level_bcs)]
@@ -159,26 +175,28 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
                                    dirichlet=level_bcs[-1],
                                    dtype=torch.float32)
         dense_coarse = make_dense_coarse(grids[-1], residual_c, n_fields)
+    coarse_sweep = make_lmr_sweep_loop(jvs[-1], coarse_sweeps, field_groups)
     chain = None
     if L >= 2:
         chain = (make_descend_chain(grids, jvs, nu=nu_pre, nu_fine=nfp,
-                                    masks=masks),
+                                    masks=masks, field_groups=field_groups),
                  make_ascend_chain(grids, jvs, nu=nu_post, nu_fine=nfo,
-                                   masks=masks))
+                                   masks=masks, field_groups=field_groups))
 
     def build(w, w0, dt):
         dtf = float(np.float32(dt))
-        wl = tr.cast(w, torch.float32)
-        w0l = tr.cast(w0, torch.float32)
-        states, bjs = [], []
-        for l in range(L):
-            states.append((wl, w0l))
-            bjs.append(bj_builders[l](wl, w0l, dtf))
-            if l + 1 < L:
-                wl = injs[l](wl)
-                w0l = injs[l](w0l)
-        Jinv_coarse = (dense_coarse[0](wl, w0l, dtf)
-                       if dense_coarse is not None else None)
+        with _lib.timed("precond_build", w[0]):
+            wl = tr.cast(w, torch.float32)
+            w0l = tr.cast(w0, torch.float32)
+            states, bjs = [], []
+            for l in range(L):
+                states.append((wl, w0l))
+                bjs.append(bj_builders[l](wl, w0l, dtf))
+                if l + 1 < L:
+                    wl = injs[l](wl)
+                    w0l = injs[l](w0l)
+            Jinv_coarse = (dense_coarse[0](wl, w0l, dtf)
+                           if dense_coarse is not None else None)
 
         # the chains' per-level inputs: levels 0..L-2
         chain_states = ([st[0] for st in states[:-1]],
@@ -190,10 +208,7 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
                 return dense_coarse[1](Jinv_coarse, b)
             x = tr.zeros_like(b)
             r = tuple(t.clone() for t in b)
-            for _ in range(coarse_sweeps):
-                z = bjs[-1](r)
-                lmr_step(x, r, z, jvs[-1](wl, w0l, dtf, z))
-            return x
+            return coarse_sweep(x, r, wl, w0l, dtf, *bjs[-1].pinv_planes)[0]
 
         def Minv(r):
             b = tr.cast(r, torch.float32)

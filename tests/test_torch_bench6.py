@@ -168,7 +168,8 @@ def test_chp_jvp_matches_pallas_jvp(rule):
     for bc in pj.dirichlet_for(gj):   # benchmarks/base.py:205-213
         rv = rv.at[bc.field, :, bc.index].set(jnp.asarray(v[0])[bc.field, :, bc.index])
     ref = (np.asarray(rv), np.asarray(rm))
-    jv = make_chp_jvp(gt, pt.terms, kernel_constants(Bench6Params()),
+    jv = make_chp_jvp(gt, make_terms(Bench6Params())[1],
+                      kernel_constants(Bench6Params()),
                       device="cpu", dirichlet=pt.dirichlet_for(gt))
     out = jv(_t(w), _t(w0), dt, _t(v))
     for a, b in zip(state_to_numpy(out), ref):
@@ -307,7 +308,7 @@ def test_split_chain_gmg_matches_xla_gmg():
                      dtype=jnp.float32, use_pallas=False, **kw)
     zj = jax.jit(lambda w_, r_: jbuild(w_, w_, dt)(r_))(_j(w), _j(r))
     tbuild = make_gmg(pt.grid, pt.terms, F, device="cpu",
-                      jvp_for=lambda g: pt.kernel_jvp(g, "cpu", pt.dirichlet_for(g)),
+                      jvp_for=lambda g, split: pt.kernel_jvp(g, "cpu", pt.dirichlet_for(g)),
                       dirichlet_for=pt.dirichlet_for, **kw)
     assert [g.nx for g in tbuild.grids] == [24, 12, 6] and not tbuild.dense_coarse
     Minv = tbuild(_t(w), _t(w), dt)

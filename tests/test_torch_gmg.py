@@ -59,7 +59,7 @@ def _inputs(n, seed):
 def _port_build(n, **kw):
     pt = make_torch(nx=n, ny=n, Lx=2.0 * n, Ly=2.0 * n)
     return pt, make_gmg(pt.grid, pt.terms, 2, device="cpu",
-                        jvp_for=lambda g: pt.kernel_jvp(g, "cpu"), **kw)
+                        jvp_for=lambda g, split: pt.kernel_jvp(g, "cpu"), **kw)
 
 
 def test_vcycle_pair_matches_fused_pallas_16():

@@ -67,6 +67,27 @@ def test_bench6_configs_and_params_carry_over():
         problem_params_from_numpy({}, dict)
 
 
+@pytest.mark.parametrize("name", ["bench2", "bench2_eta1", "bench2_eta2"])
+def test_bench2_configs_and_params_carry_over(name):
+    from pfhubbenchmarks_tpu.benchmarks import get_benchmark as jax_benchmark
+    from pfhubbenchmarks_tpu.benchmarks.bench2 import Bench2Params as JaxParams2
+    from pfhubbenchmarks_tpu_torch.benchmarks.bench2 import Bench2Params
+    from pfhubbenchmarks_tpu_torch.benchmarks.registry import get_benchmark
+
+    pj = jax_benchmark(name, nx=16, ny=16)
+    pt = get_benchmark(name, nx=16, ny=16)
+    s = solver_config_from_dict(dataclasses.asdict(pj.solver))
+    assert pt.solver == s and s.field_split
+    assert pt.time == time_config_from_dict(dataclasses.asdict(pj.time))
+    config.check_supported(s)   # field split, cp, dunavant1
+    assert (pt.name, pt.field_names, pt.field_groups) == (
+        pj.name, pj.field_names, pj.field_groups)
+    p = problem_params_from_numpy(
+        {k: np.float64(v) for k, v in dataclasses.asdict(JaxParams2()).items()},
+        Bench2Params)
+    assert p == Bench2Params()
+
+
 def test_state_round_trip():
     rng = np.random.default_rng(0)
     w = (rng.standard_normal((2, 17, 17)), rng.standard_normal((2, 16, 16)))
@@ -93,8 +114,9 @@ def test_port_never_imports_jax():
 
 @pytest.mark.parametrize("knob", [
     dict(line_search="bt"), dict(krylov="gmres"), dict(precond="block_jacobi"),
-    dict(field_split=True), dict(gmg_cycle="w"), dict(gmg_inner_mr=2),
+    dict(krylov_operator="precond_rule"), dict(gmg_cycle="w"), dict(gmg_inner_mr=2),
     dict(mixed_precision=False), dict(fast_residual=True),
+    dict(field_split_alphas=False),
 ])
 def test_unported_knobs_raise(knob):
     with pytest.raises(NotImplementedError):

@@ -71,7 +71,8 @@ def test_ch_jvp_matches_pallas_jvp(rule):
     pallas_jv = make_pallas_jvp(gj, pj.terms, 2)
     ref = jax.jit(lambda a, b, c: pallas_jv(a, b, dt, c, interpret=True))(
         _j(w), _j(w0), _j(v))
-    jv = make_ch_jvp(gt, pt.terms, kernel_constants(Bench1Params()),
+    jv = make_ch_jvp(gt, make_terms(Bench1Params())[1],
+                     kernel_constants(Bench1Params()),
                      device="cpu")
     out = jv(_t(w), _t(w0), dt, _t(v))
     for a, b in zip(state_to_numpy(out), ref):
@@ -86,7 +87,8 @@ def test_ch_jvp_matches_pallas_jvp(rule):
 def test_kernel_path_refuses_cpu_tensors():
     """No silent fallback: the kernel entry point never takes CPU tensors."""
     pt = make_torch(nx=N, ny=N)
-    jv = make_ch_jvp(pt.grid, pt.terms, kernel_constants(Bench1Params()),
+    jv = make_ch_jvp(pt.grid, make_terms(Bench1Params())[1],
+                     kernel_constants(Bench1Params()),
                      device="cpu")
     w, w0, v = _states()
     with pytest.raises(ValueError, match="CUDA"):
@@ -210,6 +212,8 @@ def test_launch_counters_untouched_by_plain_versions():
     rng = np.random.default_rng(17)
     prolong(_t(_rand_pair(coarse, rng)), coarse, fine)
     assert all(n == 0 for n in _lib.LAUNCHES.values())
-    assert set(_lib.LAUNCHES) == {"ch_jvp", "chp_jvp", "block_jacobi_apply",
-                                  "lmr_step", "transfer_dyadic"}
-    assert set(_lib.CALLS) == {"descend_chain", "ascend_chain"}
+    assert set(_lib.LAUNCHES) == {"ch_jvp", "chp_jvp", "chac_jvp",
+                                  "block_jacobi_apply", "lmr_step",
+                                  "transfer_dyadic"}
+    assert set(_lib.CALLS) == {"lmr_sweep_loop", "descend_chain",
+                               "ascend_chain"}

@@ -1,16 +1,19 @@
 """Profile a main path of the PyTorch port on a CUDA device.
 
-    python tools/torch_profile_bench1.py [--bench bench1|bench6]
+    python tools/torch_profile_bench1.py [--bench bench1|bench2|bench6]
         [--end-time T] [--out-dir DIR]
 
 Runs the benchmark at its published size (100x100) through
-``timeloop.Runner`` (bench1 to t = 11.1, bench6 to its end time 3.0 by
-default) after a short warm-up,
-once unprofiled (wall time, counts), then once more under ``torch.profiler`` with CPU and CUDA
-activities, and prints: the card (nvidia-smi name, power limit), wall time,
-device busy time (the sum of kernel times on the device), the idle share,
-and the kernels ranked by device time. The chrome trace goes to
-``--out-dir`` when given.
+``timeloop.Runner`` (bench1 to t = 11.1, bench2 to t = 6.63, bench6 to its
+end time 3.0 by default) after a short warm-up,
+once unprofiled (wall time, counts), then once more under ``torch.profiler`` with the
+CUDA activity only (the device-side events; host-side op events would
+number in the millions on bench2, whose block-Jacobi build runs
+``torch.func``, and their tables take longer to build than the run), and
+prints: the card (nvidia-smi name, power limit), wall time, device busy
+time (the sum of kernel times on the device), the idle share, and the
+kernels ranked by device time. The chrome trace goes to ``--out-dir`` when
+given.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ from pfhubbenchmarks_tpu_torch.ops import _lib  # noqa: E402
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--bench", choices=("bench1", "bench6"), default="bench1")
+    ap.add_argument("--bench", choices=("bench1", "bench2", "bench6"),
+                    default="bench1")
     ap.add_argument("--end-time", type=float, default=None)
     ap.add_argument("--out-dir", type=str, default=None)
     args = ap.parse_args()
@@ -43,7 +47,8 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}")
     dev = torch.device("cuda", 0)
-    end_time = args.end_time or {"bench1": 11.1, "bench6": None}[args.bench]
+    end_time = args.end_time or {"bench1": 11.1, "bench2": 6.63,
+                                 "bench6": None}[args.bench]
     runner = timeloop.Runner(get_benchmark(args.bench), dev)
     _lib.library()
     runner.run(max_steps=2, verbose=False)   # warm-up: lazy CUDA/functorch init
@@ -57,8 +62,7 @@ def main() -> None:
             torch.cuda.synchronize()
             prof = None
         else:
-            acts = [torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]
+            acts = [torch.profiler.ProfilerActivity.CUDA]
             with torch.profiler.profile(activities=acts) as prof:
                 res = runner.run(end_time=end_time, verbose=False)
                 torch.cuda.synchronize()
@@ -69,8 +73,7 @@ def main() -> None:
               f"krylov={sum(s.krylov_iters for s in st)} "
               f"krylov_all={sum(s.krylov_iters_all for s in st)} "
               f"launches={dict(_lib.LAUNCHES)} chain_calls={dict(_lib.CALLS)}")
-    # device-side events only (kernels, memcpy, memset): the CPU-side aten
-    # ops also carry their kernels' device time and would count it twice
+    # device-side events only (kernels, memcpy, memset)
     events = prof.key_averages()
     rows = [(e.key, e.count, e.self_device_time_total) for e in events
             if e.device_type != torch.autograd.DeviceType.CPU
@@ -78,9 +81,9 @@ def main() -> None:
     busy_us = sum(r[2] for r in rows)
     print(f"device busy {busy_us / 1e6:.3f} s of wall {wall:.3f} s: idle "
           f"share {1.0 - busy_us / 1e6 / wall:.3f}")
-    for key, count, us in sorted(rows, key=lambda r: -r[2])[:25]:
+    for key, count, us in sorted(rows, key=lambda r: -r[2])[:40]:
         print(f"  {us / 1e3:10.2f} ms  {count:8d}x  {us / max(count, 1):8.2f} us/call"
-              f"  {key[:90]}")
+              f"  {key[:120]}")
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.out_dir,
