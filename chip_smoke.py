@@ -39,11 +39,29 @@ Phases, each printing its results; any failure raises (non-zero exit):
    1e-5, solute rel 1e-9); each kernel, the sweep loop and both chains
    must have run; the seconds of its multigrid builds (plain torch), timed
    inside the run, and their share of its wall.
-9. prints the card line, the per-kernel JSON line, then
+9. the same checks at bench3's shapes (F = 2, levels 350^2/175^2/35^2/7^2,
+   ratios 2, 5, 5): the AC + heat J.v (kernel G) at every level with
+   dunavant2 and at 350^2 with ffc3, both forms, at 350^2 also against
+   ``torch.func.jvp`` of the residual; the general-ratio transfers (kernel
+   H) for 175<->35 and 35<->7 and kernel D for 350<->175, to the bit;
+   block-Jacobi and LMR at 350^2; both level steps (TPU kernels 6 and 9) at
+   each of the three pairs; and the warm multigrid build of the 4-level
+   hierarchy, with and without the dense 7^2 inverse, timed (medians of 5).
+10. bench3's main path: the port's bench3 at full size (350x350) through
+   ``Runner.run`` to t = 101.75; the 44 rows against the committed
+   ``results/bench3_out.csv`` (time column rtol 1e-9, TFE rel 1e-6, solid
+   fraction rel 1e-5); its coarsest solve must be the dense inverse, and
+   each kernel, the sweep loop, both level steps and both chains must have
+   run; the seconds of its multigrid builds (plain torch, with the dense
+   inverse), timed inside the run, and their share of its wall. If the
+   smoke has already run 900 s when this phase starts, it runs the first
+   14 rows (to t = 12.15, the ``tools/check_trajectories.py`` prefix) and
+   says so.
+11. prints the card line, the per-kernel JSON line, then
    ``{"ok": true, "device": ...}``.
 
 In the kernel line, ``kernels`` lists the CUDA kernels: ``launches`` is the
-sum of a kernel's launches over the two main-path runs (each counted from 0
+sum of a kernel's launches over the main-path runs (each counted from 0
 just before its run; ``paths`` splits it), ``ms``/``plain_ms`` are the
 CUDA-event times of its first timed case, ``bound_ms`` the least time the
 card could take for that case: the larger of its bytes (each input read
@@ -51,8 +69,9 @@ once, each output written once) over 3.35 TB/s and its f32 operations over
 67 TFLOP/s (H100 SXM data sheet), with ``bound_by`` naming which.
 ``library_ms`` is one PyTorch call computing the same function where there
 is one (block-Jacobi's einsum pair), else null. ``chains`` lists the LMR
-sweep loop and the two V-cycle chains, launch sequences of those kernels
-that stand for TPU kernels 3, 4 and 11 (the sweep loop) and 7 and 8, with
+sweep loop, the two V-cycle level steps and the two chains, launch
+sequences of those kernels that stand for TPU kernels 3, 4 and 11 (the
+sweep loop), 6 and 9 (the level steps) and 7 and 8 (the chains), with
 the same keys, except ``calls`` (calls on the main paths) in place of
 ``launches`` and ``sequence_of`` in place of ``route``; their arithmetic is
 counted again under the kernels.
@@ -75,6 +94,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH1_END, BENCH1_ROWS = 11.1, 10   # rows 1-10 of results/bench1_out.csv
 BENCH6_ROWS = 14                      # results/bench6_out.csv, to t = 3.19
 BENCH2_END, BENCH2_ROWS = 6.63, 28    # rows 1-28 of results/bench2_out.csv
+BENCH3_ROWS = 44                      # results/bench3_out.csv, to t = 101.75
+BENCH3_PREFIX_ROWS = 14               # to t = 12.15, if the smoke runs late
+BENCH3_LATE_S = 900.0
 TOL_F32 = dict(rtol=2e-4, atol_scale=2e-5)   # tests/test_pallas_vcycle.py
 TOL_EXACT = dict(rtol=0.0, atol_scale=0.0)
 HBM_BYTES_PER_S = 3.35e12
@@ -109,8 +131,11 @@ def chac_tangent_ops(ne: int, split: bool) -> int:
 # Horner) 4, dmu - f'' dc 2. CH+Poisson (chp_jvp.cu, F = 3): CH's, the k
 # dphi term of the mu source 2, the phi source (k/eps) dc 1. CH + 4 AC
 # (chac_jvp.cu, F = 6): chac_tangent_ops.
+# AC + heat (ach_jvp.cu, F = 2, bench3): phi^2 and s = 1 - phi^2 2, dg/dU =
+# -lam s^2 2, dg/dphi = 1 - 3 phi^2 + 4 lam U phi s 6, dg 3, the two sources
+# (d/dt, the dg term, the difference) 6, the U fluxes 6, the phi fluxes 2.
 TANGENT_OPS = {2: 11, 3: 14, (6, "coupled"): chac_tangent_ops(4, False),
-               (6, "split"): chac_tangent_ops(4, True)}
+               (6, "split"): chac_tangent_ops(4, True), "ach": 27}
 
 
 def smi_line() -> str:
@@ -170,13 +195,30 @@ def lmr_work(g, F):
     return 4 * 6 * F * N, 8 * F * N
 
 
+def general_nnz(coarse, fine):
+    """Nonzero weights of the general-ratio prolongation (kernel H): the
+    class weights of every coarse cell's fine vertices and centres, 2 per
+    node of the last fine row and column (1 where px = 0) and the corner."""
+    from pfhubbenchmarks_tpu_torch.ops.transfer import class_tables
+
+    R = fine.nx // coarse.nx
+    wv, wm, _ = class_tables(R)
+    cells = coarse.ny * coarse.nx
+    edge = (2 * R - 1) * (coarse.nx + coarse.ny)
+    return cells * (int((wv != 0).sum()) + int((wm != 0).sum())) + edge + 1
+
+
 def transfer_work(coarse, fine, F, op, masked=False, accumulate=False):
+    """Dyadic (kernel D): 2 operations per fine node and field; an odd ratio
+    (kernel H): a multiply and an add per nonzero weight of P and field."""
     nc, nf = nodes(coarse), nodes(fine)
     mask = F * ((fine if op == "prolong" else coarse).ny + 1) * (
         (fine if op == "prolong" else coarse).nx + 1) if masked else 0
+    flops = (2 * F * nf if fine.nx == 2 * coarse.nx
+             else 2 * F * general_nnz(coarse, fine))
     if op == "prolong":
-        return 4 * (F * nc + F * nf * (2 if accumulate else 1) + mask), 2 * F * nf
-    return 4 * (F * nf + F * nc + mask), 2 * F * nf
+        return 4 * (F * nc + F * nf * (2 if accumulate else 1) + mask), flops
+    return 4 * (F * nf + F * nc + mask), flops
 
 
 def sweep_work(g, F, n, jv_kw=None, groups=None):
@@ -190,10 +232,11 @@ def sweep_work(g, F, n, jv_kw=None, groups=None):
     return byts, flops
 
 
-def chain_work(grids, F, nu, nu_fine, ascend: bool, jv_kw=None, groups=None):
+def chain_work(grids, F, nu, nu_fine, ascend: bool, jv_kw=None, groups=None,
+               masked=True):
     """Inputs once (rhs, per-level state planes, block planes, masks, and for
     the ascent the iterates and coarse correction), outputs once; the flops
-    of its sweeps, residuals and transfers."""
+    of its sweeps, residuals and transfers. With two grids: one level step."""
     jv_kw = jv_kw or {}
     K = len(grids) - 1
     byts = flops = 0
@@ -201,7 +244,7 @@ def chain_work(grids, F, nu, nu_fine, ascend: bool, jv_kw=None, groups=None):
         g, N = grids[l], nodes(grids[l])
         n = nu_fine if l == 0 else nu
         byts += 4 * (jv_kw.get("ns", 1) * N + bj_work(g, F, groups)[0] // 4
-                     - 2 * F * N + F * (g.ny + 1) * (g.nx + 1))
+                     - 2 * F * N + (F * (g.ny + 1) * (g.nx + 1) if masked else 0))
         byts += 4 * F * N * (2 if ascend else 1)   # rhs (+ iterate) in
         flops += sweep_work(g, F, n, jv_kw, groups)[1]
         op = "prolong" if ascend else "restrict"
@@ -292,7 +335,7 @@ class Chain(Kernel):
 
 
 def run_main_path(label, runner, end_time, ref_csv, n_rows, required,
-                  tfe_tol=1e-6):
+                  tfe_tol=1e-6, col2_tol=1e-9):
     """Drive ``runner`` to ``end_time`` (at most ``n_rows`` steps) with the
     launch and chain-call counts and the stage seconds set to 0 just before
     and read just after; hold its rows against ``ref_csv``. Returns the
@@ -338,8 +381,8 @@ def run_main_path(label, runner, end_time, ref_csv, n_rows, required,
                            / np.abs(ref_rows[:, 2])))
     print(f"{label}: vs results/{ref_csv} rows 1-{n_rows}: time column "
           f"equal, tfe_rel={tfe_rel:.3e} (<={tfe_tol:g}), "
-          f"solute_rel={sol_rel:.3e} (<=1e-9)", flush=True)
-    if tfe_rel > tfe_tol or sol_rel > 1e-9:
+          f"{cols[2]}_rel={sol_rel:.3e} (<={col2_tol:g})", flush=True)
+    if tfe_rel > tfe_tol or sol_rel > col2_tol:
         raise AssertionError(f"{label}: rows disagree with results/{ref_csv}")
     counts = {**launches, **calls}
     missing = [k for k in required if counts[k] <= 0]
@@ -349,18 +392,21 @@ def run_main_path(label, runner, end_time, ref_csv, n_rows, required,
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     # ---- phase 1: the card --------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, HERE)
     from pfhubbenchmarks_tpu_torch import config, timeloop
-    from pfhubbenchmarks_tpu_torch.benchmarks import bench1, bench2, bench6
+    from pfhubbenchmarks_tpu_torch.benchmarks import bench1, bench2, bench3, bench6
     from pfhubbenchmarks_tpu_torch.fem.assembly import bc_mask, make_residual
     from pfhubbenchmarks_tpu_torch.ops import _lib, lmr
     from pfhubbenchmarks_tpu_torch.ops import transfer as kt
-    from pfhubbenchmarks_tpu_torch.ops.vcycle_chain import (make_ascend_chain,
-                                                            make_descend_chain)
-    from pfhubbenchmarks_tpu_torch.solve.gmg import build_hierarchy
+    from pfhubbenchmarks_tpu_torch.ops.vcycle_chain import (
+        make_ascend_chain, make_ascend_level, make_descend_chain,
+        make_descend_level)
+    from pfhubbenchmarks_tpu_torch.solve.gmg import (build_hierarchy,
+                                                     coarse_dof_count)
     from pfhubbenchmarks_tpu_torch.solve.precond import make_block_jacobi
 
     dev = torch.device("cuda", 0)
@@ -377,9 +423,12 @@ def main() -> None:
     lib = _lib.library()
     print(f"phase 2: built {lib.path.name} in {lib.build_seconds:.2f} s",
           flush=True)
+    src = ""
     for ln in lib.build_log.splitlines():
-        if "Used" in ln or "spill" in ln:
-            print(f"phase 2: ptxas {ln.strip()}", flush=True)
+        if ln.startswith("== "):
+            src = ln[3:]
+        elif "Used" in ln or "spill" in ln:
+            print(f"phase 2: ptxas {src} {ln.strip()}", flush=True)
 
     # ---- phase 3: kernels vs plain versions at bench1's shapes ---------
     replaces_vc = "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:200"
@@ -389,20 +438,31 @@ def main() -> None:
         "ch_jvp": Kernel("ch_jvp", csrc + "ch_jvp.cu", replaces_jv),
         "chp_jvp": Kernel("chp_jvp", csrc + "chp_jvp.cu", replaces_jv),
         "chac_jvp": Kernel("chac_jvp", csrc + "chac_jvp.cu", replaces_jv),
+        "ach_jvp": Kernel("ach_jvp", csrc + "ach_jvp.cu", replaces_jv),
         "block_jacobi_apply": Kernel("block_jacobi_apply",
                                      csrc + "block_jacobi.cu", replaces_vc),
         "lmr_step": Kernel("lmr_step", csrc + "lmr.cu", replaces_vc),
         "transfer_dyadic": Kernel("transfer_dyadic", csrc + "transfer.cu",
                                   replaces_vc),
+        # the general-ratio transfers of the fused kernels (_GenLevelMats)
+        "transfer_general": Kernel("transfer_general",
+                                   csrc + "transfer_general.cu",
+                                   "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:97"),
     }
-    seq = ("level J.v (ch_jvp, chp_jvp or chac_jvp)", "block_jacobi_apply",
-           "lmr_step", "transfer_dyadic")
+    seq = ("level J.v (ch_jvp, chp_jvp, chac_jvp or ach_jvp)",
+           "block_jacobi_apply", "lmr_step", "transfer_dyadic")
     C = {
         "lmr_sweep_loop": Chain(
             "lmr_sweep_loop", "pfhubbenchmarks_tpu/ops/pallas_residual.py:247",
             seq[:3], source="pfhubbenchmarks_tpu_torch/ops/lmr.py",
             also_replaces=("pfhubbenchmarks_tpu/ops/pallas_residual.py:333",
                            "pfhubbenchmarks_tpu/ops/pallas_tiled.py:189")),
+        "descend_level": Chain("descend_level",
+                               "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:566",
+                               seq + ("transfer_general",)),
+        "ascend_level": Chain("ascend_level",
+                              "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:939",
+                              seq + ("transfer_general",)),
         "descend_chain": Chain("descend_chain",
                                "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:652",
                                seq),
@@ -761,7 +821,156 @@ def main() -> None:
           f"phase 7's warm build {bj_build_s * 1e3:.1f} ms), share "
           f"{build_s / wall2:.4f} of the {wall2:.3f} s run", flush=True)
 
-    # ---- phase 9: summary ------------------------------------------------
+    # ---- phase 9: kernels, transfers and level steps at bench3's shapes ---
+    problem3 = bench3.make()
+    F3 = problem3.n_fields
+    s3 = problem3.solver
+    grids3 = [dataclasses.replace(g, rule_name=s3.precond_rule)
+              for g in build_hierarchy(problem3.grid, min_cells=s3.gmg_min_cells)]
+    assert [g.nx for g in grids3] == [350, 175, 35, 7], [g.nx for g in grids3]
+    dt3 = 1.28
+    jv_kw3 = dict(ns=2, ops=TANGENT_OPS["ach"])
+    t9 = time.perf_counter()
+    for rule, g0 in [("ffc3", grids3[0])] + [("dunavant2", g) for g in grids3]:
+        g = dataclasses.replace(g0, rule_name=rule)
+        w, v, b = state_on(problem3, g), noise_pair(g, F3), noise_pair(g, F3)
+        jv = problem3.kernel_jvp(g, dev)
+        lab = f"{rule} {g.ny}x{g.nx}"
+        timing = work = None
+        if g.nx == 350:
+            timing = (cuda_ms(lambda: jv.kernel(w, w, dt3, v)),
+                      cuda_ms(lambda: jv.plain(w, w, dt3, v), reps=10))
+            work = jvp_work(g, F3, **jv_kw3)
+        K["ach_jvp"].check(f"{lab} Jv", jv.kernel(w, w, dt3, v),
+                           jv.plain(w, w, dt3, v), TOL_F32, timing, work)
+        K["ach_jvp"].check(f"{lab} b-Jv", jv.kernel(w, w, dt3, v, b=b),
+                           jv.plain(w, w, dt3, v, b=b), TOL_F32)
+        if g.nx == 350:
+            K["ach_jvp"].check(f"{lab} Jv vs torch.func.jvp",
+                               jv.kernel(w, w, dt3, v),
+                               residual_jvp(problem3, g, w, dt3, v), TOL_F32)
+
+    # the transfers of the hierarchy: H for the ratio-5 pairs, D for 350<->175
+    for fine, coarse in zip(grids3[:-1], grids3[1:]):
+        dyadic = fine.nx == 2 * coarse.nx
+        kk = K["transfer_dyadic" if dyadic else "transfer_general"]
+        pk, rk = ((kt.prolong_kernel, kt.restrict_kernel) if dyadic else
+                  (kt.prolong_general_kernel, kt.restrict_general_kernel))
+        pp, rp = ((kt.prolong_plain, kt.restrict_plain) if dyadic else
+                  (kt.prolong_general_plain, kt.restrict_general_plain))
+        lab = f"bench3 {fine.nx}<->{coarse.nx}"
+        xc, rf = noise_pair(coarse, F3), noise_pair(fine, F3)
+        timing = (cuda_ms(lambda: pk(xc, coarse, fine)),
+                  cuda_ms(lambda: pp(xc, coarse, fine)))
+        kk.check(f"prolong {lab}", pk(xc, coarse, fine), pp(xc, coarse, fine),
+                 TOL_EXACT, timing, transfer_work(coarse, fine, F3, "prolong"))
+        acc = tuple(t.clone() for t in rf)
+        pk(xc, coarse, fine, out=acc)
+        kk.check(f"prolong+= {lab}", acc, kt.transfer_ops(coarse, fine, "plain")[1](
+            xc, coarse, fine, tuple(t.clone() for t in rf)), TOL_EXACT)
+        timing = (cuda_ms(lambda: rk(rf, coarse, fine)),
+                  cuda_ms(lambda: rp(rf, coarse, fine), reps=10))
+        kk.check(f"restrict {lab}", rk(rf, coarse, fine), rp(rf, coarse, fine),
+                 TOL_EXACT, timing, transfer_work(coarse, fine, F3, "restrict"))
+
+    check_bj_lmr(problem3, grids3[:1], F3, "bench3", rule=s3.precond_rule)
+
+    # the level steps (TPU kernels 6 and 9) on the injected per-level states
+    # and their block planes, with bench3's sweep counts
+    w_ls3, pinvs3 = [], []
+    wl = state_on(problem3, grids3[0])
+    for l, g in enumerate(grids3):
+        w_ls3.append(wl)
+        pinvs3.append(make_block_jacobi(g, problem3.terms, F3, device=dev)(
+            wl, wl, dt3).pinv_planes)
+        if l + 1 < len(grids3):
+            wl = kt.inject(wl, grids3[l + 1], g)
+    for l, (fine, coarse) in enumerate(zip(grids3[:-1], grids3[1:])):
+        nu_d = (s3.gmg_nu_fine_pre or s3.gmg_nu_pre) if l == 0 else s3.gmg_nu_pre
+        nu_a = (s3.gmg_nu_fine_post or s3.gmg_nu_post) if l == 0 else s3.gmg_nu_post
+        jv = problem3.kernel_jvp(fine, dev)
+        d = make_descend_level(fine, coarse, jv, nu=nu_d)
+        a = make_ascend_level(fine, coarse, jv, nu=nu_a)
+        wl, pl = w_ls3[l], pinvs3[l]
+        b, xc = noise_pair(fine, F3), noise_pair(coarse, F3)
+        xk, bck = d.kernel(b, wl, wl, dt3, pl)
+        xp, bcp = d.plain(b, wl, wl, dt3, pl)
+        timing = (cuda_ms(lambda: d.kernel(b, wl, wl, dt3, pl), reps=10),
+                  cuda_ms(lambda: d.plain(b, wl, wl, dt3, pl), reps=3))
+        C["descend_level"].check(
+            f"{fine.nx}->{coarse.nx} nu={nu_d}", xk + bck, xp + bcp, TOL_F32,
+            timing, chain_work([fine, coarse], F3, nu_d, nu_d, ascend=False,
+                               jv_kw=jv_kw3, masked=False))
+        timing = (cuda_ms(lambda: a.kernel(b, xp, xc, wl, wl, dt3, pl), reps=10),
+                  cuda_ms(lambda: a.plain(b, xp, xc, wl, wl, dt3, pl), reps=3))
+        C["ascend_level"].check(
+            f"{coarse.nx}->{fine.nx} nu={nu_a}", a.kernel(b, xp, xc, wl, wl, dt3, pl),
+            a.plain(b, xp, xc, wl, wl, dt3, pl), TOL_F32, timing,
+            chain_work([fine, coarse], F3, nu_a, nu_a, ascend=True,
+                       jv_kw=jv_kw3, masked=False))
+
+    # the multigrid build of the 4-level hierarchy (block-Jacobi planes,
+    # injections, and the dense 7^2 inverse: jacfwd of the coarse residual and
+    # torch.linalg.inv), with and without the dense inverse. The main path
+    # builds once per Newton iteration, so after a first build each the warm
+    # builds are timed, the two kinds in turns (host-clock noise is tens of
+    # ms), and their medians compared.
+    w3 = problem3.initial_state(dev)
+    builds = {"with the dense inverse": problem3.precond_builder(dev),
+              "without": dataclasses.replace(problem3, solver=dataclasses.replace(
+                  s3, gmg_dense_coarse_max_dofs=0)).precond_builder(dev)}
+    assert builds["with the dense inverse"].dense_coarse
+    assert not builds["without"].dense_coarse
+    times = {name: [] for name in builds}
+    for rep in range(6):
+        for name, build in builds.items():
+            torch.cuda.synchronize()
+            t_b = time.perf_counter()
+            build(w3, w3, dt3)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t_b) * 1e3)
+    build_ms = {name: statistics.median(t[1:]) for name, t in times.items()}
+    for name, t in times.items():
+        print(f"phase 9: multigrid build of 350/175/35/7 {name}: first "
+              f"{t[0]:.1f} ms, then median {build_ms[name]:.1f} ms of "
+              f"{[round(x, 1) for x in t[1:]]}", flush=True)
+    print(f"phase 9: the dense 7^2 inverse adds "
+          f"{build_ms['with the dense inverse'] - build_ms['without']:.1f} ms "
+          f"to the median warm build", flush=True)
+    torch.cuda.synchronize()
+    print(f"phase 9: bench3-shape kernels, transfers and level steps agree "
+          f"with their plain versions ({time.perf_counter() - t9:.1f} s)",
+          flush=True)
+
+    # ---- phase 10: bench3's main path at 350x350 -----------------------
+    runner3 = timeloop.Runner(problem3, dev)
+    build = runner3.problem.precond_builder(dev)
+    n_dofs = coarse_dof_count(build.grids[-1], F3)
+    print(f"phase 10: hierarchy {[g.nx for g in build.grids]} at "
+          f"{s3.precond_rule}, build.dense_coarse={build.dense_coarse} "
+          f"({n_dofs} coarse dofs)", flush=True)
+    if not build.dense_coarse:
+        raise AssertionError("bench3's coarsest solve is not the dense inverse")
+    elapsed = time.perf_counter() - t_start
+    n_rows3 = BENCH3_ROWS
+    if elapsed > BENCH3_LATE_S:
+        n_rows3 = BENCH3_PREFIX_ROWS
+        print(f"phase 10: the smoke has run {elapsed:.0f} s (> {BENCH3_LATE_S:.0f}"
+              f" s): bench3 runs its first {n_rows3} rows only", flush=True)
+    paths["bench3"], result3, wall3, seconds3 = run_main_path(
+        "phase 10: bench3", runner3, None, "bench3_out.csv", n_rows3,
+        ("ach_jvp", "block_jacobi_apply", "lmr_step", "transfer_dyadic",
+         "transfer_general", "lmr_sweep_loop", "descend_level", "ascend_level",
+         "descend_chain", "ascend_chain"), tfe_tol=1e-6, col2_tol=1e-5)
+    n_builds3 = sum(st.newton_iters_all for st in result3.stats)
+    build_s3 = seconds3["precond_build"]
+    print(f"phase 10: multigrid builds on the main path (with the dense 7^2 "
+          f"inverse): {n_builds3} builds, {build_s3:.3f} s measured "
+          f"({build_s3 / n_builds3 * 1e3:.1f} ms each; phase 9's warm build "
+          f"{build_ms['with the dense inverse']:.1f} ms), share "
+          f"{build_s3 / wall3:.4f} of the {wall3:.3f} s run", flush=True)
+
+    # ---- phase 11: summary -----------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": [K[k].record(paths) for k in _lib.KERNELS],
                       "chains": [C[k].record(paths) for k in _lib.CHAINS]}),

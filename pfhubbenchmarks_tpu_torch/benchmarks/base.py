@@ -4,7 +4,7 @@ Counterpart of ``pfhubbenchmarks_tpu/benchmarks/base.py``. A benchmark is
 data: a grid, a pointwise ``terms`` function, ICs, Dirichlet specs,
 observables and configs. Every factory method takes the device explicitly.
 ``kernel_jvp(grid, device, dirichlet, split=False)`` makes the benchmark's
-J.v (kernel A for BM1, E for BM6, F for BM2, each with the benchmark's
+J.v (kernel A for BM1, E for BM6, F for BM2, G for BM3, each with the benchmark's
 hand-written pointwise tangent as its plain version) with identity rows on
 the Dirichlet rows, which serves the outer Krylov matvec (the JAX package
 re-sets those rows after its kernel, ``base.py:201-215``) and every
@@ -51,6 +51,12 @@ class BenchmarkProblem:
     terms_precond: Callable | None = None
     field_groups: tuple | None = None
     dtype: torch.dtype = torch.float64
+    # optional scaling applied to an observable value after integration
+    # (bench3's solid fraction over the domain area)
+    observable_scale: dict[str, float] = dataclasses.field(default_factory=dict)
+    # optional early-abort predicate on a CSV row dict (bench3: TFE < 0,
+    # dolfin/bench3.py:254-258), read by the host loop (timeloop.run)
+    abort_condition: Callable[[dict], bool] | None = None
 
     @property
     def n_fields(self) -> int:
@@ -119,6 +125,12 @@ class BenchmarkProblem:
             cycle=s.gmg_cycle, inner_mr=s.gmg_inner_mr)
 
     def observable_fns(self, device: torch.device | str):
-        return {name: make_functional(self.grid, density, device=device,
-                                      dtype=self.dtype)
-                for name, density in self.observables.items()}
+        out = {}
+        for name, density in self.observables.items():
+            fn = make_functional(self.grid, density, device=device,
+                                 dtype=self.dtype)
+            scale = self.observable_scale.get(name)
+            if scale is not None:
+                fn = (lambda f, sc: (lambda w: f(w) * sc))(fn, scale)
+            out[name] = fn
+        return out

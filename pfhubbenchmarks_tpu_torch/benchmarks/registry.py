@@ -5,8 +5,9 @@ Run a ported benchmark as::
     python -m pfhubbenchmarks_tpu_torch.benchmarks.bench1 --device cuda \
         [--end-time T] [--max-steps N] [--nx N --ny N] [--out CSV]
 
-(``bench2`` and ``bench6`` alike; ``bench2_eta1`` and ``bench2_eta2`` are
-BM2 with 1 and 2 order parameters, the reference's reduced variants).
+(``bench2``, ``bench3`` and ``bench6`` alike; ``bench2_eta1`` and
+``bench2_eta2`` are BM2 with 1 and 2 order parameters, the reference's
+reduced variants).
 
 ``--device`` is required: there is no implicit device. The JAX CLI's other
 flags are accepted and raise "not yet ported".
@@ -21,6 +22,7 @@ import time
 _BENCHMARKS = {
     "bench1": "pfhubbenchmarks_tpu_torch.benchmarks.bench1",
     "bench2": "pfhubbenchmarks_tpu_torch.benchmarks.bench2",
+    "bench3": "pfhubbenchmarks_tpu_torch.benchmarks.bench3",
     "bench6": "pfhubbenchmarks_tpu_torch.benchmarks.bench6",
 }
 

@@ -79,6 +79,8 @@ class SolverConfig:
     # TPU-only (how the V-cycle is split into Pallas calls): no-op. Every
     # value computes the same cycle; the port always runs it as the descend
     # and ascend chains (ops/vcycle_chain.py) around the coarsest solve.
+    # 'split_levels' (bench3: one Pallas descend/ascend pair per level) is
+    # accepted too: the chains loop over those level steps.
     fuse_vcycle: str = "auto"
     # 'gmg' only; 'none', 'block_jacobi' and 'dense' are not yet ported.
     precond: str = "gmg"

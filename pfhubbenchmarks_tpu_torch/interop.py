@@ -13,6 +13,7 @@ import torch
 
 from pfhubbenchmarks_tpu_torch.benchmarks.bench1 import Bench1Params
 from pfhubbenchmarks_tpu_torch.benchmarks.bench2 import Bench2Params
+from pfhubbenchmarks_tpu_torch.benchmarks.bench3 import Bench3Params
 from pfhubbenchmarks_tpu_torch.benchmarks.bench6 import Bench6Params
 from pfhubbenchmarks_tpu_torch.config import SolverConfig, TimeConfig
 
@@ -49,7 +50,12 @@ def time_config_from_dict(d: dict) -> TimeConfig:
 def problem_params_from_numpy(d: dict, params_cls=Bench1Params):
     """``dataclasses.asdict`` of a JAX benchmark's parameters (values may be
     numpy scalars) -> the port's ``params_cls`` (``Bench1Params``,
-    ``Bench2Params`` or ``Bench6Params``)."""
-    if params_cls not in (Bench1Params, Bench2Params, Bench6Params):
+    ``Bench2Params``, ``Bench3Params`` or ``Bench6Params``); the integer
+    fields (bench3's ``m``) stay integers."""
+    if params_cls not in (Bench1Params, Bench2Params, Bench3Params,
+                          Bench6Params):
         raise ValueError(f"no ported parameters {params_cls!r}")
-    return _from_dict(params_cls, {k: float(v) for k, v in d.items()})
+    ints = {f.name for f in dataclasses.fields(params_cls)
+            if f.type in (int, "int")}
+    return _from_dict(params_cls, {k: int(v) if k in ints else float(v)
+                                   for k, v in d.items()})

@@ -10,9 +10,9 @@ tests import every module, and a CPU tensor never reaches a kernel.
 
 Each wrapper counts its launches in ``LAUNCHES`` (one per wrapper call that
 launches its kernel), so a run can show that its main path went through the
-kernels. The LMR sweep loop (ops/lmr.py) and the two V-cycle chains
-(ops/vcycle_chain.py) are launch sequences of those kernels, not kernels:
-they count their calls in ``CALLS``. ``SECONDS`` holds the host seconds
+kernels. The LMR sweep loop (ops/lmr.py), the two V-cycle level steps and
+the two chains (ops/vcycle_chain.py) are launch sequences of those kernels,
+not kernels: they count their calls in ``CALLS``. ``SECONDS`` holds the host seconds
 of plain-torch stages (the multigrid build), so a run can say what share of
 its wall they take.
 """
@@ -38,11 +38,12 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
 
-KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "block_jacobi_apply", "lmr_step",
-           "transfer_dyadic")
+KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp", "block_jacobi_apply",
+           "lmr_step", "transfer_dyadic", "transfer_general")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # launch sequences of the kernels that stand for one TPU kernel each
-CHAINS = ("lmr_sweep_loop", "descend_chain", "ascend_chain")
+CHAINS = ("lmr_sweep_loop", "descend_level", "ascend_level", "descend_chain",
+          "ascend_chain")
 CALLS = dict.fromkeys(CHAINS, 0)
 
 
@@ -104,11 +105,14 @@ class KernelLibrary:
             "pfh_ch_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
             "pfh_chp_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
             "pfh_chac_jvp": [vp, i32, i32, i32] + [vp] * 9 + [i32, i32, vp],
+            "pfh_ach_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
             "pfh_jvp_param_floats": [],
             "pfh_block_jacobi_apply": [vp] * 6 + [i32, i64, i64, i32, vp, vp],
             "pfh_lmr_step": [vp] * 8 + [i64, i64, i32, i32, vp, vp, i32, vp,
                                         vp],
             "pfh_transfer": [i32] + [vp] * 5 + [i32] * 4 + [vp],
+            "pfh_transfer_general": [i32, i32] + [vp] * 6 + [i32] * 4 + [vp],
+            "pfh_transfer_general_param_floats": [],
         }
         for name, argtypes in sig.items():
             fn = getattr(self.lib, name)

@@ -1,23 +1,47 @@
-"""Kernel D (``csrc/transfer.cu``): dyadic crossed-P1 grid transfers.
+"""Crossed-P1 grid transfers between the levels of a multigrid hierarchy.
 
-Prolongation, restriction (its exact transpose) and state injection between
-a coarse grid and its 2x refinement, replacing the in-kernel transfer
-matmuls of ``pfhubbenchmarks_tpu/ops/pallas_vcycle.py:make_fused_vcycle``.
+Kernel D (``csrc/transfer.cu``): dyadic pairs (fine = 2 x coarse).
+Prolongation, restriction (its exact transpose) and state injection,
+replacing the in-kernel transfer matmuls of
+``pfhubbenchmarks_tpu/ops/pallas_vcycle.py:make_fused_vcycle`` (``_LevelMats``).
 The plain versions are the strided-slice code of
 ``pfhubbenchmarks_tpu/solve/transfer.py`` (prolong, restrict,
-inject_state), ported; the wrappers take them for CPU tensors only.
+inject_state), ported.
+
+Kernel H (``csrc/transfer_general.cu``): equal odd ratios R in {3, 5, 7}
+(fine = R x coarse on both axes, bench3's 175 -> 35 -> 7). Prolongation is
+exact P1 interpolation of the coarse crossed function (``prolong_general``
+of ``solve/transfer.py:141``: per fine node, the five coarse slots of its
+cell weighted by the class table of ``_p1_weights``, and 1-D edge
+interpolation on the last fine vertex row and column); restriction is its
+exact transpose (``restrict_general``, :203), written as a gather per coarse
+node. They replace the SVD-separated matmuls of ``pallas_vcycle.py``'s
+``_GenLevelMats`` (:97-140) inside ``make_fused_descend`` and
+``make_fused_ascend``. The plain versions here sum in the kernel's order
+with the same f32 weights, one rounded multiply and one rounded add per
+term, so on the card the two agree to the bit. General injection stays
+strided slicing (``inject_state_general``, computed outside any Pallas
+kernel in the JAX package too).
 
 Dirichlet rows: prolongation and restriction take an optional 0/1 vertex
 mask of their OUTPUT grid ([F, Yv, Xv] float32, nonzero on a BC row, from
 fem/assembly.bc_mask). Restriction writes 0 on the coarse BC rows;
 prolongation adds nothing on the fine BC rows (writes 0 there without
 ``out``). This is ``zero_bc_rows`` of ``pfhubbenchmarks_tpu/solve/gmg.py``
-and the keep masks of ``ops/pallas_vcycle.py``'s chain kernels. The fine
-residual's BC rows are not zeroed before restriction, there or here.
+and the keep masks of ``ops/pallas_vcycle.py``'s level and chain kernels.
+The fine residual's BC rows are not zeroed before restriction, there or
+here.
+
+``transfer_ops(coarse, fine, version)`` picks D or H by the pair's ratio;
+unequal per-axis ratios, even ratios other than 2 and periodic pairs raise
+"not yet ported". The wrappers take the plain versions for CPU tensors only.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
@@ -114,8 +138,10 @@ def _launch(op, src, dst, coarse, accumulate=False, mask=None):
     _lib.count_launch("transfer_dyadic")
 
 
-def _check(name, src, src_grid, pairs, coarse, fine, mask=None, dst_grid=None):
-    _check_dyadic(coarse, fine)
+def _check(name, src, src_grid, pairs, coarse, fine, mask=None, dst_grid=None,
+           dyadic=True):
+    if dyadic:
+        _check_dyadic(coarse, fine)
     for g in (coarse, fine):
         if g.periodic or g.pad_to != (1, 1):
             raise NotImplementedError(f"{name}: unpadded, non-periodic only")
@@ -162,34 +188,308 @@ def inject_kernel(wf, coarse, fine):
     return dst
 
 
-def prolong_accumulate_plain(wc, coarse, fine, out, mask=None):
-    """out += P wc, in place, through the plain version."""
-    for o, p in zip(out, prolong_plain(wc, coarse, fine, mask)):
-        o.add_(p)
+def _accumulate(p, out):
+    """out += p in place (p itself without ``out``)."""
+    if out is None:
+        return p
+    for o, q in zip(out, p):
+        o.add_(q)
     return out
+
+
+def prolong_accumulate_plain(wc, coarse, fine, out=None, mask=None):
+    """out += P wc, in place, through the plain version (P wc without
+    ``out``)."""
+    return _accumulate(prolong_plain(wc, coarse, fine, mask), out)
+
+
+# ---------------------------------------------------------------------------
+# kernel H: equal odd ratios
+# ---------------------------------------------------------------------------
+
+GENERAL_RATIOS = (3, 5, 7)
+_MAX_R = 7
+
+
+def _p1_weights(s: float, t: float, Rx: int, Ry: int | None = None):
+    """(w00, w10, w01, w11, wc) of the coarse crossed-P1 basis at cell-local
+    point (s, t) in [0, Rx] x [0, Ry] (s along x): ``_p1_weights`` of
+    ``pfhubbenchmarks_tpu/solve/transfer.py``. The four triangle regions'
+    formulas agree on their shared edges, so ties are free."""
+    if Ry is None:
+        Ry = Rx
+    sh, th = s / Rx, t / Ry
+    ush, uth = 1.0 - sh, 1.0 - th
+    if th <= sh and th <= ush:      # S
+        return (1.0 - sh - th, sh - th, 0.0, 0.0, 2.0 * th)
+    if th >= sh and th >= ush:      # N
+        return (0.0, 0.0, 1.0 - sh - uth, sh - uth, 2.0 * uth)
+    if sh <= th and sh <= uth:      # W
+        return (1.0 - th - sh, 0.0, th - sh, 0.0, 2.0 * sh)
+    return (0.0, 1.0 - th - ush, 0.0, th - ush, 2.0 * ush)  # E
+
+
+@functools.cache
+def class_tables(R: int):
+    """The weights of prolongation with ratio R, built with numpy as
+    ``prolong_general`` builds them (f64): ``wv``/``wm`` [R, R, 5] for the
+    fine vertex and centre classes (py, px) of a coarse cell over its slots
+    (SW, SE, NW, NE corners, centre), and ``frac`` = px / R for the last
+    fine vertex row and column (weights 1 - frac and frac)."""
+    wv = np.array([[_p1_weights(px, py, R) for px in range(R)]
+                   for py in range(R)])
+    wm = np.array([[_p1_weights(px + 0.5, py + 0.5, R) for px in range(R)]
+                   for py in range(R)])
+    return wv, wm, np.arange(R) / R
+
+
+def _tables(R: int, dtype, device):
+    """``class_tables(R)`` cast to the working dtype as the JAX code casts
+    them, with 1 - frac rounded in that dtype."""
+    wv, wm, frac = (torch.as_tensor(t, dtype=dtype, device=device)
+                    for t in class_tables(R))
+    return wv, wm, frac, 1.0 - frac
+
+
+@functools.cache
+def _general_params(R: int) -> np.ndarray:
+    """The f32 tables as kernel H's by-value parameter block (``GenWeights``:
+    wv, wm zero-padded to 7 x 7 classes, frac, 1 - frac), built once per
+    ratio: the launch path only passes its address."""
+    wv, wm, frac, om = (t.numpy() for t in _tables(R, torch.float32, "cpu"))
+    pv = np.zeros((_MAX_R, _MAX_R, 5), np.float32)
+    pm = np.zeros((_MAX_R, _MAX_R, 5), np.float32)
+    pv[:R, :R], pm[:R, :R] = wv, wm
+    pf = np.zeros(_MAX_R, np.float32)
+    po = np.zeros(_MAX_R, np.float32)
+    pf[:R], po[:R] = frac, om
+    return np.concatenate([pv.ravel(), pm.ravel(), pf, po])
+
+
+def equal_ratio(coarse: CrossedTriGrid, fine: CrossedTriGrid) -> int:
+    """The common ratio R of a nested, non-periodic pair with equal per-axis
+    ratios; raises for any other pair."""
+    rx, ry = fine.nx // coarse.nx, fine.ny // coarse.ny
+    if fine.nx != rx * coarse.nx or fine.ny != ry * coarse.ny:
+        raise ValueError(f"not nested: {fine.ny}x{fine.nx} / "
+                         f"{coarse.ny}x{coarse.nx}")
+    if fine.periodic or coarse.periodic or rx != ry or (
+            rx != 2 and rx not in GENERAL_RATIOS):
+        raise NotImplementedError(
+            "transfers other than dyadic and equal odd-ratio (3, 5, 7) "
+            "non-periodic ones are not yet ported to the PyTorch package "
+            f"({fine.ny}x{fine.nx} -> {coarse.ny}x{coarse.nx})")
+    return rx
+
+
+def _general_ratio(coarse, fine) -> int:
+    R = equal_ratio(coarse, fine)
+    if R == 2:
+        raise ValueError("a dyadic pair takes kernel D")
+    return R
+
+
+def prolong_general_plain(wc, coarse: CrossedTriGrid, fine: CrossedTriGrid,
+                          mask=None):
+    R = _general_ratio(coarse, fine)
+    nyc, nxc = coarse.ny, coarse.nx
+    vc = wc[0][:, : nyc + 1, : nxc + 1]
+    mc = wc[1][:, :nyc, :nxc]
+    F, dt_, dev = vc.shape[0], vc.dtype, vc.device
+    wv, wm, frac, om = _tables(R, dt_, dev)
+    slots = (vc[:, :-1, :-1], vc[:, :-1, 1:], vc[:, 1:, :-1], vc[:, 1:, 1:], mc)
+
+    def classes(W):
+        """[R, R, 5] weights -> the [F, R nyc, R nxc] block, each class
+        summed over the slots in order (one rounded mul and add per term)."""
+        acc = W[:, :, 0, None, None, None] * slots[0]
+        for k in range(1, 5):
+            acc = acc + W[:, :, k, None, None, None] * slots[k]
+        return acc.permute(2, 3, 0, 4, 1).reshape(F, R * nyc, R * nxc)
+
+    vf = vc.new_zeros((F,) + fine.vshape)
+    vf[:, : R * nyc, : R * nxc] = classes(wv)
+    top, right = vc[:, nyc, :], vc[:, :, nxc]
+    vf[:, R * nyc, : R * nxc] = (om * top[:, :-1, None]
+                                 + frac * top[:, 1:, None]).reshape(F, -1)
+    vf[:, : R * nyc, R * nxc] = (om * right[:, :-1, None]
+                                 + frac * right[:, 1:, None]).reshape(F, -1)
+    vf[:, R * nyc, R * nxc] = vc[:, nyc, nxc]
+    mf = vc.new_zeros((F,) + fine.mshape)
+    mf[:, : R * nyc, : R * nxc] = classes(wm)
+    return _zero_masked(vf, mask), mf
+
+
+def prolong_general_accumulate_plain(wc, coarse, fine, out=None, mask=None):
+    """out += P wc, in place, through the plain version (P wc without
+    ``out``)."""
+    return _accumulate(prolong_general_plain(wc, coarse, fine, mask), out)
+
+
+def restrict_general_plain(wf, coarse: CrossedTriGrid, fine: CrossedTriGrid,
+                           mask=None):
+    """P^T wf as kernel H gathers it: per coarse vertex, its cells as slot
+    SW, SE, NW, NE (each: the fine vertex classes, then the centre classes,
+    (py, px) row-major), then the last fine row's and column's 1-D weights
+    (1 - frac, then frac) and the corner; per coarse centre, its cell's
+    classes. A cell outside the grid adds exact zeros here and nothing in
+    the kernel."""
+    R = _general_ratio(coarse, fine)
+    nyc, nxc = coarse.ny, coarse.nx
+    vf, mf = wf[0], wf[1]
+    F, dt_, dev = vf.shape[0], vf.dtype, vf.device
+    wv, wm, frac, om = _tables(R, dt_, dev)
+
+    def cells(a):
+        """[F, R nyc(+1), R nxc(+1)] -> per-cell blocks [F, nyc + 2, nxc + 2,
+        R, R] with a ring of zero cells."""
+        blk = a[:, : R * nyc, : R * nxc].reshape(F, nyc, R, nxc, R)
+        blk = blk.permute(0, 1, 3, 2, 4)
+        return torch.nn.functional.pad(blk, (0, 0, 0, 0, 1, 1, 1, 1))
+
+    cv, cm = cells(vf), cells(mf)
+    vc = vf.new_zeros((F, nyc + 1, nxc + 1))
+    # slot k reads cell (I + dy, J + dx) of coarse vertex (I, J)
+    for k, (dy, dx) in enumerate(((0, 0), (0, -1), (-1, 0), (-1, -1))):
+        for W, c in ((wv, cv), (wm, cm)):
+            blk = c[:, 1 + dy: 2 + dy + nyc, 1 + dx: 2 + dx + nxc]
+            for py in range(R):
+                for px in range(R):
+                    vc = vc + W[py, px, k] * blk[..., py, px]
+    pad1 = torch.nn.functional.pad
+    top = vf[:, R * nyc, : R * nxc].reshape(F, nxc, R)
+    right = vf[:, : R * nyc, R * nxc].reshape(F, nyc, R)
+    for edge, at in ((top, (slice(None), nyc, slice(None))),
+                     (right, (slice(None), slice(None), nxc))):
+        e0, e1 = pad1(edge, (0, 0, 0, 1)), pad1(edge, (0, 0, 1, 0))
+        acc = vc[at]
+        for p in range(R):
+            acc = acc + om[p] * e0[..., p]
+        for p in range(R):
+            acc = acc + frac[p] * e1[..., p]
+        vc = vc.clone()
+        vc[at] = acc
+    vc[:, nyc, nxc] = vc[:, nyc, nxc] + vf[:, R * nyc, R * nxc]
+    mc = vf.new_zeros((F, nyc, nxc))
+    for W, c in ((wv, cv), (wm, cm)):
+        blk = c[:, 1: 1 + nyc, 1: 1 + nxc]
+        for py in range(R):
+            for px in range(R):
+                mc = mc + W[py, px, 4] * blk[..., py, px]
+    vc_p = vf.new_zeros((F,) + coarse.vshape)
+    vc_p[:, : nyc + 1, : nxc + 1] = vc
+    mc_p = vf.new_zeros((F,) + coarse.mshape)
+    mc_p[:, :nyc, :nxc] = mc
+    return _zero_masked(vc_p, mask), mc_p
+
+
+def inject_general(wf, coarse: CrossedTriGrid, fine: CrossedTriGrid):
+    """State injection for an equal odd ratio: coarse vertices are fine
+    vertices, a coarse centre is the fine centre at offset (R-1)/2 in its
+    cell (``inject_state_general``). Strided slicing on any device."""
+    R = _general_ratio(coarse, fine)
+    nyc, nxc, o = coarse.ny, coarse.nx, (R - 1) // 2
+    vc = wf[0][:, : R * nyc + 1: R, : R * nxc + 1: R]
+    mc = wf[1][:, o: R * nyc: R, o: R * nxc: R]
+    F = vc.shape[0]
+    vc_p = vc.new_zeros((F,) + coarse.vshape)
+    vc_p[:, : nyc + 1, : nxc + 1] = vc
+    mc_p = vc.new_zeros((F,) + coarse.mshape)
+    mc_p[:, :nyc, :nxc] = mc
+    return vc_p, mc_p
+
+
+def _launch_general(op, R, src, dst, coarse, accumulate=False, mask=None):
+    params = _general_params(R)
+    lib = _lib.library()
+    if params.size != lib.lib.pfh_transfer_general_param_floats():
+        raise RuntimeError("transfer_general: parameter block does not match "
+                           "the kernel's GenWeights layout")
+    lib.call(
+        "pfh_transfer_general", op, R, params.ctypes.data, src[0].data_ptr(),
+        src[1].data_ptr(), dst[0].data_ptr(), dst[1].data_ptr(),
+        None if mask is None else mask.data_ptr(), src[0].shape[0], coarse.ny,
+        coarse.nx, int(accumulate), _lib.stream_handle())
+    _lib.count_launch("transfer_general")
+
+
+def prolong_general_kernel(wc, coarse, fine, out=None, mask=None):
+    """P wc for an equal odd ratio; with ``out``, out += P wc in place.
+    ``mask``: the fine grid's BC rows, which get nothing."""
+    R = _general_ratio(coarse, fine)
+    pairs = [wc] + ([out] if out is not None else [])
+    _check("prolong_general", wc, coarse, pairs, coarse, fine, mask, fine,
+           dyadic=False)
+    F = wc[0].shape[0]
+    if out is not None:
+        _lib.check_shapes("prolong_general", out, (F,) + fine.vshape,
+                          (F,) + fine.mshape)
+        _launch_general(_PROLONG, R, wc, out, coarse, accumulate=True,
+                        mask=mask)
+        return out
+    dst = (wc[0].new_empty((F,) + fine.vshape), wc[0].new_empty((F,) + fine.mshape))
+    _launch_general(_PROLONG, R, wc, dst, coarse, mask=mask)
+    return dst
+
+
+def restrict_general_kernel(wf, coarse, fine, mask=None):
+    """P^T wf for an equal odd ratio; ``mask``: the coarse grid's BC rows,
+    written as 0."""
+    R = _general_ratio(coarse, fine)
+    _check("restrict_general", wf, fine, [wf], coarse, fine, mask, coarse,
+           dyadic=False)
+    F = wf[0].shape[0]
+    dst = (wf[0].new_empty((F,) + coarse.vshape),
+           wf[0].new_empty((F,) + coarse.mshape))
+    _launch_general(_RESTRICT, R, wf, dst, coarse, mask=mask)
+    return dst
+
+
+# ---------------------------------------------------------------------------
+# by ratio: D for dyadic pairs, H for equal odd ratios
+# ---------------------------------------------------------------------------
+
+# (version, dyadic) -> (restrict, prolong); the prolongation
+# prolong(wc, coarse, fine, out, mask) accumulates into ``out`` if given
+_VERSIONS = {
+    ("kernel", True): (restrict_kernel, prolong_kernel),
+    ("kernel", False): (restrict_general_kernel, prolong_general_kernel),
+    ("plain", True): (restrict_plain, prolong_accumulate_plain),
+    ("plain", False): (restrict_general_plain,
+                       prolong_general_accumulate_plain),
+}
+
+
+def transfer_ops(coarse: CrossedTriGrid, fine: CrossedTriGrid, version: str):
+    """(restrict, prolong) of the pair, as kernels (``version='kernel'``) or
+    plain versions: kernel D for a dyadic pair, H for an equal odd ratio."""
+    return _VERSIONS[(version, equal_ratio(coarse, fine) == 2)]
+
+
+def _version(t: torch.Tensor) -> str:
+    return "plain" if _lib.on_cpu(t) else "kernel"
 
 
 def prolong(wc, coarse: CrossedTriGrid, fine: CrossedTriGrid, out=None,
             mask=None):
     """Correction interpolation P wc; ``out`` (in place): out += P wc.
     ``mask``: the fine grid's Dirichlet rows, which get nothing."""
-    if _lib.on_cpu(wc[0]):
-        if out is None:
-            return prolong_plain(wc, coarse, fine, mask)
-        return prolong_accumulate_plain(wc, coarse, fine, out, mask)
-    return prolong_kernel(wc, coarse, fine, out, mask)
+    return transfer_ops(coarse, fine, _version(wc[0]))[1](wc, coarse, fine,
+                                                          out, mask)
 
 
 def restrict(wf, coarse: CrossedTriGrid, fine: CrossedTriGrid, mask=None):
     """Galerkin residual transfer R = P^T; ``mask``: the coarse grid's
     Dirichlet rows, written as 0."""
-    if _lib.on_cpu(wf[0]):
-        return restrict_plain(wf, coarse, fine, mask)
-    return restrict_kernel(wf, coarse, fine, mask)
+    return transfer_ops(coarse, fine, _version(wf[0]))[0](wf, coarse, fine,
+                                                          mask)
 
 
 def inject(wf, coarse: CrossedTriGrid, fine: CrossedTriGrid):
-    """State injection (coarse nodes are fine nodes)."""
+    """State injection (coarse nodes are fine nodes): kernel D for a dyadic
+    pair, strided slicing for an equal odd ratio."""
+    if equal_ratio(coarse, fine) != 2:
+        return inject_general(wf, coarse, fine)
     if _lib.on_cpu(wf[0]):
         return inject_plain(wf, coarse, fine)
     return inject_kernel(wf, coarse, fine)

@@ -1,22 +1,28 @@
 """Geometric multigrid V-cycle preconditioner on the crossed-grid hierarchy.
 
 Counterpart of ``pfhubbenchmarks_tpu/solve/gmg.py`` (``build_hierarchy``,
-``make_gmg``) for dyadic hierarchies. One V-cycle serves every
-configuration: the ``split_chain`` cycle of ``gmg.py:654-662``, which does
-the arithmetic of ``ops/pallas_vcycle.py:make_fused_vcycle`` too:
+``make_gmg``) for hierarchies of dyadic and equal odd-ratio pairs (bench3's
+350/175/35/7). One V-cycle serves every configuration: the ``split_chain``
+cycle of ``gmg.py:654-662``, which does the arithmetic of the
+``split_levels`` recursion (:663-675) and of ``ops/pallas_vcycle.py:
+make_fused_vcycle`` too:
 
-- per-level linearization states injected once per build (kernel D), and
-  per-level node-block-Jacobi inverses (solve/precond.py);
-- ``descend_chain`` (ops/vcycle_chain.py): every level's local-minimal-
-  residual pre-sweeps from zero (the sweep loop of ops/lmr.py: z = P^-1 r
-  by kernel B, A z by the level's J.v kernel, the alpha step and both axpys
-  by kernel C) and restriction (kernel D);
+- per-level linearization states injected once per build (kernel D for a
+  dyadic pair, strided slicing for an odd ratio), and per-level
+  node-block-Jacobi inverses (solve/precond.py);
+- ``descend_chain`` (ops/vcycle_chain.py): per level the descend step (TPU
+  kernel 6): local-minimal-residual pre-sweeps from zero (the sweep loop of
+  ops/lmr.py: z = P^-1 r by kernel B, A z by the level's J.v kernel, the
+  alpha step and both axpys by kernel C) and restriction (kernel D, or H for
+  an odd ratio);
 - the coarsest level solved by ``coarse_sweeps`` LMR sweeps from zero (one
   call of the same sweep loop), or by the exact dense inverse when its dof
-  count is at most ``dense_coarse_max_dofs`` (plain ``torch.linalg``);
-- ``ascend_chain``: every level's prolongation with the correction added in
-  place (kernel D), the residual recomputed as b - A x in one J.v launch,
-  and the post-sweeps;
+  count is at most ``dense_coarse_max_dofs`` (the Jacobian by
+  ``torch.func.jacfwd`` and ``torch.linalg.inv`` once per build, applied
+  by one f32 matmul: bench3's 7^2, 226 dofs);
+- ``ascend_chain``: per level the ascend step (TPU kernel 9): prolongation
+  with the correction added in place (D or H), the residual recomputed as
+  b - A x in one J.v launch, and the post-sweeps;
 - ``Minv.minv_matvec`` returns the pair (z, A z), with A z the true-rule
   fine-level J.v (the fine grid's own rule) that FGMRES consumes in place of
   its outer matvec.
@@ -41,10 +47,10 @@ correction on the fine ones (``zero_bc_rows``, ``gmg.py:633-648``). With BC
 rows on the fine level ``minv_matvec`` is not exposed, as in the JAX
 package (``gmg.py:474-477``).
 
-On CUDA tensors every step above except the dense coarse solve is a
-hand-written kernel launch; on CPU tensors the same code runs the plain
-versions. The W-cycle, GCR ``inner_mr`` and non-dyadic hierarchies are not
-yet ported.
+On CUDA tensors every step above except the dense coarse solve and the
+odd-ratio injection is a hand-written kernel launch; on CPU tensors the same
+code runs the plain versions. The W-cycle, GCR ``inner_mr`` and
+semicoarsened or periodic hierarchies are not yet ported.
 """
 
 from __future__ import annotations
@@ -70,7 +76,7 @@ _RATIOS = (2, 3, 5, 7)
 def build_hierarchy(grid: CrossedTriGrid, max_levels: int = 10,
                     min_cells: int = 7) -> list[CrossedTriGrid]:
     """Per-axis coarsening by the smallest workable ratio, as in the JAX
-    package (only the dyadic pairs have ported transfers)."""
+    package (the transfers of unequal per-axis ratios are not ported)."""
     grids = [grid]
     while len(grids) < max_levels:
         g = grids[-1]

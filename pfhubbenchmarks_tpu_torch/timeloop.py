@@ -9,10 +9,13 @@ after the reference time loop (dolfin/bench1.py:145-198):
   - after success: ``dt = 2 dt`` if Newton iters < grow_threshold, else
     ``dt = max(dt/2, dt_min)`` (or keep dt inside a hysteresis band),
     capped at dt_max,
-  - loop while ``t < end_time + eps`` (the final step overshoots end_time).
+  - loop while ``t < end_time + eps`` (the final step overshoots end_time),
+  - after each accepted step the problem's ``abort_condition`` on the CSV
+    row may stop the run (bench3: TFE < 0), the row kept.
 
 Replay on a reference time grid, its rescue ladder and the whole-run
-on-device loop are not yet ported.
+on-device loop (``run_fused``, with its device-side ``abort_device``) are
+not yet ported.
 """
 
 from __future__ import annotations
@@ -146,6 +149,11 @@ def run(problem: BenchmarkProblem, *, device: torch.device | str,
             print(f"step {step:4d}  t={t:<12.6g} dt={st.dt:<10.4g} "
                   f"newton={niters} krylov={st.krylov_iters} {obs_str}  "
                   f"({wall:.3f}s)")
+        if problem.abort_condition is not None:
+            if problem.abort_condition(dict(zip(problem.csv_columns, rows[-1]))):
+                if verbose:
+                    print(f"abort condition hit at step {step}; stopping")
+                break
 
     return RunResult(rows=np.asarray(rows), stats=stats, state=w,
                      wall_total=_time.time() - wall_start,

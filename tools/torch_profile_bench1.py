@@ -1,19 +1,19 @@
 """Profile a main path of the PyTorch port on a CUDA device.
 
-    python tools/torch_profile_bench1.py [--bench bench1|bench2|bench6]
+    python tools/torch_profile_bench1.py [--bench bench1|bench2|bench3|bench6]
         [--end-time T] [--out-dir DIR]
 
-Runs the benchmark at its published size (100x100) through
-``timeloop.Runner`` (bench1 to t = 11.1, bench2 to t = 6.63, bench6 to its
-end time 3.0 by default) after a short warm-up,
-once unprofiled (wall time, counts), then once more under ``torch.profiler`` with the
-CUDA activity only (the device-side events; host-side op events would
-number in the millions on bench2, whose block-Jacobi build runs
-``torch.func``, and their tables take longer to build than the run), and
-prints: the card (nvidia-smi name, power limit), wall time, device busy
-time (the sum of kernel times on the device), the idle share, and the
-kernels ranked by device time. The chrome trace goes to ``--out-dir`` when
-given.
+Runs the benchmark at its published size (100x100; bench3 350x350) through
+``timeloop.Runner`` (bench1 to t = 11.1, bench2 to t = 6.63, bench3 to
+t = 12.15, its first 14 rows, bench6 to its end time 3.0 by default) after
+a short warm-up, once unprofiled (wall time, counts), then once more under
+``torch.profiler`` with the CUDA activity only (the device-side events;
+host-side op events would number in the millions on bench2, whose
+block-Jacobi build runs ``torch.func``, and their tables take longer to
+build than the run), and prints: the card (nvidia-smi name, power limit),
+wall time, device busy time (the sum of kernel times on the device), the
+idle share, and the kernels ranked by device time (the top 40 and every
+kernel of csrc/). The chrome trace goes to ``--out-dir`` when given.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from pfhubbenchmarks_tpu_torch.ops import _lib  # noqa: E402
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--bench", choices=("bench1", "bench2", "bench6"),
+    ap.add_argument("--bench", choices=("bench1", "bench2", "bench3", "bench6"),
                     default="bench1")
     ap.add_argument("--end-time", type=float, default=None)
     ap.add_argument("--out-dir", type=str, default=None)
@@ -48,7 +48,7 @@ def main() -> None:
     print(f"card: {smi}")
     dev = torch.device("cuda", 0)
     end_time = args.end_time or {"bench1": 11.1, "bench2": 6.63,
-                                 "bench6": None}[args.bench]
+                                 "bench3": 12.15, "bench6": None}[args.bench]
     runner = timeloop.Runner(get_benchmark(args.bench), dev)
     _lib.library()
     runner.run(max_steps=2, verbose=False)   # warm-up: lazy CUDA/functorch init
@@ -81,9 +81,12 @@ def main() -> None:
     busy_us = sum(r[2] for r in rows)
     print(f"device busy {busy_us / 1e6:.3f} s of wall {wall:.3f} s: idle "
           f"share {1.0 - busy_us / 1e6 / wall:.3f}")
-    for key, count, us in sorted(rows, key=lambda r: -r[2])[:40]:
-        print(f"  {us / 1e3:10.2f} ms  {count:8d}x  {us / max(count, 1):8.2f} us/call"
-              f"  {key[:120]}")
+    ranked = sorted(rows, key=lambda r: -r[2])
+    # the top 40, and every kernel of the port's own (csrc/) below them
+    for rank, (key, count, us) in enumerate(ranked):
+        if rank < 40 or "pfh::" in key or "(anonymous namespace)::" in key:
+            print(f"  {us / 1e3:10.2f} ms  {count:8d}x  "
+                  f"{us / max(count, 1):8.2f} us/call  {key[:120]}")
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.out_dir,
