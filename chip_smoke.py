@@ -57,7 +57,25 @@ Phases, each printing its results; any failure raises (non-zero exit):
    smoke has already run 900 s when this phase starts, it runs the first
    14 rows (to t = 12.15, the ``tools/check_trajectories.py`` prefix) and
    says so.
-11. prints the card line, the per-kernel JSON line, then
+11. the same checks at bench1_3d's shapes (F = 2, Kuhn tets, levels
+   50^3/25^3/5^3): the 3D Cahn-Hilliard J.v (kernel I) at 50^3 with keast2
+   and ffc3, at 25^3 and 5^3 with keast2, against its plain version and
+   ``torch.func.jvp`` of the residual (which is also its library time), the
+   b - J.v form at 50^3; its device time per launch (launches queued behind
+   a sleep kernel); B and C on 1-leaf states at 50^3; the 3D sweep loop
+   (B, I, C) at 5^3 (2 and 24 sweeps) and 25^3 (2); the per-call times of
+   the 3D transfers (plain torch) 50<->25 and 25<->5; two warm multigrid
+   builds of 50/25/5, with and without the dense 5^3 inverse (medians of 5
+   in turns); and one K-cycle apply.
+12. bench1_3d's main path: the port's bench1_3d at full size (50^3) through
+   ``Runner.run`` to t = 52.7; the 24 rows against the committed
+   ``results/bench1_3d_out.csv`` (the JAX package's run; time column rtol
+   1e-9, TFE rel 1e-6, solute rel 1e-9); its coarsest solve must be the
+   dense inverse, and kernel I, B, C and the sweep loop must have run; the
+   seconds of its multigrid builds, timed inside the run. If the smoke has
+   already run 1000 s when this phase starts, it runs the first 10 rows (to
+   t = 12.7) and says so.
+13. prints the card line, the per-kernel JSON line, then
    ``{"ok": true, "device": ...}``.
 
 In the kernel line, ``kernels`` lists the CUDA kernels: ``launches`` is the
@@ -68,7 +86,10 @@ card could take for that case: the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its f32 operations over
 67 TFLOP/s (H100 SXM data sheet), with ``bound_by`` naming which.
 ``library_ms`` is one PyTorch call computing the same function where there
-is one (block-Jacobi's einsum pair), else null. ``chains`` lists the LMR
+is one (block-Jacobi's einsum pair; for kernel I ``torch.func.jvp`` of the
+f32 residual), else null. ``device_ms``, where present (kernel I, and B and
+C at bench1_3d's 50^3), is the device time of one launch: launches queued
+behind a sleep kernel, between two CUDA events. ``chains`` lists the LMR
 sweep loop, the two V-cycle level steps and the two chains, launch
 sequences of those kernels that stand for TPU kernels 3, 4 and 11 (the
 sweep loop), 6 and 9 (the level steps) and 7 and 8 (the chains), with
@@ -97,6 +118,9 @@ BENCH2_END, BENCH2_ROWS = 6.63, 28    # rows 1-28 of results/bench2_out.csv
 BENCH3_ROWS = 44                      # results/bench3_out.csv, to t = 101.75
 BENCH3_PREFIX_ROWS = 14               # to t = 12.15, if the smoke runs late
 BENCH3_LATE_S = 900.0
+BENCH1_3D_ROWS = 24                   # results/bench1_3d_out.csv, to t = 52.7
+BENCH1_3D_PREFIX_ROWS = 10            # to t = 12.7, if the smoke runs late
+BENCH1_3D_LATE_S = 1000.0
 TOL_F32 = dict(rtol=2e-4, atol_scale=2e-5)   # tests/test_pallas_vcycle.py
 TOL_EXACT = dict(rtol=0.0, atol_scale=0.0)
 HBM_BYTES_PER_S = 3.35e12
@@ -134,7 +158,8 @@ def chac_tangent_ops(ne: int, split: bool) -> int:
 # AC + heat (ach_jvp.cu, F = 2, bench3): phi^2 and s = 1 - phi^2 2, dg/dU =
 # -lam s^2 2, dg/dphi = 1 - 3 phi^2 + 4 lam U phi s 6, dg 3, the two sources
 # (d/dt, the dg term, the difference) 6, the U fluxes 6, the phi fluxes 2.
-TANGENT_OPS = {2: 11, 3: 14, (6, "coupled"): chac_tangent_ops(4, False),
+TANGENT_OPS = {2: 11, 3: 14,
+               (6, "coupled"): chac_tangent_ops(4, False),
                (6, "split"): chac_tangent_ops(4, True), "ach": 27}
 
 
@@ -143,6 +168,23 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip()
+
+
+def device_ms(fn, n: int = 40, sleep_cycles: int = 100_000_000) -> float:
+    """Device time of one call of ``fn``: ``n`` calls queued behind a sleep
+    kernel (~50 ms), so the card runs their launches back to back, between
+    two CUDA events, whatever the host's launch path costs; over ``n``."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
@@ -260,6 +302,57 @@ def chain_work(grids, F, nu, nu_fine, ascend: bool, jv_kw=None, groups=None,
     return byts, flops
 
 
+# Kernel I's work for BM1 in 3D (ch3d_jvp.cu, F = 2), counted as what the
+# function needs at a rule exact for degree 2 (keast2, ffc3), as in
+# TANGENT_OPS. A Kuhn tet's vertices 0 -> 1 -> 2 -> 3 step along one axis
+# each, so a P1 gradient is one difference per axis and a test gradient is
+# at most one difference of two flux components (1/h and the volume fold
+# into the constants). Per tet, once: the gradients of dc and dmu (3 per
+# field), the fluxes M grad(dmu) and -kappa grad(dc) (3 per field), their
+# contraction with the 4 test gradients (2 per field), the element mass
+# action on dc/dt and dmu, V/20 (v_i + sum_j v_j) (11 per field: the mass
+# matrix is exact at these rules and the same in every tet), the mass and
+# flux parts of each vertex summed (4 per field) and the tet's 4 values
+# added into the nodes' sums (4 per field). Per point, only f''(c) dc: c
+# and dc interpolated (4 mul + 3 add each), f''(c) by Horner (4), the
+# product (1) and its weighted contraction into the 4 vertices (8).
+CH3D_TET_OPS = 2 * (3 + 3 + 2 + 11 + 4 + 4)
+CH3D_POINT_OPS = 7 + 7 + 4 + 1 + 8
+
+
+def jvp3d_work(g, F=2, ns=1, with_b=False):
+    """(bytes, flops) of one 3D J.v of BM1: ``ns`` state planes + F tangent
+    planes (+ b) in, F planes out, over the (nz+1)(ny+1)(nx+1) vertices; each
+    of the 6 tets of a cell counted once (CH3D_TET_OPS, CH3D_POINT_OPS per
+    point; the kernel evaluates each tet once per vertex, 4 times), and for
+    b - J v one subtraction per node and field."""
+    N, nq = g.n_vertices, g.tab().nq
+    assert nq >= 4, "the count takes the mass matrix as exact (degree 2)"
+    byts = 4 * N * (ns + 2 * F + (F if with_b else 0))
+    flops = (g.nz * g.ny * g.nx * 6 * (CH3D_TET_OPS + nq * CH3D_POINT_OPS)
+             + (F * N if with_b else 0))
+    return byts, flops
+
+
+def bj3d_work(g, F=2):
+    N = g.n_vertices   # F^2 planes and r in, z out
+    return 4 * N * (F * F + 2 * F), 2 * F * F * N
+
+
+def lmr3d_work(g, F=2):
+    N = g.n_vertices   # x, r, z, Az in; x, r out; two dots and two axpys
+    return 4 * 6 * F * N, 8 * F * N
+
+
+def sweep3d_work(g, n, F=2):
+    """n sweeps: the state plane, the block planes and (x, r) in once, (x, r)
+    out once; the flops of n block-Jacobi applies, J.v and LMR steps."""
+    N = g.n_vertices
+    byts = 4 * N * (1 + F * F + 4 * F)
+    flops = n * (jvp3d_work(g, F)[1] + bj3d_work(g, F)[1] + lmr3d_work(g, F)[1])
+    return byts, flops
+
+
 def bound(work):
     byts, flops = work
     t_b, t_f = byts / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
@@ -269,14 +362,15 @@ def bound(work):
 class Kernel:
     """Per-kernel aggregate of the comparisons against the plain twins."""
 
-    def __init__(self, name, source, replaces):
+    def __init__(self, name, source, replaces, also_replaces=()):
         self.name, self.source, self.replaces = name, source, replaces
+        self.also_replaces = also_replaces
         self.max_abs_err = 0.0
         self.ms = self.plain_ms = self.bound_ms = self.bound_by = None
-        self.library_ms = None
+        self.library_ms = self.device_ms = None
 
     def check(self, label, got, ref, tol, timing=None, work=None,
-              library_ms=None):
+              library_ms=None, dev_ms=None):
         torch.cuda.synchronize()
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         scale = max(float(r.abs().max()) for r in ref)
@@ -295,10 +389,12 @@ class Kernel:
                      f"bound_ms={b_ms:.6f} ({b_by})")
             if library_ms is not None:
                 line += f" library_ms={library_ms:.4f}"
+            if dev_ms is not None:
+                line += f" device_ms={dev_ms:.5f}"
             if self.ms is None:      # the first timed case is the main shape
                 self.ms, self.plain_ms = k_ms, p_ms
                 self.bound_ms, self.bound_by = b_ms, b_by
-                self.library_ms = library_ms
+                self.library_ms, self.device_ms = library_ms, dev_ms
         print(line + (" ok" if ok else " FAIL"), flush=True)
         if not ok:
             raise AssertionError(f"{self.name} {label} disagrees with its "
@@ -306,12 +402,17 @@ class Kernel:
 
     def record(self, paths: dict):
         launches = sum(p.get(self.name, 0) for p in paths.values())
-        return dict(name=self.name, route="cuda", source=self.source,
-                    replaces=self.replaces, launches=launches,
-                    max_abs_err=self.max_abs_err, ms=self.ms,
-                    plain_ms=self.plain_ms, bound_ms=self.bound_ms,
-                    bound_by=self.bound_by, library_ms=self.library_ms,
-                    paths={k: p.get(self.name, 0) for k, p in paths.items()})
+        rec = dict(name=self.name, route="cuda", source=self.source,
+                   replaces=self.replaces, launches=launches,
+                   max_abs_err=self.max_abs_err, ms=self.ms,
+                   plain_ms=self.plain_ms, bound_ms=self.bound_ms,
+                   bound_by=self.bound_by, library_ms=self.library_ms,
+                   paths={k: p.get(self.name, 0) for k, p in paths.items()})
+        if self.device_ms is not None:
+            rec["device_ms"] = self.device_ms
+        if self.also_replaces:
+            rec["also_replaces"] = list(self.also_replaces)
+        return rec
 
 
 class Chain(Kernel):
@@ -320,17 +421,14 @@ class Chain(Kernel):
     def __init__(self, name, replaces, sequence_of,
                  source="pfhubbenchmarks_tpu_torch/ops/vcycle_chain.py",
                  also_replaces=()):
-        super().__init__(name, source, replaces)
+        super().__init__(name, source, replaces, also_replaces)
         self.sequence_of = sequence_of
-        self.also_replaces = also_replaces
 
     def record(self, paths: dict):
         rec = super().record(paths)
         del rec["route"]
         rec["calls"] = rec.pop("launches")
         rec["sequence_of"] = list(self.sequence_of)
-        if self.also_replaces:
-            rec["also_replaces"] = list(self.also_replaces)
         return rec
 
 
@@ -356,7 +454,9 @@ def run_main_path(label, runner, end_time, ref_csv, n_rows, required,
     seconds = dict(_lib.SECONDS)
     rows = result.rows
     st = result.stats
-    print(f"{label}: {runner.problem.grid.ny}x{runner.problem.grid.nx} to "
+    g = runner.problem.grid
+    dims = ((g.nz,) if getattr(g, 'dim', 2) == 3 else ()) + (g.ny, g.nx)
+    print(f"{label}: {'x'.join(map(str, dims))} to "
           f"t={rows[-1, 0]:.6g}: steps={len(st)} "
           f"newton={sum(s.newton_iters for s in st)} "
           f"krylov={sum(s.krylov_iters for s in st)} "
@@ -389,6 +489,264 @@ def run_main_path(label, runner, end_time, ref_csv, n_rows, required,
     if missing:
         raise AssertionError(f"{label}: did not run on the main path: {missing}")
     return counts, result, wall, seconds
+
+
+def kernel_records():
+    """The per-kernel and per-chain records of the kernel line."""
+    from pfhubbenchmarks_tpu_torch.ops import _lib
+
+    replaces_vc = "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:200"
+    replaces_jv = "pfhubbenchmarks_tpu/ops/pallas_residual.py:198"
+    csrc = "pfhubbenchmarks_tpu_torch/csrc/"
+    K = {
+        "ch_jvp": Kernel("ch_jvp", csrc + "ch_jvp.cu", replaces_jv),
+        "chp_jvp": Kernel("chp_jvp", csrc + "chp_jvp.cu", replaces_jv),
+        "chac_jvp": Kernel("chac_jvp", csrc + "chac_jvp.cu", replaces_jv),
+        "ach_jvp": Kernel("ach_jvp", csrc + "ach_jvp.cu", replaces_jv),
+        # the z-slab J.v (row 16) and the whole-array one (row 14)
+        "ch3d_jvp": Kernel("ch3d_jvp", csrc + "ch3d_jvp.cu",
+                           "pfhubbenchmarks_tpu/ops/pallas3d.py:294",
+                           ("pfhubbenchmarks_tpu/ops/pallas3d.py:149",)),
+        "block_jacobi_apply": Kernel("block_jacobi_apply",
+                                     csrc + "block_jacobi.cu", replaces_vc),
+        "lmr_step": Kernel("lmr_step", csrc + "lmr.cu", replaces_vc),
+        "transfer_dyadic": Kernel("transfer_dyadic", csrc + "transfer.cu",
+                                  replaces_vc),
+        # the general-ratio transfers of the fused kernels (_GenLevelMats)
+        "transfer_general": Kernel("transfer_general",
+                                   csrc + "transfer_general.cu",
+                                   "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:97"),
+    }
+    seq = ("level J.v (ch_jvp, chp_jvp, chac_jvp, ach_jvp or ch3d_jvp)",
+           "block_jacobi_apply", "lmr_step", "transfer_dyadic")
+    C = {
+        "lmr_sweep_loop": Chain(
+            "lmr_sweep_loop", "pfhubbenchmarks_tpu/ops/pallas_residual.py:247",
+            seq[:3], source="pfhubbenchmarks_tpu_torch/ops/lmr.py",
+            also_replaces=("pfhubbenchmarks_tpu/ops/pallas_residual.py:333",
+                           "pfhubbenchmarks_tpu/ops/pallas_tiled.py:189",
+                           "pfhubbenchmarks_tpu/ops/pallas3d.py:182",
+                           "pfhubbenchmarks_tpu/ops/pallas3d.py:347")),
+        "descend_level": Chain("descend_level",
+                               "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:566",
+                               seq + ("transfer_general",)),
+        "ascend_level": Chain("ascend_level",
+                              "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:939",
+                              seq + ("transfer_general",)),
+        "descend_chain": Chain("descend_chain",
+                               "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:652",
+                               seq),
+        "ascend_chain": Chain("ascend_chain",
+                              "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:798",
+                              seq),
+    }
+    assert set(K) == set(_lib.KERNELS) and set(C) == set(_lib.CHAINS)
+    return K, C
+
+
+def bench1_3d_phases(dev, K, C, rng, t_start, paths):
+    """Phases 11 and 12: kernel I, B and C, the 3D sweep loop, transfers,
+    builds and one K-cycle apply at bench1_3d's shapes, then bench1_3d's
+    main path (all 24 rows, or the first 10 if the smoke has run
+    BENCH1_3D_LATE_S by then). Adds the main path's counts to ``paths``."""
+    from pfhubbenchmarks_tpu_torch import timeloop
+    from pfhubbenchmarks_tpu_torch.benchmarks import bench1_3d
+    from pfhubbenchmarks_tpu_torch.fem.assembly3d import make_residual3d
+    from pfhubbenchmarks_tpu_torch.ops import _lib, lmr
+    from pfhubbenchmarks_tpu_torch.solve import gmg3d
+    from pfhubbenchmarks_tpu_torch.solve import transfer3d as t3
+    from pfhubbenchmarks_tpu_torch.solve.precond import make_block_jacobi3d
+
+    f32 = torch.float32
+    problem = bench1_3d.make()
+    s = problem.solver
+    F = problem.n_fields
+    grids = [dataclasses.replace(g, rule_name=s.precond_rule)
+             for g in gmg3d.build_hierarchy3d(problem.grid)]
+    assert [g.nx for g in grids] == [50, 25, 5], [g.nx for g in grids]
+    dt = 0.4
+
+    def noise(g, scale=1.0):
+        return (torch.tensor(scale * rng.standard_normal((F,) + g.vshape),
+                             dtype=f32, device=dev),)
+
+    def state(g):
+        """The IC on ``g`` plus seeded noise."""
+        (v,) = g.interpolate(problem.ic_fns)
+        return (torch.tensor(v, dtype=f32, device=dev) + noise(g, 0.01)[0],)
+
+    t11 = time.perf_counter()
+    KI = K["ch3d_jvp"]
+    for rule, g0 in [("keast2", grids[0]), ("ffc3", grids[0]),
+                     ("keast2", grids[1]), ("keast2", grids[2])]:
+        g = dataclasses.replace(g0, rule_name=rule)
+        jv = problem.kernel_jvp(g, dev)
+        w, v, b = state(g), noise(g), noise(g)
+        res = make_residual3d(g, problem.terms, F, device=dev, dtype=f32)
+
+        def library(w=w, v=v, res=res):
+            return torch.func.jvp(lambda u: res(u, w, dt), (w,), (v,))[1]
+
+        lab = f"{rule} {g.nz}^3"
+        timing = (cuda_ms(lambda: jv.kernel(w, w, dt, v)),
+                  cuda_ms(lambda: jv.plain(w, w, dt, v), reps=10))
+        KI.check(f"{lab} Jv", jv.kernel(w, w, dt, v), jv.plain(w, w, dt, v),
+                 TOL_F32, timing, jvp3d_work(g), library_ms=cuda_ms(library, reps=5),
+                 dev_ms=device_ms(lambda: jv.kernel(w, w, dt, v)))
+        KI.check(f"{lab} Jv vs torch.func.jvp", jv.kernel(w, w, dt, v),
+                 library(), TOL_F32)
+        if g.nz == 50 and rule == "keast2":
+            KI.check(f"{lab} b-Jv", jv.kernel(w, w, dt, v, b=b),
+                     jv.plain(w, w, dt, v, b=b), TOL_F32,
+                     (cuda_ms(lambda: jv.kernel(w, w, dt, v, b=b)),
+                      cuda_ms(lambda: jv.plain(w, w, dt, v, b=b), reps=10)),
+                     jvp3d_work(g, with_b=True),
+                     dev_ms=device_ms(lambda: jv.kernel(w, w, dt, v, b=b)))
+
+    # the per-level states and block planes of the hierarchy
+    w_ls, pinvs = [], []
+    wl = state(grids[0])
+    for l, g in enumerate(grids):
+        w_ls.append(wl)
+        pinvs.append(make_block_jacobi3d(g, problem.terms_tangent, F,
+                                         device=dev)(wl, wl, dt).pinv_planes)
+        if l + 1 < len(grids):
+            wl = t3.inject3d_any(grids[l + 1], g)(wl)
+
+    # B and C on 1-leaf states at 50^3
+    g = grids[0]
+    r = noise(g)
+    timing = (cuda_ms(lambda: lmr.block_jacobi_apply_kernel(pinvs[0], r)),
+              cuda_ms(lambda: lmr.block_jacobi_apply_plain(pinvs[0], r)))
+    K["block_jacobi_apply"].check(
+        "bench1_3d 50^3", lmr.block_jacobi_apply_kernel(pinvs[0], r),
+        lmr.block_jacobi_apply_plain(pinvs[0], r), TOL_F32, timing,
+        bj3d_work(g), dev_ms=device_ms(
+            lambda: lmr.block_jacobi_apply_kernel(pinvs[0], r)))
+    x, r, z, az = (noise(g) for _ in range(4))
+    xk, rk = [tuple(t.clone() for t in p) for p in (x, r)]
+    xp, rp = [tuple(t.clone() for t in p) for p in (x, r)]
+    lmr.lmr_step_kernel(xk, rk, z, az)
+    lmr.lmr_step_plain(xp, rp, z, az)
+    xs, rs = [tuple(t.clone() for t in p) for p in (x, r)]  # scratch
+    timing = (cuda_ms(lambda: lmr.lmr_step_kernel(xs, rs, z, az)),
+              cuda_ms(lambda: lmr.lmr_step_plain(xs, rs, z, az)))
+    K["lmr_step"].check("bench1_3d 50^3", xk + rk, xp + rp, TOL_F32, timing,
+                        lmr3d_work(g), dev_ms=device_ms(
+                            lambda: lmr.lmr_step_kernel(xs, rs, z, az)))
+
+    # the 3D sweep loop (TPU kernels 15 and 17): B, I at keast2, C per sweep
+    for l, n in ((2, 2), (2, s.gmg_coarse_sweeps), (1, s.gmg_nu_pre)):
+        g = grids[l]
+        sweep = lmr.make_lmr_sweep_loop(problem.kernel_jvp(g, dev), n)
+        b = noise(g)
+
+        def run_sweep(fn, g=g, b=b, l=l):
+            x = tuple(torch.zeros_like(t) for t in b)
+            r = tuple(t.clone() for t in b)
+            return fn(x, r, w_ls[l], w_ls[l], dt, *pinvs[l])
+
+        xk, rk = run_sweep(sweep.kernel)
+        xp, rp = run_sweep(sweep.plain)
+        timing = (cuda_ms(lambda: run_sweep(sweep.kernel), reps=10),
+                  cuda_ms(lambda: run_sweep(sweep.plain), reps=3))
+        C["lmr_sweep_loop"].check(f"bench1_3d {g.nz}^3 n={n}", xk + rk,
+                                  xp + rp, TOL_F32, timing, sweep3d_work(g, n))
+
+    # the transfers (plain torch on the card, as XLA in the JAX package)
+    for fine, coarse in zip(grids[:-1], grids[1:]):
+        P = t3.prolong3d_any(coarse, fine)
+        R = t3.restrict3d_any(coarse, fine)
+        inj = t3.inject3d_any(coarse, fine)
+        xc, rf = noise(coarse), noise(fine)
+        lhs = float(torch.vdot(P(xc)[0].double().reshape(-1),
+                               rf[0].double().reshape(-1)))
+        rhs = float(torch.vdot(xc[0].double().reshape(-1),
+                               R(rf)[0].double().reshape(-1)))
+        rel = abs(lhs - rhs) / abs(lhs)
+        print(f"phase 11: transfers {fine.nz}<->{coarse.nz}: prolong "
+              f"{cuda_ms(lambda: P(xc)):.4f} ms, restrict "
+              f"{cuda_ms(lambda: R(rf)):.4f} ms, inject "
+              f"{cuda_ms(lambda: inj(rf)):.4f} ms per call; "
+              f"<P x, y> vs <x, R y> rel {rel:.2e}", flush=True)
+        if rel > 1e-5:
+            raise AssertionError("the 3D restriction is not the transpose")
+        if fine.nz == 2 * coarse.nz:
+            # the ratio-2 forms against the general ones at R = 2
+            Pg = t3.prolong3d_general(coarse, fine)
+            Rg = t3.restrict3d_general(coarse, fine)
+            dp = float((P(xc)[0] - Pg(xc)[0]).abs().max())
+            dr = float((R(rf)[0] - Rg(rf)[0]).abs().max())
+            print(f"phase 11: transfers {fine.nz}<->{coarse.nz} general form "
+                  f"at R = 2: prolong {cuda_ms(lambda: Pg(xc)):.4f} ms, "
+                  f"restrict {cuda_ms(lambda: Rg(rf)):.4f} ms per call; max "
+                  f"abs difference to the ratio-2 forms {dp:.2e} / {dr:.2e}",
+                  flush=True)
+            if dp > 0.0 or dr > 1e-5 * float(R(rf)[0].abs().max()):
+                raise AssertionError("the 3D ratio-2 and general transfers "
+                                     "disagree at R = 2")
+
+    # two warm multigrid builds of 50/25/5, with and without the dense 5^3
+    # inverse, in turns; then one K-cycle apply
+    w13 = problem.initial_state(dev)
+    builds = {"with the dense inverse": problem.precond_builder(dev),
+              "without": dataclasses.replace(problem, solver=dataclasses.replace(
+                  s, gmg_dense_coarse_max_dofs=0)).precond_builder(dev)}
+    assert builds["with the dense inverse"].dense_coarse
+    assert not builds["without"].dense_coarse
+    times = {name: [] for name in builds}
+    for rep in range(6):
+        for name, build in builds.items():
+            torch.cuda.synchronize()
+            t_b = time.perf_counter()
+            build(w13, w13, dt)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t_b) * 1e3)
+    build_ms = {name: statistics.median(t[1:]) for name, t in times.items()}
+    for name, t in times.items():
+        print(f"phase 11: multigrid build of 50/25/5 {name}: first "
+              f"{t[0]:.1f} ms, then median {build_ms[name]:.1f} ms of "
+              f"{[round(x, 1) for x in t[1:]]}", flush=True)
+    Minv = builds["with the dense inverse"](w13, w13, dt)
+    r = noise(grids[0])
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    Minv(r)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in _lib.LAUNCHES.items() if n}
+    calls = {k: n for k, n in _lib.CALLS.items() if n}
+    print(f"phase 11: one K-cycle apply (50/25/5, kcycle {s.gmg_kcycle}, dense "
+          f"5^3): {cuda_ms(lambda: Minv(r), reps=10):.3f} ms per call; "
+          f"launches {launches}, chain calls {calls} per apply", flush=True)
+    torch.cuda.synchronize()
+    print(f"phase 11: bench1_3d-shape kernels and sweep loops agree with their "
+          f"plain versions ({time.perf_counter() - t11:.1f} s)", flush=True)
+
+    # ---- phase 12: bench1_3d's main path at 50^3 ------------------------
+    runner = timeloop.Runner(problem, dev)
+    build = builds["with the dense inverse"]
+    n_dofs = gmg3d.coarse_dof_count(build.grids[-1], F)
+    print(f"phase 12: hierarchy {[g.nx for g in build.grids]} at "
+          f"{s.precond_rule}, kcycle {s.gmg_kcycle}, build.dense_coarse="
+          f"{build.dense_coarse} ({n_dofs} coarse dofs)", flush=True)
+    n_rows = BENCH1_3D_ROWS
+    elapsed = time.perf_counter() - t_start
+    if elapsed > BENCH1_3D_LATE_S:
+        n_rows = BENCH1_3D_PREFIX_ROWS
+        print(f"phase 12: the smoke has run {elapsed:.0f} s (> "
+              f"{BENCH1_3D_LATE_S:.0f} s): bench1_3d runs its first "
+              f"{n_rows} rows only", flush=True)
+    paths["bench1_3d"], result, wall, seconds = run_main_path(
+        "phase 12: bench1_3d", runner, None, "bench1_3d_out.csv", n_rows,
+        ("ch3d_jvp", "block_jacobi_apply", "lmr_step", "lmr_sweep_loop"),
+        tfe_tol=1e-6, col2_tol=1e-9)
+    n_builds = sum(st.newton_iters_all for st in result.stats)
+    build_s = seconds["precond_build"]
+    print(f"phase 12: multigrid builds on the main path (with the dense 5^3 "
+          f"inverse): {n_builds} builds, {build_s:.3f} s measured "
+          f"({build_s / n_builds * 1e3:.1f} ms each; phase 11's warm build "
+          f"{build_ms['with the dense inverse']:.1f} ms), share "
+          f"{build_s / wall:.4f} of the {wall:.3f} s run", flush=True)
 
 
 def main() -> None:
@@ -431,45 +789,7 @@ def main() -> None:
             print(f"phase 2: ptxas {src} {ln.strip()}", flush=True)
 
     # ---- phase 3: kernels vs plain versions at bench1's shapes ---------
-    replaces_vc = "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:200"
-    replaces_jv = "pfhubbenchmarks_tpu/ops/pallas_residual.py:198"
-    csrc = "pfhubbenchmarks_tpu_torch/csrc/"
-    K = {
-        "ch_jvp": Kernel("ch_jvp", csrc + "ch_jvp.cu", replaces_jv),
-        "chp_jvp": Kernel("chp_jvp", csrc + "chp_jvp.cu", replaces_jv),
-        "chac_jvp": Kernel("chac_jvp", csrc + "chac_jvp.cu", replaces_jv),
-        "ach_jvp": Kernel("ach_jvp", csrc + "ach_jvp.cu", replaces_jv),
-        "block_jacobi_apply": Kernel("block_jacobi_apply",
-                                     csrc + "block_jacobi.cu", replaces_vc),
-        "lmr_step": Kernel("lmr_step", csrc + "lmr.cu", replaces_vc),
-        "transfer_dyadic": Kernel("transfer_dyadic", csrc + "transfer.cu",
-                                  replaces_vc),
-        # the general-ratio transfers of the fused kernels (_GenLevelMats)
-        "transfer_general": Kernel("transfer_general",
-                                   csrc + "transfer_general.cu",
-                                   "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:97"),
-    }
-    seq = ("level J.v (ch_jvp, chp_jvp, chac_jvp or ach_jvp)",
-           "block_jacobi_apply", "lmr_step", "transfer_dyadic")
-    C = {
-        "lmr_sweep_loop": Chain(
-            "lmr_sweep_loop", "pfhubbenchmarks_tpu/ops/pallas_residual.py:247",
-            seq[:3], source="pfhubbenchmarks_tpu_torch/ops/lmr.py",
-            also_replaces=("pfhubbenchmarks_tpu/ops/pallas_residual.py:333",
-                           "pfhubbenchmarks_tpu/ops/pallas_tiled.py:189")),
-        "descend_level": Chain("descend_level",
-                               "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:566",
-                               seq + ("transfer_general",)),
-        "ascend_level": Chain("ascend_level",
-                              "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:939",
-                              seq + ("transfer_general",)),
-        "descend_chain": Chain("descend_chain",
-                               "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:652",
-                               seq),
-        "ascend_chain": Chain("ascend_chain",
-                              "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:798",
-                              seq),
-    }
+    K, C = kernel_records()
     assert set(K) == set(_lib.KERNELS) and set(C) == set(_lib.CHAINS)
     rng = np.random.default_rng(20261016)
 
@@ -970,7 +1290,9 @@ def main() -> None:
           f"{build_ms['with the dense inverse']:.1f} ms), share "
           f"{build_s3 / wall3:.4f} of the {wall3:.3f} s run", flush=True)
 
-    # ---- phase 11: summary -----------------------------------------------
+    bench1_3d_phases(dev, K, C, rng, t_start, paths)
+
+    # ---- phase 13: summary -----------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": [K[k].record(paths) for k in _lib.KERNELS],
                       "chains": [C[k].record(paths) for k in _lib.CHAINS]}),

@@ -2,15 +2,17 @@
 
 Run a ported benchmark as::
 
-    python -m pfhubbenchmarks_tpu_torch.benchmarks.bench1 --device cuda \
-        [--end-time T] [--max-steps N] [--nx N --ny N] [--out CSV]
+    python -m pfhubbenchmarks_tpu_torch.benchmarks.bench1 \
+        [--device cuda|cpu] [--end-time T] [--max-steps N] [--nx N --ny N]
+        [--out CSV]
 
-(``bench2``, ``bench3`` and ``bench6`` alike; ``bench2_eta1`` and
-``bench2_eta2`` are BM2 with 1 and 2 order parameters, the reference's
-reduced variants).
+(``bench2``, ``bench3``, ``bench6`` and ``bench1_3d`` alike, the 3D one
+with ``--nz N`` too; ``bench2_eta1`` and ``bench2_eta2`` are BM2 with 1 and 2
+order parameters, the reference's reduced variants).
 
-``--device`` is required: there is no implicit device. The JAX CLI's other
-flags are accepted and raise "not yet ported".
+``--device`` defaults to ``cuda``: the run is on the card unless the caller
+asks for the CPU, and without a card it exits with an error. The JAX CLI's
+other flags are accepted and raise "not yet ported".
 """
 
 from __future__ import annotations
@@ -21,13 +23,14 @@ import time
 
 _BENCHMARKS = {
     "bench1": "pfhubbenchmarks_tpu_torch.benchmarks.bench1",
+    "bench1_3d": "pfhubbenchmarks_tpu_torch.benchmarks.bench1_3d",
     "bench2": "pfhubbenchmarks_tpu_torch.benchmarks.bench2",
     "bench3": "pfhubbenchmarks_tpu_torch.benchmarks.bench3",
     "bench6": "pfhubbenchmarks_tpu_torch.benchmarks.bench6",
 }
 
 # JAX CLI flags the PyTorch slice does not implement yet (name -> takes a value)
-_NOT_PORTED = {"--nz": True, "--f32": False, "--mesh": True,
+_NOT_PORTED = {"--f32": False, "--mesh": True,
                "--replay": True, "--no-damped-rescue": False, "--fused": False,
                "--checkpoint": True, "--resume": False, "--save-fields": True,
                "--fields-dir": True, "--stats-log": True, "--trace": True}
@@ -48,13 +51,14 @@ def main(name: str, argv=None) -> None:
     import torch
 
     ap = argparse.ArgumentParser(description=f"PFHub {name} (PyTorch/CUDA)")
-    ap.add_argument("--device", type=str, required=True,
-                    help="torch device, e.g. cuda or cpu")
+    ap.add_argument("--device", type=str, default="cuda",
+                    help="torch device (default cuda; cpu on request)")
     ap.add_argument("--end-time", type=float, default=None)
     ap.add_argument("--max-steps", type=int, default=None)
     ap.add_argument("--out", type=str, default=f"results/{name}_torch_out.csv")
     ap.add_argument("--nx", type=int, default=None)
     ap.add_argument("--ny", type=int, default=None)
+    ap.add_argument("--nz", type=int, default=None, help="3D benchmarks only")
     ap.add_argument("--quiet", action="store_true")
     for flag, takes_value in _NOT_PORTED.items():
         if takes_value:
@@ -69,13 +73,15 @@ def main(name: str, argv=None) -> None:
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is available")
+        raise SystemExit(f"--device {args.device}: no CUDA device is available")
 
     kwargs = {}
     if args.nx:
         kwargs["nx"] = args.nx
     if args.ny:
         kwargs["ny"] = args.ny
+    if args.nz:
+        kwargs["nz"] = args.nz
     problem = get_benchmark(name, **kwargs)
 
     from pfhubbenchmarks_tpu_torch import timeloop

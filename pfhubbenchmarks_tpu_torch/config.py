@@ -61,7 +61,7 @@ class SolverConfig:
     fgmres_aug: int = 0
     # True only: the kernels are f32, so a full-f64 Krylov solve is not ported.
     mixed_precision: bool = True
-    # Two-stage f32/f64 Newton residual: not yet ported (False only).
+    # Two-stage f32/f64 Newton residual (solve/newton.py).
     fast_residual: bool = False
     fast_residual_margin: float = 1000.0
     # Read by the cp line search: its residual is the f32 one while ||F||
@@ -74,7 +74,8 @@ class SolverConfig:
     use_tiled_sweeps: bool = True
     # TPU-only (grid-form Pallas kernels): no-op.
     tiled_grid_kernels: bool = False
-    # TPU-only (3D z-slab Pallas kernels): no-op.
+    # TPU-only (z-slab Pallas kernels on the 3D level whose slab is the whole
+    # grid): no-op. On a CUDA device kernel I covers every level in one launch.
     tiled_nb1_3d: bool = False
     # TPU-only (how the V-cycle is split into Pallas calls): no-op. Every
     # value computes the same cycle; the port always runs it as the descend
@@ -109,7 +110,7 @@ class SolverConfig:
     gmg_cycle: str = "v"
     # 1 only; GCR(s) inner acceleration is not yet ported.
     gmg_inner_mr: int = 1
-    # 3D multigrid only: no-op in 2D.
+    # 3D multigrid only (solve/gmg3d.py, the K-cycle): no-op in 2D.
     gmg_kcycle: int = 1
     # Unused by the JAX package too (step lengths are computed): no-op.
     gmg_omega: float = 0.8
@@ -125,7 +126,6 @@ _SLICE_ONLY = {
     "krylov": "fgmres",
     "fgmres_aug": 0,
     "mixed_precision": True,
-    "fast_residual": False,
     "precond": "gmg",
     "precond_lag": ("newton", "solve"),
     "krylov_operator": "true",

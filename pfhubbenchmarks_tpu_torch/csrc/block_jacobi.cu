@@ -1,5 +1,8 @@
 // Kernel B, block_jacobi_apply: z = P^-1 r with the node-block inverses
 // given as F x F planes pv [F, F, ny+1, nx+1] and pm [F, F, ny, nx], f32.
+// A 3D state has one vertex grid: pv [F, F, nz+1, ny+1, nx+1], nvert nodes,
+// ncell = 0 and null centre pointers (the 3D sweeps of
+// pfhubbenchmarks_tpu/ops/pallas3d.py).
 //
 // Replaces _bj_apply of pfhubbenchmarks_tpu/ops/pallas_vcycle.py (the
 // smoother's preconditioning step inside make_fused_vcycle and the LMR

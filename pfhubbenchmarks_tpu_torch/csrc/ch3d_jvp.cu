@@ -1,0 +1,62 @@
+// Kernel I, ch3d_jvp: J.v of BM1's mixed Cahn-Hilliard weak form on the 3D
+// Kuhn-tet grid (bench1_3d), (w, dt, v) -> Jv, f32; fields (c, mu) on one
+// vertex grid [2, nz+1, ny+1, nx+1].
+//
+// Replaces pfhubbenchmarks_tpu/ops/pallas3d.py:make_pallas_jvp3d (the
+// whole-array 3D J.v) and make_tiled_jvp3d (the z-slab J.v: the outer Krylov
+// matvec at ffc3 and every level's smoothing and residual J.v at keast2),
+// and is the J.v inside the 3D sweep loop that stands for
+// make_pallas_lmr_sweep_loop3d and make_tiled_lmr_sweep3d (ops/lmr.py). The
+// gather body is fem_jvp3d.cuh's; this file supplies the 3D form of BM1's
+// pointwise tangent (the mirror of benchmarks/bench1.py:terms_tangent, which
+// bench1_3d reuses: its fluxes are written per axis). It does not depend on
+// the previous time level, so w0 is not an argument.
+//
+// What bounds it on the H100: at bench1_3d's 50^3 (132,651 nodes, ~1,040
+// blocks of 128) one ffc3 launch reads ~1.6 MB and writes ~1.1 MB, L2-resident,
+// while each node recomputes the tangents of its up to 24 tets at 8 points
+// (each tet is evaluated once per vertex, 4 times in all): a few thousand f32
+// operations per node, so the launch is bound by operations. The design keeps
+// it to ONE launch per J.v and accepts the 4x recomputation in exchange for
+// no scatter and no atomics.
+
+#include "fem_jvp3d.cuh"
+
+namespace {
+
+// constants k[]: M, kappa, rho_s, c_alpha, c_beta
+//   d src_c  = dc / dt             d flux_c  = M grad(dmu)
+//   d src_mu = dmu - f''(c) dc     d flux_mu = -kappa grad(dc)
+// with f'(c) = 2 rho_s (c - c_a)(c_b - c)((c_b - c) - (c - c_a)).
+struct CH3 {
+  static constexpr int NF = 2;
+  static constexpr int NS = 1;  // the tangent reads c only
+  __host__ __device__ static constexpr int state_field(int) { return 0; }
+  __device__ __forceinline__ static void tangent(
+      const pfh::Jvp3Params& P, const float (&u)[NS], const float (&d)[NF],
+      const float (&g)[NF][3], float (&src)[NF], float (&flux)[NF][3]) {
+    const float M = P.k[0], kappa = P.k[1], rho_s = P.k[2];
+    const float c = u[0];
+    const float a = c - P.k[3];
+    const float b = P.k[4] - c;
+    const float fpp = 2.0f * rho_s * ((b - a) * (b - a) - 2.0f * a * b);
+    src[0] = d[0] / P.dt;
+    src[1] = d[1] - fpp * d[0];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      flux[0][i] = M * g[1][i];
+      flux[1][i] = -kappa * g[0][i];
+    }
+  }
+};
+
+}  // namespace
+
+PFH_EXPORT int pfh_jvp3_param_floats() { return pfh::kJvp3ParamFloats; }
+
+PFH_EXPORT int pfh_ch3d_jvp(const float* params, int nq, const float* wv,
+                            const float* tv, const float* bv, float* ov, int nz,
+                            int ny, int nx, void* stream) {
+  return pfh::launch_fem_jvp3d<CH3>(params, nq, wv, tv, bv, ov, nz, ny, nx,
+                                    stream);
+}

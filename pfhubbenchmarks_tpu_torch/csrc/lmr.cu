@@ -3,7 +3,9 @@
 //   alpha_g = <Az, r>_g / <Az, Az>_g   (0 when <Az, Az>_g == 0)
 //   x += alpha_g z,   r -= alpha_g Az   on the fields of group g
 //
-// over the v and m planes together. Without field groups there is one group
+// over the v and m planes together (a 3D state has v planes only: ncell = 0
+// and null m pointers, as in the 3D sweeps of
+// pfhubbenchmarks_tpu/ops/pallas3d.py). Without field groups there is one group
 // of all fields, a single alpha. Replaces _lmr_alpha (with or without its
 // groups) and the axpys of the LMR sweep body in
 // pfhubbenchmarks_tpu/ops/pallas_vcycle.py (make_fused_vcycle's sweeps,

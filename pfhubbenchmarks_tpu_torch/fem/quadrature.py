@@ -1,4 +1,5 @@
-"""Quadrature rules on the UFC reference triangle ((0,0), (1,0), (0,1)).
+"""Quadrature rules on the UFC reference triangle ((0,0), (1,0), (0,1)) and
+tetrahedron ((0,0,0), (1,0,0), (0,1,0), (0,0,1)).
 
 The reference runs FFC with ``quadrature_degree = 3`` (dolfin/bench1.py:16),
 which resolves to a FIAT *collapsed* Gauss-Jacobi (Duffy) rule with
@@ -133,6 +134,78 @@ def dunavant(degree: int) -> TriRule:
             w.append(wt)
     w = np.asarray(w) * 0.5 / np.sum(w)
     return TriRule(np.asarray(pts), w, name=f"dunavant_{degree}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TetRule:
+    """Points/weights on the UFC tetrahedron; weights sum to volume 1/6."""
+
+    points: np.ndarray   # [nq, 3]
+    weights: np.ndarray  # [nq]
+    name: str = ""
+
+    @property
+    def n(self) -> int:
+        return self.points.shape[0]
+
+
+def fiat_collapsed_tet(m: int) -> TetRule:
+    """FIAT-style collapsed (Duffy) rule on the UFC tetrahedron:
+    GL x GJ(1,0) x GJ(2,0), m^3 points, exact to degree 2m-1."""
+    gx, wx = gauss_legendre(m)
+    gy, wy = gauss_jacobi(m, 1.0, 0.0)
+    gz, wz = gauss_jacobi(m, 2.0, 0.0)
+    pts = []
+    wts = []
+    for k in range(m):
+        for j in range(m):
+            for i in range(m):
+                x, y, z = gx[i], gy[j], gz[k]
+                xi1 = 0.25 * (1.0 + x) * (1.0 - y) * (1.0 - z) - 1.0
+                xi2 = 0.5 * (1.0 + y) * (1.0 - z) - 1.0
+                xi3 = z
+                pts.append(((xi1 + 1) / 2, (xi2 + 1) / 2, (xi3 + 1) / 2))
+                wts.append(wx[i] * wy[j] * wz[k])
+    w = np.asarray(wts)
+    w *= (1.0 / 6.0) / w.sum()
+    return TetRule(np.asarray(pts), w, name=f"fiat_tet_{m}")
+
+
+def ffc_tet(degree: int) -> TetRule:
+    """The rule FFC uses for ``quadrature_degree=degree`` on tetrahedra."""
+    return fiat_collapsed_tet((degree + 2) // 2)
+
+
+def tet_monomial_integral(a: int, b: int, c: int) -> float:
+    """Exact integral of x^a y^b z^c over the UFC tetrahedron."""
+    return (math.factorial(a) * math.factorial(b) * math.factorial(c)
+            / math.factorial(a + b + c + 3))
+
+
+def keast_tet(degree: int) -> TetRule:
+    """Keast symmetric tet rules: degree 1 (1 point, the centroid) and
+    degree 2 (4 points), the cheap rules of a preconditioner's
+    rediscretization (SolverConfig.precond_rule)."""
+    if degree <= 1:
+        return TetRule(np.array([[0.25, 0.25, 0.25]]),
+                       np.array([1.0 / 6.0]), name="keast_1")
+    if degree == 2:
+        a, b = 0.5854101966249685, 0.1381966011250105
+        pts = np.array([[a, b, b], [b, a, b], [b, b, a], [b, b, b]])
+        w = np.full(4, 1.0 / 24.0)
+        return TetRule(pts, w, name="keast_2")
+    raise ValueError(f"keast rule degree {degree} not tabulated")
+
+
+def get_tet_rule(name: str) -> TetRule:
+    """Resolve a tet rule by name: 'ffcN', 'fiatN', 'keastN'."""
+    if name.startswith("ffc"):
+        return ffc_tet(int(name[3:]))
+    if name.startswith("fiat"):
+        return fiat_collapsed_tet(int(name[4:]))
+    if name.startswith("keast"):
+        return keast_tet(int(name[5:]))
+    raise ValueError(f"unknown tet quadrature rule {name!r}")
 
 
 def get_rule(name: str) -> TriRule:

@@ -1,7 +1,9 @@
 """Carry the JAX package's data across, so both packages compute the same
-thing: states as numpy pairs, configs as ``dataclasses.asdict`` dicts,
-benchmark parameters as dicts of numpy or Python scalars. Nothing here
-imports jax: the JAX side hands over plain numpy and Python values.
+thing: states as tuples of numpy arrays (2D pairs ``(v, m)``, 3D 1-tuples
+``(v,)`` with v ``[F, Z, Y, X]``), configs as ``dataclasses.asdict`` dicts,
+benchmark parameters as dicts of numpy or Python scalars (bench1_3d takes
+``Bench1Params``). Nothing here imports jax: the JAX side hands over plain
+numpy and Python values.
 """
 
 from __future__ import annotations
@@ -19,14 +21,15 @@ from pfhubbenchmarks_tpu_torch.config import SolverConfig, TimeConfig
 
 
 def state_from_numpy(w, device: torch.device | str, dtype=torch.float64):
-    """(v, m) numpy (or array-like) pair -> tensor pair on ``device`` (a
-    copy: the source may be a read-only view of a JAX array)."""
+    """(v, m) or (v,) of numpy (or array-like) arrays -> the same tuple of
+    tensors on ``device`` (a copy: the source may be a read-only view of a
+    JAX array)."""
     return tuple(torch.tensor(np.asarray(a), dtype=dtype, device=device)
                  for a in w)
 
 
 def state_to_numpy(w):
-    """Tensor pair -> numpy pair (copied to the host)."""
+    """Tuple of tensors -> tuple of numpy arrays (copied to the host)."""
     return tuple(a.detach().cpu().numpy() for a in w)
 
 

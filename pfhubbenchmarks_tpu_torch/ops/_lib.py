@@ -38,8 +38,9 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
 
-KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp", "block_jacobi_apply",
-           "lmr_step", "transfer_dyadic", "transfer_general")
+KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp", "ch3d_jvp",
+           "block_jacobi_apply", "lmr_step", "transfer_dyadic",
+           "transfer_general")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # launch sequences of the kernels that stand for one TPU kernel each
 CHAINS = ("lmr_sweep_loop", "descend_level", "ascend_level", "descend_chain",
@@ -107,6 +108,8 @@ class KernelLibrary:
             "pfh_chac_jvp": [vp, i32, i32, i32] + [vp] * 9 + [i32, i32, vp],
             "pfh_ach_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
             "pfh_jvp_param_floats": [],
+            "pfh_ch3d_jvp": [vp, i32] + [vp] * 4 + [i32] * 3 + [vp],
+            "pfh_jvp3_param_floats": [],
             "pfh_block_jacobi_apply": [vp] * 6 + [i32, i64, i64, i32, vp, vp],
             "pfh_lmr_step": [vp] * 8 + [i64, i64, i32, i32, vp, vp, i32, vp,
                                         vp],

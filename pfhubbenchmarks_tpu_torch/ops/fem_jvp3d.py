@@ -1,0 +1,128 @@
+"""Kernel I (``csrc/ch3d_jvp.cu`` over ``csrc/fem_jvp3d.cuh``): the 3D
+Kuhn-tet J.v, and its plain version beside it.
+
+Replaces ``pfhubbenchmarks_tpu/ops/pallas3d.py:make_pallas_jvp3d`` (the
+whole-array 3D J.v) and ``make_tiled_jvp3d`` (the same J.v over z slabs with
+halo planes: slabs are a VMEM device, so on the card it is one launch per
+J.v).
+
+``make_fem_jvp3d`` returns ``jv(w, w0, dt, v, b=None)``: ``J(w, w0, dt) v``,
+or ``b - J v`` when ``b`` is given, as an f32 1-leaf state ``(v,)``. One
+kernel serves the 1-, 4- and 8-point tet rules (keast1, keast2 on the
+multigrid levels, ffc3 for the outer matvec): the tabulation, the physics
+constants and ``dt`` are launch arguments. ``make_ch3d_jvp`` is kernel I
+for bench1_3d's Cahn-Hilliard.
+
+The plain version is the benchmark's hand-written pointwise ``tangent``
+(which the kernel's ``Phys::tangent`` mirrors) assembled in f32 by the
+residual's einsums (fem/assembly3d.make_tangent_jvp3d): the function
+``torch.func.jvp`` of the residual computes, without forward AD. The wrapper
+takes it for CPU tensors only; a CUDA tensor launches the kernel.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pfhubbenchmarks_tpu_torch.fem.assembly3d import make_tangent_jvp3d
+from pfhubbenchmarks_tpu_torch.fem.grid3d import _TETS, TetGrid
+from pfhubbenchmarks_tpu_torch.ops import _lib
+
+MAX_Q = 8
+RULE_POINTS = (1, 4, 8)
+MAX_CONST = 12
+# physics constants of kernel I, in its parameter order
+CH_CONSTANTS = ("M", "kappa", "rho_s", "c_alpha", "c_beta")
+
+
+def pack_tabulation3d(grid: TetGrid) -> np.ndarray:
+    """The kernel's float32 tables (``Jvp3Params`` without the constants and
+    dt): per tet only its 4 vertices, the point axis zero-padded to 8. The
+    barycentric basis values are the same in every Kuhn tet, so one [8, 4]
+    table serves all six."""
+    tab = grid.tab()
+    nq = tab.nq
+    if nq not in RULE_POINTS:
+        raise ValueError(f"kernel I takes rules of {RULE_POINTS} points, rule "
+                         f"{grid.rule_name!r} has {nq}")
+    loc = [tab.Bq[t][:, _TETS[t]] for t in range(6)]      # [nq, 4] each
+    if any(not np.array_equal(b, loc[0]) for b in loc):
+        raise ValueError("tet tabulations differ in their basis values")
+    Bq = np.zeros((MAX_Q, 4))
+    Bq[:nq] = loc[0]
+    WB = np.zeros((6, MAX_Q, 4))
+    WG = np.zeros((6, MAX_Q, 4, 3))
+    Gs = np.zeros((6, 4, 3))
+    for t in range(6):
+        slots = _TETS[t]
+        WB[t, :nq] = (tab.wq[:, :, None] * tab.Bq)[t][:, slots]
+        for d in range(3):
+            WG[t, :nq, :, d] = (tab.wq[:, :, None]
+                                * tab.Gs[:, None, :, d])[t][:, slots]
+        Gs[t] = tab.Gs[t][slots]
+    return np.concatenate([a.reshape(-1) for a in (Bq, WB, WG, Gs)]).astype(
+        np.float32)
+
+
+def make_fem_jvp3d(grid: TetGrid, tangent, n_fields: int, *, name: str,
+                   symbol: str, constants: tuple[float, ...],
+                   device: torch.device | str):
+    """``tangent(ctx, tctx) -> (source, flux)`` is the pointwise tangent of
+    the benchmark's terms that the kernel computes, ``name`` the launch
+    counter, ``symbol`` the C launcher, ``constants`` the physics constants
+    in the kernel's order. ``jv.plain`` and ``jv.kernel`` are the two
+    versions."""
+    if grid.pad_to != (1, 1, 1):
+        raise NotImplementedError(f"{name} takes unpadded grids")
+    if len(constants) > MAX_CONST:
+        raise ValueError(f"{name}: at most {MAX_CONST} constants")
+    tangent_jv = make_tangent_jvp3d(grid, tangent, device=device,
+                                    dtype=torch.float32)
+    const = np.zeros(MAX_CONST, np.float32)
+    const[: len(constants)] = constants
+    params_head = np.concatenate([pack_tabulation3d(grid), const])
+    nq = grid.tab().nq
+    vshape = (n_fields,) + grid.vshape
+
+    def plain(w, w0, dt, v, b=None):
+        (jv_,) = tangent_jv(w, w0, dt, v)
+        return (jv_,) if b is None else (b[0] - jv_,)
+
+    def kernel(w, w0, dt, v, b=None):
+        del w0  # the tangents do not read the previous time level
+        ts = [w[0], v[0]] + ([b[0]] if b is not None else [])
+        _lib.check_cuda(name, ts)
+        for t in ts:
+            if tuple(t.shape) != vshape:
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                                 f"{vshape}")
+        out = torch.empty_like(v[0])
+        params = np.concatenate([params_head, np.array([dt], np.float32)])
+        lib = _lib.library()
+        if params.size != lib.lib.pfh_jvp3_param_floats():
+            raise RuntimeError(f"{name}: parameter block does not match the "
+                               "kernel's Jvp3Params layout")
+        lib.call(symbol, params.ctypes.data, nq, w[0].data_ptr(),
+                 v[0].data_ptr(), None if b is None else b[0].data_ptr(),
+                 out.data_ptr(), grid.nz, grid.ny, grid.nx,
+                 _lib.stream_handle())
+        _lib.count_launch(name)
+        return (out,)
+
+    def jv(w, w0, dt, v, b=None):
+        return (plain if _lib.on_cpu(v[0]) else kernel)(w, w0, dt, v, b)
+
+    jv.plain = plain
+    jv.kernel = kernel
+    return jv
+
+
+def make_ch3d_jvp(grid: TetGrid, tangent, constants: dict, *,
+                  device: torch.device | str):
+    """Kernel I for the 2-field (c, mu) system of bench1_3d; ``tangent`` is
+    bench1's ``terms_tangent`` (benchmarks/bench1.make_terms)."""
+    return make_fem_jvp3d(grid, tangent, 2, name="ch3d_jvp",
+                          symbol="pfh_ch3d_jvp",
+                          constants=tuple(constants[k] for k in CH_CONSTANTS),
+                          device=device)

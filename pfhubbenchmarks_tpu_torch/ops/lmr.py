@@ -9,7 +9,9 @@ then ``x += alpha z`` and ``r -= alpha Az``, replacing ``_lmr_alpha`` and the
 sweep-body axpys of ``make_fused_vcycle``. It updates ``x`` and ``r`` in
 place: a sweep then allocates only ``z`` and ``Az``.
 
-Both take optional field groups (``SolverConfig.field_split``): contiguous
+Both take a 2D pair ``(v, m)`` or a 3D 1-leaf state ``(v,)`` (one vertex
+grid ``[F, Z, Y, X]``, fem/grid3d.py; the launchers then get no centre planes
+and ``ncell = 0``), and optional field groups (``SolverConfig.field_split``): contiguous
 field ranges such as BM2's ``((0, 1), (2,), (3,), (4,), (5,))``. B then sums
 each output over its own group's planes only (``_bj_apply(groups)``), and C
 forms one alpha per group (``_lmr_alpha(groups)``).
@@ -18,7 +20,9 @@ forms one alpha per group (``_lmr_alpha(groups)``).
 pallas_residual.py:make_pallas_lmr_sweep_loop`` and ``make_pallas_lmr_sweep``
 (n sweeps in one Pallas call) and ``ops/pallas_tiled.py:
 make_tiled_lmr_sweep`` (the same sweeps over row blocks, with partial dots
-and alpha outside the kernel, which is what C's two stages do): a launch
+and alpha outside the kernel, which is what C's two stages do), and in 3D
+``ops/pallas3d.py:make_pallas_lmr_sweep_loop3d`` and
+``make_tiled_lmr_sweep3d`` (z slabs instead of row blocks): a launch
 sequence of B, the level J.v and C per sweep.
 
 Each has its plain PyTorch version beside it (einsums; torch dots and
@@ -67,54 +71,75 @@ def _c_groups(starts):
     return len(starts) - 1, (ctypes.c_int * len(starts))(*starts)
 
 
+def _leaves(name, *states):
+    """The leaf count of a 2D pair or a 3D 1-leaf state, shared by all."""
+    n = len(states[0])
+    if n not in (1, 2) or any(len(s) != n for s in states):
+        raise ValueError(f"{name}: states must all be (v, m) pairs or all (v,)")
+    return n
+
+
+def _bj_einsum(P, rl):
+    """z_i = sum_j P_ij r_j per node, for [F, Y, X] or [F, Z, Y, X] planes."""
+    sp = "zyx"[3 - (rl.dim() - 1):]
+    return torch.einsum(f"ij{sp},j{sp}->i{sp}", P, rl)
+
+
 def block_jacobi_apply_plain(pinv, r, groups=None):
     starts = group_starts(groups)
-    pv, pm = pinv
+    _leaves("block_jacobi_apply", pinv, r)
     if starts is None:
-        return (torch.einsum("ijyx,jyx->iyx", pv, r[0]),
-                torch.einsum("ijyx,jyx->iyx", pm, r[1]))
+        return tuple(_bj_einsum(P, rl) for P, rl in zip(pinv, r))
     _check_groups("block_jacobi_apply", starts, r[0].shape[0])
     out = []
     for P, rl in zip(pinv, r):
-        out.append(torch.cat([torch.einsum("ijyx,jyx->iyx", P[a:b, a:b], rl[a:b])
+        out.append(torch.cat([_bj_einsum(P[a:b, a:b], rl[a:b])
                               for a, b in zip(starts[:-1], starts[1:])]))
     return tuple(out)
 
 
+def _ptrs(pair):
+    """(v, m) or (v,) -> the v and m pointers (None for no centre grid)."""
+    return pair[0].data_ptr(), (pair[1].data_ptr() if len(pair) == 2 else None)
+
+
+def _ncell(pair) -> int:
+    return pair[1][0].numel() if len(pair) == 2 else 0
+
+
 def block_jacobi_apply_kernel(pinv, r, groups=None):
     starts = group_starts(groups)
-    pv, pm = pinv
+    _leaves("block_jacobi_apply", pinv, r)
     F = r[0].shape[0]
-    _lib.check_cuda("block_jacobi_apply", [pv, pm, r[0], r[1]])
-    if (pv.shape != (F, F) + r[0].shape[1:]
-            or pm.shape != (F, F) + r[1].shape[1:]):
-        raise ValueError(f"block_jacobi_apply: planes {tuple(pv.shape)}, "
-                         f"{tuple(pm.shape)} vs r {tuple(r[0].shape)}, "
-                         f"{tuple(r[1].shape)}")
+    _lib.check_cuda("block_jacobi_apply", [*pinv, *r])
+    if any(P.shape != (F, F) + rl.shape[1:] for P, rl in zip(pinv, r)):
+        raise ValueError(f"block_jacobi_apply: planes "
+                         f"{[tuple(P.shape) for P in pinv]} vs r "
+                         f"{[tuple(rl.shape) for rl in r]}")
     _check_groups("block_jacobi_apply", starts, F)
-    z = (torch.empty_like(r[0]), torch.empty_like(r[1]))
+    z = tuple(torch.empty_like(rl) for rl in r)
     _lib.library().call(
-        "pfh_block_jacobi_apply", pv.data_ptr(), pm.data_ptr(), r[0].data_ptr(),
-        r[1].data_ptr(), z[0].data_ptr(), z[1].data_ptr(), F,
-        r[0][0].numel(), r[1][0].numel(), *_c_groups(starts),
-        _lib.stream_handle())
+        "pfh_block_jacobi_apply", *_ptrs(pinv), *_ptrs(r), *_ptrs(z), F,
+        r[0][0].numel(), _ncell(r), *_c_groups(starts), _lib.stream_handle())
     _lib.count_launch("block_jacobi_apply")
     return z
 
 
 def block_jacobi_apply(pinv, r, groups=None):
-    """z = P^-1 r with pinv = (pv [F,F,Yv,Xv], pm [F,F,Ym,Xm]); with
-    ``groups`` only the in-group planes are read."""
+    """z = P^-1 r with pinv = (pv [F,F,Yv,Xv], pm [F,F,Ym,Xm]), or in 3D
+    (pv [F,F,Z,Y,X],); with ``groups`` only the in-group planes are read."""
     if _lib.on_cpu(r[0]):
         return block_jacobi_apply_plain(pinv, r, groups)
     return block_jacobi_apply_kernel(pinv, r, groups)
 
 
 def lmr_alpha_plain(az, r):
-    num = torch.vdot(az[0].reshape(-1), r[0].reshape(-1)) + torch.vdot(
-        az[1].reshape(-1), r[1].reshape(-1))
-    den = torch.vdot(az[0].reshape(-1), az[0].reshape(-1)) + torch.vdot(
-        az[1].reshape(-1), az[1].reshape(-1))
+    num = den = None
+    for a, rl in zip(az, r):
+        a, rl = a.reshape(-1), rl.reshape(-1)
+        n_l, d_l = torch.vdot(a, rl), torch.vdot(a, a)
+        num = n_l if num is None else num + n_l
+        den = d_l if den is None else den + d_l
     return torch.where(den > 0, num / torch.where(den > 0, den, 1.0),
                        torch.zeros_like(den))
 
@@ -129,7 +154,8 @@ def lmr_step_plain(x, r, z, az, groups=None) -> None:
                                      tuple(t[a:b] for t in r))
                      for a, b in zip(starts[:-1], starts[1:])]
         alpha = torch.cat([a.expand(b - s) for a, s, b in
-                           zip(per_group, starts[:-1], starts[1:])])[:, None, None]
+                           zip(per_group, starts[:-1], starts[1:])])
+        alpha = alpha.reshape((-1,) + (1,) * (x[0].dim() - 1))
     for xl, zl in zip(x, z):
         xl.add_(alpha * zl)
     for rl, al in zip(r, az):
@@ -146,23 +172,23 @@ def lmr_step_kernel(x, r, z, az, groups=None) -> torch.Tensor:
     """Returns the device alphas, one per group (for inspection; never read
     here)."""
     starts = group_starts(groups)
-    ts = [x[0], x[1], r[0], r[1], z[0], z[1], az[0], az[1]]
-    _lib.check_cuda("lmr_step", ts)
+    _leaves("lmr_step", x, r, z, az)
+    _lib.check_cuda("lmr_step", [*x, *r, *z, *az])
     for pair in (r, z, az):
-        if pair[0].shape != x[0].shape or pair[1].shape != x[1].shape:
+        if any(a.shape != b.shape for a, b in zip(pair, x)):
             raise ValueError("lmr_step: x, r, z and Az must share shapes")
     F = x[0].shape[0]
     _check_groups("lmr_step", starts, F)
     n_groups, c_starts = _c_groups(starts)
-    nb = lmr_partial_blocks(x[0].numel() + x[1].numel())
+    nb = lmr_partial_blocks(sum(t.numel() for t in x))
     dev = x[0].device
     partials = torch.empty(2 * max(n_groups, 1) * nb, dtype=torch.float64,
                            device=dev)
     alpha = torch.empty(max(n_groups, 1), dtype=torch.float32, device=dev)
     _lib.library().call(
-        "pfh_lmr_step", *[t.data_ptr() for t in ts], x[0][0].numel(),
-        x[1][0].numel(), F, n_groups, c_starts, partials.data_ptr(), nb,
-        alpha.data_ptr(), _lib.stream_handle())
+        "pfh_lmr_step", *_ptrs(x), *_ptrs(r), *_ptrs(z), *_ptrs(az),
+        x[0][0].numel(), _ncell(x), F, n_groups, c_starts, partials.data_ptr(),
+        nb, alpha.data_ptr(), _lib.stream_handle())
     _lib.count_launch("lmr_step")
     return alpha
 
@@ -177,8 +203,10 @@ def lmr_step(x, r, z, az, groups=None) -> None:
 
 
 def make_lmr_sweep_loop(jv, n_sweeps: int, field_groups=None):
-    """Returns ``sweep(x, r, w, w0, dt, pinv_v, pinv_m) -> (x, r)``, the
-    signature of the TPU sweep kernels: ``n_sweeps`` LMR sweeps on (x, r),
+    """Returns ``sweep(x, r, w, w0, dt, *pinv) -> (x, r)``, the signature of
+    the TPU sweep kernels (``pinv`` the block planes, one per leaf of the
+    state: ``pinv_v, pinv_m`` in 2D, ``pinv_v`` in 3D): ``n_sweeps`` LMR
+    sweeps on (x, r),
     updated in place and returned. A sweep is ``z = P^-1 r`` (B, reading
     the in-group planes of ``field_groups``), ``A z`` by ``jv`` (the level's
     J.v, ops/fem_jvp.make_fem_jvp) and the step (C, one alpha per group of
@@ -187,9 +215,9 @@ def make_lmr_sweep_loop(jv, n_sweeps: int, field_groups=None):
     ``_lib.CALLS``."""
     group_starts(field_groups)
 
-    def body(bj, step, jv_, x, r, w, w0, dt, pinv_v, pinv_m):
+    def body(bj, step, jv_, x, r, w, w0, dt, *pinv):
         for _ in range(n_sweeps):
-            z = bj((pinv_v, pinv_m), r, field_groups)
+            z = bj(pinv, r, field_groups)
             step(x, r, z, jv_(w, w0, dt, z), field_groups)
         return x, r
 
@@ -201,9 +229,8 @@ def make_lmr_sweep_loop(jv, n_sweeps: int, field_groups=None):
     def plain(*args):
         return body(block_jacobi_apply_plain, lmr_step_plain, jv.plain, *args)
 
-    def sweep(x, r, w, w0, dt, pinv_v, pinv_m):
-        return (plain if _lib.on_cpu(x[0]) else kernel)(x, r, w, w0, dt,
-                                                        pinv_v, pinv_m)
+    def sweep(x, r, w, w0, dt, *pinv):
+        return (plain if _lib.on_cpu(x[0]) else kernel)(x, r, w, w0, dt, *pinv)
 
     sweep.kernel, sweep.plain = kernel, plain
     return sweep

@@ -99,25 +99,13 @@ def coarse_dof_count(g: CrossedTriGrid, n_fields: int) -> int:
     return n_fields * (g.n_vertices_y * g.n_vertices_x + g.ny * g.nx)
 
 
-def make_dense_coarse(g: CrossedTriGrid, residual_c, n_fields: int):
-    """Exact coarsest-level solver: the coarse Jacobian by ``torch.func.
-    jacfwd``, row-equilibrated, inverted by ``torch.linalg.inv`` (the JAX
-    package's LAPACK branch, gmg.py:89-152)."""
-    ny, nx = g.ny, g.nx
-    nvy, nvx = g.n_vertices_y, g.n_vertices_x
-    F = n_fields
-    nv = F * nvy * nvx
-
-    def flatten(w):
-        v, m = w
-        return torch.cat([v[:, :nvy, :nvx].reshape(-1), m[:, :ny, :nx].reshape(-1)])
-
-    def unflatten(x):   # out-of-place, so torch.func can trace it
-        v = x[:nv].reshape(F, nvy, nvx)
-        m = x[nv:].reshape(F, ny, nx)
-        v = torch.nn.functional.pad(v, (0, g.vshape[1] - nvx, 0, g.vshape[0] - nvy))
-        m = torch.nn.functional.pad(m, (0, g.mshape[1] - nx, 0, g.mshape[0] - ny))
-        return v, m
+def make_dense_coarse(residual_c, flatten, unflatten):
+    """Exact coarsest-level solver ``(build_inv, solve)`` over the flat dofs
+    that ``flatten``/``unflatten`` map a level state to and from: the coarse
+    Jacobian by ``torch.func.jacfwd``, row-equilibrated, inverted by
+    ``torch.linalg.inv`` (the JAX package's LAPACK branch, gmg.py:89-152 and
+    gmg3d.py:143-144). ``unflatten`` must be out-of-place, so torch.func can
+    trace it."""
 
     def build_inv(wl, w0l, dtl):
         x0 = flatten(wl)
@@ -131,6 +119,28 @@ def make_dense_coarse(g: CrossedTriGrid, residual_c, n_fields: int):
         return unflatten(A @ (d * flatten(b)))
 
     return build_inv, solve
+
+
+def _flat_maps(g: CrossedTriGrid, n_fields: int):
+    """``(flatten, unflatten)`` between a crossed-triangle state (v, m) and
+    its vertex then centre dofs."""
+    ny, nx = g.ny, g.nx
+    nvy, nvx = g.n_vertices_y, g.n_vertices_x
+    F = n_fields
+    nv = F * nvy * nvx
+
+    def flatten(w):
+        v, m = w
+        return torch.cat([v[:, :nvy, :nvx].reshape(-1), m[:, :ny, :nx].reshape(-1)])
+
+    def unflatten(x):
+        v = x[:nv].reshape(F, nvy, nvx)
+        m = x[nv:].reshape(F, ny, nx)
+        v = torch.nn.functional.pad(v, (0, g.vshape[1] - nvx, 0, g.vshape[0] - nvy))
+        m = torch.nn.functional.pad(m, (0, g.mshape[1] - nx, 0, g.mshape[0] - ny))
+        return v, m
+
+    return flatten, unflatten
 
 
 def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
@@ -180,7 +190,8 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
         residual_c = make_residual(grids[-1], terms, n_fields, device=device,
                                    dirichlet=level_bcs[-1],
                                    dtype=torch.float32)
-        dense_coarse = make_dense_coarse(grids[-1], residual_c, n_fields)
+        dense_coarse = make_dense_coarse(residual_c,
+                                         *_flat_maps(grids[-1], n_fields))
     coarse_sweep = make_lmr_sweep_loop(jvs[-1], coarse_sweeps, field_groups)
     chain = None
     if L >= 2:

@@ -18,7 +18,12 @@ version on CPU).
 Line searches: 'basic' (the full step) and 'cp' (one secant step on
 ``<F(x + l d), d>``, ``newton.py:60-79``). With ``fast_linesearch`` the cp
 residual is the f32 one while ``||F||`` stays far above the f32 noise floor
-measured at the initial guess (``newton.py:197-214``). ``precond_lag``:
+measured at the initial guess (``newton.py:197-214``). ``fast_residual``
+(``newton.py:157-189, 284-286``) does the same for the Newton residual
+itself: the residual of each new iterate is the f32 one while both its f32
+norm and the gate stay at or above ``max(margin * floor, 100 atol,
+10 report_atol)``, else the f64 one (a host-side branch here, ``lax.cond``
+in the JAX package). ``precond_lag``:
 'newton' builds the preconditioner at every Newton iterate, 'solve' once
 per solve at the initial guess (``newton.py:217-227``); a lagged
 preconditioner never hands FGMRES its (z, A z) pair, whose A z would be
@@ -86,6 +91,7 @@ def make_newton_solver(residual, cfg: SolverConfig, precond_build, *,
     lowp = torch.float32
     fast_ls = (residual_lowp is not None and cfg.fast_linesearch
                and cfg.line_search != "basic")
+    fast_res = residual_lowp is not None and cfg.fast_residual
 
     def solve(w_guess, w_prev, dt):
         dt = float(dt)
@@ -95,22 +101,28 @@ def make_newton_solver(residual, cfg: SolverConfig, precond_build, *,
         F = residual(x, w_prev, dt)
         n0 = float(tr.norm(F))
 
-        def res_ls(xl, gate):
-            """The line search's residual: the f32 one while both ``gate``
-            (the current ||F||) and its own norm stay above the switch."""
-            if fast_ls:
-                F32 = residual_lowp(tr.cast(xl, lowp), w_prev_lp, dt_lp)
-                if not (gate < switch_ls or float(tr.norm(F32)) < switch_ls):
-                    return tr.cast(F32, w_guess[0].dtype)
+        def staged(xl, gate):
+            """The f32 residual at ``xl`` while both ``gate`` and its own
+            norm stay at or above the switch, else the f64 one."""
+            F32 = residual_lowp(tr.cast(xl, lowp), w_prev_lp, dt_lp)
+            if not (gate < switch or float(tr.norm(F32)) < switch):
+                return tr.cast(F32, w_guess[0].dtype)
             return residual(xl, w_prev, dt)
 
-        if fast_ls:
+        def res_ls(xl, gate):
+            """The line search's residual (the gate is the current ||F||):
+            staged under either switch, as the JAX package's ``ls_res`` and
+            ``res_staged``."""
+            return (staged(xl, gate) if fast_ls or fast_res
+                    else residual(xl, w_prev, dt))
+
+        if fast_ls or fast_res:
             # the f32 assembly's noise floor at the initial guess
             F0_32 = residual_lowp(tr.cast(x, lowp), w_prev_lp, dt_lp)
-            floor_ls = float(tr.norm(tr.sub(tr.cast(F0_32, w_guess[0].dtype), F)))
-            switch_ls = max(cfg.fast_residual_margin * floor_ls,
-                            cfg.newton_atol * 100.0,
-                            (cfg.report_atol or 0.0) * 10.0)
+            floor = float(tr.norm(tr.sub(tr.cast(F0_32, w_guess[0].dtype), F)))
+            switch = max(cfg.fast_residual_margin * floor,
+                         cfg.newton_atol * 100.0,
+                         (cfg.report_atol or 0.0) * 10.0)
         normF = n0
         hist = [math.inf] * (cfg.newton_max_iters + 1)
         hist[0] = n0
@@ -139,7 +151,9 @@ def make_newton_solver(residual, cfg: SolverConfig, precond_build, *,
             lam = (_cp_step(res_ls, x, d, F, normF)
                    if cfg.line_search == "cp" else 1.0)
             xn = tr.axpy(lam, d, x)
-            Fn = residual(xn, w_prev, dt)
+            # an infinite gate leaves the choice to the f32 norm alone
+            Fn = (staged(xn, math.inf) if fast_res
+                  else residual(xn, w_prev, dt))
             nn = float(tr.norm(Fn))
             k += 1
             snorm = abs(lam) * float(tr.norm(d))

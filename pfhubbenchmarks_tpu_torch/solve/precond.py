@@ -10,7 +10,9 @@ Per grid node, the exact F x F diagonal block of the Jacobian
 with the pointwise derivative blocks from ``torch.func.jvp`` of the
 model's ``terms`` at nodal values, one-hot field tangents, then a batched
 F x F inverse. The build is plain torch (XLA in the JAX package); applying
-the inverse is kernel B (ops/lmr.block_jacobi_apply).
+the inverse is kernel B (ops/lmr.block_jacobi_apply). The 3D form
+(``make_block_jacobi3d``) builds its blocks from the benchmark's
+hand-written tangent.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from pfhubbenchmarks_tpu_torch.fem.assembly import QPContext
 from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
+from pfhubbenchmarks_tpu_torch.fem.grid3d import TetGrid
 from pfhubbenchmarks_tpu_torch.ops.lmr import block_jacobi_apply
 
 
@@ -114,6 +117,73 @@ def make_block_jacobi(grid: CrossedTriGrid, terms, n_fields: int, *,
         Pm_inv = small_inv(blocks_for(m, m0, dt, mass_m, sxx_m, syy_m))
         planes = (Pv_inv.permute(2, 3, 0, 1).contiguous(),
                   Pm_inv.permute(2, 3, 0, 1).contiguous())
+
+        def Minv(r):
+            return block_jacobi_apply(planes, r)
+
+        Minv.pinv_planes = planes
+        return Minv
+
+    return build
+
+
+def make_block_jacobi3d(grid: TetGrid, tangent, n_fields: int, *,
+                        device: torch.device | str, dirichlet=(),
+                        dtype=torch.float32):
+    """3D single-grid form (``pfhubbenchmarks_tpu/solve/precond.py:
+    make_block_jacobi3d``): per vertex the F x F block
+
+        P_node = dsource/du * mass(node) + sum_d dflux_d/d(du_d) * stiff_d(node)
+
+    with the diagonals of ``TetGrid.node_diagonals``. The pointwise
+    derivative blocks come from the benchmark's hand-written ``tangent(ctx,
+    tctx)`` with one-hot directions (the value direction for the source, one
+    gradient axis at a time for the fluxes), which gives the numbers
+    ``jax.jvp`` of ``terms`` gives there, without forward AD. Returns
+    ``build(w, w0, dt) -> Minv``; ``Minv.pinv_planes`` is the 1-tuple of
+    [F, F, Z, Y, X] inverse planes kernel B reads. Face Dirichlet rows are
+    not yet ported."""
+    if dirichlet:
+        raise NotImplementedError(
+            "3D Dirichlet faces are not yet ported to the PyTorch package")
+    d = grid.node_diagonals()
+    Z, Y, X = grid.vshape
+
+    def _pad(a):
+        p = np.ones((Z, Y, X))
+        p[: a.shape[0], : a.shape[1], : a.shape[2]] = a
+        return torch.as_tensor(p, dtype=dtype, device=device)
+
+    mass_d = _pad(d["mass"])
+    stiff_d = [_pad(d[f"stiff_{ax}"]) for ax in range(3)]
+    F = n_fields
+
+    def build(w, w0, dt):
+        (u,) = (a.to(dtype) for a in w)
+        (u0,) = (a.to(dtype) for a in w0)
+        zer = torch.zeros_like(u[0])
+        one = torch.ones_like(u[0])
+        grad0 = tuple((zer, zer, zer) for _ in range(F))
+        ctx = QPContext(u=tuple(u[i] for i in range(F)), du=grad0,
+                        u0=tuple(u0[i] for i in range(F)), du0=grad0, dt=dt)
+        cols = []
+        for j in range(F):
+            e = tuple(one if i == j else zer for i in range(F))
+            src, _ = tangent(ctx, QPContext(u=e, du=grad0, u0=None, du0=None,
+                                            dt=None))
+            col = torch.stack([torch.broadcast_to(s, u.shape[1:])
+                               for s in src]) * mass_d
+            for ax in range(3):
+                du = tuple(tuple(one if (i == j and a == ax) else zer
+                                 for a in range(3)) for i in range(F))
+                _, flux = tangent(ctx, QPContext(
+                    u=tuple(zer for _ in range(F)), du=du, u0=None, du0=None,
+                    dt=None))
+                col = col + torch.stack([torch.broadcast_to(fl[ax], u.shape[1:])
+                                         for fl in flux]) * stiff_d[ax]
+            cols.append(col)
+        P = torch.movedim(torch.stack(cols, dim=-1), 0, -2)   # [Z, Y, X, F, F]
+        planes = (small_inv(P).permute(3, 4, 0, 1, 2).contiguous(),)
 
         def Minv(r):
             return block_jacobi_apply(planes, r)

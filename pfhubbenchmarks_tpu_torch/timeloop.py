@@ -13,6 +13,10 @@ after the reference time loop (dolfin/bench1.py:145-198):
   - after each accepted step the problem's ``abort_condition`` on the CSV
     row may stop the run (bench3: TFE < 0), the row kept.
 
+The loop drives a 2D ``BenchmarkProblem`` (states ``(v, m)``) and a 3D
+``Benchmark3DProblem`` (benchmarks/bench1_3d.py, states ``(v,)``) alike: it
+only reads the problem's factory methods and configs.
+
 Replay on a reference time grid, its rescue ladder and the whole-run
 on-device loop (``run_fused``, with its device-side ``abort_device``) are
 not yet ported.
@@ -22,12 +26,16 @@ from __future__ import annotations
 
 import dataclasses
 import time as _time
+import typing
 
 import numpy as np
 import torch
 
 from pfhubbenchmarks_tpu_torch.benchmarks.base import BenchmarkProblem
 from pfhubbenchmarks_tpu_torch.solve.newton import make_newton_solver
+
+if typing.TYPE_CHECKING:
+    from pfhubbenchmarks_tpu_torch.benchmarks.bench1_3d import Benchmark3DProblem
 
 _EPS = 3e-16  # DOLFIN_EPS
 
@@ -60,7 +68,8 @@ class RunResult:
 class Runner:
     """Holds the solver and observables of a problem on one device."""
 
-    def __init__(self, problem: BenchmarkProblem, device: torch.device | str):
+    def __init__(self, problem: "BenchmarkProblem | Benchmark3DProblem",
+                 device: torch.device | str):
         self.problem = problem
         self.device = torch.device(device)
         self.newton = make_newton_solver(
@@ -81,7 +90,8 @@ class Runner:
         return run(self.problem, device=self.device, _runner=self, **kwargs)
 
 
-def run(problem: BenchmarkProblem, *, device: torch.device | str,
+def run(problem: "BenchmarkProblem | Benchmark3DProblem", *,
+        device: torch.device | str,
         end_time: float | None = None, max_steps: int | None = None,
         verbose: bool = True, max_retries_at_dt_min: int = 60,
         _runner: "Runner | None" = None) -> RunResult:

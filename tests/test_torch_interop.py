@@ -99,6 +99,24 @@ def test_state_round_trip():
     assert t32[0].dtype == torch.float32
 
 
+def test_bench1_3d_state_configs_and_params_carry_over():
+    from pfhubbenchmarks_tpu.benchmarks.bench1_3d import make as make_jax3d
+    from pfhubbenchmarks_tpu_torch.benchmarks.bench1_3d import make as make_torch3d
+
+    pj, pt = make_jax3d(nx=4, ny=4, nz=4), make_torch3d(nx=4, ny=4, nz=4)
+    assert solver_config_from_dict(dataclasses.asdict(pj.solver)) == pt.solver
+    assert time_config_from_dict(dataclasses.asdict(pj.time)) == pt.time
+    config.check_supported(pt.solver)   # fast_residual, kcycle 3, keast2
+    assert problem_params_from_numpy(
+        {k: np.float64(v) for k, v in dataclasses.asdict(JaxParams()).items()},
+        Bench1Params) == Bench1Params()
+    (v,) = (np.asarray(a) for a in pj.initial_state())
+    (t,) = state_from_numpy((v,), "cpu")
+    assert t.shape == (2, 5, 5, 5)
+    np.testing.assert_array_equal(state_to_numpy((t,))[0], v)
+    np.testing.assert_array_equal(t.numpy(), pt.initial_state("cpu")[0].numpy())
+
+
 def test_port_never_imports_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -115,12 +133,18 @@ def test_port_never_imports_jax():
 @pytest.mark.parametrize("knob", [
     dict(line_search="bt"), dict(krylov="gmres"), dict(precond="block_jacobi"),
     dict(krylov_operator="precond_rule"), dict(gmg_cycle="w"), dict(gmg_inner_mr=2),
-    dict(mixed_precision=False), dict(fast_residual=True),
+    dict(mixed_precision=False), dict(fgmres_aug=2),
     dict(field_split_alphas=False),
 ])
 def test_unported_knobs_raise(knob):
     with pytest.raises(NotImplementedError):
         config.check_supported(config.SolverConfig(**knob))
+
+
+def test_fast_residual_and_kcycle_are_accepted():
+    config.check_supported(config.SolverConfig(fast_residual=True,
+                                               gmg_kcycle=3,
+                                               precond_rule="keast2"))
 
 
 def test_tpu_only_knobs_are_accepted():
@@ -137,6 +161,16 @@ def test_cli_cuda_without_card_fails():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit, match="no CUDA device"):
         main("bench1", ["--device", "cuda", "--max-steps", "1"])
+
+
+def test_cli_runs_on_the_card_unless_asked_for_the_cpu():
+    """--device omitted means cuda: without a card the CLI exits non-zero
+    with the error, and does not fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="no CUDA device") as exc:
+        main("bench1", ["--max-steps", "1"])
+    assert exc.value.code not in (0, None)
 
 
 def test_cli_refuses_unported_flags():

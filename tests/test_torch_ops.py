@@ -213,7 +213,7 @@ def test_launch_counters_untouched_by_plain_versions():
     prolong(_t(_rand_pair(coarse, rng)), coarse, fine)
     assert all(n == 0 for n in _lib.LAUNCHES.values())
     assert set(_lib.LAUNCHES) == {"ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp",
-                                  "block_jacobi_apply", "lmr_step",
+                                  "ch3d_jvp", "block_jacobi_apply", "lmr_step",
                                   "transfer_dyadic", "transfer_general"}
     assert set(_lib.CALLS) == {"lmr_sweep_loop", "descend_level",
                                "ascend_level", "descend_chain",

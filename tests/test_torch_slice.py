@@ -2,7 +2,9 @@
 ``timeloop.run``: bench1 at 32^2 (L = 64, GMG levels 32/16/8 with sweep
 coarse solve), 4 adaptive steps. The time grid and the Newton counts must be
 identical (they drive the dt controller), TFE rel <= 1e-7, solute rel <=
-1e-10, Krylov counts within +-1. Also the CLI at 16^2 for 2 steps."""
+1e-10, Krylov counts within +-1. The same with ``fast_residual``, the cp line
+search and ``fast_linesearch=False``, whose line search reads the staged
+f32 residual. Also the CLI at 16^2 for 2 steps."""
 
 import dataclasses
 
@@ -15,6 +17,7 @@ from pfhubbenchmarks_tpu_torch.benchmarks.bench1 import make as make_torch
 from pfhubbenchmarks_tpu_torch.benchmarks.registry import main
 from pfhubbenchmarks_tpu_torch.interop import (solver_config_from_dict,
                                                time_config_from_dict)
+from pfhubbenchmarks_tpu_torch.solve.newton import make_newton_solver
 
 
 def test_slice_matches_jax_timeloop():
@@ -38,6 +41,43 @@ def test_slice_matches_jax_timeloop():
     assert sol_rel.max() <= 1e-10
     for a, b in zip(got.stats, ref.stats):
         assert abs(a.krylov_iters - b.krylov_iters) <= 1
+
+
+def test_fast_residual_cp_linesearch_matches_jax():
+    pj = make_jax(nx=32, ny=32, Lx=64.0, Ly=64.0)
+    pj = dataclasses.replace(pj, solver=dataclasses.replace(
+        pj.solver, gmg_min_cells=8, gmg_dense_coarse_max_dofs=0,
+        fast_residual=True, line_search="cp", fast_linesearch=False))
+    ref = jax_timeloop.run(pj, max_steps=3, verbose=False)
+
+    pt = make_torch(nx=32, ny=32, Lx=64.0, Ly=64.0,
+                    solver=solver_config_from_dict(dataclasses.asdict(pj.solver)),
+                    time=time_config_from_dict(dataclasses.asdict(pj.time)))
+    got = timeloop.run(pt, device="cpu", max_steps=3, verbose=False)
+
+    np.testing.assert_array_equal(got.rows[:, 0], ref.rows[:, 0])
+    assert ([s.newton_iters for s in got.stats]
+            == [s.newton_iters for s in ref.stats])
+    tfe_rel = np.abs(got.rows[:, 1] - ref.rows[:, 1]) / np.abs(ref.rows[:, 1])
+    assert tfe_rel.max() <= 1e-7
+
+    # one Newton solve: the f32 residual is read once for the noise floor,
+    # then per iteration by the cp line search and by the staged residual
+    lowp_calls = []
+    res_lp = pt.residual_lowp("cpu")
+
+    def counting(*args):
+        lowp_calls.append(1)
+        return res_lp(*args)
+
+    solve = make_newton_solver(pt.residual("cpu"), pt.solver,
+                               pt.precond_builder("cpu"),
+                               lowp_jvp_factory=pt.lowp_jvp_factory("cpu"),
+                               residual_lowp=counting)
+    w0 = pt.initial_state("cpu")
+    out = solve(w0, w0, pt.time.dt0)
+    k = sum(np.isfinite(h) for h in out.norm_hist) - 1
+    assert k >= 1 and len(lowp_calls) == 1 + 2 * k
 
 
 def test_cli_writes_reference_schema_csv(tmp_path):

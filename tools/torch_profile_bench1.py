@@ -1,11 +1,13 @@
 """Profile a main path of the PyTorch port on a CUDA device.
 
-    python tools/torch_profile_bench1.py [--bench bench1|bench2|bench3|bench6]
-        [--end-time T] [--out-dir DIR]
+    python tools/torch_profile_bench1.py
+        [--bench bench1|bench2|bench3|bench6|bench1_3d] [--end-time T]
+        [--out-dir DIR]
 
-Runs the benchmark at its published size (100x100; bench3 350x350) through
-``timeloop.Runner`` (bench1 to t = 11.1, bench2 to t = 6.63, bench3 to
-t = 12.15, its first 14 rows, bench6 to its end time 3.0 by default) after
+Runs the benchmark at its published size (100x100; bench3 350x350,
+bench1_3d 50^3) through ``timeloop.Runner`` (bench1 to t = 11.1, bench2 to
+t = 6.63, bench3 to t = 12.15, its first 14 rows, bench1_3d to t = 12.7, its
+first 10 rows, bench6 to its end time 3.0 by default) after
 a short warm-up, once unprofiled (wall time, counts), then once more under
 ``torch.profiler`` with the CUDA activity only (the device-side events;
 host-side op events would number in the millions on bench2, whose
@@ -35,8 +37,8 @@ from pfhubbenchmarks_tpu_torch.ops import _lib  # noqa: E402
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--bench", choices=("bench1", "bench2", "bench3", "bench6"),
-                    default="bench1")
+    ap.add_argument("--bench", choices=("bench1", "bench2", "bench3", "bench6",
+                                        "bench1_3d"), default="bench1")
     ap.add_argument("--end-time", type=float, default=None)
     ap.add_argument("--out-dir", type=str, default=None)
     args = ap.parse_args()
@@ -48,7 +50,8 @@ def main() -> None:
     print(f"card: {smi}")
     dev = torch.device("cuda", 0)
     end_time = args.end_time or {"bench1": 11.1, "bench2": 6.63,
-                                 "bench3": 12.15, "bench6": None}[args.bench]
+                                 "bench3": 12.15, "bench6": None,
+                                 "bench1_3d": 12.7}[args.bench]
     runner = timeloop.Runner(get_benchmark(args.bench), dev)
     _lib.library()
     runner.run(max_steps=2, verbose=False)   # warm-up: lazy CUDA/functorch init
