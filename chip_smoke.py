@@ -25,7 +25,8 @@ Phases, each printing its results; any failure raises (non-zero exit):
 6. bench6's main path: the port's bench6 at full size (100x100) through
    ``Runner.run`` to t = 3.19; the 14 rows against the committed
    ``results/bench6_out.csv`` (time column rtol 1e-9, TFE rel 1e-6, solute
-   rel 1e-9); each kernel and chain of that path must have launched.
+   rel 1e-9); each kernel and chain of that path must have launched, kernel
+   R (the f32 residual of the cp line search) among them.
 7. the same checks at bench2's shapes (F = 6, levels 100^2/50^2/25^2): the
    CH+AC J.v (kernel F), coupled at ffc3 and field-split at dunavant1, both
    forms, with 4 order parameters at every level and with 1 and 2 at 100^2,
@@ -36,8 +37,8 @@ Phases, each printing its results; any failure raises (non-zero exit):
 8. bench2's main path: the port's bench2 at full size (100x100, six
    fields) through ``Runner.run`` to t = 6.63; the 28 rows against the
    committed ``results/bench2_out.csv`` (time column rtol 1e-9, TFE rel
-   1e-5, solute rel 1e-9); each kernel, the sweep loop and both chains
-   must have run; the seconds of its multigrid builds (plain torch), timed
+   1e-5, solute rel 1e-9); each kernel (R among them), the sweep loop and
+   both chains must have run; the seconds of its multigrid builds (plain torch), timed
    inside the run, and their share of its wall.
 9. the same checks at bench3's shapes (F = 2, levels 350^2/175^2/35^2/7^2,
    ratios 2, 5, 5): the AC + heat J.v (kernel G) at every level with
@@ -75,25 +76,46 @@ Phases, each printing its results; any failure raises (non-zero exit):
    seconds of its multigrid builds, timed inside the run. If the smoke has
    already run 1000 s when this phase starts, it runs the first 10 rows (to
    t = 12.7) and says so.
-13. prints the card line, the per-kernel JSON line, then
+13. kernel R (the f32 residual) at bench6 (with its Dirichlet rows), bench2
+   (1, 2 and 4 order parameters) and bench1 at 100^2 against its plain
+   version (rtol 1e-5, atol 1e-5 max|R|); the tile kernels T10 and T12 at
+   bench3 350^2 and 175^2 (ffc3 and dunavant2), bench1 and bench2 100^2
+   (coupled ffc3, split dunavant1) and the JAX tests' bench1 24^2 and
+   bench2 16^2, J.v and b - J.v, against their plain versions and
+   ``torch.func.jvp`` of the f32 residual (their library call); TS and the
+   tiled sweep loop at bench3 350^2, bench1 100^2, bench2 100^2 with and
+   without the field groups and bench2 8^2; reruns of T12 and TS at 350^2
+   must give the same bits; the device time per launch of G, T10 and T12
+   at bench3 350^2 (queued behind a sleep kernel).
+14. bench1 in the tiled configuration (``tiled_grid_kernels=True``): 10
+   rows as in phase 4, with T10, T12, TS and the tiled sweep loop required;
+   its time column and per-step Newton counts must equal phase 4's, its
+   Krylov counts and wall are printed beside them.
+15. bench3 in the tiled configuration: its first 14 rows (to t = 12.15),
+   held likewise against phase 10's first 14.
+16. prints the card line, the per-kernel JSON line, then
    ``{"ok": true, "device": ...}``.
 
 In the kernel line, ``kernels`` lists the CUDA kernels: ``launches`` is the
 sum of a kernel's launches over the main-path runs (each counted from 0
 just before its run; ``paths`` splits it), ``ms``/``plain_ms`` are the
-CUDA-event times of its first timed case, ``bound_ms`` the least time the
+CUDA-event times of its first timed case (or of the case named its main
+shape: T12's is bench3 350^2 at dunavant2, its level rule), ``bound_ms``
+the least time the
 card could take for that case: the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its f32 operations over
 67 TFLOP/s (H100 SXM data sheet), with ``bound_by`` naming which.
 ``library_ms`` is one PyTorch call computing the same function where there
-is one (block-Jacobi's einsum pair; for kernel I ``torch.func.jvp`` of the
-f32 residual), else null. ``device_ms``, where present (kernel I, and B and
-C at bench1_3d's 50^3), is the device time of one launch: launches queued
-behind a sleep kernel, between two CUDA events. ``chains`` lists the LMR
-sweep loop, the two V-cycle level steps and the two chains, launch
-sequences of those kernels that stand for TPU kernels 3, 4 and 11 (the
-sweep loop), 6 and 9 (the level steps) and 7 and 8 (the chains), with
-the same keys, except ``calls`` (calls on the main paths) in place of
+is one (block-Jacobi's einsum pair; for the J.v kernels A, E, F, G, I, T10
+and T12 ``torch.func.jvp`` of the f32 residual), else null.
+``device_ms``, where present (kernel I, B and C at bench1_3d's 50^3, R at
+bench6's 100^2, T10, T12 and TS at bench3's 350^2), is the device time of one launch: launches
+queued behind a sleep kernel, between two CUDA events. ``chains`` lists
+the LMR sweep loop, the tiled sweep loop, the two V-cycle level steps and
+the two chains, launch sequences of those kernels that stand for TPU
+kernels 3, 4 and 11 (the sweep loop), 13 (the tiled sweep loop: TS and C),
+6 and 9 (the level steps) and 7 and 8 (the chains), with the same keys,
+except ``calls`` (calls on the main paths) in place of
 ``launches`` and ``sequence_of`` in place of ``route``; their arithmetic is
 counted again under the kernels.
 """
@@ -121,7 +143,9 @@ BENCH3_LATE_S = 900.0
 BENCH1_3D_ROWS = 24                   # results/bench1_3d_out.csv, to t = 52.7
 BENCH1_3D_PREFIX_ROWS = 10            # to t = 12.7, if the smoke runs late
 BENCH1_3D_LATE_S = 1000.0
+BENCH3_TILED_ROWS = 14                # phase 15: to t = 12.15
 TOL_F32 = dict(rtol=2e-4, atol_scale=2e-5)   # tests/test_pallas_vcycle.py
+TOL_R = dict(rtol=1e-5, atol_scale=1e-5)     # tests/test_pallas.py:22-28
 TOL_EXACT = dict(rtol=0.0, atol_scale=0.0)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -161,6 +185,27 @@ def chac_tangent_ops(ne: int, split: bool) -> int:
 TANGENT_OPS = {2: 11, 3: 14,
                (6, "coupled"): chac_tangent_ops(4, False),
                (6, "split"): chac_tangent_ops(4, True), "ach": 27}
+
+
+def chac_residual_ops(ne: int) -> int:
+    """f32 operations per point of BM2's terms (phys_chac.cuh's residual,
+    ``ne`` order parameters), counted as in TANGENT_OPS. The c row and the
+    mu flux: (c - c0)/dt 2, the fluxes 4; 2 rho^2 ((c - c_a) + (c_a - c_b)
+    H) 4 and the mu source 1; f_b - f_a, linear in c, 2; H and sum_j e_j^2,
+    2 (ne - 1) adds. Per eta 27: e^2, e^3 and h(e) by Horner 7, t = e - e^2
+    1, h' = 30 t^2 2, dwell = 2 t (1 - 2e) 4, sum_{j!=i} e_j^2 as the total
+    minus e^2 1, the derivative (f_b - f_a) h' + w dwell + 2 w alpha e
+    sum 6, the source with (e - e0)/dt 4, the flux 2."""
+    return 11 + 2 + 2 * (ne - 1) + 27 * ne
+
+
+# f32 operations of the pointwise terms (kernel R's Phys::residual), counted
+# as in TANGENT_OPS. CH (phys_ch.cuh): (c - c0)/dt 2, the two fluxes 4,
+# f'(c) = 2 rho_s a b (b - a) with a = c - c_a, b = c_b - c 6, mu - f' 1.
+# CH+Poisson (phys_chp.cuh): CH's, the k phi term of the mu source 2, the
+# phi source (k/eps) c 1. CH + AC: chac_residual_ops.
+RESIDUAL_OPS = {"ch": 13, "chp": 16, 1: chac_residual_ops(1),
+                2: chac_residual_ops(2), 4: chac_residual_ops(4)}
 
 
 def smi_line() -> str:
@@ -223,6 +268,30 @@ def jvp_work(g, F, masked=False, with_b=False, ops=None, ns=1):
                 + (F * (g.ny + 1) * (g.nx + 1) if masked else 0))
     flops = g.ny * g.nx * 4 * (10 * F + nq * (5 * (ns + F) + ops + 18 * F))
     return byts, flops
+
+
+def residual_work(g, F, ops, n_prev, masked=False):
+    """(bytes, flops) of one residual: F state planes, the ``n_prev`` planes
+    of the previous time level that the terms read (+ the Dirichlet mask and
+    g) in, F planes out. Per triangle the F gradients (10 per field), per
+    quadrature point the interpolation of the F fields and the n_prev
+    previous ones (5 each), the terms (``ops``) and the test-function
+    contraction (18 per field)."""
+    N, nq = nodes(g), g.tab().nq
+    byts = 4 * ((2 * F + n_prev) * N
+                + (2 * F * (g.ny + 1) * (g.nx + 1) if masked else 0))
+    flops = g.ny * g.nx * 4 * (10 * F + nq * (5 * (F + n_prev) + ops + 18 * F))
+    return byts, flops
+
+
+def tile_sweep_work(g, F, jv_kw=None, groups=None):
+    """TS: the state planes, r and the block planes in, z and A z out; the
+    block-Jacobi apply and the J.v."""
+    jv_kw = jv_kw or {}
+    N = nodes(g)
+    bj_b, bj_f = bj_work(g, F, groups)
+    return (bj_b + 4 * (jv_kw.get("ns", 1) + F) * N,
+            bj_f + jvp_work(g, F, **jv_kw)[1])
 
 
 def bj_work(g, F, groups=None):
@@ -370,7 +439,7 @@ class Kernel:
         self.library_ms = self.device_ms = None
 
     def check(self, label, got, ref, tol, timing=None, work=None,
-              library_ms=None, dev_ms=None):
+              library_ms=None, dev_ms=None, main=False):
         torch.cuda.synchronize()
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         scale = max(float(r.abs().max()) for r in ref)
@@ -391,7 +460,8 @@ class Kernel:
                 line += f" library_ms={library_ms:.4f}"
             if dev_ms is not None:
                 line += f" device_ms={dev_ms:.5f}"
-            if self.ms is None:      # the first timed case is the main shape
+            # the first timed case is the main shape, unless one says so
+            if self.ms is None or main:
                 self.ms, self.plain_ms = k_ms, p_ms
                 self.bound_ms, self.bound_by = b_ms, b_by
                 self.library_ms, self.device_ms = library_ms, dev_ms
@@ -516,6 +586,17 @@ def kernel_records():
         "transfer_general": Kernel("transfer_general",
                                    csrc + "transfer_general.cu",
                                    "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:97"),
+        # R: one body (fem_residual.cuh), one source per physics
+        "residual": Kernel("residual", csrc + "fem_residual.cuh",
+                           "pfhubbenchmarks_tpu/ops/pallas_residual.py:226"),
+        # T10, T12, TS: one body (fem_tile.cuh), one source per physics
+        "tile_jvp_recompute": Kernel(
+            "tile_jvp_recompute", csrc + "fem_tile.cuh",
+            "pfhubbenchmarks_tpu/ops/pallas_tiled.py:67"),
+        "tile_jvp_seam": Kernel("tile_jvp_seam", csrc + "fem_tile.cuh",
+                                "pfhubbenchmarks_tpu/ops/pallas_tiled_grid.py:179"),
+        "tile_sweep": Kernel("tile_sweep", csrc + "fem_tile.cuh",
+                             "pfhubbenchmarks_tpu/ops/pallas_tiled_grid.py:246"),
     }
     seq = ("level J.v (ch_jvp, chp_jvp, chac_jvp, ach_jvp or ch3d_jvp)",
            "block_jacobi_apply", "lmr_step", "transfer_dyadic")
@@ -527,6 +608,10 @@ def kernel_records():
                            "pfhubbenchmarks_tpu/ops/pallas_tiled.py:189",
                            "pfhubbenchmarks_tpu/ops/pallas3d.py:182",
                            "pfhubbenchmarks_tpu/ops/pallas3d.py:347")),
+        "tile_sweep_loop": Chain(
+            "tile_sweep_loop", "pfhubbenchmarks_tpu/ops/pallas_tiled_grid.py:246",
+            ("tile_sweep", "lmr_step"),
+            source="pfhubbenchmarks_tpu_torch/ops/lmr.py"),
         "descend_level": Chain("descend_level",
                                "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:566",
                                seq + ("transfer_general",)),
@@ -749,6 +834,206 @@ def bench1_3d_phases(dev, K, C, rng, t_start, paths):
           f"{build_s / wall:.4f} of the {wall:.3f} s run", flush=True)
 
 
+def tile_phases(dev, K, C, noise_pair, state_on, residual_jvp, paths, refs):
+    """Phases 13-15: kernels R, T10, T12, TS and the tiled sweep loop against
+    their plain versions (and T10/T12 against ``torch.func.jvp`` of the f32
+    residual, their library call), with device times; then bench1 and
+    bench3 in the tiled configuration, held against the rows and per-step
+    Newton counts of their gather runs (``refs``: phase 4's and phase 10's
+    results and walls). Adds the main paths' counts to ``paths``."""
+    from pfhubbenchmarks_tpu_torch import timeloop
+    from pfhubbenchmarks_tpu_torch.benchmarks import bench1, bench2, bench3, bench6
+    from pfhubbenchmarks_tpu_torch.ops import lmr
+    from pfhubbenchmarks_tpu_torch.solve.precond import make_block_jacobi
+
+    t13 = time.perf_counter()
+    p1, p2, p3, p6 = bench1.make(), bench2.make(), bench3.make(), bench6.make()
+
+    # R at bench6 (Dirichlet rows u - g), bench2 (1, 2 and 4 order
+    # parameters) and bench1, on the true-rule grid
+    KR = K["residual"]
+    for label, pb, ops, n_prev, dt_ in (
+            ("bench6", p6, RESIDUAL_OPS["chp"], 1, 0.32),
+            ("bench2 NE=4", p2, RESIDUAL_OPS[4], 5, 0.16),
+            ("bench2 NE=2", bench2.make(num_eta=2), RESIDUAL_OPS[2], 3, 0.16),
+            ("bench2 NE=1", bench2.make(num_eta=1), RESIDUAL_OPS[1], 2, 0.16),
+            ("bench1", p1, RESIDUAL_OPS["ch"], 1, 0.5)):
+        g, F = pb.grid, pb.n_fields
+        res = pb.kernel_residual(g, dev, pb.dirichlet)
+        w, w0 = state_on(pb, g), state_on(pb, g)
+        timing = (cuda_ms(lambda: res.kernel(w, w0, dt_)),
+                  cuda_ms(lambda: res.plain(w, w0, dt_), reps=10))
+        KR.check(f"{label} {g.ny}x{g.nx}", res.kernel(w, w0, dt_),
+                 res.plain(w, w0, dt_), TOL_R, timing,
+                 residual_work(g, F, ops, n_prev, masked=bool(pb.dirichlet)),
+                 dev_ms=device_ms(lambda: res.kernel(w, w0, dt_)))
+
+    # T10 and T12 (J.v and b - J.v) against their plain versions and
+    # torch.func.jvp: bench3 at 350^2 and 175^2, bench1 and bench2 at 100^2,
+    # then the JAX tests' shapes (bench1 24^2, bench2 16^2)
+    jv_kw3 = dict(ns=2, ops=TANGENT_OPS["ach"])
+    dt3, dt2 = 1.28, 0.16
+    g350, g175 = p3.grid, dataclasses.replace(p3.grid, nx=175, ny=175)
+    cases = [(p3, dataclasses.replace(g0, rule_name=rule), {}, dt3, jv_kw3)
+             for g0 in (g350, g175) for rule in ("ffc3", "dunavant2")]
+    cases += [(p1, dataclasses.replace(p1.grid, rule_name=rule), {}, 0.5, {})
+              for rule in ("ffc3", "dunavant2")]
+    cases += [(p2, dataclasses.replace(p2.grid, rule_name=rule),
+               dict(split=split), dt2,
+               dict(ns=5, ops=TANGENT_OPS[(6, "split" if split else "coupled")]))
+              for split, rule in ((False, "ffc3"), (True, "dunavant1"))]
+    cases += [(bench1.make(nx=24, ny=24), None, {}, 0.3, None),
+              (bench2.make(nx=16, ny=16), None, dict(split=False), 0.05, None)]
+    devt = {}
+    for pb, g, kw, dt_, jv_kw in cases:
+        g = g or pb.grid
+        F = pb.n_fields
+        w, v, b = state_on(pb, g), noise_pair(g, F), noise_pair(g, F)
+        split = kw.get("split", False)
+        library = residual_jvp(pb, g, w, dt_, v,
+                               pb.terms_precond if split else None)
+        lab = (f"{pb.name}{' split' if split else ''} {g.rule_name} "
+               f"{g.ny}x{g.nx}")
+        timed = jv_kw is not None and g.nx in (350, 100)
+        for form in ("recompute", "seam"):
+            kk = K[f"tile_jvp_{form}"]
+            jv = pb.kernel_jvp(g, dev, form=form, **kw)
+            timing = work = library_ms = None
+            if timed:
+                timing = (cuda_ms(lambda: jv.kernel(w, w, dt_, v)),
+                          cuda_ms(lambda: jv.plain(w, w, dt_, v), reps=10))
+                work = jvp_work(g, F, **jv_kw)
+                library_ms = cuda_ms(library, reps=10)
+            # the main shapes: T10 the outer J.v (ffc3), T12 the levels
+            main = g.nx == 350 and (form == "recompute") == (g.rule_name == "ffc3")
+            kk.check(f"{lab} Jv", jv.kernel(w, w, dt_, v),
+                     jv.plain(w, w, dt_, v), TOL_F32, timing, work,
+                     library_ms=library_ms, main=main)
+            kk.check(f"{lab} b-Jv", jv.kernel(w, w, dt_, v, b=b),
+                     jv.plain(w, w, dt_, v, b=b), TOL_F32)
+            kk.check(f"{lab} Jv vs torch.func.jvp", jv.kernel(w, w, dt_, v),
+                     library(), TOL_F32)
+            if g.nx == 350:
+                devt[(g.rule_name, form)] = device_ms(
+                    lambda: jv.kernel(w, w, dt_, v))
+                if form == "seam":
+                    again = jv.kernel(w, w, dt_, v, b=b)
+                    first = jv.kernel(w, w, dt_, v, b=b)
+                    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+                        raise AssertionError(f"T12 {lab}: a rerun differs")
+        if g.nx == 350:
+            gather = pb.kernel_jvp(g, dev)
+            devt[(g.rule_name, "gather")] = device_ms(
+                lambda: gather.kernel(w, w, dt_, v))
+    for rule in ("ffc3", "dunavant2"):
+        print(f"phase 13: device time per launch at bench3 350^2 {rule}: "
+              f"G {devt[(rule, 'gather')]:.5f} ms, T10 "
+              f"{devt[(rule, 'recompute')]:.5f} ms, T12 "
+              f"{devt[(rule, 'seam')]:.5f} ms", flush=True)
+    K["tile_jvp_recompute"].device_ms = devt[("ffc3", "recompute")]
+    K["tile_jvp_seam"].device_ms = devt[("dunavant2", "seam")]
+
+    # TS (z and A z) and the tiled sweep loop: bench3 350^2 and bench1 100^2
+    # at dunavant2, bench2 100^2 split at dunavant1 with and without the
+    # field groups, and the JAX tests' bench2 8^2 (coupled ffc3, and split
+    # with the groups)
+    KS, CL = K["tile_sweep"], C["tile_sweep_loop"]
+    s3, s1 = p3.solver, p1.solver
+    ts_cases = [(p3, "dunavant2", False, None, dt3, s3.gmg_nu_pre, jv_kw3),
+                (p1, "dunavant2", False, None, 0.5, s1.gmg_nu_pre, {}),
+                (p2, "dunavant1", True, p2.field_groups, dt2, 2,
+                 dict(ns=5, ops=TANGENT_OPS[(6, "split")])),
+                (p2, "dunavant1", True, None, dt2, 2,
+                 dict(ns=5, ops=TANGENT_OPS[(6, "split")])),
+                (bench2.make(nx=8, ny=8), "ffc3", False, None, 0.05, 1, None),
+                (bench2.make(nx=8, ny=8), "dunavant1", True,
+                 p2.field_groups, 0.05, 1, None)]
+    for pb, rule, split, groups, dt_, n_sw, jv_kw in ts_cases:
+        g = dataclasses.replace(pb.grid, rule_name=rule)
+        F = pb.n_fields
+        terms = pb.terms_precond if split else pb.terms
+        w = state_on(pb, g)
+        pinv = make_block_jacobi(g, terms, F, device=dev)(w, w, dt_).pinv_planes
+        jv = pb.kernel_jvp(g, dev, form="seam",
+                           **(dict(split=split) if pb.name.startswith("bench2")
+                              else {}))
+        ts = jv.tile_sweep
+        r = noise_pair(g, F)
+        lab = (f"{pb.name}{' split' if split else ''} {rule} {g.ny}x{g.nx}"
+               f"{' groups' if groups else ''}")
+        timing = work = None
+        if jv_kw is not None:
+            timing = (cuda_ms(lambda: ts.kernel(w, w, dt_, r, pinv, groups)),
+                      cuda_ms(lambda: ts.plain(w, w, dt_, r, pinv, groups),
+                              reps=10))
+            work = tile_sweep_work(g, F, jv_kw, groups)
+        zk, azk = ts.kernel(w, w, dt_, r, pinv, groups)
+        zp, azp = ts.plain(w, w, dt_, r, pinv, groups)
+        KS.check(f"{lab} (z, Az)", zk + azk, zp + azp, TOL_F32, timing, work,
+                 dev_ms=(device_ms(lambda: ts.kernel(w, w, dt_, r, pinv, groups))
+                         if g.nx == 350 else None))
+        if g.nx == 350:
+            z2, az2 = ts.kernel(w, w, dt_, r, pinv, groups)
+            if not all(torch.equal(x, y) for x, y in zip(zk + azk, z2 + az2)):
+                raise AssertionError(f"TS {lab}: a rerun differs")
+        sweep = lmr.make_tile_sweep_loop(ts, n_sw, groups)
+
+        def run_sweep(fn):
+            x = tuple(torch.zeros_like(t) for t in r)
+            rr = tuple(t.clone() for t in r)
+            return fn(x, rr, w, w, dt_, *pinv)
+
+        xk, rk = run_sweep(sweep.kernel)
+        xp, rp = run_sweep(sweep.plain)
+        timing = work = None
+        if jv_kw is not None:
+            timing = (cuda_ms(lambda: run_sweep(sweep.kernel), reps=10),
+                      cuda_ms(lambda: run_sweep(sweep.plain), reps=3))
+            work = sweep_work(g, F, n_sw, jv_kw, groups)
+        CL.check(f"{lab} n={n_sw}", xk + rk, xp + rp, TOL_F32, timing, work)
+    torch.cuda.synchronize()
+    print(f"phase 13: R, T10, T12, TS and the tiled sweep loop agree with "
+          f"their plain versions; T12 and TS reruns are bit-identical "
+          f"({time.perf_counter() - t13:.1f} s)", flush=True)
+
+    # ---- phases 14 and 15: bench1 and bench3 in the tiled configuration ---
+    tiled_required = ("tile_jvp_recompute", "tile_jvp_seam", "tile_sweep",
+                      "tile_sweep_loop", "lmr_step", "transfer_dyadic",
+                      "descend_chain", "ascend_chain")
+    for phase, label, pb, end, n_rows, ref_csv, tols, more in (
+            (14, "bench1", p1, BENCH1_END, BENCH1_ROWS, "bench1_out.csv",
+             dict(), ("ch_jvp", "lmr_sweep_loop", "block_jacobi_apply")),
+            (15, "bench3", p3, None, BENCH3_TILED_ROWS, "bench3_out.csv",
+             dict(tfe_tol=1e-6, col2_tol=1e-5),
+             ("ach_jvp", "transfer_general", "descend_level", "ascend_level"))):
+        pt = dataclasses.replace(pb, solver=dataclasses.replace(
+            pb.solver, tiled_grid_kernels=True))
+        runner = timeloop.Runner(pt, dev)
+        build = pt.precond_builder(dev)
+        print(f"phase {phase}: {label} tiled: levels "
+              f"{[g.nx for g in build.grids]} routed "
+              f"{['tile' if t else 'gather' for t in build.tiled_levels]}",
+              flush=True)
+        counts, res, wall, _ = run_main_path(
+            f"phase {phase}: {label} tiled", runner, end, ref_csv, n_rows,
+            tiled_required + more, **tols)
+        paths[f"{label} tiled"] = counts
+        ref, ref_wall = refs[label]
+        ref_st = ref.stats[:n_rows]
+        ref_newton = [st.newton_iters for st in ref_st]
+        newton = [st.newton_iters for st in res.stats]
+        print(f"phase {phase}: {label} tiled vs gather (phase "
+              f"{4 if label == 'bench1' else 10}), first {n_rows} rows: newton "
+              f"{newton} vs {ref_newton}; krylov "
+              f"{[st.krylov_iters for st in res.stats]} vs "
+              f"{[st.krylov_iters for st in ref_st]}; wall {wall:.3f} s vs "
+              f"{ref_wall:.3f} s", flush=True)
+        if newton != ref_newton or not np.array_equal(res.rows[:, 0],
+                                                       ref.rows[:n_rows, 0]):
+            raise AssertionError(f"{label} tiled: rows or Newton counts differ "
+                                 "from the gather run")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- phase 1: the card --------------------------------------------
@@ -809,11 +1094,12 @@ def main() -> None:
         return v.contiguous(), m
 
     def residual_jvp(problem, g, w, dt_, v, terms=None, dirichlet=()):
-        """``torch.func.jvp`` of the f32 residual: the J.v kernels' reference
-        independent of the hand-written tangents of their plain versions."""
+        """A call of ``torch.func.jvp`` of the f32 residual (built once): the
+        J.v kernels' reference independent of the hand-written tangents of
+        their plain versions, and their library call."""
         res = make_residual(g, terms or problem.terms, problem.n_fields,
                             device=dev, dirichlet=dirichlet, dtype=torch.float32)
-        return torch.func.jvp(lambda u: res(u, w, dt_), (w,), (v,))[1]
+        return lambda: torch.func.jvp(lambda u: res(u, w, dt_), (w,), (v,))[1]
 
     problem1 = bench1.make()
     dt = 0.5
@@ -827,18 +1113,20 @@ def main() -> None:
             g = dataclasses.replace(g0, rule_name=rule)
             jv = problem1.kernel_jvp(g, dev)
             w, v, b = state_on(problem1, g), noise_pair(g, 2), noise_pair(g, 2)
+            library = residual_jvp(problem1, g, w, dt, v)
             timing = (cuda_ms(lambda: jv.kernel(w, w, dt, v)),
                       cuda_ms(lambda: jv.plain(w, w, dt, v), reps=10))
             K["ch_jvp"].check(f"{rule} {g.ny}x{g.nx}", jv.kernel(w, w, dt, v),
                               jv.plain(w, w, dt, v), TOL_F32, timing,
-                              jvp_work(g, 2))
+                              jvp_work(g, 2), library_ms=(
+                                  cuda_ms(library, reps=10) if g.nx == 100
+                                  else None))
             if g.nx == 100:
                 K["ch_jvp"].check(f"{rule} {g.ny}x{g.nx} b-Jv",
                                   jv.kernel(w, w, dt, v, b=b),
                                   jv.plain(w, w, dt, v, b=b), TOL_F32)
                 K["ch_jvp"].check(f"{rule} {g.ny}x{g.nx} Jv vs torch.func.jvp",
-                                  jv.kernel(w, w, dt, v),
-                                  residual_jvp(problem1, g, w, dt, v), TOL_F32)
+                                  jv.kernel(w, w, dt, v), library(), TOL_F32)
 
     def check_bj_lmr(problem, grids, F, label, rule="dunavant2", terms=None,
                      groups=None):
@@ -908,7 +1196,7 @@ def main() -> None:
 
     # ---- phase 4: bench1's main path at 100x100 -------------------------
     paths = {}
-    paths["bench1"], _, _, _ = run_main_path(
+    paths["bench1"], result1, wall1, _ = run_main_path(
         "phase 4: bench1", timeloop.Runner(problem1, dev), BENCH1_END,
         "bench1_out.csv", BENCH1_ROWS,
         ("ch_jvp", "block_jacobi_apply", "lmr_step", "transfer_dyadic",
@@ -931,20 +1219,22 @@ def main() -> None:
             for bcs in (problem6.dirichlet_for(g), ()):
                 jv = problem6.kernel_jvp(g, dev, bcs)
                 lab = f"{rule} {g.ny}x{g.nx} {'masked' if bcs else 'unmasked'}"
-                timing = work = None
+                library = residual_jvp(problem6, g, w, dt6, v, dirichlet=bcs)
+                timing = work = library_ms = None
                 if g.nx == 100 and bcs:
                     timing = (cuda_ms(lambda: jv.kernel(w, w, dt6, v)),
                               cuda_ms(lambda: jv.plain(w, w, dt6, v), reps=10))
                     work = jvp_work(g, F6, masked=True)
+                    library_ms = cuda_ms(library, reps=10)
                 K["chp_jvp"].check(f"{lab} Jv", jv.kernel(w, w, dt6, v),
-                                   jv.plain(w, w, dt6, v), TOL_F32, timing, work)
+                                   jv.plain(w, w, dt6, v), TOL_F32, timing, work,
+                                   library_ms=library_ms)
                 K["chp_jvp"].check(f"{lab} b-Jv", jv.kernel(w, w, dt6, v, b=b),
                                    jv.plain(w, w, dt6, v, b=b), TOL_F32)
                 if g.nx == 100:
                     K["chp_jvp"].check(
                         f"{lab} Jv vs torch.func.jvp", jv.kernel(w, w, dt6, v),
-                        residual_jvp(problem6, g, w, dt6, v, dirichlet=bcs),
-                        TOL_F32)
+                        library(), TOL_F32)
 
     check_bj_lmr(problem6, grids6, F6, "bench6")
     check_transfers(problem6, grids6, F6, "bench6")
@@ -999,7 +1289,7 @@ def main() -> None:
     paths["bench6"], _, _, _ = run_main_path(
         "phase 6: bench6", runner6, None, "bench6_out.csv", BENCH6_ROWS,
         ("chp_jvp", "descend_chain", "ascend_chain", "block_jacobi_apply",
-         "lmr_step", "transfer_dyadic", "lmr_sweep_loop"))
+         "lmr_step", "transfer_dyadic", "lmr_sweep_loop", "residual"))
 
     # ---- phase 7: kernels, sweep loop and chains at bench2's shapes -----
     problem2 = bench2.make()
@@ -1022,22 +1312,24 @@ def main() -> None:
                 jv = pb.kernel_jvp(g, dev, split=split)
                 lab = (f"NE={num_eta} {'split' if split else 'coupled'} {rule} "
                        f"{g.ny}x{g.nx}")
-                timing = work = None
+                library = residual_jvp(pb, g, w, dt2, v,
+                                       pb.terms_precond if split else None)
+                timing = work = library_ms = None
                 if g.nx == 100 and num_eta == 4:
                     timing = (cuda_ms(lambda: jv.kernel(w, w, dt2, v)),
                               cuda_ms(lambda: jv.plain(w, w, dt2, v), reps=10))
                     work = jvp_work(g, Fb, ns=1 + num_eta, ops=TANGENT_OPS[
                         (Fb, "split" if split else "coupled")])
+                    library_ms = cuda_ms(library, reps=10)
                 K["chac_jvp"].check(f"{lab} Jv", jv.kernel(w, w, dt2, v),
-                                    jv.plain(w, w, dt2, v), TOL_F32, timing, work)
+                                    jv.plain(w, w, dt2, v), TOL_F32, timing, work,
+                                    library_ms=library_ms)
                 K["chac_jvp"].check(f"{lab} b-Jv", jv.kernel(w, w, dt2, v, b=b),
                                     jv.plain(w, w, dt2, v, b=b), TOL_F32)
                 if g.nx == 100:
                     K["chac_jvp"].check(
                         f"{lab} Jv vs torch.func.jvp", jv.kernel(w, w, dt2, v),
-                        residual_jvp(pb, g, w, dt2, v,
-                                     pb.terms_precond if split else None),
-                        TOL_F32)
+                        library(), TOL_F32)
 
     check_bj_lmr(problem2, grids2, F2, "bench2 groups", rule=s2.precond_rule,
                  terms=problem2.terms_precond, groups=groups2)
@@ -1130,7 +1422,8 @@ def main() -> None:
     paths["bench2"], result2, wall2, seconds2 = run_main_path(
         "phase 8: bench2", runner2, BENCH2_END, "bench2_out.csv", BENCH2_ROWS,
         ("chac_jvp", "block_jacobi_apply", "lmr_step", "transfer_dyadic",
-         "lmr_sweep_loop", "descend_chain", "ascend_chain"), tfe_tol=1e-5)
+         "lmr_sweep_loop", "descend_chain", "ascend_chain", "residual"),
+        tfe_tol=1e-5)
     # precond_lag 'newton': one multigrid build (block-Jacobi planes of every
     # level, injections) per Newton iteration, over every attempt, timed
     # inside the run by solve/gmg.py
@@ -1156,19 +1449,21 @@ def main() -> None:
         w, v, b = state_on(problem3, g), noise_pair(g, F3), noise_pair(g, F3)
         jv = problem3.kernel_jvp(g, dev)
         lab = f"{rule} {g.ny}x{g.nx}"
-        timing = work = None
+        library = residual_jvp(problem3, g, w, dt3, v)
+        timing = work = library_ms = None
         if g.nx == 350:
             timing = (cuda_ms(lambda: jv.kernel(w, w, dt3, v)),
                       cuda_ms(lambda: jv.plain(w, w, dt3, v), reps=10))
             work = jvp_work(g, F3, **jv_kw3)
+            library_ms = cuda_ms(library, reps=10)
         K["ach_jvp"].check(f"{lab} Jv", jv.kernel(w, w, dt3, v),
-                           jv.plain(w, w, dt3, v), TOL_F32, timing, work)
+                           jv.plain(w, w, dt3, v), TOL_F32, timing, work,
+                           library_ms=library_ms)
         K["ach_jvp"].check(f"{lab} b-Jv", jv.kernel(w, w, dt3, v, b=b),
                            jv.plain(w, w, dt3, v, b=b), TOL_F32)
         if g.nx == 350:
             K["ach_jvp"].check(f"{lab} Jv vs torch.func.jvp",
-                               jv.kernel(w, w, dt3, v),
-                               residual_jvp(problem3, g, w, dt3, v), TOL_F32)
+                               jv.kernel(w, w, dt3, v), library(), TOL_F32)
 
     # the transfers of the hierarchy: H for the ratio-5 pairs, D for 350<->175
     for fine, coarse in zip(grids3[:-1], grids3[1:]):
@@ -1292,7 +1587,12 @@ def main() -> None:
 
     bench1_3d_phases(dev, K, C, rng, t_start, paths)
 
-    # ---- phase 13: summary -----------------------------------------------
+    # bench3's first rows and their wall (the sum of their steps' walls)
+    wall3_prefix = sum(st.wall for st in result3.stats[:BENCH3_TILED_ROWS])
+    tile_phases(dev, K, C, noise_pair, state_on, residual_jvp, paths,
+                {"bench1": (result1, wall1), "bench3": (result3, wall3_prefix)})
+
+    # ---- phase 16: summary -----------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": [K[k].record(paths) for k in _lib.KERNELS],
                       "chains": [C[k].record(paths) for k in _lib.CHAINS]}),

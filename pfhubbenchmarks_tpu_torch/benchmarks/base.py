@@ -3,13 +3,24 @@
 Counterpart of ``pfhubbenchmarks_tpu/benchmarks/base.py``. A benchmark is
 data: a grid, a pointwise ``terms`` function, ICs, Dirichlet specs,
 observables and configs. Every factory method takes the device explicitly.
-``kernel_jvp(grid, device, dirichlet, split=False)`` makes the benchmark's
-J.v (kernel A for BM1, E for BM6, F for BM2, G for BM3, each with the benchmark's
-hand-written pointwise tangent as its plain version) with identity rows on
-the Dirichlet rows, which serves the outer Krylov matvec (the JAX package
-re-sets those rows after its kernel, ``base.py:201-215``) and every
-multigrid level; ``split=True`` gives the J.v of ``terms_precond``, the
-field-split operator of ``SolverConfig.field_split``.
+``kernel_jvp(grid, device, dirichlet, split=False, form="gather")`` makes
+the benchmark's J.v (kernel A for BM1, E for BM6, F for BM2, G for BM3, each
+with the benchmark's hand-written pointwise tangent as its plain version)
+with identity rows on the Dirichlet rows, which serves the outer Krylov
+matvec (the JAX package re-sets those rows after its kernel,
+``base.py:201-215``) and every multigrid level; ``split=True`` gives the
+J.v of ``terms_precond``, the field-split operator of
+``SolverConfig.field_split``; ``form`` "recompute" or "seam" the tile
+kernels T10 or T12 (ops/fem_tile.py) in place of the gather kernel.
+``kernel_residual(grid, device, dirichlet)`` makes the f32 residual of
+kernel R (ops/fem_residual.py), where the benchmark has one.
+
+The tiled configuration (``SolverConfig.use_tiled_sweeps`` and
+``tiled_grid_kernels``, the JAX package's switch for its tiled kernels past
+VMEM) routes the outer J.v of a grid with more than one row block
+(ops/fem_tile.multi_block) to T10, and the levels of the multigrid
+hierarchy with no Dirichlet rows and more than one row block to T12 and
+the tiled sweep loop (solve/gmg.py).
 """
 
 from __future__ import annotations
@@ -35,9 +46,13 @@ class BenchmarkProblem:
     ic_fns: Sequence[Callable]            # per-field fn(x, y)
     observables: dict[str, Callable]      # name -> density(QPContext)
     csv_columns: tuple[str, ...]
-    # (grid, device, dirichlet, split=False) -> jv(w, w0, dt, v, b=None),
-    # the f32 J.v of terms (split: of terms_precond)
+    # (grid, device, dirichlet, split=False, form="gather") -> jv(w, w0, dt,
+    # v, b=None), the f32 J.v of terms (split: of terms_precond; form: the
+    # gather kernel or a tile kernel's form)
     kernel_jvp: Callable
+    # (grid, device, dirichlet) -> res(w, w0, dt), the f32 residual of
+    # kernel R, or None (the plain f32 assembly then serves)
+    kernel_residual: Callable | None = None
     time: TimeConfig = TimeConfig()
     solver: SolverConfig = SolverConfig()
     # (field, side, fn(coord)) specs, instantiated per grid so multigrid can
@@ -86,15 +101,28 @@ class BenchmarkProblem:
         return self.solver.mixed_precision and self.dtype == torch.float64
 
     def residual_lowp(self, device: torch.device | str):
-        """f32 true-rule residual (the linearization point of the Krylov
-        operator)."""
-        return (self.residual(device, dtype=torch.float32)
-                if self.mixed_precision else None)
+        """f32 true-rule residual, the one the fast cp line search and its
+        noise floor read (solve/newton.py): kernel R where the benchmark has
+        it, else the f32 assembly."""
+        if not self.mixed_precision:
+            return None
+        if self.kernel_residual is None:
+            return self.residual(device, dtype=torch.float32)
+        return self.kernel_residual(self.grid, device, self.dirichlet)
+
+    @property
+    def tiled(self) -> bool:
+        """The tiled configuration (both of the JAX package's switches)."""
+        return self.solver.use_tiled_sweeps and self.solver.tiled_grid_kernels
 
     def lowp_jvp_factory(self, device: torch.device | str):
         """``factory(x_lp, wprev_lp, dt_lp) -> jvp(v)``: the outer f32 J.v
-        on the true-rule grid, whose Dirichlet rows equal ``v``."""
-        jv = self.kernel_jvp(self.grid, device, self.dirichlet)
+        on the true-rule grid, whose Dirichlet rows equal ``v``; T10 in the
+        tiled configuration on a grid of several row blocks."""
+        from pfhubbenchmarks_tpu_torch.ops.fem_tile import multi_block
+
+        form = "recompute" if self.tiled and multi_block(self.grid) else "gather"
+        jv = self.kernel_jvp(self.grid, device, self.dirichlet, form=form)
 
         def factory(x_lp, wprev_lp, dt_lp):
             return lambda v: jv(x_lp, wprev_lp, dt_lp, v)
@@ -113,8 +141,9 @@ class BenchmarkProblem:
         return make_gmg(
             self.grid, self.terms_precond if field_split else self.terms,
             self.n_fields, device=device,
-            jvp_for=lambda g, split: self.kernel_jvp(
-                g, device, self.dirichlet_for(g), split=split),
+            jvp_for=lambda g, split, form="gather": self.kernel_jvp(
+                g, device, self.dirichlet_for(g), split=split, form=form),
+            tiled=self.tiled,
             field_groups=self.field_groups if field_split else None,
             dirichlet_for=self.dirichlet_for,
             nu_pre=s.gmg_nu_pre, nu_post=s.gmg_nu_post,

@@ -102,13 +102,19 @@ def make(nx: int = 100, ny: int = 100, Lx: float = 200.0, Ly: float = 200.0,
         dc = ctx.du[0]
         return f_chem(c) + p.kappa / 2.0 * (dc[0] ** 2 + dc[1] ** 2)
 
-    def kernel_jvp(grid, device, dirichlet=(), split=False):
+    def kernel_jvp(grid, device, dirichlet=(), split=False, form="gather"):
         if split:
             raise NotImplementedError("bench1 has no field-split operator")
         from pfhubbenchmarks_tpu_torch.ops.ch_jvp import make_ch_jvp
 
         return make_ch_jvp(grid, terms_tangent, kernel_constants(p),
-                           device=device, dirichlet=dirichlet)
+                           device=device, dirichlet=dirichlet, form=form)
+
+    def kernel_residual(grid, device, dirichlet=()):
+        from pfhubbenchmarks_tpu_torch.ops.ch_jvp import make_ch_residual
+
+        return make_ch_residual(grid, terms, kernel_constants(p),
+                                device=device, dirichlet=dirichlet)
 
     return BenchmarkProblem(
         name="bench1",
@@ -122,6 +128,7 @@ def make(nx: int = 100, ny: int = 100, Lx: float = 200.0, Ly: float = 200.0,
         },
         csv_columns=("time", "total_free_energy", "total_solute"),
         kernel_jvp=kernel_jvp,
+        kernel_residual=kernel_residual,
         **{"time": TimeConfig(dt0=1e-1, dt_min=1e-2, end_time=1e3,
                               grow_threshold=5),
            "solver": SolverConfig(line_search="basic", report_atol=2.6e-5,

@@ -230,12 +230,19 @@ def make(nx: int = 100, ny: int = 100, Lx: float = 200.0, Ly: float = 200.0,
     tangents = {False: make_terms_tangent(p, num_eta),
                 True: make_terms_tangent(p, num_eta, split=True)}
 
-    def kernel_jvp(grid, device, dirichlet=(), split=False):
+    def kernel_jvp(grid, device, dirichlet=(), split=False, form="gather"):
         from pfhubbenchmarks_tpu_torch.ops.chac_jvp import make_chac_jvp
 
         return make_chac_jvp(grid, tangents[split], kernel_constants(p),
                              num_eta=num_eta, split=split, device=device,
-                             dirichlet=dirichlet)
+                             dirichlet=dirichlet, form=form)
+
+    def kernel_residual(grid, device, dirichlet=()):
+        from pfhubbenchmarks_tpu_torch.ops.chac_jvp import make_chac_residual
+
+        return make_chac_residual(grid, terms, kernel_constants(p),
+                                  num_eta=num_eta, device=device,
+                                  dirichlet=dirichlet)
 
     return BenchmarkProblem(
         name="bench2" if num_eta == NUM_ETA else f"bench2_eta{num_eta}",
@@ -253,6 +260,7 @@ def make(nx: int = 100, ny: int = 100, Lx: float = 200.0, Ly: float = 200.0,
         },
         csv_columns=("time", "total_free_energy", "total_solute"),
         kernel_jvp=kernel_jvp,
+        kernel_residual=kernel_residual,
         **{"time": TimeConfig(dt0=1e-2, dt_min=1e-4, end_time=100.0,
                               grow_threshold=5),
            "solver": SolverConfig(line_search="cp", precond_rule="dunavant1",

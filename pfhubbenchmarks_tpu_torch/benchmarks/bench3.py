@@ -141,13 +141,13 @@ def make(nx: int = 350, ny: int = 350, Lx: float = 960.0, Ly: float = 960.0,
         dphi = ctx.du[1]
         return f_chem(U, phi) + 0.5 * p.W0 ** 2 * (dphi[0] ** 2 + dphi[1] ** 2)
 
-    def kernel_jvp(grid, device, dirichlet=(), split=False):
+    def kernel_jvp(grid, device, dirichlet=(), split=False, form="gather"):
         if split:
             raise NotImplementedError("bench3 has no field-split operator")
         from pfhubbenchmarks_tpu_torch.ops.ach_jvp import make_ach_jvp
 
         return make_ach_jvp(grid, terms_tangent, kernel_constants(p),
-                            device=device, dirichlet=dirichlet)
+                            device=device, dirichlet=dirichlet, form=form)
 
     return BenchmarkProblem(
         name="bench3",

@@ -70,9 +70,20 @@ class SolverConfig:
     # TPU-only (Pallas kernel selection): no-op. On a CUDA device the port
     # always launches its own kernels.
     use_pallas: str = "auto"
-    # TPU-only (VMEM-tiled Pallas sweeps): no-op.
+    # With tiled_grid_kernels, the tiled configuration: the JAX package
+    # takes its tiled kernels on the grids past VMEM; the card has no VMEM,
+    # so the port takes them on every grid of more than one row block
+    # (ops/fem_tile.multi_block: the JAX package's bc_rows < ny): the outer
+    # J.v goes to the tile kernel T10 (the recompute form of
+    # pallas_tiled.make_tiled_jvp), and each multigrid level without
+    # Dirichlet rows to T12 and the tiled sweep loop of TS (the grid forms
+    # of pallas_tiled_grid.py). Ported for bench1, bench2 and bench3;
+    # bench6 raises. Alone (tiled_grid_kernels off) it changes nothing: the
+    # JAX package's unrolled-launch tiled kernels are the same arithmetic
+    # as the port's gather kernels.
     use_tiled_sweeps: bool = True
-    # TPU-only (grid-form Pallas kernels): no-op.
+    # The tiled configuration above, when use_tiled_sweeps is on too. Off:
+    # the gather kernels everywhere.
     tiled_grid_kernels: bool = False
     # TPU-only (z-slab Pallas kernels on the 3D level whose slab is the whole
     # grid): no-op. On a CUDA device kernel I covers every level in one launch.

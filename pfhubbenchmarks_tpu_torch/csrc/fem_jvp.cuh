@@ -15,9 +15,10 @@
 // tangent reads Phys::NS state planes, fields Phys::state_field(0..NS-1) of
 // w (c alone for CH and CH+Poisson; c and every eta for CH+AC).
 //
-// Layout: v planes [F, ny+1, nx+1] (vertices), m planes [F, ny, nx] (cell
-// centres), unpadded storage; the mask is [F, ny+1, nx+1] floats, nonzero on
-// a Dirichlet row.
+// Layout (fem_params.cuh): unpadded v and m planes; the mask is
+// [F, ny+1, nx+1] floats, nonzero on a Dirichlet row. The physics live in
+// phys_*.cuh, shared with the tile (fem_tile.cuh) and residual
+// (fem_residual.cuh) kernels.
 //
 // Design: one thread per output node. A vertex node sums the two triangles
 // it belongs to in each of its (up to) four cells; a centre node sums its
@@ -29,42 +30,9 @@
 // compile-time constant.
 #pragma once
 
-#include "common.cuh"
+#include "fem_params.cuh"
 
 namespace pfh {
-
-constexpr int kMaxQ = 4;
-constexpr int kMaxConst = 12;
-
-struct JvpParams {
-  float Bq[4][kMaxQ][5];   // basis values at quadrature points
-  float Gs[4][5][2];       // physical basis gradients per triangle
-  float WB[4][kMaxQ][5];   // weight * basis
-  float WGx[4][kMaxQ][5];  // weight * d/dx basis
-  float WGy[4][kMaxQ][5];  // weight * d/dy basis
-  float k[kMaxConst];      // physics constants, in the physics' own order
-  float dt;
-};
-
-constexpr int kJvpParamFloats = sizeof(JvpParams) / sizeof(float);
-
-// slots of each triangle as a bit mask (S, E, N, W; centre slot 4 in all)
-__host__ __device__ constexpr bool slot_in_tri(int t, int s) {
-  return (((t == 0) ? 0b10011u : (t == 1) ? 0b10110u
-           : (t == 2) ? 0b11100u : 0b11001u) >> s) & 1u;
-}
-
-// The 5 slot values (SW, SE, NE, NW, C) of field plane (pv, pm) in cell (y, x).
-__device__ __forceinline__ void load_slots(const float* __restrict__ pv,
-                                           const float* __restrict__ pm,
-                                           int y, int x, int nx, float out[5]) {
-  const int nvx = nx + 1;
-  out[0] = __ldg(pv + y * nvx + x);
-  out[1] = __ldg(pv + y * nvx + x + 1);
-  out[2] = __ldg(pv + (y + 1) * nvx + x + 1);
-  out[3] = __ldg(pv + (y + 1) * nvx + x);
-  out[4] = __ldg(pm + y * nx + x);
-}
 
 // Contribution of cell (y, x) to its slot S, every field.
 template <class Phys, int NQ, int S>
@@ -183,10 +151,7 @@ int launch_fem_jvp(const float* params, int nq, const float* wv,
                    const float* wm, const float* tv, const float* tm,
                    const float* bv, const float* bm, const float* mask,
                    float* ov, float* om, int ny, int nx, void* stream) {
-  JvpParams P;
-  const float* src = params;
-  float* dst = reinterpret_cast<float*>(&P);
-  for (int i = 0; i < kJvpParamFloats; ++i) dst[i] = src[i];
+  const JvpParams P = load_params(params);
   const long n = static_cast<long>(ny + 1) * (nx + 1) + static_cast<long>(ny) * nx;
   const int blocks = blocks_for(n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

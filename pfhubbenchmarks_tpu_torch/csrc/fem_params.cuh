@@ -1,0 +1,58 @@
+// The parameter block and cell layout shared by the crossed-P1 kernels: the
+// gather J.v (fem_jvp.cuh), the tile J.v and sweep (fem_tile.cuh), the
+// residual (fem_residual.cuh) and the physics headers (phys_*.cuh).
+//
+// Layout: v planes [F, ny+1, nx+1] (vertices), m planes [F, ny, nx] (cell
+// centres), unpadded storage. Cell slots 0..4 are SW, SE, NE, NW and the
+// centre C; triangles S (SW, SE, C), E (SE, NE, C), N (NW, NE, C) and
+// W (SW, NW, C), as fem/grid.py numbers them.
+#pragma once
+
+#include "common.cuh"
+
+namespace pfh {
+
+constexpr int kMaxQ = 4;
+constexpr int kMaxConst = 12;
+
+struct JvpParams {
+  float Bq[4][kMaxQ][5];   // basis values at quadrature points
+  float Gs[4][5][2];       // physical basis gradients per triangle
+  float WB[4][kMaxQ][5];   // weight * basis
+  float WGx[4][kMaxQ][5];  // weight * d/dx basis
+  float WGy[4][kMaxQ][5];  // weight * d/dy basis
+  float k[kMaxConst];      // physics constants, in the physics' own order
+  float dt;
+};
+
+constexpr int kJvpParamFloats = sizeof(JvpParams) / sizeof(float);
+
+// Host side: the block from kJvpParamFloats floats in the order of
+// JvpParams (Bq, Gs, WB, WGx, WGy zero-padded to kMaxQ points, the
+// constants padded to kMaxConst, then dt).
+inline JvpParams load_params(const float* params) {
+  JvpParams P;
+  float* dst = reinterpret_cast<float*>(&P);
+  for (int i = 0; i < kJvpParamFloats; ++i) dst[i] = params[i];
+  return P;
+}
+
+// slots of each triangle as a bit mask (S, E, N, W; centre slot 4 in all)
+__host__ __device__ constexpr bool slot_in_tri(int t, int s) {
+  return (((t == 0) ? 0b10011u : (t == 1) ? 0b10110u
+           : (t == 2) ? 0b11100u : 0b11001u) >> s) & 1u;
+}
+
+// The 5 slot values (SW, SE, NE, NW, C) of field plane (pv, pm) in cell (y, x).
+__device__ __forceinline__ void load_slots(const float* __restrict__ pv,
+                                           const float* __restrict__ pm,
+                                           int y, int x, int nx, float out[5]) {
+  const int nvx = nx + 1;
+  out[0] = __ldg(pv + y * nvx + x);
+  out[1] = __ldg(pv + y * nvx + x + 1);
+  out[2] = __ldg(pv + (y + 1) * nvx + x + 1);
+  out[3] = __ldg(pv + (y + 1) * nvx + x);
+  out[4] = __ldg(pm + y * nx + x);
+}
+
+}  // namespace pfh

@@ -10,11 +10,11 @@ tests import every module, and a CPU tensor never reaches a kernel.
 
 Each wrapper counts its launches in ``LAUNCHES`` (one per wrapper call that
 launches its kernel), so a run can show that its main path went through the
-kernels. The LMR sweep loop (ops/lmr.py), the two V-cycle level steps and
-the two chains (ops/vcycle_chain.py) are launch sequences of those kernels,
-not kernels: they count their calls in ``CALLS``. ``SECONDS`` holds the host seconds
-of plain-torch stages (the multigrid build), so a run can say what share of
-its wall they take.
+kernels. The two LMR sweep loops (ops/lmr.py), the two V-cycle level steps
+and the two chains (ops/vcycle_chain.py) are launch sequences of those
+kernels, not kernels: they count their calls in ``CALLS``. ``SECONDS`` holds
+the host seconds of plain-torch stages (the multigrid build), so a run can
+say what share of its wall they take.
 """
 
 from __future__ import annotations
@@ -40,11 +40,12 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp", "ch3d_jvp",
            "block_jacobi_apply", "lmr_step", "transfer_dyadic",
-           "transfer_general")
+           "transfer_general", "residual", "tile_jvp_recompute",
+           "tile_jvp_seam", "tile_sweep")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # launch sequences of the kernels that stand for one TPU kernel each
-CHAINS = ("lmr_sweep_loop", "descend_level", "ascend_level", "descend_chain",
-          "ascend_chain")
+CHAINS = ("lmr_sweep_loop", "tile_sweep_loop", "descend_level",
+          "ascend_level", "descend_chain", "ascend_chain")
 CALLS = dict.fromkeys(CHAINS, 0)
 
 
@@ -116,6 +117,16 @@ class KernelLibrary:
             "pfh_transfer": [i32] + [vp] * 5 + [i32] * 4 + [vp],
             "pfh_transfer_general": [i32, i32] + [vp] * 6 + [i32] * 4 + [vp],
             "pfh_transfer_general_param_floats": [],
+            "pfh_ch_residual": [vp, i32] + [vp] * 8 + [i32, i32, vp],
+            "pfh_chp_residual": [vp, i32] + [vp] * 8 + [i32, i32, vp],
+            "pfh_chac_residual": [vp, i32, i32] + [vp] * 8 + [i32, i32, vp],
+            "pfh_ch_tile": [i32, vp, i32] + [vp] * 14 + [i32, vp, i32, i32,
+                                                        vp],
+            "pfh_ach_tile": [i32, vp, i32] + [vp] * 14 + [i32, vp, i32, i32,
+                                                         vp],
+            "pfh_chac_tile": [i32, vp, i32, i32, i32] + [vp] * 14 + [
+                i32, vp, i32, i32, vp],
+            "pfh_tile_seam_floats": [i32, i32, i32],
         }
         for name, argtypes in sig.items():
             fn = getattr(self.lib, name)

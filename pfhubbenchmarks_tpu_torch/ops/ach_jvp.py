@@ -1,5 +1,6 @@
 """Kernel G (``csrc/ach_jvp.cu``): J.v of BM3's Allen-Cahn + heat weak form
-(fields U, phi; no anisotropy).
+(fields U, phi; no anisotropy); and BM3's forms of the tile kernels T10,
+T12, TS (``csrc/ach_tile.cu``, ops/fem_tile.py).
 
 Replaces ``pfhubbenchmarks_tpu/ops/pallas_residual.py:make_pallas_jvp`` at
 BM3's physics (the outer Krylov J.v and the exported A z, on the 350^2
@@ -16,15 +17,21 @@ import torch
 
 from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
 from pfhubbenchmarks_tpu_torch.ops.fem_jvp import make_fem_jvp
+from pfhubbenchmarks_tpu_torch.ops.fem_tile import make_tile_jvp
 
 # physics constants the kernel takes, in its parameter order
 CONSTANTS = ("D", "W0_sq", "inv_tau0", "lam")
 
 
 def make_ach_jvp(grid: CrossedTriGrid, tangent, constants: dict, *,
-                 device: torch.device | str, dirichlet=()):
-    """Returns ``jv(w, w0, dt, v, b=None)`` (ops/fem_jvp.make_fem_jvp) for
-    the 2-field (U, phi) system; ``tangent`` is bench3's ``terms_tangent``."""
+                 device: torch.device | str, dirichlet=(), form="gather"):
+    """Returns ``jv(w, w0, dt, v, b=None)`` for the 2-field (U, phi) system:
+    kernel G (ops/fem_jvp.make_fem_jvp) for ``form`` "gather", else the
+    tile kernel of that form (ops/fem_tile.make_tile_jvp); ``tangent`` is
+    bench3's ``terms_tangent``."""
+    k = tuple(constants[n] for n in CONSTANTS)
+    if form != "gather":
+        return make_tile_jvp(grid, tangent, 2, form=form, symbol="pfh_ach_tile",
+                             constants=k, device=device, dirichlet=dirichlet)
     return make_fem_jvp(grid, tangent, 2, name="ach_jvp", symbol="pfh_ach_jvp",
-                        constants=tuple(constants[k] for k in CONSTANTS),
-                        device=device, dirichlet=dirichlet)
+                        constants=k, device=device, dirichlet=dirichlet)

@@ -12,7 +12,10 @@ diagonal by the groups (c, mu), eta_1, .., eta_NE: every multigrid level).
 The wrapper, its plain version (the benchmark's hand-written pointwise
 tangent, which ``CHAC::tangent`` mirrors, assembled in f32 by
 fem/assembly.make_tangent_jvp) and the parameter block are
-ops/fem_jvp.py's.
+ops/fem_jvp.py's. BM2's forms of the tile kernels T10, T12, TS
+(``csrc/chac_tile.cu``, ops/fem_tile.py; 4 order parameters, the coupled
+operator at ffc3 and the split one at dunavant1) and of the residual R
+(``csrc/chac_residual.cu``, ops/fem_residual.py) are here too.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import torch
 
 from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
 from pfhubbenchmarks_tpu_torch.ops.fem_jvp import make_fem_jvp
+from pfhubbenchmarks_tpu_torch.ops.fem_residual import make_fem_residual
+from pfhubbenchmarks_tpu_torch.ops.fem_tile import make_tile_jvp
 
 # physics constants the kernel takes, in its parameter order
 CONSTANTS = ("rho2", "c_alpha", "c_beta", "kappa_c", "kappa_eta", "M", "w",
@@ -30,15 +35,35 @@ NUM_ETA = (1, 2, 4)
 
 def make_chac_jvp(grid: CrossedTriGrid, tangent, constants: dict, *,
                   num_eta: int, split: bool, device: torch.device | str,
-                  dirichlet=()):
-    """Returns ``jv(w, w0, dt, v, b=None)`` (ops/fem_jvp.make_fem_jvp) for
-    the (2 + num_eta)-field system; ``tangent`` must be the one the kernel
-    variant computes (bench2's ``make_terms_tangent(p, num_eta, split)``)."""
+                  dirichlet=(), form="gather"):
+    """Returns ``jv(w, w0, dt, v, b=None)`` for the (2 + num_eta)-field
+    system: kernel F (ops/fem_jvp.make_fem_jvp) for ``form`` "gather", else
+    the tile kernel of that form (ops/fem_tile.make_tile_jvp); ``tangent``
+    must be the one the kernel variant computes (bench2's
+    ``make_terms_tangent(p, num_eta, split)``)."""
     if num_eta not in NUM_ETA:
         raise ValueError(f"chac_jvp is built for num_eta in {NUM_ETA}, "
                          f"got {num_eta}")
+    k = tuple(constants[n] for n in CONSTANTS)
+    if form != "gather":
+        return make_tile_jvp(grid, tangent, 2 + num_eta, form=form,
+                             symbol="pfh_chac_tile", constants=k,
+                             device=device, dirichlet=dirichlet,
+                             variant=(num_eta, int(split)))
     return make_fem_jvp(grid, tangent, 2 + num_eta, name="chac_jvp",
-                        symbol="pfh_chac_jvp",
-                        constants=tuple(constants[k] for k in CONSTANTS),
-                        device=device, dirichlet=dirichlet,
-                        variant=(num_eta, int(split)))
+                        symbol="pfh_chac_jvp", constants=k, device=device,
+                        dirichlet=dirichlet, variant=(num_eta, int(split)))
+
+
+def make_chac_residual(grid: CrossedTriGrid, terms, constants: dict, *,
+                       num_eta: int, device: torch.device | str, dirichlet=()):
+    """Returns ``res(w, w0, dt)`` (ops/fem_residual.make_fem_residual) for
+    the (2 + num_eta)-field system; ``terms`` is bench2's coupled one."""
+    if num_eta not in NUM_ETA:
+        raise ValueError(f"chac_residual is built for num_eta in {NUM_ETA}, "
+                         f"got {num_eta}")
+    return make_fem_residual(grid, terms, 2 + num_eta,
+                             symbol="pfh_chac_residual",
+                             constants=tuple(constants[n] for n in CONSTANTS),
+                             device=device, dirichlet=dirichlet,
+                             variant=(num_eta,))

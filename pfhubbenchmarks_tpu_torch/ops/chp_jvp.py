@@ -1,5 +1,7 @@
 """Kernel E (``csrc/chp_jvp.cu``): J.v of BM6's Cahn-Hilliard + Poisson
-weak form, with the Dirichlet rows of phi as identity rows.
+weak form, with the Dirichlet rows of phi as identity rows; and BM6's form
+of the residual R (``csrc/chp_residual.cu``, ops/fem_residual.py), whose
+Dirichlet rows are u - g.
 
 Replaces ``pfhubbenchmarks_tpu/ops/pallas_residual.py:make_pallas_jvp`` at
 BM6's physics (the outer Krylov J.v, whose BC rows the JAX package re-sets
@@ -17,6 +19,7 @@ import torch
 
 from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
 from pfhubbenchmarks_tpu_torch.ops.fem_jvp import make_fem_jvp
+from pfhubbenchmarks_tpu_torch.ops.fem_residual import make_fem_residual
 
 # physics constants the kernel takes, in its parameter order
 CONSTANTS = ("M", "kappa", "rho", "c_alpha", "c_beta", "k", "epsilon")
@@ -30,3 +33,12 @@ def make_chp_jvp(grid: CrossedTriGrid, tangent, constants: dict, *,
     return make_fem_jvp(grid, tangent, 3, name="chp_jvp", symbol="pfh_chp_jvp",
                         constants=tuple(constants[k] for k in CONSTANTS),
                         device=device, dirichlet=dirichlet)
+
+
+def make_chp_residual(grid: CrossedTriGrid, terms, constants: dict, *,
+                      device: torch.device | str, dirichlet=()):
+    """Returns ``res(w, w0, dt)`` (ops/fem_residual.make_fem_residual) for
+    the 3-field system; ``terms`` is bench6's."""
+    return make_fem_residual(grid, terms, 3, symbol="pfh_chp_residual",
+                             constants=tuple(constants[k] for k in CONSTANTS),
+                             device=device, dirichlet=dirichlet)

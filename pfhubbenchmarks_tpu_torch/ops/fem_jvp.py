@@ -54,6 +54,28 @@ def pack_tabulation(grid: CrossedTriGrid) -> np.ndarray:
     return np.concatenate([p.reshape(-1) for p in parts]).astype(np.float32)
 
 
+def params_head(grid: CrossedTriGrid, constants: tuple[float, ...],
+                name: str) -> np.ndarray:
+    """The kernels' JvpParams block (csrc/fem_params.cuh) without its last
+    float, dt: the tabulation, then the physics constants padded to
+    MAX_CONST. Shared by the gather J.v, the tile kernels (ops/fem_tile.py)
+    and the residual (ops/fem_residual.py)."""
+    if len(constants) > MAX_CONST:
+        raise ValueError(f"{name}: at most {MAX_CONST} constants")
+    const = np.zeros(MAX_CONST, np.float32)
+    const[: len(constants)] = constants
+    return np.concatenate([pack_tabulation(grid), const])
+
+
+def with_dt(head: np.ndarray, dt: float, name: str) -> np.ndarray:
+    """The whole parameter block, checked against the kernels' layout."""
+    params = np.concatenate([head, np.array([dt], np.float32)])
+    if params.size != _lib.library().lib.pfh_jvp_param_floats():
+        raise RuntimeError(f"{name}: parameter block does not match the "
+                           "kernel's JvpParams layout")
+    return params
+
+
 def make_fem_jvp(grid: CrossedTriGrid, tangent, n_fields: int, *, name: str,
                  symbol: str, constants: tuple[float, ...],
                  device: torch.device | str, dirichlet=(), variant=()):
@@ -65,13 +87,9 @@ def make_fem_jvp(grid: CrossedTriGrid, tangent, n_fields: int, *, name: str,
     ``jv.kernel`` are the two versions."""
     if grid.periodic or grid.pad_to != (1, 1):
         raise NotImplementedError(f"{name} takes unpadded, non-periodic grids")
-    if len(constants) > MAX_CONST:
-        raise ValueError(f"{name}: at most {MAX_CONST} constants")
     tangent_jv = make_tangent_jvp(grid, tangent, device=device,
                                   dirichlet=dirichlet, dtype=torch.float32)
-    const = np.zeros(MAX_CONST, np.float32)
-    const[: len(constants)] = constants
-    params_head = np.concatenate([pack_tabulation(grid), const])
+    head = params_head(grid, constants, name)
     nq = grid.tab().nq
     vshape, mshape = (n_fields,) + grid.vshape, (n_fields,) + grid.mshape
     mask_np = bc_mask(grid, dirichlet, n_fields)
@@ -89,16 +107,13 @@ def make_fem_jvp(grid: CrossedTriGrid, tangent, n_fields: int, *, name: str,
         for pair in (w, v) if b is None else (w, v, b):
             _lib.check_shapes(name, pair, vshape, mshape)
         out = (torch.empty_like(v[0]), torch.empty_like(v[1]))
-        params = np.concatenate([params_head, np.array([dt], np.float32)])
-        lib = _lib.library()
-        if params.size != lib.lib.pfh_jvp_param_floats():
-            raise RuntimeError(f"{name}: parameter block does not match the "
-                               "kernel's JvpParams layout")
+        params = with_dt(head, dt, name)
         bv, bm = (None, None) if b is None else (b[0].data_ptr(), b[1].data_ptr())
-        lib.call(symbol, params.ctypes.data, nq, *variant, w[0].data_ptr(),
-                 w[1].data_ptr(), v[0].data_ptr(), v[1].data_ptr(), bv, bm,
-                 None if mask is None else mask.data_ptr(), out[0].data_ptr(),
-                 out[1].data_ptr(), grid.ny, grid.nx, _lib.stream_handle())
+        _lib.library().call(
+            symbol, params.ctypes.data, nq, *variant, w[0].data_ptr(),
+            w[1].data_ptr(), v[0].data_ptr(), v[1].data_ptr(), bv, bm,
+            None if mask is None else mask.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), grid.ny, grid.nx, _lib.stream_handle())
         _lib.count_launch(name)
         return out
 

@@ -23,7 +23,10 @@ make_tiled_lmr_sweep`` (the same sweeps over row blocks, with partial dots
 and alpha outside the kernel, which is what C's two stages do), and in 3D
 ``ops/pallas3d.py:make_pallas_lmr_sweep_loop3d`` and
 ``make_tiled_lmr_sweep3d`` (z slabs instead of row blocks): a launch
-sequence of B, the level J.v and C per sweep.
+sequence of B, the level J.v and C per sweep. On a level routed to the tile
+kernels (ops/fem_tile.py) ``make_tile_sweep_loop`` is that of TS (B and the
+level J.v in one launch) and C; ``make_level_sweep_loop`` picks by the
+level's J.v.
 
 Each has its plain PyTorch version beside it (einsums; torch dots and
 axpys), which the wrapper takes for CPU tensors only.
@@ -64,7 +67,7 @@ def _check_groups(name, starts, F):
         raise ValueError(f"{name}: groups {starts} do not cover {F} fields")
 
 
-def _c_groups(starts):
+def c_groups(starts):
     """(n_groups, int array or None) for the C launchers."""
     if starts is None:
         return 0, None
@@ -120,7 +123,7 @@ def block_jacobi_apply_kernel(pinv, r, groups=None):
     z = tuple(torch.empty_like(rl) for rl in r)
     _lib.library().call(
         "pfh_block_jacobi_apply", *_ptrs(pinv), *_ptrs(r), *_ptrs(z), F,
-        r[0][0].numel(), _ncell(r), *_c_groups(starts), _lib.stream_handle())
+        r[0][0].numel(), _ncell(r), *c_groups(starts), _lib.stream_handle())
     _lib.count_launch("block_jacobi_apply")
     return z
 
@@ -179,7 +182,7 @@ def lmr_step_kernel(x, r, z, az, groups=None) -> torch.Tensor:
             raise ValueError("lmr_step: x, r, z and Az must share shapes")
     F = x[0].shape[0]
     _check_groups("lmr_step", starts, F)
-    n_groups, c_starts = _c_groups(starts)
+    n_groups, c_starts = c_groups(starts)
     nb = lmr_partial_blocks(sum(t.numel() for t in x))
     dev = x[0].device
     partials = torch.empty(2 * max(n_groups, 1) * nb, dtype=torch.float64,
@@ -202,6 +205,34 @@ def lmr_step(x, r, z, az, groups=None) -> None:
         lmr_step_kernel(x, r, z, az, groups)
 
 
+def _sweep_loop(name, z_az, n_sweeps, field_groups):
+    """``n_sweeps`` LMR sweeps on (x, r) in place, each ``(z, A z) =
+    z_az(version, r, w, w0, dt, pinv)`` and the step (C); ``.kernel``
+    counts one ``name`` call in ``_lib.CALLS`` (``sweep.name``)."""
+    group_starts(field_groups)
+    steps = {"kernel": lmr_step_kernel, "plain": lmr_step_plain}
+
+    def body(version, x, r, w, w0, dt, *pinv):
+        for _ in range(n_sweeps):
+            z, az = z_az(version, r, w, w0, dt, pinv)
+            steps[version](x, r, z, az, field_groups)
+        return x, r
+
+    def kernel(*args):
+        out = body("kernel", *args)
+        _lib.count_call(name)
+        return out
+
+    def plain(*args):
+        return body("plain", *args)
+
+    def sweep(x, r, w, w0, dt, *pinv):
+        return (plain if _lib.on_cpu(x[0]) else kernel)(x, r, w, w0, dt, *pinv)
+
+    sweep.kernel, sweep.plain, sweep.name = kernel, plain, name
+    return sweep
+
+
 def make_lmr_sweep_loop(jv, n_sweeps: int, field_groups=None):
     """Returns ``sweep(x, r, w, w0, dt, *pinv) -> (x, r)``, the signature of
     the TPU sweep kernels (``pinv`` the block planes, one per leaf of the
@@ -213,24 +244,35 @@ def make_lmr_sweep_loop(jv, n_sweeps: int, field_groups=None):
     ``field_groups``). ``sweep.plain`` runs the plain versions;
     ``sweep.kernel`` the kernels, counting one ``lmr_sweep_loop`` call in
     ``_lib.CALLS``."""
-    group_starts(field_groups)
+    bj = {"kernel": block_jacobi_apply_kernel, "plain": block_jacobi_apply_plain}
 
-    def body(bj, step, jv_, x, r, w, w0, dt, *pinv):
-        for _ in range(n_sweeps):
-            z = bj(pinv, r, field_groups)
-            step(x, r, z, jv_(w, w0, dt, z), field_groups)
-        return x, r
+    def z_az(version, r, w, w0, dt, pinv):
+        z = bj[version](pinv, r, field_groups)
+        return z, getattr(jv, version)(w, w0, dt, z)
 
-    def kernel(*args):
-        out = body(block_jacobi_apply_kernel, lmr_step_kernel, jv.kernel, *args)
-        _lib.count_call("lmr_sweep_loop")
-        return out
+    return _sweep_loop("lmr_sweep_loop", z_az, n_sweeps, field_groups)
 
-    def plain(*args):
-        return body(block_jacobi_apply_plain, lmr_step_plain, jv.plain, *args)
 
-    def sweep(x, r, w, w0, dt, *pinv):
-        return (plain if _lib.on_cpu(x[0]) else kernel)(x, r, w, w0, dt, *pinv)
+def make_tile_sweep_loop(ts, n_sweeps: int, field_groups=None):
+    """The tiled sweep loop, with ``make_lmr_sweep_loop``'s signature: a
+    sweep is ``(z, A z)`` by the tile kernel TS (``ts``, the ``tile_sweep``
+    of the level's seam-form J.v, ops/fem_tile.py: block-Jacobi and A z in
+    one launch, then the seam fold), then the step (C). It replaces the
+    sweep of ``pfhubbenchmarks_tpu/ops/pallas_tiled_grid.py:
+    make_grid_tiled_lmr_sweep`` (its kernel, then alpha and the axpys
+    outside). ``sweep.kernel`` counts one ``tile_sweep_loop`` call."""
 
-    sweep.kernel, sweep.plain = kernel, plain
-    return sweep
+    def z_az(version, r, w, w0, dt, pinv):
+        return getattr(ts, version)(w, w0, dt, r, pinv, field_groups)
+
+    return _sweep_loop("tile_sweep_loop", z_az, n_sweeps, field_groups)
+
+
+def make_level_sweep_loop(jv, n_sweeps: int, field_groups=None):
+    """The sweep loop of a level whose J.v is ``jv``: the tiled loop where
+    the level is routed to the tile kernels (``jv.tile_sweep``, a seam-form
+    J.v of ops/fem_tile.py), else ``make_lmr_sweep_loop``."""
+    ts = getattr(jv, "tile_sweep", None)
+    if ts is None:
+        return make_lmr_sweep_loop(jv, n_sweeps, field_groups)
+    return make_tile_sweep_loop(ts, n_sweeps, field_groups)

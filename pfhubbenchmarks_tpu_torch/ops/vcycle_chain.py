@@ -34,8 +34,10 @@ are the sweeps' (ops/lmr.make_lmr_sweep_loop): the in-group block-Jacobi
 planes and one LMR step length per group of a field-split cycle (BM2). On
 the card a level step is a launch sequence of the port's kernels: the sweep
 loop of the level J.v (kernel G for BM3, F for BM2, E for BM6 with its
-Dirichlet mask, A for BM1), B (block-Jacobi) and C (LMR step); the level
-J.v for the ascent's residual; and the pair's transfer, picked by its
+Dirichlet mask, A for BM1), B (block-Jacobi) and C (LMR step), or on a
+level routed to the tile kernels the tiled sweep loop of TS and C
+(ops/lmr.make_level_sweep_loop picks by the level's J.v); the level J.v
+(T12 on a tiled level) for the ascent's residual; and the pair's transfer, picked by its
 ratio (ops/transfer.transfer_ops): kernel D for a dyadic pair, H for an
 equal odd ratio, with the Dirichlet masks. ``.plain`` is the same sequence
 through the plain versions; the wrapper takes it for CPU tensors only. A
@@ -73,7 +75,7 @@ def make_descend_level(fine, coarse, jv, *, nu: int, mask_coarse=None,
     """``jv``: the fine level's J.v (ops/fem_jvp.make_fem_jvp, with its
     Dirichlet rows); ``mask_coarse``: the coarse grid's Dirichlet vertex
     mask tensor or None (fem/assembly.bc_mask)."""
-    sweep = lmr.make_lmr_sweep_loop(jv, nu, field_groups)
+    sweep = lmr.make_level_sweep_loop(jv, nu, field_groups)
     restrict = {v: kt.transfer_ops(coarse, fine, v)[0]
                 for v in ("kernel", "plain")}
 
@@ -90,7 +92,7 @@ def make_ascend_level(fine, coarse, jv, *, nu: int, mask_fine=None,
                       field_groups=None):
     """``mask_fine``: the fine grid's Dirichlet vertex mask tensor or None;
     the rest as for ``make_descend_level``."""
-    sweep = lmr.make_lmr_sweep_loop(jv, nu, field_groups)
+    sweep = lmr.make_level_sweep_loop(jv, nu, field_groups)
     prolong_acc = {v: kt.transfer_ops(coarse, fine, v)[1]
                    for v in ("kernel", "plain")}
 

@@ -47,6 +47,14 @@ correction on the fine ones (``zero_bc_rows``, ``gmg.py:633-648``). With BC
 rows on the fine level ``minv_matvec`` is not exposed, as in the JAX
 package (``gmg.py:474-477``).
 
+Tiled configuration (``tiled=True``: ``SolverConfig.use_tiled_sweeps`` and
+``tiled_grid_kernels``, ``gmg.py:216-231, 272-291``): a level with no
+Dirichlet rows and more than one row block (ops/fem_tile.multi_block, the
+JAX package's ``not bcs`` and ``bc_rows < g.ny``) takes the seam-form tile
+J.v (T12, ``jvp_for(g, split, "seam")``) and its tiled sweep loop (TS and
+C per sweep, ops/lmr.make_level_sweep_loop); every other level keeps the
+gather kernels.
+
 On CUDA tensors every step above except the dense coarse solve and the
 odd-ratio injection is a hand-written kernel launch; on CPU tensors the same
 code runs the plain versions. The W-cycle, GCR ``inner_mr`` and
@@ -63,7 +71,8 @@ import torch
 from pfhubbenchmarks_tpu_torch.fem.assembly import bc_mask, make_residual
 from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
 from pfhubbenchmarks_tpu_torch.ops import _lib
-from pfhubbenchmarks_tpu_torch.ops.lmr import make_lmr_sweep_loop
+from pfhubbenchmarks_tpu_torch.ops.fem_tile import multi_block
+from pfhubbenchmarks_tpu_torch.ops.lmr import make_level_sweep_loop
 from pfhubbenchmarks_tpu_torch.ops.vcycle_chain import (make_ascend_chain,
                                                         make_descend_chain)
 from pfhubbenchmarks_tpu_torch.solve import tree as tr
@@ -149,19 +158,23 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
              nu_fine_post: int = 0, coarse_sweeps: int = 24,
              max_levels: int = 10, precond_rule: str | None = None,
              min_cells: int = 7, dense_coarse_max_dofs: int = 1500,
-             cycle: str = "v", inner_mr: int = 1, field_groups=None):
+             cycle: str = "v", inner_mr: int = 1, field_groups=None,
+             tiled: bool = False):
     """Returns ``build(w, w0, dt) -> Minv`` applying one f32 V-cycle.
 
-    ``jvp_for(g, split)`` makes the J.v ``jv(w, w0, dt, v, b=None)`` on grid
-    ``g`` with the identity rows of ``dirichlet_for(g)`` (ops/ch_jvp for
-    BM1, ops/chp_jvp for BM6, ops/chac_jvp for BM2): of the field-split
-    operator (the linearization of ``terms``) for the levels when
-    ``field_groups`` are given, else of the coupled one. ``Minv(r)`` returns
-    z = M^-1 r and ``Minv.minv_matvec(r)``, where exposed, the pair (z, A z)
-    with the coupled true-rule A. ``build.grids`` is the hierarchy and
+    ``jvp_for(g, split, form="gather")`` makes the J.v ``jv(w, w0, dt, v,
+    b=None)`` on grid ``g`` with the identity rows of ``dirichlet_for(g)``
+    (ops/ch_jvp for BM1, ops/chp_jvp for BM6, ops/chac_jvp for BM2,
+    ops/ach_jvp for BM3): of the field-split operator (the linearization of
+    ``terms``) for the levels when ``field_groups`` are given, else of the
+    coupled one; ``form`` "seam" is the tile kernel T12 that ``tiled``
+    routes a level to. ``Minv(r)`` returns z = M^-1 r and
+    ``Minv.minv_matvec(r)``, where exposed, the pair (z, A z) with the
+    coupled true-rule A. ``build.grids`` is the hierarchy,
     ``build.dense_coarse`` says whether the coarsest level is solved by the
-    dense inverse (else by ``coarse_sweeps`` LMR sweeps). Each build adds
-    its seconds to ``_lib.SECONDS['precond_build']``.
+    dense inverse (else by ``coarse_sweeps`` LMR sweeps) and
+    ``build.tiled_levels`` which levels are routed to the tile kernels. Each
+    build adds its seconds to ``_lib.SECONDS['precond_build']``.
     """
     if cycle != "v" or inner_mr != 1:
         raise NotImplementedError("only the plain V-cycle is ported")
@@ -178,7 +191,8 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
     for g, bcs in zip(grids, level_bcs):
         m = bc_mask(g, bcs, n_fields)
         masks.append(None if m is None else torch.as_tensor(m, device=device))
-    jvs = [jvp_for(g, split) for g in grids]
+    jvs = [jvp_for(g, split, "seam") if tiled and not bcs and multi_block(g)
+           else jvp_for(g, split) for g, bcs in zip(grids, level_bcs)]
     # exported pair: the TRUE-rule fine-level J.v of the coupled operator
     mv_jv = jvp_for(grid, False)
     bj_builders = [make_block_jacobi(g, terms, n_fields, device=device,
@@ -192,7 +206,7 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
                                    dtype=torch.float32)
         dense_coarse = make_dense_coarse(residual_c,
                                          *_flat_maps(grids[-1], n_fields))
-    coarse_sweep = make_lmr_sweep_loop(jvs[-1], coarse_sweeps, field_groups)
+    coarse_sweep = make_level_sweep_loop(jvs[-1], coarse_sweeps, field_groups)
     chain = None
     if L >= 2:
         chain = (make_descend_chain(grids, jvs, nu=nu_pre, nu_fine=nfp,
@@ -245,4 +259,5 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
 
     build.grids = grids
     build.dense_coarse = dense_coarse is not None
+    build.tiled_levels = [hasattr(jv, "tile_sweep") for jv in jvs]
     return build

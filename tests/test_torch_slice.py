@@ -4,7 +4,8 @@ coarse solve), 4 adaptive steps. The time grid and the Newton counts must be
 identical (they drive the dt controller), TFE rel <= 1e-7, solute rel <=
 1e-10, Krylov counts within +-1. The same with ``fast_residual``, the cp line
 search and ``fast_linesearch=False``, whose line search reads the staged
-f32 residual. Also the CLI at 16^2 for 2 steps."""
+f32 residual; and in the tiled configuration at 40^2. Also the CLI at 16^2
+for 2 steps."""
 
 import dataclasses
 
@@ -39,6 +40,33 @@ def test_slice_matches_jax_timeloop():
     sol_rel = np.abs(got.rows[:, 2] - ref.rows[:, 2]) / np.abs(ref.rows[:, 2])
     assert tfe_rel.max() <= 1e-7
     assert sol_rel.max() <= 1e-10
+    for a, b in zip(got.stats, ref.stats):
+        assert abs(a.krylov_iters - b.krylov_iters) <= 1
+
+
+def test_tiled_slice_matches_jax_timeloop():
+    """The tiled configuration (``tiled_grid_kernels=True``): the outer J.v
+    by T10 and the 40^2 level by T12 and the tiled sweep loop (plain
+    versions on this CPU), against the JAX package's same run. At 40^2, not
+    32^2: a 32^2 grid is one row block of 32, which the tiled configuration
+    leaves to the gather kernels; 40^2 has two blocks of 20."""
+    pj = make_jax(nx=40, ny=40, Lx=80.0, Ly=80.0)
+    pj = dataclasses.replace(pj, solver=dataclasses.replace(
+        pj.solver, gmg_min_cells=8, gmg_dense_coarse_max_dofs=0,
+        tiled_grid_kernels=True))
+    ref = jax_timeloop.run(pj, max_steps=4, verbose=False)
+
+    pt = make_torch(nx=40, ny=40, Lx=80.0, Ly=80.0,
+                    solver=solver_config_from_dict(dataclasses.asdict(pj.solver)),
+                    time=time_config_from_dict(dataclasses.asdict(pj.time)))
+    assert pt.precond_builder("cpu").tiled_levels == [True, False, False]
+    got = timeloop.run(pt, device="cpu", max_steps=4, verbose=False)
+
+    np.testing.assert_array_equal(got.rows[:, 0], ref.rows[:, 0])
+    assert ([s.newton_iters for s in got.stats]
+            == [s.newton_iters for s in ref.stats])
+    tfe_rel = np.abs(got.rows[:, 1] - ref.rows[:, 1]) / np.abs(ref.rows[:, 1])
+    assert tfe_rel.max() <= 1e-7
     for a, b in zip(got.stats, ref.stats):
         assert abs(a.krylov_iters - b.krylov_iters) <= 1
 
