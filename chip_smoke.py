@@ -14,9 +14,16 @@ Phases, each printing its results; any failure raises (non-zero exit):
    residual, block-Jacobi and LMR at every level, transfers 100<->50 and
    50<->25), with CUDA-event times of both.
 4. bench1's main path: the port's bench1 at full size (100x100) through
-   ``Runner.run`` to t = 11.1; the 10 rows against the committed
-   ``results/bench1_out.csv`` (time column rtol 1e-9, TFE rel 1e-6, solute
-   rel 1e-9); each kernel and chain of that path must have run in that run.
+   ``Runner.run``, the whole adaptive run to its final time (t = 1000, the
+   JAX run's 74 rows to t = 1025.5), held against the committed
+   ``results/bench1_out.csv`` by the ``tools/check_trajectories.py`` BOUNDS
+   for bench1: the time column equal (rtol 1e-9) for at least the first 21
+   rows, with TFE rel 1e-6 and solute rel 1e-9 on those rows; TFE
+   interpolated onto the JAX run's times within rel 5e-3 over the whole run;
+   the run reaches its final time. It prints the matched rows, the first
+   row that parts, the dt decisions that flip, and steps, attempts, Newton
+   and Krylov counts beside the JAX run's. Each kernel and chain of that
+   path must have run in that run.
 5. the same checks at bench6's shapes (F = 3, levels 100^2/50^2/25^2): the
    CH+Poisson J.v (kernel E) for both rules, J.v and b - J.v forms, with
    and without the Dirichlet mask, at 100^2 also against ``torch.func.jvp``
@@ -35,10 +42,11 @@ Phases, each printing its results; any failure raises (non-zero exit):
    with the groups; and the time of one block-Jacobi build of the
    hierarchy.
 8. bench2's main path: the port's bench2 at full size (100x100, six
-   fields) through ``Runner.run`` to t = 6.63; the 28 rows against the
-   committed ``results/bench2_out.csv`` (time column rtol 1e-9, TFE rel
-   1e-5, solute rel 1e-9); each kernel (R among them), the sweep loop and
-   both chains must have run; the seconds of its multigrid builds (plain torch), timed
+   fields) through ``Runner.run`` to t = 2.15; the first 14 rows against
+   the committed ``results/bench2_out.csv`` (time column rtol 1e-9, TFE rel
+   1e-5, solute rel 1e-9; step 11 holds the failed attempt that kernel R
+   moves); each kernel (R among them), the sweep loop and both chains must
+   have run; the seconds of its multigrid builds (plain torch), timed
    inside the run, and their share of its wall.
 9. the same checks at bench3's shapes (F = 2, levels 350^2/175^2/35^2/7^2,
    ratios 2, 5, 5): the AC + heat J.v (kernel G) at every level with
@@ -49,15 +57,14 @@ Phases, each printing its results; any failure raises (non-zero exit):
    each of the three pairs; and the warm multigrid build of the 4-level
    hierarchy, with and without the dense 7^2 inverse, timed (medians of 5).
 10. bench3's main path: the port's bench3 at full size (350x350) through
-   ``Runner.run`` to t = 101.75; the 44 rows against the committed
+   ``Runner.run``, its first 14 rows (to t = 12.15, the
+   ``tools/check_trajectories.py`` prefix) against the committed
    ``results/bench3_out.csv`` (time column rtol 1e-9, TFE rel 1e-6, solid
    fraction rel 1e-5); its coarsest solve must be the dense inverse, and
    each kernel, the sweep loop, both level steps and both chains must have
    run; the seconds of its multigrid builds (plain torch, with the dense
-   inverse), timed inside the run, and their share of its wall. If the
-   smoke has already run 900 s when this phase starts, it runs the first
-   14 rows (to t = 12.15, the ``tools/check_trajectories.py`` prefix) and
-   says so.
+   inverse), timed inside the run, and their share of its wall. bench3's
+   full length runs in phase 19's replay.
 11. the same checks at bench1_3d's shapes (F = 2, Kuhn tets, levels
    50^3/25^3/5^3): the 3D Cahn-Hilliard J.v (kernel I) at 50^3 with keast2
    and ffc3, at 25^3 and 5^3 with keast2, against its plain version and
@@ -88,12 +95,36 @@ Phases, each printing its results; any failure raises (non-zero exit):
    must give the same bits; the device time per launch of G, T10 and T12
    at bench3 350^2 (queued behind a sleep kernel).
 14. bench1 in the tiled configuration (``tiled_grid_kernels=True``): 10
-   rows as in phase 4, with T10, T12, TS and the tiled sweep loop required;
-   its time column and per-step Newton counts must equal phase 4's, its
+   rows, with T10, T12, TS and the tiled sweep loop required; its time
+   column and per-step Newton counts must equal phase 4's first 10, its
    Krylov counts and wall are printed beside them.
 15. bench3 in the tiled configuration: its first 14 rows (to t = 12.15),
-   held likewise against phase 10's first 14.
-16. prints the card line, the per-kernel JSON line, then
+   held likewise against phase 10's 14.
+16. kernel P (the FMA-ladder probe, TPU row 20) against its plain version
+   at the TPU probe's four shapes and at one thread per vertex of kernel I
+   at 50^3 and 25^3 (depth 200, rtol and atol depth x 2^-23 of max|ref|:
+   one f32 ulp per step, nvcc contracting to FMA); its SASS must hold at
+   least two FFMA or FMUL per step at every depth built (``cuobjdump``, the
+   chain not folded); then the probe path, ``ops/fma_chain.probe`` (the
+   device time of one launch as the slope between depths 200 and 400, and
+   the f32 operations per second), with its launches counted.
+17. bench1's replay: the port's bench1 at 100x100 through ``timeloop.run``
+   on the time grid of ``results/bench1_replay.csv`` (the reference's 73
+   rows), held against that CSV (the JAX package's replay: time column
+   rtol 1e-9, TFE rel 1e-5, the REPLAY_BOUNDS of
+   ``tools/check_trajectories.py``, solute rel 1e-9); the step to t = 65.5
+   must be solved by the substep warm start. It prints the rung of every
+   rescued step. If the smoke has run BENCH1_REPLAY_LATE_S by then, it runs
+   the first 23 rows only (the t = 65.5 step included) and says so.
+18. bench6's replay: the 14 rows of ``results/bench6_replay.csv``, TFE rel
+   1e-6, solute rel 1e-9 (its first 7 rows if the smoke runs late).
+19. bench3's replay: 350x350 on the 46 rows of
+   ``results/bench3_replay.csv`` (to t = 103.03), TFE and solid fraction rel
+   5e-4 (REPLAY_BOUNDS); the t = 41.59 step must take the 2 x (dt/2)
+   fallback after both damped rungs ran, and each rung's Newton and Krylov
+   counts are printed. If the smoke runs late, its first 28 rows (the
+   t = 41.59 step included).
+20. prints the card line, the per-kernel JSON line, then
    ``{"ok": true, "device": ...}``.
 
 In the kernel line, ``kernels`` lists the CUDA kernels: ``launches`` is the
@@ -110,7 +141,10 @@ is one (block-Jacobi's einsum pair; for the J.v kernels A, E, F, G, I, T10
 and T12 ``torch.func.jvp`` of the f32 residual), else null.
 ``device_ms``, where present (kernel I, B and C at bench1_3d's 50^3, R at
 bench6's 100^2, T10, T12 and TS at bench3's 350^2), is the device time of one launch: launches
-queued behind a sleep kernel, between two CUDA events. ``chains`` lists
+queued behind a sleep kernel, between two CUDA events. For kernel P the
+main shape is one thread per vertex of kernel I at 50^3, its ``launches``
+those of the probe path, its ``device_ms`` the probe's slope times the
+depth (the launch cost cancelled). ``chains`` lists
 the LMR sweep loop, the tiled sweep loop, the two V-cycle level steps and
 the two chains, launch sequences of those kernels that stand for TPU
 kernels 3, 4 and 11 (the sweep loop), 13 (the tiled sweep loop: TS and C),
@@ -134,16 +168,24 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-BENCH1_END, BENCH1_ROWS = 11.1, 10   # rows 1-10 of results/bench1_out.csv
+# bench1's whole adaptive run (phase 4): the tools/check_trajectories.py
+# BOUNDS, and the JAX run's counts (BENCH_r05.json's breakdown)
+BENCH1_MIN_MATCHED, BENCH1_INTERP_TOL = 21, 5e-3
+JAX_BENCH1 = dict(steps=74, attempts=86, newton=327, krylov=4936,
+                  krylov_all=5874)
+BENCH1_TILED_ROWS = 10                # phase 14: to t = 11.1
 BENCH6_ROWS = 14                      # results/bench6_out.csv, to t = 3.19
-BENCH2_END, BENCH2_ROWS = 6.63, 28    # rows 1-28 of results/bench2_out.csv
-BENCH3_ROWS = 44                      # results/bench3_out.csv, to t = 101.75
-BENCH3_PREFIX_ROWS = 14               # to t = 12.15, if the smoke runs late
-BENCH3_LATE_S = 900.0
+BENCH2_END, BENCH2_ROWS = 2.15, 14    # rows 1-14 of results/bench2_out.csv
+BENCH3_ROWS = 14                      # phases 10, 15: to t = 12.15
 BENCH1_3D_ROWS = 24                   # results/bench1_3d_out.csv, to t = 52.7
 BENCH1_3D_PREFIX_ROWS = 10            # to t = 12.7, if the smoke runs late
 BENCH1_3D_LATE_S = 1000.0
-BENCH3_TILED_ROWS = 14                # phase 15: to t = 12.15
+P_DEPTH = 200                         # phase 16: the TPU probe's default
+# the replays (phases 17-19): all rows, or a prefix that keeps the rescued
+# steps (bench1's t = 65.5, bench3's t = 41.59) if the smoke runs late
+BENCH1_REPLAY_ROWS, BENCH1_REPLAY_PREFIX, BENCH1_REPLAY_LATE_S = 73, 23, 780.0
+BENCH6_REPLAY_ROWS, BENCH6_REPLAY_PREFIX, BENCH6_REPLAY_LATE_S = 14, 7, 900.0
+BENCH3_REPLAY_ROWS, BENCH3_REPLAY_PREFIX, BENCH3_REPLAY_LATE_S = 46, 28, 900.0
 TOL_F32 = dict(rtol=2e-4, atol_scale=2e-5)   # tests/test_pallas_vcycle.py
 TOL_R = dict(rtol=1e-5, atol_scale=1e-5)     # tests/test_pallas.py:22-28
 TOL_EXACT = dict(rtol=0.0, atol_scale=0.0)
@@ -502,21 +544,18 @@ class Chain(Kernel):
         return rec
 
 
-def run_main_path(label, runner, end_time, ref_csv, n_rows, required,
-                  tfe_tol=1e-6, col2_tol=1e-9):
-    """Drive ``runner`` to ``end_time`` (at most ``n_rows`` steps) with the
-    launch and chain-call counts and the stage seconds set to 0 just before
-    and read just after; hold its rows against ``ref_csv``. Returns the
-    counts, the run's result, its wall seconds and the stage seconds."""
-    from pfhubbenchmarks_tpu_torch.io.csvout import read_csv
+def drive(label, problem, run, required):
+    """Call ``run()`` (a run of ``problem``'s main path) with the launch and
+    chain-call counts and the stage seconds set to 0 just before and read
+    just after; print its counts and require each of ``required`` to have
+    run. Returns the counts, the run's result, its wall seconds and the
+    stage seconds."""
     from pfhubbenchmarks_tpu_torch.ops import _lib
 
-    ref_rows, cols = read_csv(os.path.join(HERE, "results", ref_csv))
-    ref_rows = ref_rows[:n_rows]
     torch.cuda.synchronize()
     _lib.reset_launches()
     t0 = time.perf_counter()
-    result = runner.run(end_time=end_time, max_steps=n_rows, verbose=True)
+    result = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_lib.LAUNCHES)
@@ -524,10 +563,11 @@ def run_main_path(label, runner, end_time, ref_csv, n_rows, required,
     seconds = dict(_lib.SECONDS)
     rows = result.rows
     st = result.stats
-    g = runner.problem.grid
+    g = problem.grid
     dims = ((g.nz,) if getattr(g, 'dim', 2) == 3 else ()) + (g.ny, g.nx)
     print(f"{label}: {'x'.join(map(str, dims))} to "
           f"t={rows[-1, 0]:.6g}: steps={len(st)} "
+          f"attempts={len(st) + sum(s.retries for s in st)} "
           f"newton={sum(s.newton_iters for s in st)} "
           f"krylov={sum(s.krylov_iters for s in st)} "
           f"newton_all={sum(s.newton_iters_all for s in st)} "
@@ -539,9 +579,27 @@ def run_main_path(label, runner, end_time, ref_csv, n_rows, required,
           f"krylov_all per step {[s.krylov_iters_all for s in st]}, "
           f"newton_all per step {[s.newton_iters_all for s in st]}, "
           f"retries per step {[s.retries for s in st]}", flush=True)
+    if not np.isfinite(rows).all():
+        raise AssertionError(f"{label}: rows are not finite")
+    counts = {**launches, **calls}
+    missing = [k for k in required if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{label}: did not run on the main path: {missing}")
+    return counts, result, wall, seconds
+
+
+def hold_rows(label, result, ref_csv, n_rows, tfe_tol=1e-6, col2_tol=1e-9):
+    """The run's rows against the first ``n_rows`` of ``ref_csv``: as many
+    rows, time column rtol 1e-9, the first observable within rel
+    ``tfe_tol`` and the second within rel ``col2_tol``."""
+    from pfhubbenchmarks_tpu_torch.io.csvout import read_csv
+
+    ref_rows, cols = read_csv(os.path.join(HERE, "results", ref_csv))
+    ref_rows = ref_rows[:n_rows]
+    rows = result.rows
     if list(result.columns) != cols:
         raise AssertionError(f"columns {result.columns} != {cols}")
-    if rows.shape != ref_rows.shape or not np.isfinite(rows).all():
+    if rows.shape != ref_rows.shape:
         raise AssertionError(f"rows {rows.shape} vs reference {ref_rows.shape}")
     print(f"{label}: time column {rows[:, 0].tolist()}", flush=True)
     np.testing.assert_allclose(rows[:, 0], ref_rows[:, 0], rtol=1e-9, atol=0)
@@ -554,11 +612,111 @@ def run_main_path(label, runner, end_time, ref_csv, n_rows, required,
           f"{cols[2]}_rel={sol_rel:.3e} (<={col2_tol:g})", flush=True)
     if tfe_rel > tfe_tol or sol_rel > col2_tol:
         raise AssertionError(f"{label}: rows disagree with results/{ref_csv}")
-    counts = {**launches, **calls}
-    missing = [k for k in required if counts[k] <= 0]
-    if missing:
-        raise AssertionError(f"{label}: did not run on the main path: {missing}")
-    return counts, result, wall, seconds
+
+
+def run_main_path(label, runner, end_time, ref_csv, n_rows, required,
+                  tfe_tol=1e-6, col2_tol=1e-9):
+    """Drive ``runner`` to ``end_time`` (at most ``n_rows`` steps) and hold
+    its rows against ``ref_csv`` (``drive``, ``hold_rows``)."""
+    out = drive(label, runner.problem,
+                lambda: runner.run(end_time=end_time, max_steps=n_rows,
+                                   verbose=True), required)
+    hold_rows(label, out[1], ref_csv, n_rows, tfe_tol, col2_tol)
+    return out
+
+
+def flipped_decisions(times, ref_times):
+    """The dt decisions that part two runs: steps that start from a time
+    both runs reach and end at different times. [(row, t0, t, t_ref)]."""
+    a, b = np.concatenate([[0.0], times]), np.concatenate([[0.0], ref_times])
+    flips = []
+    for i in range(len(a) - 1):
+        j = np.flatnonzero(np.isclose(b, a[i], rtol=1e-9, atol=0))
+        if len(j) and j[0] + 1 < len(b) and not np.isclose(
+                a[i + 1], b[j[0] + 1], rtol=1e-9, atol=0):
+            flips.append((i + 1, a[i], a[i + 1], b[j[0] + 1]))
+    return flips
+
+
+def hold_trajectory(label, result, ref_csv, end_time, min_matched, interp_tol,
+                    tfe_tol=1e-6, col2_tol=1e-9):
+    """An adaptive run to its final time against ``ref_csv``, by the
+    ``tools/check_trajectories.py`` BOUNDS: the time column equal (rtol
+    1e-9) for at least ``min_matched`` rows, with the observables within
+    ``tfe_tol`` and ``col2_tol`` on those rows; TFE interpolated onto the
+    reference times within rel ``interp_tol``; the run at its final time.
+    Returns the matched rows and the flipped dt decisions."""
+    from pfhubbenchmarks_tpu_torch.io.csvout import read_csv
+
+    ref, cols = read_csv(os.path.join(HERE, "results", ref_csv))
+    ours = result.rows
+    if list(result.columns) != cols:
+        raise AssertionError(f"columns {result.columns} != {cols}")
+    n = min(len(ours), len(ref))
+    match = np.isclose(ours[:n, 0], ref[:n, 0], rtol=1e-9, atol=0)
+    k = n if match.all() else int(np.argmin(match))
+    tfe_rel = sol_rel = float("inf")
+    if k:
+        tfe_rel = float(np.max(np.abs(ours[:k, 1] - ref[:k, 1])
+                               / np.abs(ref[:k, 1])))
+        sol_rel = float(np.max(np.abs(ours[:k, 2] - ref[:k, 2])
+                               / np.abs(ref[:k, 2])))
+    tmax = min(ours[-1, 0], ref[-1, 0])
+    sel = ref[:, 0] <= tmax
+    interp = np.interp(ref[sel, 0], ours[:, 0], ours[:, 1])
+    interp_rel = float(np.max(np.abs(interp - ref[sel, 1]) / np.abs(ref[sel, 1])))
+    flips = flipped_decisions(ours[:, 0], ref[:, 0])
+    print(f"{label}: vs results/{ref_csv}: {len(ours)} rows to "
+          f"t={ours[-1, 0]:.6g} against {len(ref)} to t={ref[-1, 0]:.6g}; "
+          f"matched rows {k} (>= {min_matched}), tfe_rel on them "
+          f"{tfe_rel:.3e} (<={tfe_tol:g}), {cols[2]}_rel {sol_rel:.3e} "
+          f"(<={col2_tol:g}); interp tfe_rel {interp_rel:.3e} "
+          f"(<={interp_tol:g}); flipped dt decisions {len(flips)}", flush=True)
+    if k < n or len(ours) != len(ref):
+        print(f"{label}: first row that parts: row {k + 1}, t="
+              f"{ours[k, 0] if k < len(ours) else None} against "
+              f"t={ref[k, 0] if k < len(ref) else None}", flush=True)
+    for row, t0, t, t_ref in flips:
+        print(f"{label}: dt decision flipped at row {row}: from t={t0:.6g} "
+              f"to {t:.6g} (dt {t - t0:.6g}) against {t_ref:.6g} (dt "
+              f"{t_ref - t0:.6g})", flush=True)
+    if (k < min_matched or tfe_rel > tfe_tol or sol_rel > col2_tol
+            or interp_rel > interp_tol or ours[-1, 0] < end_time * (1 - 1e-12)):
+        raise AssertionError(f"{label}: the run fails the bounds against "
+                             f"results/{ref_csv}")
+    return k, flips
+
+
+def replay_phase(label, problem, dev, ref_csv, n_rows, required, tfe_tol,
+                 col2_tol):
+    """``timeloop.run`` of ``problem`` on the time grid of ``ref_csv``
+    (column 0), at most ``n_rows`` steps, with ``replay_partial`` (a step
+    no rung solves ends the run short, which the row check refuses), held
+    against ``ref_csv``; prints the rung and ladder of every rescued step.
+    Returns ``drive``'s counts, result and wall."""
+    from pfhubbenchmarks_tpu_torch import timeloop
+    from pfhubbenchmarks_tpu_torch.io.csvout import read_csv
+
+    grid = read_csv(os.path.join(HERE, "results", ref_csv))[0][:, 0]
+    counts, result, wall, _ = drive(
+        label, problem, lambda: timeloop.run(
+            problem, device=dev, time_grid=grid, max_steps=n_rows,
+            replay_partial=True, verbose=True), required)
+    for st in result.stats:
+        if st.rescue:
+            ladder = ", ".join(
+                f"{r['rung']} {r['newton']}/{r['krylov']} "
+                f"{'ok' if r['converged'] else 'failed'}" for r in st.ladder)
+            print(f"{label}: step {st.step} (t={st.t:.6g}, dt={st.dt:.6g}) "
+                  f"rescued by {st.rescue}; rungs (newton/krylov): {ladder}",
+                  flush=True)
+    hold_rows(label, result, ref_csv, n_rows, tfe_tol, col2_tol)
+    return counts, result, wall
+
+
+def rescued_at(result, t):
+    """The stats of the step to time ``t``."""
+    return next(st for st in result.stats if np.isclose(st.t, t, rtol=1e-9))
 
 
 def kernel_records():
@@ -597,6 +755,9 @@ def kernel_records():
                                 "pfhubbenchmarks_tpu/ops/pallas_tiled_grid.py:179"),
         "tile_sweep": Kernel("tile_sweep", csrc + "fem_tile.cuh",
                              "pfhubbenchmarks_tpu/ops/pallas_tiled_grid.py:246"),
+        # P: the FMA-ladder probe
+        "fma_chain": Kernel("fma_chain", csrc + "fma_chain.cu",
+                            "tools/probes/lanefill_probe.py:55"),
     }
     seq = ("level J.v (ch_jvp, chp_jvp, chac_jvp, ach_jvp or ch3d_jvp)",
            "block_jacobi_apply", "lmr_step", "transfer_dyadic")
@@ -1001,9 +1162,9 @@ def tile_phases(dev, K, C, noise_pair, state_on, residual_jvp, paths, refs):
                       "tile_sweep_loop", "lmr_step", "transfer_dyadic",
                       "descend_chain", "ascend_chain")
     for phase, label, pb, end, n_rows, ref_csv, tols, more in (
-            (14, "bench1", p1, BENCH1_END, BENCH1_ROWS, "bench1_out.csv",
+            (14, "bench1", p1, None, BENCH1_TILED_ROWS, "bench1_out.csv",
              dict(), ("ch_jvp", "lmr_sweep_loop", "block_jacobi_apply")),
-            (15, "bench3", p3, None, BENCH3_TILED_ROWS, "bench3_out.csv",
+            (15, "bench3", p3, None, BENCH3_ROWS, "bench3_out.csv",
              dict(tfe_tol=1e-6, col2_tol=1e-5),
              ("ach_jvp", "transfer_general", "descend_level", "ascend_level"))):
         pt = dataclasses.replace(pb, solver=dataclasses.replace(
@@ -1032,6 +1193,126 @@ def tile_phases(dev, K, C, noise_pair, state_on, residual_jvp, paths, refs):
                                                        ref.rows[:n_rows, 0]):
             raise AssertionError(f"{label} tiled: rows or Newton counts differ "
                                  "from the gather run")
+
+
+def fma_chain_phase(dev, K, paths):
+    """Phase 16: kernel P against its plain version at the probe's six
+    shapes, with per-call times; its SASS (the chain not folded); then the
+    probe path (``ops/fma_chain.probe``) with the launch counts set to 0
+    just before and read just after. Adds the probe's counts to ``paths``."""
+    from pfhubbenchmarks_tpu_torch.ops import _lib
+    from pfhubbenchmarks_tpu_torch.ops import fma_chain as P
+
+    t16 = time.perf_counter()
+    KP = K["fma_chain"]
+    # one f32 ulp of a per step: nvcc contracts a t + y c_i into an FMA,
+    # the plain version rounds the product first
+    tol = dict(rtol=P_DEPTH * 2.0 ** -23, atol_scale=P_DEPTH * 2.0 ** -23)
+    main_name = P.SHAPES[4][0]   # one thread per vertex of kernel I at 50^3
+    for name, shape in P.SHAPES:
+        x, y = P.inputs(shape, dev)
+        n = x.numel()
+        timing = (cuda_ms(lambda: P.fma_chain_kernel(x, y, P_DEPTH)),
+                  cuda_ms(lambda: P.fma_chain_plain(x, y, P_DEPTH), reps=5))
+        KP.check(f"{name} depth {P_DEPTH}", [P.fma_chain_kernel(x, y, P_DEPTH)],
+                 [P.fma_chain_plain(x, y, P_DEPTH)], tol, timing,
+                 (4 * 3 * n, P.chain_ops(n, P_DEPTH)), main=name == main_name)
+
+    # the chain is not folded: two FMAs a step in the SASS, or, where the
+    # toolkit has no cuobjdump, a time per step that stays the same from
+    # depth 200 to 800
+    x, y = P.inputs(P.SHAPES[4][1], dev)
+    t = {d: P.launch_ms(x, y, d, 100) for d in (200, 400, 800)}
+    slopes = ((t[400] - t[200]) / 200, (t[800] - t[400]) / 400)
+    print(f"phase 16: P at {main_name}: device ms per launch "
+          f"{ {d: round(v, 6) for d, v in t.items()} }, ns per step "
+          f"{slopes[0] * 1e6:.4f} (200->400) and {slopes[1] * 1e6:.4f} "
+          f"(400->800)", flush=True)
+    try:
+        sass = P.sass_counts(_lib.library().path)
+    except FileNotFoundError:
+        sass = None
+        print("phase 16: no cuobjdump beside nvcc: the check is the time per "
+              "step's linearity", flush=True)
+        if not 0.8 <= slopes[1] / slopes[0] <= 1.25:
+            raise AssertionError("P: the time does not grow linearly in depth")
+    if sass is not None:
+        print(f"phase 16: SASS FFMA/FMUL per depth {sass}", flush=True)
+        if sorted(sass) != list(P.DEPTHS) or any(
+                sum(sass[d]) < 2 * d for d in P.DEPTHS):
+            raise AssertionError("P: the chain was folded (fewer than two "
+                                 "FFMA or FMUL a step)")
+
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    probe = P.probe(P_DEPTH, launches=100, device=dev)
+    torch.cuda.synchronize()
+    paths["lanefill probe"] = dict(_lib.LAUNCHES)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for r in probe:
+        print(f"phase 16: probe {r['name']}: {r['threads']} threads "
+              f"({r['threads'] / 32 / (4 * sms):.2f} warps per scheduler), "
+              f"{r['chain_ms'] * 1e3:.3f} us for {P_DEPTH} steps "
+              f"({r['step_ns']:.4f} ns/step), {r['flop_per_s'] / 1e12:.3f} "
+              f"TFLOP/s = {r['flop_per_s'] / F32_FLOP_PER_S:.4f} of "
+              f"{F32_FLOP_PER_S / 1e12:g}", flush=True)
+    if paths["lanefill probe"]["fma_chain"] <= 0:
+        raise AssertionError("the probe path did not launch P")
+    KP.device_ms = next(r["chain_ms"] for r in probe if r["name"] == main_name)
+    print(f"phase 16: P agrees with its plain version; the probe launched it "
+          f"{paths['lanefill probe']['fma_chain']} times "
+          f"({time.perf_counter() - t16:.1f} s)", flush=True)
+
+
+def replay_phases(dev, t_start, paths, problem1, problem6, problem3):
+    """Phases 17-19: the replays of bench1, bench6 and bench3 on the time
+    grids of the JAX package's replay CSVs, each cut to a prefix that keeps
+    its rescued step if the smoke runs late. Adds each run's counts to
+    ``paths``."""
+    chain2d = ("block_jacobi_apply", "lmr_step", "transfer_dyadic",
+               "lmr_sweep_loop", "descend_chain", "ascend_chain")
+
+    def rows_for(phase, label, full, prefix, late_s):
+        elapsed = time.perf_counter() - t_start
+        if elapsed <= late_s:
+            return full
+        print(f"phase {phase}: the smoke has run {elapsed:.0f} s (> "
+              f"{late_s:.0f} s): {label} replays its first {prefix} rows only",
+              flush=True)
+        return prefix
+
+    n = rows_for(17, "bench1", BENCH1_REPLAY_ROWS, BENCH1_REPLAY_PREFIX,
+                 BENCH1_REPLAY_LATE_S)
+    paths["bench1 replay"], res1, _ = replay_phase(
+        "phase 17: bench1 replay", problem1, dev, "bench1_replay.csv", n,
+        ("ch_jvp",) + chain2d, tfe_tol=1e-5, col2_tol=1e-9)
+    st = rescued_at(res1, 65.5)
+    print(f"phase 17: the step to t=65.5 (step {st.step}): "
+          f"{st.rescue or 'its first attempt'}", flush=True)
+    if not st.rescue.startswith("substep"):
+        raise AssertionError("bench1 replay: the t = 65.5 step did not go "
+                             "through the substep warm start")
+
+    n = rows_for(18, "bench6", BENCH6_REPLAY_ROWS, BENCH6_REPLAY_PREFIX,
+                 BENCH6_REPLAY_LATE_S)
+    paths["bench6 replay"], _, _ = replay_phase(
+        "phase 18: bench6 replay", problem6, dev, "bench6_replay.csv", n,
+        ("chp_jvp", "residual") + chain2d, tfe_tol=1e-6, col2_tol=1e-9)
+
+    n = rows_for(19, "bench3", BENCH3_REPLAY_ROWS, BENCH3_REPLAY_PREFIX,
+                 BENCH3_REPLAY_LATE_S)
+    paths["bench3 replay"], res3, _ = replay_phase(
+        "phase 19: bench3 replay", problem3, dev, "bench3_replay.csv", n,
+        ("ach_jvp", "transfer_general", "descend_level", "ascend_level")
+        + chain2d, tfe_tol=5e-4, col2_tol=5e-4)
+    st = rescued_at(res3, 41.59)
+    rungs = [r["rung"] for r in st.ladder]
+    print(f"phase 19: the step to t=41.59 (step {st.step}): "
+          f"{st.rescue or 'its first attempt'} after {rungs}", flush=True)
+    if (st.rescue != "2x(dt/2)" or "damped from warm" not in rungs
+            or "damped from continuation" not in rungs):
+        raise AssertionError("bench3 replay: the t = 41.59 step did not take "
+                             "the 2x(dt/2) fallback after both damped rungs")
 
 
 def main() -> None:
@@ -1194,13 +1475,29 @@ def main() -> None:
     print(f"phase 3: bench1-shape kernels agree with their plain versions "
           f"({time.perf_counter() - t3:.1f} s)", flush=True)
 
-    # ---- phase 4: bench1's main path at 100x100 -------------------------
+    # ---- phase 4: bench1's main path at 100x100, the whole run ----------
     paths = {}
-    paths["bench1"], result1, wall1, _ = run_main_path(
-        "phase 4: bench1", timeloop.Runner(problem1, dev), BENCH1_END,
-        "bench1_out.csv", BENCH1_ROWS,
+    runner1 = timeloop.Runner(problem1, dev)
+    paths["bench1"], result1, wall1, seconds1 = drive(
+        "phase 4: bench1", problem1, lambda: runner1.run(verbose=True),
         ("ch_jvp", "block_jacobi_apply", "lmr_step", "transfer_dyadic",
          "lmr_sweep_loop", "descend_chain", "ascend_chain"))
+    hold_trajectory("phase 4: bench1", result1, "bench1_out.csv",
+                    problem1.time.end_time, BENCH1_MIN_MATCHED,
+                    BENCH1_INTERP_TOL)
+    st1 = result1.stats
+    port1 = dict(steps=len(st1), attempts=len(st1) + sum(s.retries for s in st1),
+                 newton=sum(s.newton_iters for s in st1),
+                 krylov=sum(s.krylov_iters for s in st1),
+                 krylov_all=sum(s.krylov_iters_all for s in st1))
+    print("phase 4: bench1 steps / attempts / newton / krylov / krylov_all: "
+          + " / ".join(str(port1[k]) for k in JAX_BENCH1) + " (port, "
+          f"newton_all {sum(s.newton_iters_all for s in st1)}) against "
+          + " / ".join(str(v) for v in JAX_BENCH1.values())
+          + f" (the JAX run, BENCH_r05.json); wall {wall1:.3f} s, "
+          f"{wall1 / max(port1['krylov_all'], 1) * 1e3:.2f} ms per Krylov "
+          f"iteration over all attempts, builds {seconds1['precond_build']:.3f}"
+          " s", flush=True)
 
     # ---- phase 5: kernels and chains at bench6's shapes -----------------
     problem6 = bench6.make()
@@ -1566,14 +1863,8 @@ def main() -> None:
           f"({n_dofs} coarse dofs)", flush=True)
     if not build.dense_coarse:
         raise AssertionError("bench3's coarsest solve is not the dense inverse")
-    elapsed = time.perf_counter() - t_start
-    n_rows3 = BENCH3_ROWS
-    if elapsed > BENCH3_LATE_S:
-        n_rows3 = BENCH3_PREFIX_ROWS
-        print(f"phase 10: the smoke has run {elapsed:.0f} s (> {BENCH3_LATE_S:.0f}"
-              f" s): bench3 runs its first {n_rows3} rows only", flush=True)
     paths["bench3"], result3, wall3, seconds3 = run_main_path(
-        "phase 10: bench3", runner3, None, "bench3_out.csv", n_rows3,
+        "phase 10: bench3", runner3, None, "bench3_out.csv", BENCH3_ROWS,
         ("ach_jvp", "block_jacobi_apply", "lmr_step", "transfer_dyadic",
          "transfer_general", "lmr_sweep_loop", "descend_level", "ascend_level",
          "descend_chain", "ascend_chain"), tfe_tol=1e-6, col2_tol=1e-5)
@@ -1587,12 +1878,15 @@ def main() -> None:
 
     bench1_3d_phases(dev, K, C, rng, t_start, paths)
 
-    # bench3's first rows and their wall (the sum of their steps' walls)
-    wall3_prefix = sum(st.wall for st in result3.stats[:BENCH3_TILED_ROWS])
+    # bench1's first rows and their wall (the sum of their steps' walls)
+    wall1_prefix = sum(st.wall for st in result1.stats[:BENCH1_TILED_ROWS])
     tile_phases(dev, K, C, noise_pair, state_on, residual_jvp, paths,
-                {"bench1": (result1, wall1), "bench3": (result3, wall3_prefix)})
+                {"bench1": (result1, wall1_prefix), "bench3": (result3, wall3)})
 
-    # ---- phase 16: summary -----------------------------------------------
+    fma_chain_phase(dev, K, paths)
+    replay_phases(dev, t_start, paths, problem1, problem6, problem3)
+
+    # ---- phase 20: summary -----------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": [K[k].record(paths) for k in _lib.KERNELS],
                       "chains": [C[k].record(paths) for k in _lib.CHAINS]}),

@@ -4,11 +4,14 @@ Run a ported benchmark as::
 
     python -m pfhubbenchmarks_tpu_torch.benchmarks.bench1 \
         [--device cuda|cpu] [--end-time T] [--max-steps N] [--nx N --ny N]
-        [--out CSV]
+        [--replay CSV] [--out CSV]
 
 (``bench2``, ``bench3``, ``bench6`` and ``bench1_3d`` alike, the 3D one
 with ``--nz N`` too; ``bench2_eta1`` and ``bench2_eta2`` are BM2 with 1 and 2
-order parameters, the reference's reduced variants).
+order parameters, the reference's reduced variants). ``--replay CSV``
+steps on the time grid of a CSV's column 0 (``timeloop.run(time_grid=...)``,
+with ``replay_partial``: a step no rescue rung solves ends the run with its
+rows), and writes the rows in the same schema.
 
 ``--device`` defaults to ``cuda``: the run is on the card unless the caller
 asks for the CPU, and without a card it exits with an error. The JAX CLI's
@@ -31,7 +34,7 @@ _BENCHMARKS = {
 
 # JAX CLI flags the PyTorch slice does not implement yet (name -> takes a value)
 _NOT_PORTED = {"--f32": False, "--mesh": True,
-               "--replay": True, "--no-damped-rescue": False, "--fused": False,
+               "--no-damped-rescue": False, "--fused": False,
                "--checkpoint": True, "--resume": False, "--save-fields": True,
                "--fields-dir": True, "--stats-log": True, "--trace": True}
 
@@ -60,6 +63,9 @@ def main(name: str, argv=None) -> None:
     ap.add_argument("--ny", type=int, default=None)
     ap.add_argument("--nz", type=int, default=None, help="3D benchmarks only")
     ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--replay", type=str, default=None, metavar="CSV",
+                    help="replay the time grid of a reference CSV (column 0) "
+                         "instead of running the adaptive controller")
     for flag, takes_value in _NOT_PORTED.items():
         if takes_value:
             ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
@@ -87,9 +93,16 @@ def main(name: str, argv=None) -> None:
     from pfhubbenchmarks_tpu_torch import timeloop
     from pfhubbenchmarks_tpu_torch.io.csvout import write_csv
 
+    time_grid = None
+    if args.replay:
+        import numpy as np
+
+        time_grid = np.loadtxt(args.replay, delimiter=",", skiprows=1)[:, 0]
     t0 = time.time()
     result = timeloop.run(problem, device=device, end_time=args.end_time,
-                          max_steps=args.max_steps, verbose=not args.quiet)
+                          max_steps=args.max_steps, verbose=not args.quiet,
+                          time_grid=time_grid,
+                          replay_partial=time_grid is not None)
     wall = time.time() - t0
     write_csv(args.out, result.rows, result.columns)
     n = len(result.rows)

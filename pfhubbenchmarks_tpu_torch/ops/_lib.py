@@ -41,7 +41,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp", "ch3d_jvp",
            "block_jacobi_apply", "lmr_step", "transfer_dyadic",
            "transfer_general", "residual", "tile_jvp_recompute",
-           "tile_jvp_seam", "tile_sweep")
+           "tile_jvp_seam", "tile_sweep", "fma_chain")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # launch sequences of the kernels that stand for one TPU kernel each
 CHAINS = ("lmr_sweep_loop", "tile_sweep_loop", "descend_level",
@@ -127,6 +127,7 @@ class KernelLibrary:
             "pfh_chac_tile": [i32, vp, i32, i32, i32] + [vp] * 14 + [
                 i32, vp, i32, i32, vp],
             "pfh_tile_seam_floats": [i32, i32, i32],
+            "pfh_fma_chain": [vp, vp, vp, i64, i32, vp],
         }
         for name, argtypes in sig.items():
             fn = getattr(self.lib, name)

@@ -68,6 +68,17 @@ def _cp_step(res_ls, x, d, F, normF) -> float:
     return lam
 
 
+def newton_direction(krylov, lowp_jvp_factory, Minv, x, F, w_prev_lp, dt_lp,
+                     krylov_kwargs):
+    """One linear solve of a Newton iteration: ``J d = -F`` in f32, with J
+    the f32 J.v at ``x`` (``lowp_jvp_factory``) and the preconditioner
+    ``Minv``. Returns ``d`` in the state's dtype and the Krylov result."""
+    jvp_fn = lowp_jvp_factory(tr.cast(x, torch.float32), w_prev_lp, dt_lp)
+    sol = krylov(jvp_fn, tr.cast(tr.neg(F), torch.float32), Minv=Minv,
+                 **krylov_kwargs)
+    return tr.cast(sol.x, x[0].dtype), sol
+
+
 def make_newton_solver(residual, cfg: SolverConfig, precond_build, *,
                        lowp_jvp_factory, residual_lowp=None):
     """Build ``solve(w_guess, w_prev, dt) -> NewtonResult``.
@@ -145,9 +156,8 @@ def make_newton_solver(residual, cfg: SolverConfig, precond_build, *,
                           rtol=cfg.krylov_rtol if gated else eta)
             Minv = (Minv_lagged if Minv_lagged is not None
                     else precond_build(x, w_prev, dt))
-            jvp_fn = lowp_jvp_factory(tr.cast(x, lowp), w_prev_lp, dt_lp)
-            sol = krylov(jvp_fn, tr.cast(tr.neg(F), lowp), Minv=Minv, **kw)
-            d = tr.cast(sol.x, x[0].dtype)
+            d, sol = newton_direction(krylov, lowp_jvp_factory, Minv, x, F,
+                                      w_prev_lp, dt_lp, kw)
             lam = (_cp_step(res_ls, x, d, F, normF)
                    if cfg.line_search == "cp" else 1.0)
             xn = tr.axpy(lam, d, x)

@@ -175,4 +175,5 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu():
 
 def test_cli_refuses_unported_flags():
     with pytest.raises(SystemExit, match="not yet ported"):
-        main("bench1", ["--device", "cpu", "--replay", "x.csv"])
+        main("bench1", ["--device", "cpu", "--replay", "x.csv",
+                        "--no-damped-rescue"])
