@@ -124,7 +124,26 @@ Phases, each printing its results; any failure raises (non-zero exit):
    fallback after both damped rungs ran, and each rung's Newton and Krylov
    counts are printed. If the smoke runs late, its first 28 rows (the
    t = 41.59 step included).
-20. prints the card line, the per-kernel JSON line, then
+20. kernel S (the per-shard sweep of the sharded LMR smoother, TPU row 18)
+   against its plain version at bench1 100^2 (stored 102x104 on 2 x 4) and
+   bench3 350^2 (352x352) on 2 x 4 and 2 x 2 ``LocalComm`` meshes, seeded r,
+   with its per-call, device and library times (``torch.func.jvp`` of the
+   f32 residual over the shard's slab) at 2 x 4; the sharded sweep (n = 1
+   and 3) against the single-device sweep loop (B, A or G, C) on the
+   unpadded grid (rtol 2e-4, atol 2e-5 max|ref|), nothing written into the
+   padding; the per-call time of one sweep with its exchanges; the halo
+   residual and functionals against the global f64 ones (rel 1e-12);
+   ``DistComm`` over NCCL at world size 1 (a loopback rendezvous) against
+   ``LocalComm`` 1 x 1 (within 1e-6, and says if bit-identical); then the
+   path, the dry run's entry point (``parallel/dryrun.main``) at 2 x 4 on
+   bench1 and bench3, which must launch S and C.
+21. kernel Q (the row-block grid J.v probe, TPU row 19) at bench3 350^2 in
+   7 blocks of 50: cases a and b against their plain versions, the fold to
+   the bit; the folded case a against kernel G and ``torch.func.jvp`` of
+   the f32 residual; the device time per launch of Q, its fold and G; then
+   the path, the probe (``ops/gridjvp.probe``, cases a, b and c, which also
+   times T12), which must launch Q.
+22. prints the card line, the per-kernel JSON line, then
    ``{"ok": true, "device": ...}``.
 
 In the kernel line, ``kernels`` lists the CUDA kernels: ``launches`` is the
@@ -137,14 +156,20 @@ card could take for that case: the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its f32 operations over
 67 TFLOP/s (H100 SXM data sheet), with ``bound_by`` naming which.
 ``library_ms`` is one PyTorch call computing the same function where there
-is one (block-Jacobi's einsum pair; for the J.v kernels A, E, F, G, I, T10
-and T12 ``torch.func.jvp`` of the f32 residual), else null.
+is one (block-Jacobi's einsum pair; for the J.v kernels A, E, F, G, I, T10,
+T12 and Q ``torch.func.jvp`` of the f32 residual, for S over the shard's
+slab), else null.
 ``device_ms``, where present (kernel I, B and C at bench1_3d's 50^3, R at
-bench6's 100^2, T10, T12 and TS at bench3's 350^2), is the device time of one launch: launches
+bench6's 100^2, T10, T12 and TS at bench3's 350^2, S on one shard of
+bench3's 350^2 on 2 x 4, Q's case a without its fold), is the device time of one launch: launches
 queued behind a sleep kernel, between two CUDA events. For kernel P the
 main shape is one thread per vertex of kernel I at 50^3, its ``launches``
 those of the probe path, its ``device_ms`` the probe's slope times the
-depth (the launch cost cancelled). ``chains`` lists
+depth (the launch cost cancelled). Kernel S's main shape is one shard of
+bench3 350^2 on 2 x 4, its ``launches`` those of the two dry runs; Q's is
+case a at 350^2 (``ms`` and ``plain_ms`` the whole J.v, slabs and fold),
+its ``launches`` those of the probe path (the fold counted as one more).
+``chains`` lists
 the LMR sweep loop, the tiled sweep loop, the two V-cycle level steps and
 the two chains, launch sequences of those kernels that stand for TPU
 kernels 3, 4 and 11 (the sweep loop), 13 (the tiled sweep loop: TS and C),
@@ -181,6 +206,10 @@ BENCH1_3D_ROWS = 24                   # results/bench1_3d_out.csv, to t = 52.7
 BENCH1_3D_PREFIX_ROWS = 10            # to t = 12.7, if the smoke runs late
 BENCH1_3D_LATE_S = 1000.0
 P_DEPTH = 200                         # phase 16: the TPU probe's default
+# phase 20: kernel S and the dry run at bench1 100^2 and bench3 350^2;
+# phase 21: kernel Q at bench3 350^2 in 7 row blocks of 50 (the TPU probe's)
+SHARD_CASES = (("bench1", 100), ("bench3", 350))
+Q_NX, Q_BR = 350, 50
 # the replays (phases 17-19): all rows, or a prefix that keeps the rescued
 # steps (bench1's t = 65.5, bench3's t = 41.59) if the smoke runs late
 BENCH1_REPLAY_ROWS, BENCH1_REPLAY_PREFIX, BENCH1_REPLAY_LATE_S = 73, 23, 780.0
@@ -257,21 +286,12 @@ def smi_line() -> str:
     return out.stdout.strip()
 
 
-def device_ms(fn, n: int = 40, sleep_cycles: int = 100_000_000) -> float:
-    """Device time of one call of ``fn``: ``n`` calls queued behind a sleep
-    kernel (~50 ms), so the card runs their launches back to back, between
-    two CUDA events, whatever the host's launch path costs; over ``n``."""
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(sleep_cycles)
-    a.record()
-    for _ in range(n):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / n
+def device_ms(fn) -> float:
+    """Device time of one call of ``fn``: the package's queued-launch timer
+    (ops/_lib.device_ms, 40 calls behind a sleep kernel)."""
+    from pfhubbenchmarks_tpu_torch.ops import _lib
+
+    return _lib.device_ms(fn)
 
 
 def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
@@ -758,6 +778,13 @@ def kernel_records():
         # P: the FMA-ladder probe
         "fma_chain": Kernel("fma_chain", csrc + "fma_chain.cu",
                             "tools/probes/lanefill_probe.py:55"),
+        # S: the per-shard sweep body of the sharded smoother (its
+        # pallas_call at :153)
+        "shard_sweep": Kernel("shard_sweep", csrc + "shard_sweep.cu",
+                              "pfhubbenchmarks_tpu/parallel/halo_smoother.py:86"),
+        # Q: the row-block grid J.v probe
+        "gridjvp_probe": Kernel("gridjvp_probe", csrc + "gridjvp_probe.cu",
+                                "tools/probes/gridjvp_probe.py:167"),
     }
     seq = ("level J.v (ch_jvp, chp_jvp, chac_jvp, ach_jvp or ch3d_jvp)",
            "block_jacobi_apply", "lmr_step", "transfer_dyadic")
@@ -1313,6 +1340,302 @@ def replay_phases(dev, t_start, paths, problem1, problem6, problem3):
             or "damped from continuation" not in rungs):
         raise AssertionError("bench3 replay: the t = 41.59 step did not take "
                              "the 2x(dt/2) fallback after both damped rungs")
+
+
+def shard_sweep_work(slab, F, ns, ops):
+    """(bytes, flops) of one launch of kernel S on a shard's slab grid
+    ((by+1) x (bx+1) cells): the ``ns`` state planes, r, the F^2 P^-1
+    planes and the cell mask in once, the owned windows of z and A z out;
+    the block-Jacobi apply at every slab node (bj_work) and the J.v of the
+    slab's cells (jvp_work), each once, as the function needs."""
+    N, owned = nodes(slab), 2 * (slab.ny - 1) * (slab.nx - 1)
+    byts = 4 * ((ns + F + F * F) * N + slab.ny * slab.nx + 2 * F * owned)
+    return byts, bj_work(slab, F)[1] + jvp_work(slab, F, ops=ops, ns=ns)[1]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def shard_sweep_phase(dev, K, paths):
+    """Phase 20 (TPU row 18): kernel S against its plain version at bench1
+    100^2 and bench3 350^2 on 2 x 4 and 2 x 2 ``LocalComm`` meshes; the
+    sharded sweep (n = 1 and 3) against the single-device sweep loop (B, the
+    level J.v A or G, C); the halo residual and functional against the
+    global f64 ones; ``DistComm`` over NCCL at world size 1 against
+    ``LocalComm``; then the dry run (the path's entry point) at 2 x 4 on
+    bench1 and bench3 with the launch counts set to 0 just before and read
+    just after. Adds the dry runs' counts to ``paths``."""
+    import torch.distributed as dist
+
+    from pfhubbenchmarks_tpu_torch.benchmarks.registry import get_benchmark
+    from pfhubbenchmarks_tpu_torch.fem.assembly import (make_functional,
+                                                        make_residual)
+    from pfhubbenchmarks_tpu_torch.ops import _lib, lmr
+    from pfhubbenchmarks_tpu_torch.ops.shard_sweep import (cell_mask,
+                                                           make_shard_sweep)
+    from pfhubbenchmarks_tpu_torch.parallel import dryrun
+    from pfhubbenchmarks_tpu_torch.parallel.comm import DistComm, LocalComm
+    from pfhubbenchmarks_tpu_torch.parallel.halo import (block_grid, extend,
+                                                         extend_pairs,
+                                                         make_halo_functional,
+                                                         make_halo_residual)
+    from pfhubbenchmarks_tpu_torch.parallel.halo_smoother import (
+        make_sharded_lmr_sweep)
+    from pfhubbenchmarks_tpu_torch.parallel.mesh import (ShardMesh, join_state,
+                                                         shard_state)
+    from pfhubbenchmarks_tpu_torch.solve.precond import make_block_jacobi
+
+    t20 = time.perf_counter()
+    KS = K["shard_sweep"]
+    hold = Kernel("sharded sweep", "", "")   # prints and raises; not recorded
+    rng = np.random.default_rng(20261017)
+    dt = 0.1
+    F = 2
+
+    def logical(pair, g):
+        return (pair[0][..., : g.ny + 1, : g.nx + 1].clone(
+                    memory_format=torch.contiguous_format),
+                pair[1][..., : g.ny, : g.nx].clone(
+                    memory_format=torch.contiguous_format))
+
+    def seeded(g, scale, base=None):
+        """Seeded noise (plus ``base``) on the logical nodes, 0 in padding."""
+        out = []
+        for i, (s, (ly, lx)) in enumerate(zip(
+                (g.vshape, g.mshape), ((g.ny + 1, g.nx + 1), (g.ny, g.nx)))):
+            a = torch.zeros((F,) + s, dtype=torch.float64, device=dev)
+            a[:, :ly, :lx] = torch.tensor(scale * rng.standard_normal((F, ly, lx)),
+                                          device=dev)
+            out.append(a if base is None else base[i] + a)
+        return tuple(out)
+
+    devt = {}
+    for bench, nx in SHARD_CASES:
+        pb0 = get_benchmark(bench, nx=nx, ny=nx)
+        phys = pb0.kernel_phys()
+        ns, ops = (1, TANGENT_OPS[2]) if phys.kind == "ch" else (2, TANGENT_OPS["ach"])
+        for shape in ((2, 4), (2, 2)):
+            mesh = ShardMesh(*shape)
+            comm = LocalComm(mesh, dev)
+            pb = dryrun.aligned_problem(bench, nx, mesh)
+            g = pb.grid
+            lab = f"{bench} {nx}^2 (stored {g.vshape[0]}x{g.vshape[1]}) mesh {shape[0]}x{shape[1]}"
+            w64 = seeded(g, 0.01, pb.initial_state(dev))
+            w = tuple(a.float() for a in w64)
+            r = tuple(a.float() for a in seeded(g, 1.0))
+            planes = make_block_jacobi(g, pb.terms, F, device=dev)(w, w, dt).pinv_planes
+            ws, rs, ps = (shard_state(t, comm) for t in (w, r, planes))
+            by, bx = mesh.block_shape(*g.vshape)
+            slab = block_grid(g, by + 1, bx + 1)
+            s = make_shard_sweep(slab, phys, F, device=dev)
+            mask = extend([b[0] for b in shard_state(
+                (torch.as_tensor(cell_mask(g), device=dev),), comm)], comm, hi=0)
+            ws_e = extend_pairs(ws, comm)
+            args = list(zip(extend_pairs(rs, comm), ws_e, ws_e,
+                            extend_pairs(ps, comm), mask, [dt] * mesh.size))
+            got = [s.kernel(*a) for a in args]
+            ref = [s.plain(*a) for a in args]
+            timing = work = library_ms = dev_ms = None
+            main = bench == "bench3" and shape == (2, 4)
+            if shape == (2, 4):
+                a0 = args[0]
+                res_blk = make_residual(slab, pb.terms, F, device=dev,
+                                        dtype=torch.float32)
+                z_slab = tuple(torch.einsum("ijyx,jyx->iyx", P_, r_)
+                               for P_, r_ in zip(a0[3], a0[0]))
+                timing = (cuda_ms(lambda: s.kernel(*a0)),
+                          cuda_ms(lambda: s.plain(*a0), reps=10))
+                work = shard_sweep_work(slab, F, ns, ops)
+                library_ms = cuda_ms(lambda: torch.func.jvp(
+                    lambda u: res_blk(u, a0[1], dt), (a0[1],), (z_slab,)), reps=10)
+                dev_ms = devt[bench] = device_ms(lambda: s.kernel(*a0))
+            KS.check(f"{lab} z, Az (every shard)",
+                     [t for o in got for pair in o for t in pair],
+                     [t for o in ref for pair in o for t in pair], TOL_F32,
+                     timing, work, library_ms=library_ms, dev_ms=dev_ms,
+                     main=main)
+
+            # the sharded sweep against the single-device sweep loop (B, the
+            # level J.v, C) on the unpadded grid, n = 1 and 3
+            jv = pb0.kernel_jvp(pb0.grid, dev)
+            sweep = make_sharded_lmr_sweep(g, phys, F, comm)
+            x0s = [tuple(torch.zeros_like(t) for t in b) for b in rs]
+            for n in (1, 3):
+                loop = lmr.make_lmr_sweep_loop(jv, n)
+                x1 = tuple(torch.zeros_like(t) for t in logical(r, g))
+                r1 = logical(r, g)
+                loop.kernel(x1, r1, logical(w, g), logical(w, g), dt,
+                            *logical(planes, g))
+                xs, rs_n = sweep(x0s, rs, ws, ws, ps, dt, n)
+                xg, rg = join_state(xs, mesh), join_state(rs_n, mesh)
+                for t in xg + rg:
+                    z = t.clone()
+                    z[..., : g.ny + 1, : g.nx + 1] = 0.0
+                    if float(z.abs().max()) != 0.0:
+                        raise AssertionError(f"{lab}: the sharded sweep wrote "
+                                             "into the padding")
+                hold.check(f"{lab} n={n} vs the single-device sweep loop",
+                           list(logical(xg, g) + logical(rg, g)), list(x1 + r1),
+                           TOL_F32)
+            if shape == (2, 4):
+                call_ms = cuda_ms(lambda: sweep(x0s, rs, ws, ws, ps, dt, 1), reps=10)
+                print(f"phase 20: {lab}: one sweep with its exchanges "
+                      f"{call_ms * 1e3:.1f} us per call ({mesh.size} launches "
+                      f"of S, {2 * mesh.size} of C's stages, 9 halo "
+                      f"extensions); S device {devt[bench] * 1e3:.3f} us per launch, "
+                      f"bound {bound(work)[0] * 1e3:.3f} us ({bound(work)[1]})",
+                      flush=True)
+
+            # the halo residual and functional against the global f64 ones
+            w0 = pb.initial_state(dev)
+            w64s, w0s = shard_state(w64, comm), shard_state(w0, comm)
+            rh = join_state(make_halo_residual(g, pb.terms, F, comm)(w64s, w0s, dt),
+                            mesh)
+            rg = make_residual(g, pb.terms, F, device=dev)(w64, w0, dt)
+            rel = max(float((a - b).abs().max() / b.abs().max())
+                      for a, b in zip(rh, rg))
+            rels = {}
+            for name, density in pb.observables.items():
+                hv = float(make_halo_functional(g, density, comm)(w64s))
+                gv = float(make_functional(g, density, device=dev)(w64))
+                rels[name] = abs(hv - gv) / abs(gv)
+            print(f"phase 20: {lab}: halo residual rel {rel:.3e}, functionals "
+                  f"rel {rels} (<= 1e-12)", flush=True)
+            if rel > 1e-12 or max(rels.values()) > 1e-12:
+                raise AssertionError(f"{lab}: the halo assembly disagrees with "
+                                     "the global one")
+
+    # DistComm over NCCL at world size 1 against LocalComm 1 x 1
+    mesh1 = ShardMesh(1, 1)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        outs = {}
+        for comm in (LocalComm(mesh1, dev), DistComm(mesh1, dev)):
+            pb = dryrun.aligned_problem(*SHARD_CASES[0], mesh1)
+            g = pb.grid
+            w64 = pb.initial_state(dev)
+            w = tuple(a.float() for a in w64)
+            planes = make_block_jacobi(g, pb.terms, F, device=dev)(w, w, dt).pinv_planes
+            ws = shard_state(w64, comm)
+            res = make_halo_residual(g, pb.terms, F, comm)(ws, ws, dt)
+            r = [tuple((-t).float() for t in pair) for pair in res]
+            x0 = [tuple(torch.zeros_like(t) for t in pair) for pair in r]
+            w32s = shard_state(w, comm)
+            sweep = make_sharded_lmr_sweep(g, pb.kernel_phys(), F, comm)
+            x, r3 = sweep(x0, r, w32s, w32s, shard_state(planes, comm), dt, 3)
+            tfe = make_halo_functional(g, pb.observables["total_free_energy"], comm)(ws)
+            outs[type(comm).__name__] = [*res[0], *x[0], *r3[0], tfe.reshape(1)]
+        same = all(torch.equal(a, b) for a, b in zip(outs["LocalComm"],
+                                                      outs["DistComm"]))
+        hold.check("DistComm (NCCL, world size 1) vs LocalComm 1x1",
+                   outs["DistComm"], outs["LocalComm"],
+                   dict(rtol=1e-6, atol_scale=1e-6))
+        print(f"phase 20: DistComm over NCCL at world size 1: residual, 3 "
+              f"sweeps and TFE {'bit-identical to' if same else 'within 1e-6 of'}"
+              " LocalComm 1x1", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+    # the path: the dry run's entry point at 2 x 4, bench1 and bench3
+    for bench, nx in SHARD_CASES:
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        out = dryrun.main(["--mesh", "2x4", "--bench", bench, "--nx", str(nx)])
+        torch.cuda.synchronize()
+        paths[f"sharded dry run {bench}"] = counts = dict(_lib.LAUNCHES)
+        print(f"phase 20: dry run {bench}: ||r|| {out['residual_norm']}, "
+              f"observables {out['observables']}, launches {counts}", flush=True)
+        if counts["shard_sweep"] <= 0 or counts["lmr_step"] <= 0:
+            raise AssertionError(f"the {bench} dry run did not launch S and C")
+    print(f"phase 20: S, the sharded sweep, the halo assembly and DistComm "
+          f"agree ({time.perf_counter() - t20:.1f} s)", flush=True)
+
+
+def gridjvp_phase(dev, K, paths):
+    """Phase 21 (TPU row 19): first the probe path (``ops/gridjvp.probe``,
+    cases a, b and c, at bench3 350^2), with the launch counts set to 0 just
+    before and read just after: Q's launches there go to ``paths`` (G and
+    T12 run there as its references and are not counted), and its device
+    times per launch of Q, its fold and G are the ones recorded. Then kernel
+    Q (cases a and b) and its fold against their plain versions, and the
+    folded case a against kernel G and ``torch.func.jvp`` of the f32
+    residual, on seeded inputs."""
+    from pfhubbenchmarks_tpu_torch.benchmarks import bench3
+    from pfhubbenchmarks_tpu_torch.fem.assembly import make_residual
+    from pfhubbenchmarks_tpu_torch.ops import _lib, gridjvp
+
+    t21 = time.perf_counter()
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    outs = {case: gridjvp.probe(case, device=dev, nx=Q_NX, br=Q_BR)
+            for case in gridjvp.CASES}
+    torch.cuda.synchronize()
+    counts = dict(_lib.LAUNCHES)
+    paths["gridjvp probe"] = {"gridjvp_probe": counts["gridjvp_probe"]}
+    for out in outs.values():
+        print(f"phase 21: probe case {out['case']} (body {out['body']}): "
+              f"out_m norm {out['out_m_norm']:.6g}, "
+              + ", ".join(f"vs {k}: err_v {out[k]['err_v']:.3e} err_m "
+                          f"{out[k]['err_m']:.3e} {'ok' if out[k]['ok'] else 'FAIL'}"
+                          for k in ("kernel G", "torch.func.jvp") if k in out)
+              + "; device us per launch "
+              + ", ".join(f"{k} {v:.3f}" for k, v in out["device_us"].items()),
+              flush=True)
+        if not all(out[k]["ok"] for k in ("kernel G", "torch.func.jvp") if k in out):
+            raise AssertionError(f"probe case {out['case']} disagrees")
+    if counts["gridjvp_probe"] <= 0:
+        raise AssertionError("the probe path did not launch Q")
+    # device ms per launch, from the probe's timer
+    devt = {case: outs[case]["device_us"]["Q"] / 1e3 for case in ("a", "b")}
+    devt["fold"] = outs["a"]["device_us"]["Q fold"] / 1e3
+    devt["G"] = outs["a"]["device_us"]["G"] / 1e3
+
+    KQ = K["gridjvp_probe"]
+    pb = bench3.make(nx=Q_NX, ny=Q_NX)
+    g = pb.grid
+    q = gridjvp.make_gridjvp(g, pb.kernel_phys(), device=dev, br=Q_BR)
+    rng = np.random.default_rng(20261018)
+    w = tuple((a.float() + 0.01 * torch.tensor(rng.standard_normal(a.shape),
+                                               dtype=torch.float32, device=dev))
+              .contiguous() for a in pb.initial_state(dev))
+    z = tuple(torch.tensor(rng.standard_normal(a.shape), dtype=torch.float32,
+                           device=dev) for a in w)
+    dt = 0.01
+    res32 = make_residual(g, pb.terms, 2, device=dev, dtype=torch.float32)
+    library = lambda: torch.func.jvp(lambda u: res32(u, w, dt), (w,), (z,))[1]  # noqa: E731
+    work = {"a": jvp_work(g, 2, ops=TANGENT_OPS["ach"], ns=2),
+            "b": jvp_work(g, 2, ops=0, ns=0)}
+    for case in ("a", "b"):
+        slabs_k, om_k = q.kernel(case, w, dt, z)
+        slabs_p, om_p = q.plain(case, w, dt, z)
+        timing = (cuda_ms(lambda: q.fold.kernel(q.kernel(case, w, dt, z)[0])),
+                  cuda_ms(lambda: q.fold.plain(q.plain(case, w, dt, z)[0]), reps=10))
+        KQ.check(f"case {case} {Q_NX}^2: slabs and cell rows ({q.n_blocks} "
+                 f"blocks of {Q_BR})",
+                 [slabs_k, om_k], [slabs_p, om_p], TOL_F32, timing, work[case],
+                 library_ms=cuda_ms(library, reps=10) if case == "a" else None,
+                 dev_ms=devt[case], main=case == "a")
+        KQ.check(f"case {case} {Q_NX}^2: fold", [q.fold.kernel(slabs_k)],
+                 [q.fold.plain(slabs_k)], TOL_EXACT)
+    folded = (q.fold.kernel(q.kernel("a", w, dt, z)[0]), q.kernel("a", w, dt, z)[1])
+    jv_g = pb.kernel_jvp(g, dev)
+    hold = Kernel("gridjvp folded", "", "")   # prints and raises; not recorded
+    hold.check("case a folded vs kernel G", folded, jv_g.kernel(w, w, dt, z), TOL_F32)
+    hold.check("case a folded vs torch.func.jvp", folded, library(), TOL_F32)
+    print(f"phase 21: device time per launch at bench3 {Q_NX}^2 ffc3: Q case a "
+          f"{devt['a'] * 1e3:.3f} us, case b {devt['b'] * 1e3:.3f} us, its fold "
+          f"{devt['fold'] * 1e3:.3f} us, G {devt['G'] * 1e3:.3f} us; bound "
+          f"{bound(work['a'])[0] * 1e3:.3f} us ({bound(work['a'])[1]})", flush=True)
+    print(f"phase 21: Q agrees with its plain version and with G; the probe "
+          f"launched it {counts['gridjvp_probe']} times "
+          f"({time.perf_counter() - t21:.1f} s)", flush=True)
 
 
 def main() -> None:
@@ -1885,8 +2208,10 @@ def main() -> None:
 
     fma_chain_phase(dev, K, paths)
     replay_phases(dev, t_start, paths, problem1, problem6, problem3)
+    shard_sweep_phase(dev, K, paths)
+    gridjvp_phase(dev, K, paths)
 
-    # ---- phase 20: summary -----------------------------------------------
+    # ---- phase 22: summary -----------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": [K[k].record(paths) for k in _lib.KERNELS],
                       "chains": [C[k].record(paths) for k in _lib.CHAINS]}),

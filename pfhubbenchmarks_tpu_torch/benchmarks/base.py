@@ -13,7 +13,9 @@ J.v of ``terms_precond``, the field-split operator of
 ``SolverConfig.field_split``; ``form`` "recompute" or "seam" the tile
 kernels T10 or T12 (ops/fem_tile.py) in place of the gather kernel.
 ``kernel_residual(grid, device, dirichlet)`` makes the f32 residual of
-kernel R (ops/fem_residual.py), where the benchmark has one.
+kernel R (ops/fem_residual.py), where the benchmark has one, and
+``kernel_phys()`` the physics of the gather kernels S and Q (ops/fem_jvp.py,
+BM1 and BM3).
 
 The tiled configuration (``SolverConfig.use_tiled_sweeps`` and
 ``tiled_grid_kernels``, the JAX package's switch for its tiled kernels past
@@ -53,6 +55,10 @@ class BenchmarkProblem:
     # (grid, device, dirichlet) -> res(w, w0, dt), the f32 residual of
     # kernel R, or None (the plain f32 assembly then serves)
     kernel_residual: Callable | None = None
+    # () -> ops/fem_jvp.KernelPhys, the physics of the gather kernels S (the
+    # sharded LMR smoother) and Q (the row-block probe), or None where they
+    # have no instantiation
+    kernel_phys: Callable | None = None
     time: TimeConfig = TimeConfig()
     solver: SolverConfig = SolverConfig()
     # (field, side, fn(coord)) specs, instantiated per grid so multigrid can

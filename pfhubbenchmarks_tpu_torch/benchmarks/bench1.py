@@ -116,6 +116,13 @@ def make(nx: int = 100, ny: int = 100, Lx: float = 200.0, Ly: float = 200.0,
         return make_ch_residual(grid, terms, kernel_constants(p),
                                 device=device, dirichlet=dirichlet)
 
+    def kernel_phys():
+        from pfhubbenchmarks_tpu_torch.ops.ch_jvp import CONSTANTS
+        from pfhubbenchmarks_tpu_torch.ops.fem_jvp import KernelPhys
+
+        k = kernel_constants(p)
+        return KernelPhys("ch", terms_tangent, tuple(k[n] for n in CONSTANTS))
+
     return BenchmarkProblem(
         name="bench1",
         grid=CrossedTriGrid(nx, ny, Lx, Ly),
@@ -128,6 +135,7 @@ def make(nx: int = 100, ny: int = 100, Lx: float = 200.0, Ly: float = 200.0,
         },
         csv_columns=("time", "total_free_energy", "total_solute"),
         kernel_jvp=kernel_jvp,
+        kernel_phys=kernel_phys,
         kernel_residual=kernel_residual,
         **{"time": TimeConfig(dt0=1e-1, dt_min=1e-2, end_time=1e3,
                               grow_threshold=5),

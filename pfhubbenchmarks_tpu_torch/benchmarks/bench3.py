@@ -149,6 +149,13 @@ def make(nx: int = 350, ny: int = 350, Lx: float = 960.0, Ly: float = 960.0,
         return make_ach_jvp(grid, terms_tangent, kernel_constants(p),
                             device=device, dirichlet=dirichlet, form=form)
 
+    def kernel_phys():
+        from pfhubbenchmarks_tpu_torch.ops.ach_jvp import CONSTANTS
+        from pfhubbenchmarks_tpu_torch.ops.fem_jvp import KernelPhys
+
+        k = kernel_constants(p)
+        return KernelPhys("ach", terms_tangent, tuple(k[n] for n in CONSTANTS))
+
     return BenchmarkProblem(
         name="bench3",
         grid=CrossedTriGrid(nx, ny, Lx, Ly),
@@ -163,6 +170,7 @@ def make(nx: int = 350, ny: int = 350, Lx: float = 960.0, Ly: float = 960.0,
         observable_scale={"solid_fraction": 1.0 / (Lx * Ly)},
         csv_columns=("time", "total_free_energy", "solid_fraction"),
         kernel_jvp=kernel_jvp,
+        kernel_phys=kernel_phys,
         **{"time": TimeConfig(dt0=1e-2, dt_min=1e-4, end_time=100.0,
                               grow_threshold=5),
            "solver": SolverConfig(line_search="basic", precond_rule="dunavant2",

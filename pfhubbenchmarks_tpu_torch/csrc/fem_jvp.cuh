@@ -34,27 +34,15 @@
 
 namespace pfh {
 
-// Contribution of cell (y, x) to its slot S, every field.
+// Contribution of one cell to its slot S, every field, from the cell's slot
+// values: wc, the state planes the tangent reads; d, the tangent's fields.
 template <class Phys, int NQ, int S>
-__device__ __forceinline__ void cell_contrib(const JvpParams& P,
-                                             const float* __restrict__ wv,
-                                             const float* __restrict__ wm,
-                                             const float* __restrict__ tv,
-                                             const float* __restrict__ tm,
-                                             int y, int x, int ny, int nx,
+__device__ __forceinline__ void slot_contrib(const JvpParams& P,
+                                             const float (&wc)[Phys::NS][5],
+                                             const float (&d)[Phys::NF][5],
                                              float (&acc)[Phys::NF]) {
   constexpr int NF = Phys::NF;
   constexpr int NS = Phys::NS;
-  const long nvert = static_cast<long>(ny + 1) * (nx + 1);
-  const long ncell = static_cast<long>(ny) * nx;
-  float wc[NS][5], d[NF][5];
-#pragma unroll
-  for (int s = 0; s < NS; ++s)  // the state planes the tangent reads
-    load_slots(wv + Phys::state_field(s) * nvert,
-               wm + Phys::state_field(s) * ncell, y, x, nx, wc[s]);
-#pragma unroll
-  for (int f = 0; f < NF; ++f)
-    load_slots(tv + f * nvert, tm + f * ncell, y, x, nx, d[f]);
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     if (!slot_in_tri(t, S)) continue;
@@ -91,6 +79,40 @@ __device__ __forceinline__ void cell_contrib(const JvpParams& P,
                   + P.WGy[t][q][S] * fy[f];
     }
   }
+}
+
+// The state slots the tangent reads in cell (y, x) of planes (wv, wm).
+template <class Phys>
+__device__ __forceinline__ void load_state_slots(const float* __restrict__ wv,
+                                                 const float* __restrict__ wm,
+                                                 int y, int x, int ny, int nx,
+                                                 float (&wc)[Phys::NS][5]) {
+  const long nvert = static_cast<long>(ny + 1) * (nx + 1);
+  const long ncell = static_cast<long>(ny) * nx;
+#pragma unroll
+  for (int s = 0; s < Phys::NS; ++s)
+    load_slots(wv + Phys::state_field(s) * nvert,
+               wm + Phys::state_field(s) * ncell, y, x, nx, wc[s]);
+}
+
+// Contribution of cell (y, x) to its slot S, every field.
+template <class Phys, int NQ, int S>
+__device__ __forceinline__ void cell_contrib(const JvpParams& P,
+                                             const float* __restrict__ wv,
+                                             const float* __restrict__ wm,
+                                             const float* __restrict__ tv,
+                                             const float* __restrict__ tm,
+                                             int y, int x, int ny, int nx,
+                                             float (&acc)[Phys::NF]) {
+  constexpr int NF = Phys::NF;
+  const long nvert = static_cast<long>(ny + 1) * (nx + 1);
+  const long ncell = static_cast<long>(ny) * nx;
+  float wc[Phys::NS][5], d[NF][5];
+  load_state_slots<Phys>(wv, wm, y, x, ny, nx, wc);
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+    load_slots(tv + f * nvert, tm + f * ncell, y, x, nx, d[f]);
+  slot_contrib<Phys, NQ, S>(P, wc, d, acc);
 }
 
 template <class Phys, int NQ>

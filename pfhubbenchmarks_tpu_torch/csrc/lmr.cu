@@ -117,21 +117,48 @@ lmr_update_kernel(const double* __restrict__ partials, int nb,
 // + 1 host ints (pfh::make_groups), or null for one group; partials: device
 // scratch of 2 * n_groups * nb doubles, nb in [1, 64]; alpha_out: n_groups
 // device floats.
+//
+// pfh_lmr_partials and pfh_lmr_update are the two stages alone, for the
+// sharded smoother (ops/lmr.py, parallel/halo_smoother.py), which adds the
+// shards' partials between them (its all-reduce); pfh_lmr_step is both.
+PFH_EXPORT int pfh_lmr_partials(const float* azv, const float* azm,
+                                const float* rv, const float* rm, long nvert,
+                                long ncell, int F, int n_groups,
+                                const int* starts, double* partials, int nb,
+                                void* stream) {
+  pfh::FieldGroups G;
+  if (nb < 1 || nb > 64 || !pfh::make_groups(F, n_groups, starts, &G))
+    return static_cast<int>(cudaErrorInvalidValue);
+  lmr_partials_kernel<<<dim3(nb, G.n), kRedThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      azv, azm, rv, rm, nvert, ncell, G, partials);
+  return static_cast<int>(cudaGetLastError());
+}
+
+PFH_EXPORT int pfh_lmr_update(const double* partials, int nb, float* xv,
+                              float* xm, float* rv, float* rm, const float* zv,
+                              const float* zm, const float* azv,
+                              const float* azm, long nvert, long ncell, int F,
+                              int n_groups, const int* starts,
+                              float* alpha_out, void* stream) {
+  pfh::FieldGroups G;
+  if (nb < 1 || nb > 64 || !pfh::make_groups(F, n_groups, starts, &G))
+    return static_cast<int>(cudaErrorInvalidValue);
+  lmr_update_kernel<<<pfh::blocks_for(F * (nvert + ncell)), pfh::kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      partials, nb, xv, xm, rv, rm, zv, zm, azv, azm, nvert, ncell, F, G,
+      alpha_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 PFH_EXPORT int pfh_lmr_step(float* xv, float* xm, float* rv, float* rm,
                             const float* zv, const float* zm, const float* azv,
                             const float* azm, long nvert, long ncell, int F,
                             int n_groups, const int* starts, double* partials,
                             int nb, float* alpha_out, void* stream) {
-  pfh::FieldGroups G;
-  if (nb < 1 || nb > 64 || !pfh::make_groups(F, n_groups, starts, &G))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  lmr_partials_kernel<<<dim3(nb, G.n), kRedThreads, 0, s>>>(
-      azv, azm, rv, rm, nvert, ncell, G, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lmr_update_kernel<<<pfh::blocks_for(F * (nvert + ncell)), pfh::kThreads, 0, s>>>(
-      partials, nb, xv, xm, rv, rm, zv, zm, azv, azm, nvert, ncell, F, G,
-      alpha_out);
-  return static_cast<int>(cudaGetLastError());
+  const int err = pfh_lmr_partials(azv, azm, rv, rm, nvert, ncell, F, n_groups,
+                                   starts, partials, nb, stream);
+  if (err != 0) return err;
+  return pfh_lmr_update(partials, nb, xv, xm, rv, rm, zv, zm, azv, azm, nvert,
+                        ncell, F, n_groups, starts, alpha_out, stream);
 }

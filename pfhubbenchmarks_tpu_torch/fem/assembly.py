@@ -165,18 +165,23 @@ def _context(T: "TabTensors", grid: CrossedTriGrid, w, w0, dt) -> QPContext:
     return QPContext(u=u_t, du=du_t, u0=u0_t, du0=du0_t, dt=dt)
 
 
-def _assemble(T: "TabTensors", grid: CrossedTriGrid, source_flux):
-    """sum over quadrature points of w (s lambda + f . grad lambda), scattered
-    to the (v, m) pair."""
+def slot_contributions(T: "TabTensors", grid: CrossedTriGrid, source_flux):
+    """sum over quadrature points of w (s lambda + f . grad lambda) per cell
+    and slot: [5, F, ny, nx], before the scatter."""
     source, flux = source_flux
-    full_shape = (4, grid.tab().nq, grid.ny, grid.nx)
+    full_shape = (4, T.WB.shape[1], grid.ny, grid.nx)
     src = torch.stack([torch.broadcast_to(s, full_shape) for s in source])
     fx = torch.stack([torch.broadcast_to(f[0], full_shape) for f in flux])
     fy = torch.stack([torch.broadcast_to(f[1], full_shape) for f in flux])
-    r_loc = (torch.einsum("tqs,ftqyx->sfyx", T.WB, src)
-             + torch.einsum("tqs,ftqyx->sfyx", T.WGx, fx)
-             + torch.einsum("tqs,ftqyx->sfyx", T.WGy, fy))
-    return scatter_add(r_loc, grid.vshape, grid.mshape, grid.ny, grid.nx)
+    return (torch.einsum("tqs,ftqyx->sfyx", T.WB, src)
+            + torch.einsum("tqs,ftqyx->sfyx", T.WGx, fx)
+            + torch.einsum("tqs,ftqyx->sfyx", T.WGy, fy))
+
+
+def _assemble(T: "TabTensors", grid: CrossedTriGrid, source_flux):
+    """The slot contributions scattered to the (v, m) pair."""
+    return scatter_add(slot_contributions(T, grid, source_flux), grid.vshape,
+                       grid.mshape, grid.ny, grid.nx)
 
 
 def make_tangent_jvp(grid: CrossedTriGrid, tangent, *,

@@ -41,7 +41,8 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp", "ch3d_jvp",
            "block_jacobi_apply", "lmr_step", "transfer_dyadic",
            "transfer_general", "residual", "tile_jvp_recompute",
-           "tile_jvp_seam", "tile_sweep", "fma_chain")
+           "tile_jvp_seam", "tile_sweep", "fma_chain", "shard_sweep",
+           "gridjvp_probe")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # launch sequences of the kernels that stand for one TPU kernel each
 CHAINS = ("lmr_sweep_loop", "tile_sweep_loop", "descend_level",
@@ -114,6 +115,14 @@ class KernelLibrary:
             "pfh_block_jacobi_apply": [vp] * 6 + [i32, i64, i64, i32, vp, vp],
             "pfh_lmr_step": [vp] * 8 + [i64, i64, i32, i32, vp, vp, i32, vp,
                                         vp],
+            "pfh_lmr_partials": [vp] * 4 + [i64, i64, i32, i32, vp, vp, i32,
+                                            vp],
+            "pfh_lmr_update": [vp, i32] + [vp] * 8 + [i64, i64, i32, i32, vp,
+                                                      vp, vp],
+            "pfh_shard_sweep_ch": [vp, i32] + [vp] * 11 + [i32, i32, vp],
+            "pfh_shard_sweep_ach": [vp, i32] + [vp] * 11 + [i32, i32, vp],
+            "pfh_gridjvp_probe": [i32, vp, i32] + [vp] * 6 + [i32] * 3 + [vp],
+            "pfh_gridjvp_fold": [vp, vp] + [i32] * 4 + [vp],
             "pfh_transfer": [i32] + [vp] * 5 + [i32] * 4 + [vp],
             "pfh_transfer_general": [i32, i32] + [vp] * 6 + [i32] * 4 + [vp],
             "pfh_transfer_general_param_floats": [],
@@ -207,6 +216,24 @@ def check_shapes(name: str, pair, vshape, mshape) -> None:
     if tuple(pair[0].shape) != tuple(vshape) or tuple(pair[1].shape) != tuple(mshape):
         raise ValueError(f"{name}: shapes {tuple(pair[0].shape)}, "
                          f"{tuple(pair[1].shape)}; expected {vshape}, {mshape}")
+
+
+def device_ms(fn, n: int = 40, sleep_cycles: int = 100_000_000) -> float:
+    """Device milliseconds of one call of ``fn``: ``n`` calls queued behind
+    a sleep kernel (~50 ms), so the card runs their launches back to back,
+    between two CUDA events, whatever the host's launch path costs; over
+    ``n``."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def on_cpu(t: torch.Tensor) -> bool:

@@ -22,6 +22,9 @@ tensors only; a CUDA tensor launches the kernel.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import numpy as np
 import torch
 
@@ -31,6 +34,20 @@ from pfhubbenchmarks_tpu_torch.ops import _lib
 
 MAX_Q = 4
 MAX_CONST = 12
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPhys:
+    """A benchmark's physics as the gather kernels outside its own J.v
+    take it (kernel S, ops/shard_sweep.py; kernel Q, ops/gridjvp.py):
+    ``kind`` the instantiation ("ch" BM1, "ach" BM3), ``tangent`` the
+    hand-written pointwise tangent (the plain version; ``Phys::tangent``
+    mirrors it), ``constants`` the physics constants in the kernel's order
+    (ops/ch_jvp.CONSTANTS, ops/ach_jvp.CONSTANTS)."""
+
+    kind: str
+    tangent: Callable
+    constants: tuple[float, ...]
 
 
 def pack_tabulation(grid: CrossedTriGrid) -> np.ndarray:

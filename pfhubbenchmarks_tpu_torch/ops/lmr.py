@@ -28,6 +28,11 @@ kernels (ops/fem_tile.py) ``make_tile_sweep_loop`` is that of TS (B and the
 level J.v in one launch) and C; ``make_level_sweep_loop`` picks by the
 level's J.v.
 
+``lmr_partials`` and ``lmr_update`` are C's two stages alone (one alpha):
+the sharded smoother (parallel/halo_smoother.py) adds the shards' partials
+between them, the counterpart of the ``psum`` of ``pfhubbenchmarks_tpu/
+parallel/halo_smoother.py``.
+
 Each has its plain PyTorch version beside it (einsums; torch dots and
 axpys), which the wrapper takes for CPU tensors only.
 """
@@ -136,15 +141,31 @@ def block_jacobi_apply(pinv, r, groups=None):
     return block_jacobi_apply_kernel(pinv, r, groups)
 
 
-def lmr_alpha_plain(az, r):
+def lmr_partials_plain(az, r):
+    """[<Az, r>, <Az, Az>] over the leaves, f32."""
     num = den = None
     for a, rl in zip(az, r):
         a, rl = a.reshape(-1), rl.reshape(-1)
         n_l, d_l = torch.vdot(a, rl), torch.vdot(a, a)
         num = n_l if num is None else num + n_l
         den = d_l if den is None else den + d_l
+    return torch.stack([num, den])
+
+
+def _alpha(num, den):
     return torch.where(den > 0, num / torch.where(den > 0, den, 1.0),
                        torch.zeros_like(den))
+
+
+def lmr_alpha_plain(az, r):
+    return _alpha(*lmr_partials_plain(az, r))
+
+
+def _axpys(alpha, x, r, z, az) -> None:
+    for xl, zl in zip(x, z):
+        xl.add_(alpha * zl)
+    for rl, al in zip(r, az):
+        rl.sub_(alpha * al)
 
 
 def lmr_step_plain(x, r, z, az, groups=None) -> None:
@@ -159,10 +180,7 @@ def lmr_step_plain(x, r, z, az, groups=None) -> None:
         alpha = torch.cat([a.expand(b - s) for a, s, b in
                            zip(per_group, starts[:-1], starts[1:])])
         alpha = alpha.reshape((-1,) + (1,) * (x[0].dim() - 1))
-    for xl, zl in zip(x, z):
-        xl.add_(alpha * zl)
-    for rl, al in zip(r, az):
-        rl.sub_(alpha * al)
+    _axpys(alpha, x, r, z, az)
 
 
 def lmr_partial_blocks(n: int) -> int:
@@ -203,6 +221,65 @@ def lmr_step(x, r, z, az, groups=None) -> None:
         lmr_step_plain(x, r, z, az, groups)
     else:
         lmr_step_kernel(x, r, z, az, groups)
+
+
+# C's two stages alone, one alpha (no field groups): the sharded smoother
+# (parallel/halo_smoother.py) sums the shards' partials between them. Each
+# wrapper counts one ``lmr_step`` launch.
+
+def lmr_partials_kernel(az, r) -> torch.Tensor:
+    """Stage 1: the ``2 nb`` f64 block partials of <Az, r> and <Az, Az>,
+    ``nb`` a function of the vector length only."""
+    _leaves("lmr_partials", az, r)
+    _lib.check_cuda("lmr_partials", [*az, *r])
+    if any(a.shape != b.shape for a, b in zip(az, r)):
+        raise ValueError("lmr_partials: Az and r must share shapes")
+    nb = lmr_partial_blocks(sum(t.numel() for t in r))
+    partials = torch.empty(2 * nb, dtype=torch.float64, device=r[0].device)
+    _lib.library().call(
+        "pfh_lmr_partials", *_ptrs(az), *_ptrs(r), r[0][0].numel(), _ncell(r),
+        r[0].shape[0], 0, None, partials.data_ptr(), nb, _lib.stream_handle())
+    _lib.count_launch("lmr_step")
+    return partials
+
+
+def lmr_update_kernel(partials, x, r, z, az) -> torch.Tensor:
+    """Stage 2: alpha from ``partials`` (summed in index order), then
+    ``x += alpha z``, ``r -= alpha Az`` in place. Returns the device alpha."""
+    _leaves("lmr_update", x, r, z, az)
+    _lib.check_cuda("lmr_update", [*x, *r, *z, *az])
+    _lib.check_cuda("lmr_update", [partials], dtype=torch.float64)
+    for pair in (r, z, az):
+        if any(a.shape != b.shape for a, b in zip(pair, x)):
+            raise ValueError("lmr_update: x, r, z and Az must share shapes")
+    nb = partials.numel() // 2
+    alpha = torch.empty(1, dtype=torch.float32, device=x[0].device)
+    _lib.library().call(
+        "pfh_lmr_update", partials.data_ptr(), nb, *_ptrs(x), *_ptrs(r),
+        *_ptrs(z), *_ptrs(az), x[0][0].numel(), _ncell(x), x[0].shape[0], 0,
+        None, alpha.data_ptr(), _lib.stream_handle())
+    _lib.count_launch("lmr_step")
+    return alpha
+
+
+def lmr_update_plain(partials, x, r, z, az) -> None:
+    _axpys(_alpha(*partials), x, r, z, az)
+
+
+def lmr_partials(az, r) -> torch.Tensor:
+    """Stage 1 of C: the kernel's block partials on the card, ``[num, den]``
+    (f32) on the CPU. Partials of equal shapes add up elementwise."""
+    if _lib.on_cpu(r[0]):
+        return lmr_partials_plain(az, r)
+    return lmr_partials_kernel(az, r)
+
+
+def lmr_update(partials, x, r, z, az) -> None:
+    """Stage 2 of C on ``lmr_partials``' (summed) output, in place."""
+    if _lib.on_cpu(x[0]):
+        lmr_update_plain(partials, x, r, z, az)
+    else:
+        lmr_update_kernel(partials, x, r, z, az)
 
 
 def _sweep_loop(name, z_az, n_sweeps, field_groups):
