@@ -38,9 +38,8 @@ Phases, each printing its results; any failure raises (non-zero exit):
    CH+AC J.v (kernel F), coupled at ffc3 and field-split at dunavant1, both
    forms, with 4 order parameters at every level and with 1 and 2 at 100^2,
    also against ``torch.func.jvp`` of the residual; block-Jacobi and LMR
-   with the field groups; the sweep loop (8 sweeps at 25^2); both chains
-   with the groups; and the time of one block-Jacobi build of the
-   hierarchy.
+   with the field groups; both chains with the groups; and the time of one
+   block-Jacobi build of the hierarchy.
 8. bench2's main path: the port's bench2 at full size (100x100, six
    fields) through ``Runner.run`` to t = 2.15; the first 14 rows against
    the committed ``results/bench2_out.csv`` (time column rtol 1e-9, TFE rel
@@ -70,8 +69,7 @@ Phases, each printing its results; any failure raises (non-zero exit):
    and ffc3, at 25^3 and 5^3 with keast2, against its plain version and
    ``torch.func.jvp`` of the residual (which is also its library time), the
    b - J.v form at 50^3; its device time per launch (launches queued behind
-   a sleep kernel); B and C on 1-leaf states at 50^3; the 3D sweep loop
-   (B, I, C) at 5^3 (2 and 24 sweeps) and 25^3 (2); the per-call times of
+   a sleep kernel); B and C on 1-leaf states at 50^3; the per-call times of
    the 3D transfers (plain torch) 50<->25 and 25<->5; two warm multigrid
    builds of 50/25/5, with and without the dense 5^3 inverse (medians of 5
    in turns); and one K-cycle apply.
@@ -79,7 +77,7 @@ Phases, each printing its results; any failure raises (non-zero exit):
    ``Runner.run`` to t = 52.7; the 24 rows against the committed
    ``results/bench1_3d_out.csv`` (the JAX package's run; time column rtol
    1e-9, TFE rel 1e-6, solute rel 1e-9); its coarsest solve must be the
-   dense inverse, and kernel I, B, C and the sweep loop must have run; the
+   dense inverse, and kernels I and L must have run; the
    seconds of its multigrid builds, timed inside the run. If the smoke has
    already run 1000 s when this phase starts, it runs the first 10 rows (to
    t = 12.7) and says so.
@@ -129,7 +127,7 @@ Phases, each printing its results; any failure raises (non-zero exit):
    bench3 350^2 (352x352) on 2 x 4 and 2 x 2 ``LocalComm`` meshes, seeded r,
    with its per-call, device and library times (``torch.func.jvp`` of the
    f32 residual over the shard's slab) at 2 x 4; the sharded sweep (n = 1
-   and 3) against the single-device sweep loop (B, A or G, C) on the
+   and 3) against the single-device sweep loop (kernel L) on the
    unpadded grid (rtol 2e-4, atol 2e-5 max|ref|), nothing written into the
    padding; the per-call time of one sweep with its exchanges; the halo
    residual and functionals against the global f64 ones (rel 1e-12);
@@ -143,8 +141,25 @@ Phases, each printing its results; any failure raises (non-zero exit):
    the f32 residual; the device time per launch of Q, its fold and G; then
    the path, the probe (``ops/gridjvp.probe``, cases a, b and c, which also
    times T12), which must launch Q.
-22. prints the card line, the per-kernel JSON line, then
+22. kernel L (the LMR sweep loop of a gather level in one launch: TPU rows
+   3, 4, 11, 15 and 17) at every gather level of the main paths and each
+   sweep count they run there (bench1 100^2/50^2/25^2, bench6 with its
+   Dirichlet mask, bench2 with the field groups at 100^2 and 25^2, bench3
+   350^2/175^2/35^2, bench1_3d 50^3 and 25^3): against its plain version
+   (TOL_F32), against the launch sequence B, J.v, C (the max abs difference
+   printed; the target 0) and against itself on a rerun (to the bit); device
+   and per-call times of L and of the sequence, the bound, the grid and
+   barrier count, and at levels of at most 20,201 nodes one CTA against the
+   cooperative grid.
+23. prints the card line, the per-kernel JSON line, then
    ``{"ok": true, "device": ...}``.
+
+Every main-path phase (4, 6, 8, 10, 12, 14, 15, 17-19) requires kernel L and
+refuses B's launches (and C's, but on the tiled runs, whose tiled levels
+sweep with TS and C): a gather level's sweeps run inside L. Each also prints
+the wrapper calls (kernel launches and chain calls) of one preconditioner
+apply in its configuration, and its Krylov counts beside those of the
+smoke before kernel L where PERF.md keeps them.
 
 In the kernel line, ``kernels`` lists the CUDA kernels: ``launches`` is the
 sum of a kernel's launches over the main-path runs (each counted from 0
@@ -159,7 +174,8 @@ once, each output written once) over 3.35 TB/s and its f32 operations over
 is one (block-Jacobi's einsum pair; for the J.v kernels A, E, F, G, I, T10,
 T12 and Q ``torch.func.jvp`` of the f32 residual, for S over the shard's
 slab), else null.
-``device_ms``, where present (kernel I, B and C at bench1_3d's 50^3, R at
+``device_ms``, where present (L at bench2's 25^2 with 8 sweeps and the
+groups, its main shape; kernel I, B and C at bench1_3d's 50^3, R at
 bench6's 100^2, T10, T12 and TS at bench3's 350^2, S on one shard of
 bench3's 350^2 on 2 x 4, Q's case a without its fold), is the device time of one launch: launches
 queued behind a sleep kernel, between two CUDA events. For kernel P the
@@ -170,10 +186,10 @@ bench3 350^2 on 2 x 4, its ``launches`` those of the two dry runs; Q's is
 case a at 350^2 (``ms`` and ``plain_ms`` the whole J.v, slabs and fold),
 its ``launches`` those of the probe path (the fold counted as one more).
 ``chains`` lists
-the LMR sweep loop, the tiled sweep loop, the two V-cycle level steps and
-the two chains, launch sequences of those kernels that stand for TPU
-kernels 3, 4 and 11 (the sweep loop), 13 (the tiled sweep loop: TS and C),
-6 and 9 (the level steps) and 7 and 8 (the chains), with the same keys,
+the tiled sweep loop, the two V-cycle level steps and the two chains,
+launch sequences of those kernels that stand for TPU kernels 13 (the tiled
+sweep loop: TS and C), 6 and 9 (the level steps) and 7 and 8 (the chains),
+with the same keys,
 except ``calls`` (calls on the main paths) in place of
 ``launches`` and ``sequence_of`` in place of ``route``; their arithmetic is
 counted again under the kernels.
@@ -215,6 +231,14 @@ Q_NX, Q_BR = 350, 50
 BENCH1_REPLAY_ROWS, BENCH1_REPLAY_PREFIX, BENCH1_REPLAY_LATE_S = 73, 23, 780.0
 BENCH6_REPLAY_ROWS, BENCH6_REPLAY_PREFIX, BENCH6_REPLAY_LATE_S = 14, 7, 900.0
 BENCH3_REPLAY_ROWS, BENCH3_REPLAY_PREFIX, BENCH3_REPLAY_LATE_S = 46, 28, 900.0
+# Krylov / Krylov over all attempts of the smoke before kernel L (the sweeps
+# as the launch sequence B, J.v, C), where PERF.md section 5 keeps them, by
+# phase label and step count
+KRYLOV_BEFORE_L = {("phase 4: bench1", 74): (4998, 5891),
+              ("phase 12: bench1_3d", 24): (8528, 8858),
+              ("phase 17: bench1 replay", 73): (7713, 10502),
+              ("phase 18: bench6 replay", 14): (1179, None),
+              ("phase 19: bench3 replay", 46): (1568, 3417)}
 TOL_F32 = dict(rtol=2e-4, atol_scale=2e-5)   # tests/test_pallas_vcycle.py
 TOL_R = dict(rtol=1e-5, atol_scale=1e-5)     # tests/test_pallas.py:22-28
 TOL_EXACT = dict(rtol=0.0, atol_scale=0.0)
@@ -564,12 +588,38 @@ class Chain(Kernel):
         return rec
 
 
-def drive(label, problem, run, required):
+def preconditioner_calls(label, problem, dt):
+    """Print the wrapper calls of one preconditioner apply (a V-cycle, or
+    bench1_3d's K-cycle) of ``problem``'s configuration, built at its
+    initial state and ``dt``: the kernel launches and chain calls, counted
+    from 0 around the apply."""
+    from pfhubbenchmarks_tpu_torch.ops import _lib
+
+    dev = torch.device("cuda", 0)
+    w = problem.initial_state(dev)
+    Minv = problem.precond_builder(dev)(w, w, dt)
+    r = tuple(torch.ones_like(t, dtype=torch.float32) for t in w)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    Minv(r)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in _lib.LAUNCHES.items() if n}
+    calls = {k: n for k, n in _lib.CALLS.items() if n}
+    n_l, n_c = sum(launches.values()), sum(calls.values())
+    print(f"{label}: one preconditioner apply: {n_l + n_c} wrapper calls "
+          f"({n_l} kernel launches {launches}, {n_c} chain calls {calls})",
+          flush=True)
+
+
+def drive(label, problem, run, required,
+          absent=("block_jacobi_apply", "lmr_step")):
     """Call ``run()`` (a run of ``problem``'s main path) with the launch and
     chain-call counts and the stage seconds set to 0 just before and read
     just after; print its counts and require each of ``required`` to have
-    run. Returns the counts, the run's result, its wall seconds and the
-    stage seconds."""
+    run and none of ``absent`` (B and C, which a gather level's sweeps do
+    not launch: their body runs inside kernel L). Then print the wrapper
+    calls of one preconditioner apply at the run's first dt. Returns the
+    counts, the run's result, its wall seconds and the stage seconds."""
     from pfhubbenchmarks_tpu_torch.ops import _lib
 
     torch.cuda.synchronize()
@@ -594,6 +644,11 @@ def drive(label, problem, run, required):
           f"krylov_all={sum(s.krylov_iters_all for s in st)} "
           f"wall_s={wall:.3f} launches={launches} chain_calls={calls} "
           f"stage_s={seconds}", flush=True)
+    krylov = (sum(s.krylov_iters for s in st),
+              sum(s.krylov_iters_all for s in st))
+    print(f"{label}: krylov / krylov_all {krylov[0]} / {krylov[1]} over "
+          f"{len(st)} steps; before kernel L: "
+          f"{KRYLOV_BEFORE_L.get((label, len(st)), 'not recorded')}", flush=True)
     print(f"{label}: krylov per step {[s.krylov_iters for s in st]}, "
           f"newton per step {[s.newton_iters for s in st]}, "
           f"krylov_all per step {[s.krylov_iters_all for s in st]}, "
@@ -605,6 +660,10 @@ def drive(label, problem, run, required):
     missing = [k for k in required if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{label}: did not run on the main path: {missing}")
+    extra = [k for k in absent if counts[k] > 0]
+    if extra:
+        raise AssertionError(f"{label}: launched on the main path: {extra}")
+    preconditioner_calls(label, problem, float(st[0].dt))
     return counts, result, wall, seconds
 
 
@@ -635,12 +694,12 @@ def hold_rows(label, result, ref_csv, n_rows, tfe_tol=1e-6, col2_tol=1e-9):
 
 
 def run_main_path(label, runner, end_time, ref_csv, n_rows, required,
-                  tfe_tol=1e-6, col2_tol=1e-9):
+                  tfe_tol=1e-6, col2_tol=1e-9, **kw):
     """Drive ``runner`` to ``end_time`` (at most ``n_rows`` steps) and hold
-    its rows against ``ref_csv`` (``drive``, ``hold_rows``)."""
+    its rows against ``ref_csv`` (``drive``, with ``kw``; ``hold_rows``)."""
     out = drive(label, runner.problem,
                 lambda: runner.run(end_time=end_time, max_steps=n_rows,
-                                   verbose=True), required)
+                                   verbose=True), required, **kw)
     hold_rows(label, out[1], ref_csv, n_rows, tfe_tol, col2_tol)
     return out
 
@@ -758,6 +817,15 @@ def kernel_records():
         "block_jacobi_apply": Kernel("block_jacobi_apply",
                                      csrc + "block_jacobi.cu", replaces_vc),
         "lmr_step": Kernel("lmr_step", csrc + "lmr.cu", replaces_vc),
+        # L: the sweep loop of a gather level in one launch (rows 3, 4, 11,
+        # 15, 17), one source per physics over lmr_loop.cuh
+        "lmr_sweep": Kernel(
+            "lmr_sweep", csrc + "lmr_loop.cuh",
+            "pfhubbenchmarks_tpu/ops/pallas_residual.py:247",
+            ("pfhubbenchmarks_tpu/ops/pallas_residual.py:333",
+             "pfhubbenchmarks_tpu/ops/pallas_tiled.py:189",
+             "pfhubbenchmarks_tpu/ops/pallas3d.py:182",
+             "pfhubbenchmarks_tpu/ops/pallas3d.py:347")),
         "transfer_dyadic": Kernel("transfer_dyadic", csrc + "transfer.cu",
                                   replaces_vc),
         # the general-ratio transfers of the fused kernels (_GenLevelMats)
@@ -786,16 +854,9 @@ def kernel_records():
         "gridjvp_probe": Kernel("gridjvp_probe", csrc + "gridjvp_probe.cu",
                                 "tools/probes/gridjvp_probe.py:167"),
     }
-    seq = ("level J.v (ch_jvp, chp_jvp, chac_jvp, ach_jvp or ch3d_jvp)",
-           "block_jacobi_apply", "lmr_step", "transfer_dyadic")
+    seq = ("level J.v (ch_jvp, chp_jvp, chac_jvp or ach_jvp)", "lmr_sweep",
+           "transfer_dyadic")
     C = {
-        "lmr_sweep_loop": Chain(
-            "lmr_sweep_loop", "pfhubbenchmarks_tpu/ops/pallas_residual.py:247",
-            seq[:3], source="pfhubbenchmarks_tpu_torch/ops/lmr.py",
-            also_replaces=("pfhubbenchmarks_tpu/ops/pallas_residual.py:333",
-                           "pfhubbenchmarks_tpu/ops/pallas_tiled.py:189",
-                           "pfhubbenchmarks_tpu/ops/pallas3d.py:182",
-                           "pfhubbenchmarks_tpu/ops/pallas3d.py:347")),
         "tile_sweep_loop": Chain(
             "tile_sweep_loop", "pfhubbenchmarks_tpu/ops/pallas_tiled_grid.py:246",
             ("tile_sweep", "lmr_step"),
@@ -908,24 +969,6 @@ def bench1_3d_phases(dev, K, C, rng, t_start, paths):
                         lmr3d_work(g), dev_ms=device_ms(
                             lambda: lmr.lmr_step_kernel(xs, rs, z, az)))
 
-    # the 3D sweep loop (TPU kernels 15 and 17): B, I at keast2, C per sweep
-    for l, n in ((2, 2), (2, s.gmg_coarse_sweeps), (1, s.gmg_nu_pre)):
-        g = grids[l]
-        sweep = lmr.make_lmr_sweep_loop(problem.kernel_jvp(g, dev), n)
-        b = noise(g)
-
-        def run_sweep(fn, g=g, b=b, l=l):
-            x = tuple(torch.zeros_like(t) for t in b)
-            r = tuple(t.clone() for t in b)
-            return fn(x, r, w_ls[l], w_ls[l], dt, *pinvs[l])
-
-        xk, rk = run_sweep(sweep.kernel)
-        xp, rp = run_sweep(sweep.plain)
-        timing = (cuda_ms(lambda: run_sweep(sweep.kernel), reps=10),
-                  cuda_ms(lambda: run_sweep(sweep.plain), reps=3))
-        C["lmr_sweep_loop"].check(f"bench1_3d {g.nz}^3 n={n}", xk + rk,
-                                  xp + rp, TOL_F32, timing, sweep3d_work(g, n))
-
     # the transfers (plain torch on the card, as XLA in the JAX package)
     for fine, coarse in zip(grids[:-1], grids[1:]):
         P = t3.prolong3d_any(coarse, fine)
@@ -992,7 +1035,7 @@ def bench1_3d_phases(dev, K, C, rng, t_start, paths):
           f"5^3): {cuda_ms(lambda: Minv(r), reps=10):.3f} ms per call; "
           f"launches {launches}, chain calls {calls} per apply", flush=True)
     torch.cuda.synchronize()
-    print(f"phase 11: bench1_3d-shape kernels and sweep loops agree with their "
+    print(f"phase 11: bench1_3d-shape kernels agree with their "
           f"plain versions ({time.perf_counter() - t11:.1f} s)", flush=True)
 
     # ---- phase 12: bench1_3d's main path at 50^3 ------------------------
@@ -1011,7 +1054,7 @@ def bench1_3d_phases(dev, K, C, rng, t_start, paths):
               f"{n_rows} rows only", flush=True)
     paths["bench1_3d"], result, wall, seconds = run_main_path(
         "phase 12: bench1_3d", runner, None, "bench1_3d_out.csv", n_rows,
-        ("ch3d_jvp", "block_jacobi_apply", "lmr_step", "lmr_sweep_loop"),
+        ("ch3d_jvp", "lmr_sweep"),
         tfe_tol=1e-6, col2_tol=1e-9)
     n_builds = sum(st.newton_iters_all for st in result.stats)
     build_s = seconds["precond_build"]
@@ -1188,9 +1231,10 @@ def tile_phases(dev, K, C, noise_pair, state_on, residual_jvp, paths, refs):
     tiled_required = ("tile_jvp_recompute", "tile_jvp_seam", "tile_sweep",
                       "tile_sweep_loop", "lmr_step", "transfer_dyadic",
                       "descend_chain", "ascend_chain")
+    # a tiled level's sweeps are TS and C, a gather level's L: no B
     for phase, label, pb, end, n_rows, ref_csv, tols, more in (
             (14, "bench1", p1, None, BENCH1_TILED_ROWS, "bench1_out.csv",
-             dict(), ("ch_jvp", "lmr_sweep_loop", "block_jacobi_apply")),
+             dict(), ("ch_jvp", "lmr_sweep")),
             (15, "bench3", p3, None, BENCH3_ROWS, "bench3_out.csv",
              dict(tfe_tol=1e-6, col2_tol=1e-5),
              ("ach_jvp", "transfer_general", "descend_level", "ascend_level"))):
@@ -1204,7 +1248,7 @@ def tile_phases(dev, K, C, noise_pair, state_on, residual_jvp, paths, refs):
               flush=True)
         counts, res, wall, _ = run_main_path(
             f"phase {phase}: {label} tiled", runner, end, ref_csv, n_rows,
-            tiled_required + more, **tols)
+            tiled_required + more, absent=("block_jacobi_apply",), **tols)
         paths[f"{label} tiled"] = counts
         ref, ref_wall = refs[label]
         ref_st = ref.stats[:n_rows]
@@ -1296,8 +1340,8 @@ def replay_phases(dev, t_start, paths, problem1, problem6, problem3):
     grids of the JAX package's replay CSVs, each cut to a prefix that keeps
     its rescued step if the smoke runs late. Adds each run's counts to
     ``paths``."""
-    chain2d = ("block_jacobi_apply", "lmr_step", "transfer_dyadic",
-               "lmr_sweep_loop", "descend_chain", "ascend_chain")
+    chain2d = ("lmr_sweep", "transfer_dyadic", "descend_chain",
+               "ascend_chain")
 
     def rows_for(phase, label, full, prefix, late_s):
         elapsed = time.perf_counter() - t_start
@@ -1364,8 +1408,8 @@ def _free_port() -> int:
 def shard_sweep_phase(dev, K, paths):
     """Phase 20 (TPU row 18): kernel S against its plain version at bench1
     100^2 and bench3 350^2 on 2 x 4 and 2 x 2 ``LocalComm`` meshes; the
-    sharded sweep (n = 1 and 3) against the single-device sweep loop (B, the
-    level J.v A or G, C); the halo residual and functional against the
+    sharded sweep (n = 1 and 3) against the single-device sweep loop
+    (kernel L over A's or G's body); the halo residual and functional against the
     global f64 ones; ``DistComm`` over NCCL at world size 1 against
     ``LocalComm``; then the dry run (the path's entry point) at 2 x 4 on
     bench1 and bench3 with the launch counts set to 0 just before and read
@@ -1460,8 +1504,8 @@ def shard_sweep_phase(dev, K, paths):
                      timing, work, library_ms=library_ms, dev_ms=dev_ms,
                      main=main)
 
-            # the sharded sweep against the single-device sweep loop (B, the
-            # level J.v, C) on the unpadded grid, n = 1 and 3
+            # the sharded sweep against the single-device sweep loop (kernel
+            # L) on the unpadded grid, n = 1 and 3
             jv = pb0.kernel_jvp(pb0.grid, dev)
             sweep = make_sharded_lmr_sweep(g, phys, F, comm)
             x0s = [tuple(torch.zeros_like(t) for t in b) for b in rs]
@@ -1638,6 +1682,160 @@ def gridjvp_phase(dev, K, paths):
           f"({time.perf_counter() - t21:.1f} s)", flush=True)
 
 
+def once_ms(fn) -> float:
+    """One call of ``fn`` between two CUDA events (for the plain versions at
+    the large levels, which take seconds)."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def sweep_counts(s, level, n_levels, dense_coarse):
+    """The sweep counts the main path runs on ``level`` of a hierarchy of
+    ``n_levels`` under solver settings ``s`` (solve/gmg.py, gmg3d.py)."""
+    if level == n_levels - 1:
+        return set() if dense_coarse else {s.gmg_coarse_sweeps}
+    if level == 0:
+        return {s.gmg_nu_fine_pre or s.gmg_nu_pre,
+                s.gmg_nu_fine_post or s.gmg_nu_post}
+    return {s.gmg_nu_pre, s.gmg_nu_post}
+
+
+def sweep_loop_phase(dev, K, rng):
+    """Phase 22: kernel L (the LMR sweep loop of a gather level in one
+    launch) at every gather level of the main paths, for each sweep count
+    they run there: bench1 100^2/50^2/25^2, bench6 (Dirichlet mask) 100^2/
+    50^2/25^2, bench2 (groups) 100^2 and 25^2, bench3 350^2/175^2/35^2,
+    bench1_3d 50^3 and 25^3. Each case: L against its plain version (the
+    plain sweep loop, TOL_F32), against the launch sequence B, J.v, C
+    (``sweep.sequence``: the max abs difference printed, the target 0) and
+    against itself on a rerun (to the bit); the device time per call (40
+    calls behind a sleep kernel) of L and of the sequence, their per-call
+    times, L's bound (``sweep_work``, ``sweep3d_work``), its grid and its
+    barrier count; at levels of at most 20,201 nodes also the device time
+    of L as one CTA and as the cooperative grid (``lmr_sweep_kernel``'s
+    ``one_cta``)."""
+    from pfhubbenchmarks_tpu_torch.benchmarks import (bench1, bench1_3d,
+                                                      bench2, bench3, bench6)
+    from pfhubbenchmarks_tpu_torch.ops import _lib, lmr
+    from pfhubbenchmarks_tpu_torch.ops import transfer as kt
+    from pfhubbenchmarks_tpu_torch.solve import transfer3d as t3
+    from pfhubbenchmarks_tpu_torch.solve.precond import (make_block_jacobi,
+                                                         make_block_jacobi3d)
+
+    t22 = time.perf_counter()
+    KL = K["lmr_sweep"]
+    f32 = torch.float32
+
+    def case(label, g, n, jv, w, pinv, dt, groups, work, nodes_, main=False):
+        sweep = lmr.make_lmr_sweep_loop(jv, n, groups)
+        b = tuple(torch.tensor(rng.standard_normal(t.shape), dtype=f32,
+                               device=dev) for t in w)
+
+        def run(fn):
+            x = tuple(torch.zeros_like(t) for t in b)
+            r = tuple(t.clone() for t in b)
+            fn(x, r, w, w, dt, *pinv)
+            return list(x + r)
+
+        got, again, seq = run(sweep.kernel), run(sweep.kernel), run(sweep.sequence)
+        plain_ms = once_ms(lambda: run(sweep.plain))
+        ref = run(sweep.plain)
+        if any(not torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"L {label} n={n}: a rerun changed the bits")
+        d_seq = max(float((a - c).abs().max()) for a, c in zip(got, seq))
+        # in-place calls on scratch copies for the timers
+        xs = tuple(torch.zeros_like(t) for t in b)
+        rs = tuple(t.clone() for t in b)
+        grid = lmr.lmr_sweep_kernel(jv.launch, n, xs, rs, w, dt, pinv, groups)
+        l_ms = cuda_ms(lambda: sweep.kernel(xs, rs, w, w, dt, *pinv))
+        seq_ms = cuda_ms(lambda: sweep.sequence(xs, rs, w, w, dt, *pinv))
+        l_dev = device_ms(lambda: sweep.kernel(xs, rs, w, w, dt, *pinv))
+        seq_dev = device_ms(lambda: sweep.sequence(xs, rs, w, w, dt, *pinv))
+        forms = ""
+        if nodes_ <= 20_201:
+            one, coop = (device_ms(lambda k=k: lmr.lmr_sweep_kernel(
+                jv.launch, n, xs, rs, w, dt, pinv, groups, one_cta=k))
+                for k in (True, False))
+            forms = (f"; one CTA {one * 1e3:.2f} us, cooperative grid "
+                     f"{coop * 1e3:.2f} us")
+        b_ms, b_by = bound(work)
+        print(f"phase 22: L {label} n={n}: {nodes_} nodes, grid {grid} CTAs, "
+              f"{3 * n} barriers; device {l_dev * 1e3:.2f} us per call vs "
+              f"the sequence's {seq_dev * 1e3:.2f}; per call {l_ms * 1e3:.1f} "
+              f"vs {seq_ms * 1e3:.1f} us; bound {b_ms * 1e3:.3f} us ({b_by})"
+              f"{forms}; vs the sequence max abs diff {d_seq:.3e}"
+              f"{' (bit-identical)' if d_seq == 0.0 else ''}; rerun "
+              f"bit-identical", flush=True)
+        KL.check(f"{label} n={n}", got, ref, TOL_F32, (l_ms, plain_ms), work,
+                 dev_ms=l_dev, main=main)
+        KL.check(f"{label} n={n} vs the sequence", got, seq, TOL_F32)
+
+    # 2D: per benchmark its hierarchy at the level rule, the IC (+ noise,
+    # Dirichlet values) injected down, the level's block planes and J.v
+    for name, pb, dt, split, jv_kw, skip in (
+            ("bench1", bench1.make(), 0.5, False, {}, ()),
+            ("bench6", bench6.make(), 0.32, False, {}, ()),
+            ("bench2", bench2.make(), 0.16, True,
+             dict(ns=5, ops=TANGENT_OPS[(6, "split")]), (50,)),
+            ("bench3", bench3.make(), 1.28, False,
+             dict(ns=2, ops=TANGENT_OPS["ach"]), ())):
+        s = pb.solver
+        F = pb.n_fields
+        build = pb.precond_builder(dev)
+        grids = build.grids
+        groups = pb.field_groups if split else None
+        terms = pb.terms_precond if split else pb.terms
+        v, m = grids[0].interpolate(pb.ic_fns)
+        w = tuple(torch.tensor(a, dtype=f32, device=dev) + torch.tensor(
+            0.01 * rng.standard_normal((F,) + a.shape[1:]), dtype=f32, device=dev)
+            for a in (v, m))
+        for bc in pb.dirichlet_for(grids[0]):
+            w = (bc.apply_value(w[0]).contiguous(), w[1])
+        for l, g in enumerate(grids):
+            counts = sweep_counts(s, l, len(grids), build.dense_coarse)
+            if counts and g.nx not in skip:
+                bcs = pb.dirichlet_for(g)
+                pinv = make_block_jacobi(g, terms, F, device=dev, dirichlet=bcs)(
+                    w, w, dt).pinv_planes
+                jv = pb.kernel_jvp(g, dev, bcs, split=split)
+                for n in sorted(counts):
+                    case(f"{name} {g.ny}x{g.nx}{' masked' if bcs else ''}"
+                         f"{' groups' if groups else ''}", g, n, jv, w, pinv,
+                         dt, groups, sweep_work(g, F, n, jv_kw, groups),
+                         nodes(g), main=(name == "bench2" and g.nx == 25))
+            if l + 1 < len(grids):
+                w = kt.inject(w, grids[l + 1], g)
+
+    # 3D: bench1_3d's 50^3 and 25^3 levels (its 5^3 is the dense solve)
+    pb = bench1_3d.make()
+    s, F, dt = pb.solver, pb.n_fields, 0.4
+    build = pb.precond_builder(dev)
+    grids = build.grids
+    (v,) = grids[0].interpolate(pb.ic_fns)
+    w = (torch.tensor(v, dtype=f32, device=dev) + torch.tensor(
+        0.01 * rng.standard_normal(v.shape), dtype=f32, device=dev),)
+    for l, g in enumerate(grids):
+        counts = sweep_counts(s, l, len(grids), build.dense_coarse)
+        if counts:
+            pinv = make_block_jacobi3d(g, pb.terms_tangent, F, device=dev)(
+                w, w, dt).pinv_planes
+            jv = pb.kernel_jvp(g, dev)
+            for n in sorted(counts):
+                case(f"bench1_3d {g.nz}^3", g, n, jv, w, pinv, dt, None,
+                     sweep3d_work(g, n), g.n_vertices)
+        if l + 1 < len(grids):
+            w = t3.inject3d_any(grids[l + 1], g)(w)
+    torch.cuda.synchronize()
+    print(f"phase 22: kernel L agrees with its plain version at every gather "
+          f"level ({time.perf_counter() - t22:.1f} s)", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- phase 1: the card --------------------------------------------
@@ -1803,8 +2001,8 @@ def main() -> None:
     runner1 = timeloop.Runner(problem1, dev)
     paths["bench1"], result1, wall1, seconds1 = drive(
         "phase 4: bench1", problem1, lambda: runner1.run(verbose=True),
-        ("ch_jvp", "block_jacobi_apply", "lmr_step", "transfer_dyadic",
-         "lmr_sweep_loop", "descend_chain", "ascend_chain"))
+        ("ch_jvp", "lmr_sweep", "transfer_dyadic", "descend_chain",
+         "ascend_chain"))
     hold_trajectory("phase 4: bench1", result1, "bench1_out.csv",
                     problem1.time.end_time, BENCH1_MIN_MATCHED,
                     BENCH1_INTERP_TOL)
@@ -1908,8 +2106,8 @@ def main() -> None:
           flush=True)
     paths["bench6"], _, _, _ = run_main_path(
         "phase 6: bench6", runner6, None, "bench6_out.csv", BENCH6_ROWS,
-        ("chp_jvp", "descend_chain", "ascend_chain", "block_jacobi_apply",
-         "lmr_step", "transfer_dyadic", "lmr_sweep_loop", "residual"))
+        ("chp_jvp", "descend_chain", "ascend_chain", "lmr_sweep",
+         "transfer_dyadic", "residual"))
 
     # ---- phase 7: kernels, sweep loop and chains at bench2's shapes -----
     problem2 = bench2.make()
@@ -1983,24 +2181,7 @@ def main() -> None:
           f"{times[0] * 1e3:.1f} ms, then {bj_build_s * 1e3:.1f} ms", flush=True)
 
     jv_kw2 = dict(ns=5, ops=TANGENT_OPS[(F2, "split")])
-    g25 = grids2[-1]
     n_coarse = s2.gmg_coarse_sweeps
-    sweep = lmr.make_lmr_sweep_loop(jvs2[-1], n_coarse, groups2)
-    b25 = noise_pair(g25, F2)
-
-    def run_sweep(fn):
-        x = tuple(torch.zeros_like(t) for t in b25)
-        r = tuple(t.clone() for t in b25)
-        return fn(x, r, w_ls2[-1], w_ls2[-1], dt2, *pinvs2[-1])
-
-    xk, rk = run_sweep(sweep.kernel)
-    xp, rp = run_sweep(sweep.plain)
-    timing = (cuda_ms(lambda: run_sweep(sweep.kernel), reps=10),
-              cuda_ms(lambda: run_sweep(sweep.plain), reps=5))
-    C["lmr_sweep_loop"].check(f"{g25.ny}x{g25.nx} n={n_coarse} groups",
-                              xk + rk, xp + rp, TOL_F32, timing,
-                              sweep_work(g25, F2, n_coarse, jv_kw2, groups2))
-
     nus2 = dict(nu=s2.gmg_nu_pre, nu_fine=s2.gmg_nu_fine_pre or s2.gmg_nu_pre)
     nua2 = dict(nu=s2.gmg_nu_post, nu_fine=s2.gmg_nu_fine_post or s2.gmg_nu_post)
     descend2 = make_descend_chain(grids2, jvs2, **nus2, field_groups=groups2)
@@ -2041,8 +2222,8 @@ def main() -> None:
           flush=True)
     paths["bench2"], result2, wall2, seconds2 = run_main_path(
         "phase 8: bench2", runner2, BENCH2_END, "bench2_out.csv", BENCH2_ROWS,
-        ("chac_jvp", "block_jacobi_apply", "lmr_step", "transfer_dyadic",
-         "lmr_sweep_loop", "descend_chain", "ascend_chain", "residual"),
+        ("chac_jvp", "lmr_sweep", "transfer_dyadic", "descend_chain",
+         "ascend_chain", "residual"),
         tfe_tol=1e-5)
     # precond_lag 'newton': one multigrid build (block-Jacobi planes of every
     # level, injections) per Newton iteration, over every attempt, timed
@@ -2188,9 +2369,9 @@ def main() -> None:
         raise AssertionError("bench3's coarsest solve is not the dense inverse")
     paths["bench3"], result3, wall3, seconds3 = run_main_path(
         "phase 10: bench3", runner3, None, "bench3_out.csv", BENCH3_ROWS,
-        ("ach_jvp", "block_jacobi_apply", "lmr_step", "transfer_dyadic",
-         "transfer_general", "lmr_sweep_loop", "descend_level", "ascend_level",
-         "descend_chain", "ascend_chain"), tfe_tol=1e-6, col2_tol=1e-5)
+        ("ach_jvp", "lmr_sweep", "transfer_dyadic", "transfer_general",
+         "descend_level", "ascend_level", "descend_chain", "ascend_chain"),
+        tfe_tol=1e-6, col2_tol=1e-5)
     n_builds3 = sum(st.newton_iters_all for st in result3.stats)
     build_s3 = seconds3["precond_build"]
     print(f"phase 10: multigrid builds on the main path (with the dense 7^2 "
@@ -2210,8 +2391,9 @@ def main() -> None:
     replay_phases(dev, t_start, paths, problem1, problem6, problem3)
     shard_sweep_phase(dev, K, paths)
     gridjvp_phase(dev, K, paths)
+    sweep_loop_phase(dev, K, rng)
 
-    # ---- phase 22: summary -----------------------------------------------
+    # ---- phase 23: summary -----------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": [K[k].record(paths) for k in _lib.KERNELS],
                       "chains": [C[k].record(paths) for k in _lib.CHAINS]}),

@@ -16,7 +16,9 @@
 // each summed over the j of its group in increasing order (all of 0..F-1
 // without groups). Reads (F^2 + F) floats and writes F floats per node: at
 // BM1's 100^2 about 0.5 MB per launch, L2-resident, so the launch is
-// latency-bound; it is kept to one launch for both grids.
+// latency-bound; it is kept to one launch for both grids. On a gather level
+// the sweeps run this body inside kernel L (lmr_loop.cuh); B itself serves
+// the launch sequence L is held against.
 
 #include "common.cuh"
 

@@ -48,6 +48,17 @@ inline bool make_groups(int F, int n, const int* starts, FieldGroups* out) {
   return true;
 }
 
+// How a gather reads a plane: LoadRO through the read-only cache, for a
+// plane no thread writes during the launch; LoadCG at L2, for one that other
+// blocks wrote earlier in the same launch (kernel L's z, lmr_loop.cuh), which
+// the read-only path may not see.
+struct LoadRO {
+  __device__ __forceinline__ static float ld(const float* p) { return __ldg(p); }
+};
+struct LoadCG {
+  __device__ __forceinline__ static float ld(const float* p) { return __ldcg(p); }
+};
+
 // The group of field f.
 __device__ __forceinline__ int group_of(const FieldGroups& G, int f) {
   int g = 0;

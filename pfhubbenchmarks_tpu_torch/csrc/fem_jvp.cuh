@@ -1,8 +1,9 @@
 // The gather-form J.v of a crossed-P1 weak form, templated on the physics.
 //
 // Shared body of kernel A (ch_jvp.cu, BM1's Cahn-Hilliard), kernel E
-// (chp_jvp.cu, BM6's Cahn-Hilliard + Poisson) and kernel F (chac_jvp.cu,
-// BM2's Cahn-Hilliard + Allen-Cahn). Computes
+// (chp_jvp.cu, BM6's Cahn-Hilliard + Poisson), kernel F (chac_jvp.cu,
+// BM2's Cahn-Hilliard + Allen-Cahn) and kernel G (ach_jvp.cu), and, per
+// node (jvp_node), of kernel L's A z (lmr_loop.cuh). Computes
 //     out = J(w, dt) v        (b == nullptr), or   out = b - J(w, dt) v
 // in f32, with an optional 0/1 vertex mask of Dirichlet rows: on a masked row
 // the J.v is v itself (the tangent of a constraint row u - g), so the result
@@ -95,8 +96,9 @@ __device__ __forceinline__ void load_state_slots(const float* __restrict__ wv,
                wm + Phys::state_field(s) * ncell, y, x, nx, wc[s]);
 }
 
-// Contribution of cell (y, x) to its slot S, every field.
-template <class Phys, int NQ, int S>
+// Contribution of cell (y, x) to its slot S, every field; the tangent
+// planes (tv, tm) are read by Ld (fem_params.cuh).
+template <class Phys, int NQ, int S, class Ld = LoadRO>
 __device__ __forceinline__ void cell_contrib(const JvpParams& P,
                                              const float* __restrict__ wv,
                                              const float* __restrict__ wm,
@@ -111,8 +113,43 @@ __device__ __forceinline__ void cell_contrib(const JvpParams& P,
   load_state_slots<Phys>(wv, wm, y, x, ny, nx, wc);
 #pragma unroll
   for (int f = 0; f < NF; ++f)
-    load_slots(tv + f * nvert, tm + f * ncell, y, x, nx, d[f]);
+    load_slots<Ld>(tv + f * nvert, tm + f * ncell, y, x, nx, d[f]);
   slot_contrib<Phys, NQ, S>(P, wc, d, acc);
+}
+
+// The gather sum of J(w) t at node idx (vertices first, then centres), every
+// field: a vertex sums the two triangles it belongs to in each of its (up
+// to) four cells, a centre its cell's four triangles. The body of the J.v
+// kernels below and of kernel L's A z (lmr_loop.cuh).
+template <class Phys, int NQ, class Ld = LoadRO>
+__device__ __forceinline__ void jvp_node(const JvpParams& P,
+                                         const float* __restrict__ wv,
+                                         const float* __restrict__ wm,
+                                         const float* __restrict__ tv,
+                                         const float* __restrict__ tm, long idx,
+                                         int ny, int nx, float (&acc)[Phys::NF]) {
+  const int nvx = nx + 1;
+  const long nvert = static_cast<long>(ny + 1) * nvx;
+#pragma unroll
+  for (int f = 0; f < Phys::NF; ++f) acc[f] = 0.f;
+  if (idx < nvert) {
+    const int iy = static_cast<int>(idx / nvx);
+    const int ix = static_cast<int>(idx % nvx);
+    // the node is slot SW of cell (iy, ix), SE of (iy, ix-1),
+    // NE of (iy-1, ix-1) and NW of (iy-1, ix)
+    if (iy < ny && ix < nx)
+      cell_contrib<Phys, NQ, 0, Ld>(P, wv, wm, tv, tm, iy, ix, ny, nx, acc);
+    if (iy < ny && ix > 0)
+      cell_contrib<Phys, NQ, 1, Ld>(P, wv, wm, tv, tm, iy, ix - 1, ny, nx, acc);
+    if (iy > 0 && ix > 0)
+      cell_contrib<Phys, NQ, 2, Ld>(P, wv, wm, tv, tm, iy - 1, ix - 1, ny, nx, acc);
+    if (iy > 0 && ix < nx)
+      cell_contrib<Phys, NQ, 3, Ld>(P, wv, wm, tv, tm, iy - 1, ix, ny, nx, acc);
+  } else {
+    const long c = idx - nvert;
+    cell_contrib<Phys, NQ, 4, Ld>(P, wv, wm, tv, tm, static_cast<int>(c / nx),
+                                  static_cast<int>(c % nx), ny, nx, acc);
+  }
 }
 
 template <class Phys, int NQ>
@@ -129,21 +166,8 @@ fem_jvp_kernel(const JvpParams P, const float* __restrict__ wv,
   const long idx = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= nvert + ncell) return;
   float acc[NF];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) acc[f] = 0.f;
+  jvp_node<Phys, NQ>(P, wv, wm, tv, tm, idx, ny, nx, acc);
   if (idx < nvert) {
-    const int iy = static_cast<int>(idx / nvx);
-    const int ix = static_cast<int>(idx % nvx);
-    // the node is slot SW of cell (iy, ix), SE of (iy, ix-1),
-    // NE of (iy-1, ix-1) and NW of (iy-1, ix)
-    if (iy < ny && ix < nx)
-      cell_contrib<Phys, NQ, 0>(P, wv, wm, tv, tm, iy, ix, ny, nx, acc);
-    if (iy < ny && ix > 0)
-      cell_contrib<Phys, NQ, 1>(P, wv, wm, tv, tm, iy, ix - 1, ny, nx, acc);
-    if (iy > 0 && ix > 0)
-      cell_contrib<Phys, NQ, 2>(P, wv, wm, tv, tm, iy - 1, ix - 1, ny, nx, acc);
-    if (iy > 0 && ix < nx)
-      cell_contrib<Phys, NQ, 3>(P, wv, wm, tv, tm, iy - 1, ix, ny, nx, acc);
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
       const long o = f * nvert + idx;
@@ -154,9 +178,6 @@ fem_jvp_kernel(const JvpParams P, const float* __restrict__ wv,
     }
   } else {
     const long c = idx - nvert;
-    const int iy = static_cast<int>(c / nx);
-    const int ix = static_cast<int>(c % nx);
-    cell_contrib<Phys, NQ, 4>(P, wv, wm, tv, tm, iy, ix, ny, nx, acc);
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
       const long o = f * ncell + c;

@@ -1,7 +1,8 @@
 // The gather-form J.v of a Kuhn-tet P1 weak form in 3D, templated on the
 // physics.
 //
-// Shared body of kernel I (ch3d_jvp.cu, the 3D BM1 Cahn-Hilliard). Computes
+// Shared body of kernel I (ch3d_jvp.cu, the 3D BM1 Cahn-Hilliard) and, per
+// node (jvp3_node), of kernel L's 3D A z (lmr_loop.cuh). Computes
 //     out = J(w, dt) v        (b == nullptr), or   out = b - J(w, dt) v
 // in f32 on one vertex grid [F, nz+1, ny+1, nx+1] (unpadded storage; no
 // cell centres in 3D, fem/grid3d.py). Replaces the element loop of
@@ -46,6 +47,16 @@ struct Jvp3Params {
 };
 
 constexpr int kJvp3ParamFloats = sizeof(Jvp3Params) / sizeof(float);
+
+// Host side: the block from kJvp3ParamFloats floats in the order of
+// Jvp3Params (tables zero-padded to kMaxQ3 points, the constants padded to
+// kMaxConst3, then dt).
+inline Jvp3Params load_params3(const float* params) {
+  Jvp3Params P;
+  float* dst = reinterpret_cast<float*>(&P);
+  for (int i = 0; i < kJvp3ParamFloats; ++i) dst[i] = params[i];
+  return P;
+}
 
 // Corner slot of local vertex j of Kuhn tet t: _TETS of fem/grid3d.py,
 //   {0,1,3,7} {0,1,5,7} {0,4,5,7} {0,2,3,7} {0,4,6,7} {0,2,6,7}.
@@ -114,8 +125,9 @@ __device__ __forceinline__ void tet_contrib(const Jvp3Params& P,
   }
 }
 
-// Contribution of cell (cz, cy, cx) to its slot S, every field.
-template <class Phys, int NQ, int S>
+// Contribution of cell (cz, cy, cx) to its slot S, every field; the tangent
+// plane tv is read by Ld (fem_params.cuh's LoadRO or LoadCG).
+template <class Phys, int NQ, int S, class Ld>
 __device__ __forceinline__ void cell_contrib3(const Jvp3Params& P,
                                               const float* __restrict__ wv,
                                               const float* __restrict__ tv,
@@ -135,7 +147,7 @@ __device__ __forceinline__ void cell_contrib3(const Jvp3Params& P,
     for (int f = 0; f < NS; ++f)
       wc[f][s] = __ldg(wv + Phys::state_field(f) * nvert + o);
 #pragma unroll
-    for (int f = 0; f < NF; ++f) d[f][s] = __ldg(tv + f * nvert + o);
+    for (int f = 0; f < NF; ++f) d[f][s] = Ld::ld(tv + f * nvert + o);
   }
   tet_contrib<Phys, NQ, S, 0>(P, wc, d, acc);
   tet_contrib<Phys, NQ, S, 1>(P, wc, d, acc);
@@ -146,7 +158,7 @@ __device__ __forceinline__ void cell_contrib3(const Jvp3Params& P,
 }
 
 // The node is slot S of cell (iz - dz, iy - dy, ix - dx), if that cell exists.
-template <class Phys, int NQ, int S>
+template <class Phys, int NQ, int S, class Ld>
 __device__ __forceinline__ void visit(const Jvp3Params& P,
                                       const float* __restrict__ wv,
                                       const float* __restrict__ tv, int iz,
@@ -154,7 +166,34 @@ __device__ __forceinline__ void visit(const Jvp3Params& P,
                                       long nvert, float (&acc)[Phys::NF]) {
   const int cz = iz - (S >> 2), cy = iy - ((S >> 1) & 1), cx = ix - (S & 1);
   if (cz >= 0 && cz < nz && cy >= 0 && cy < ny && cx >= 0 && cx < nx)
-    cell_contrib3<Phys, NQ, S>(P, wv, tv, cz, cy, cx, ny, nx, nvert, acc);
+    cell_contrib3<Phys, NQ, S, Ld>(P, wv, tv, cz, cy, cx, ny, nx, nvert, acc);
+}
+
+// The gather sum of J(w) t at vertex idx, every field: the node's (up to) 8
+// cells in slot order. The body of the J.v kernel below and of kernel L's
+// A z (lmr_loop.cuh).
+template <class Phys, int NQ, class Ld = LoadRO>
+__device__ __forceinline__ void jvp3_node(const Jvp3Params& P,
+                                          const float* __restrict__ wv,
+                                          const float* __restrict__ tv, long idx,
+                                          int nz, int ny, int nx,
+                                          float (&acc)[Phys::NF]) {
+  const int nvx = nx + 1, nvy = ny + 1;
+  const long nvert = static_cast<long>(nz + 1) * nvy * nvx;
+  const int ix = static_cast<int>(idx % nvx);
+  const long rest = idx / nvx;
+  const int iy = static_cast<int>(rest % nvy);
+  const int iz = static_cast<int>(rest / nvy);
+#pragma unroll
+  for (int f = 0; f < Phys::NF; ++f) acc[f] = 0.f;
+  visit<Phys, NQ, 0, Ld>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
+  visit<Phys, NQ, 1, Ld>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
+  visit<Phys, NQ, 2, Ld>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
+  visit<Phys, NQ, 3, Ld>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
+  visit<Phys, NQ, 4, Ld>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
+  visit<Phys, NQ, 5, Ld>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
+  visit<Phys, NQ, 6, Ld>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
+  visit<Phys, NQ, 7, Ld>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
 }
 
 template <class Phys, int NQ>
@@ -167,21 +206,8 @@ fem_jvp3d_kernel(const Jvp3Params P, const float* __restrict__ wv,
   const long nvert = static_cast<long>(nz + 1) * nvy * nvx;
   const long idx = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= nvert) return;
-  const int ix = static_cast<int>(idx % nvx);
-  const long rest = idx / nvx;
-  const int iy = static_cast<int>(rest % nvy);
-  const int iz = static_cast<int>(rest / nvy);
   float acc[NF];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) acc[f] = 0.f;
-  visit<Phys, NQ, 0>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
-  visit<Phys, NQ, 1>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
-  visit<Phys, NQ, 2>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
-  visit<Phys, NQ, 3>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
-  visit<Phys, NQ, 4>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
-  visit<Phys, NQ, 5>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
-  visit<Phys, NQ, 6>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
-  visit<Phys, NQ, 7>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
+  jvp3_node<Phys, NQ>(P, wv, tv, idx, nz, ny, nx, acc);
 #pragma unroll
   for (int f = 0; f < NF; ++f) {
     const long o = f * nvert + idx;
@@ -196,10 +222,7 @@ template <class Phys>
 int launch_fem_jvp3d(const float* params, int nq, const float* wv,
                      const float* tv, const float* bv, float* ov, int nz,
                      int ny, int nx, void* stream) {
-  Jvp3Params P;
-  const float* src = params;
-  float* dst = reinterpret_cast<float*>(&P);
-  for (int i = 0; i < kJvp3ParamFloats; ++i) dst[i] = src[i];
+  const Jvp3Params P = load_params3(params);
   const long n = static_cast<long>(nz + 1) * (ny + 1) * (nx + 1);
   const int blocks = blocks_for(n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -44,15 +44,16 @@ __host__ __device__ constexpr bool slot_in_tri(int t, int s) {
 }
 
 // The 5 slot values (SW, SE, NE, NW, C) of field plane (pv, pm) in cell (y, x).
+template <class Ld = LoadRO>
 __device__ __forceinline__ void load_slots(const float* __restrict__ pv,
                                            const float* __restrict__ pm,
                                            int y, int x, int nx, float out[5]) {
   const int nvx = nx + 1;
-  out[0] = __ldg(pv + y * nvx + x);
-  out[1] = __ldg(pv + y * nvx + x + 1);
-  out[2] = __ldg(pv + (y + 1) * nvx + x + 1);
-  out[3] = __ldg(pv + (y + 1) * nvx + x);
-  out[4] = __ldg(pm + y * nx + x);
+  out[0] = Ld::ld(pv + y * nvx + x);
+  out[1] = Ld::ld(pv + y * nvx + x + 1);
+  out[2] = Ld::ld(pv + (y + 1) * nvx + x + 1);
+  out[3] = Ld::ld(pv + (y + 1) * nvx + x);
+  out[4] = Ld::ld(pm + y * nx + x);
 }
 
 }  // namespace pfh

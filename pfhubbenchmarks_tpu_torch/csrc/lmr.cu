@@ -29,7 +29,10 @@
 // What bounds it on the H100: ~0.3 MB read and 0.3 MB written per step at
 // BM1's 100^2 (0.9 MB and 0.5 MB at BM2's six fields), L2-resident; the
 // step is two launches of latency, which the design accepts in exchange for
-// determinism without a grid-wide sync.
+// determinism without a grid-wide sync. On a gather level the sweeps run
+// both stages inside kernel L (lmr_loop.cuh), with grid barriers and C's
+// partition; C itself serves the tiled sweep loop, the sharded smoother and
+// the launch sequence L is held against.
 
 #include "common.cuh"
 

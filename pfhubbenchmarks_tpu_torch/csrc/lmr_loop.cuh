@@ -1,0 +1,384 @@
+// Kernel L, lmr_sweep: n LMR sweeps of one multigrid level in ONE launch,
+// f32, templated on the level's gather J.v (physics and point count).
+//
+// Replaces pfhubbenchmarks_tpu/ops/pallas_residual.py:
+// make_pallas_lmr_sweep_loop (:247, n sweeps in one Pallas call) and
+// make_pallas_lmr_sweep (:333), ops/pallas_tiled.py:make_tiled_lmr_sweep
+// (:189), and in 3D ops/pallas3d.py:make_pallas_lmr_sweep_loop3d (:182) and
+// make_tiled_lmr_sweep3d (:347), on every gather level. One sweep is
+//
+//   1. z = P^-1 r            per node, the in-group planes only (kernel B's
+//                            body, block_jacobi.cu)
+//   2. A z                   per node, the level J.v's gather body
+//                            (fem_jvp.cuh jvp_node, fem_jvp3d.cuh jvp3_node);
+//                            a Dirichlet row (mask != 0) gives z
+//   3. <Az, r>_g, <Az, Az>_g C's stage-1 partials in f64 (lmr.cu), slot by
+//                            slot
+//   4. alpha_g, x += alpha_g z, r -= alpha_g Az (C's stage 2), and the next
+//                            sweep's z from the node's new r (its phase 1)
+//
+// with a barrier after phases 1, 2 and 3: 3 per sweep. Phase 4 and the next
+// phase 1 need none between them, since one thread owns a node in both.
+//
+// Same bits as the launch sequence B, J.v, C: phase 1 sums each output over
+// its group's j in increasing order from 0 (B's order, with nvcc's FMA
+// contraction of the same expression); phase 2 is the J.v's own body; phase
+// 3 is C's partition (nb = lmr_partial_blocks(n) slots of 256 entries per
+// group, C's strided assignment and shared-memory tree), one CTA of 256
+// threads reducing one slot as C's stage-1 block does, the slots spread over
+// the CTAs; phase 4 sums a group's slots in index order and forms alpha in
+// f64, then updates as lmr_update_kernel does. So alpha equals C's wherever z
+// and A z do, and a rerun gives the same bits: no atomics.
+//
+// Barrier: the grid is launched cooperatively (cudaLaunchCooperativeKernel)
+// at min(blocks needed, co-resident blocks) and syncs with
+// cooperative_groups::this_grid().sync(); every loop is grid-stride, so a
+// smaller grid only loops more. A grid of one CTA is launched plainly and
+// syncs with __syncthreads; asked for by the wrapper, one CTA measured
+// 1.8-40x slower than the grid at every level of the main paths, 25^2
+// included (H100, chip_smoke.py phase 22), so the wrapper runs the grid. A
+// launch that cannot be made returns its CUDA error; nothing falls back to
+// the launch sequence.
+//
+// Memory: z and A z are device scratch from the wrapper; planes written
+// during the launch (z, A z, r, the partials) are read at L2 (__ldcg, the
+// LoadCG policy of the gather) wherever another thread wrote them, never
+// through the read-only cache. The state, P^-1 and the mask are read-only.
+//
+// What bounds it on the H100: the sweeps' operations (n times the J.v's) at
+// the large levels, the bytes of state, P^-1 and (x, r) once at the small
+// ones; every level's working set is L2-resident (bench3's 350^2: 245,701
+// nodes x ~14 floats, ~14 MB). The design removes the 3n host wrapper calls
+// and 4n launches of the sequence; what it adds is 3n grid barriers.
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include <algorithm>
+
+#include "fem_jvp.cuh"
+#include "fem_jvp3d.cuh"
+
+namespace pfh {
+
+constexpr int kLoopThreads = 256;  // lmr.cu's kRedThreads: one slot per CTA
+constexpr int kLoopMaxSlots = 64;  // lmr.cu's nb bound
+
+// The operands of one launch. Planes are unpadded, field-major: 2D v planes
+// [F, ny+1, nx+1] and m planes [F, ny, nx]; 3D v planes [F, nz+1, ny+1, nx+1]
+// with ncell = 0 and null m pointers. Nodes are indexed vertices first.
+struct LoopArgs {
+  float* xv;
+  float* xm;
+  float* rv;
+  float* rm;
+  float* zv;  // scratch: z
+  float* zm;
+  float* av;  // scratch: A z
+  float* am;
+  const float* pv;    // P^-1 planes [F, F, .]
+  const float* pm;
+  const float* wv;    // linearization state
+  const float* wm;
+  const float* mask;  // [F, vertices] Dirichlet rows (2D), or null
+  double* partials;   // 2 * G.n * nb
+  long nvert, ncell;
+  int nz, ny, nx;
+  int n_sweeps, nb;
+  FieldGroups G;
+};
+
+// The level's A z at node idx: the 2D gather J.v of Phys at NQ points.
+template <class Phys, int NQ>
+struct Level2 {
+  using Params = JvpParams;
+  static constexpr int NF = Phys::NF;
+  static Params load(const float* params) { return load_params(params); }
+  __device__ __forceinline__ static void az(const Params& P, const LoopArgs& A,
+                                            long idx, float (&acc)[NF]) {
+    jvp_node<Phys, NQ, LoadCG>(P, A.wv, A.wm, A.zv, A.zm, idx, A.ny, A.nx, acc);
+  }
+};
+
+// ... and the 3D one (Kuhn tets).
+template <class Phys, int NQ>
+struct Level3 {
+  using Params = Jvp3Params;
+  static constexpr int NF = Phys::NF;
+  static Params load(const float* params) { return load_params3(params); }
+  __device__ __forceinline__ static void az(const Params& P, const LoopArgs& A,
+                                            long idx, float (&acc)[NF]) {
+    jvp3_node<Phys, NQ, LoadCG>(P, A.wv, A.zv, idx, A.nz, A.ny, A.nx, acc);
+  }
+};
+
+// A node's plane offset: its leaf's base pointer is picked by on_v.
+struct Node {
+  bool on_v;
+  long i;  // index within its leaf's plane
+  long n;  // nodes of one field of that leaf
+  __device__ __forceinline__ Node(const LoopArgs& A, long idx)
+      : on_v(idx < A.nvert), i(on_v ? idx : idx - A.nvert),
+        n(on_v ? A.nvert : A.ncell) {}
+  __device__ __forceinline__ long at(int f) const { return f * n + i; }
+};
+
+// Phase 1: z = P^-1 r at the node from its r values rr; in-group j only, in
+// increasing order (B's sum; j unrolled, so rr stays in registers).
+template <int NF>
+__device__ __forceinline__ void bj_node(const LoopArgs& A, const Node& nd,
+                                        const float (&rr)[NF]) {
+  const float* P = nd.on_v ? A.pv : A.pm;
+  float* z = nd.on_v ? A.zv : A.zm;
+#pragma unroll
+  for (int i = 0; i < NF; ++i) {
+    const int g = group_of(A.G, i);
+    const int lo = A.G.start[g], hi = A.G.start[g + 1];
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+      if (j >= lo && j < hi)
+        acc += __ldg(P + (static_cast<long>(i) * NF + j) * nd.n + nd.i) * rr[j];
+    z[nd.at(i)] = acc;
+  }
+}
+
+// Phase 3: the f64 partials of <Az, r>_g and <Az, Az>_g, C's stage 1 slot by
+// slot: slot (g, b) is block (b, g) of lmr_partials_kernel.
+__device__ __forceinline__ void partial_slots(const LoopArgs& A,
+                                              double* s_num, double* s_den) {
+  const int t = threadIdx.x;
+  const int nslots = A.G.n * A.nb;
+  for (int slot = blockIdx.x; slot < nslots; slot += gridDim.x) {
+    const int g = slot / A.nb, b = slot % A.nb;
+    const long f0 = A.G.start[g];
+    const long nf = A.G.start[g + 1] - f0;
+    const long nv = nf * A.nvert;  // the group's v entries come first
+    const long n = nv + nf * A.ncell;
+    const float* av = A.av + f0 * A.nvert;
+    const float* am = A.am + f0 * A.ncell;
+    const float* qv = A.rv + f0 * A.nvert;
+    const float* qm = A.rm + f0 * A.ncell;
+    double num = 0.0, den = 0.0;
+    for (long i = static_cast<long>(b) * kLoopThreads + t; i < n;
+         i += static_cast<long>(A.nb) * kLoopThreads) {
+      const double a = i < nv ? __ldcg(av + i) : __ldcg(am + (i - nv));
+      num += a * (i < nv ? __ldcg(qv + i) : __ldcg(qm + (i - nv)));
+      den += a * a;
+    }
+    s_num[t] = num;
+    s_den[t] = den;
+    __syncthreads();
+    for (int stride = kLoopThreads / 2; stride > 0; stride >>= 1) {
+      if (t < stride) {
+        s_num[t] += s_num[t + stride];
+        s_den[t] += s_den[t + stride];
+      }
+      __syncthreads();
+    }
+    if (t == 0) {
+      A.partials[g * A.nb + b] = s_num[0];
+      A.partials[(A.G.n + g) * A.nb + b] = s_den[0];
+    }
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ void loop_barrier() {
+  if (gridDim.x == 1)
+    __syncthreads();
+  else
+    cooperative_groups::this_grid().sync();
+}
+
+template <class Lv>
+__global__ void __launch_bounds__(kLoopThreads)
+lmr_loop_kernel(const typename Lv::Params P, const LoopArgs A) {
+  constexpr int NF = Lv::NF;
+  __shared__ double s_num[kLoopThreads];
+  __shared__ double s_den[kLoopThreads];
+  __shared__ double s_part[2 * kMaxGroups * kLoopMaxSlots];
+  __shared__ float s_alpha[kMaxGroups];
+  const long N = A.nvert + A.ncell;
+  const long first = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long stride = static_cast<long>(gridDim.x) * blockDim.x;
+
+  for (long idx = first; idx < N; idx += stride) {  // phase 1 of sweep 0
+    const Node nd(A, idx);
+    const float* r = nd.on_v ? A.rv : A.rm;
+    float rr[NF];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) rr[f] = r[nd.at(f)];
+    bj_node<NF>(A, nd, rr);
+  }
+  for (int s = 0; s < A.n_sweeps; ++s) {
+    loop_barrier();
+    for (long idx = first; idx < N; idx += stride) {  // phase 2
+      const Node nd(A, idx);
+      float acc[NF];
+      Lv::az(P, A, idx, acc);
+      const float* z = nd.on_v ? A.zv : A.zm;
+      float* az = nd.on_v ? A.av : A.am;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        float val = acc[f];
+        if (nd.on_v && A.mask != nullptr && __ldg(A.mask + nd.at(f)) != 0.f)
+          val = __ldcg(z + nd.at(f));
+        az[nd.at(f)] = val;
+      }
+    }
+    loop_barrier();
+    partial_slots(A, s_num, s_den);  // phase 3
+    loop_barrier();
+    // phase 4: alpha per group, as C's stage 2: the partials staged in
+    // shared memory by the whole CTA at once, then summed in index order
+    for (int i = threadIdx.x; i < 2 * A.G.n * A.nb; i += blockDim.x)
+      s_part[i] = __ldcg(A.partials + i);
+    __syncthreads();
+    if (threadIdx.x < A.G.n) {
+      const int g = threadIdx.x;
+      double num = 0.0, den = 0.0;
+#pragma unroll 8
+      for (int b = 0; b < A.nb; ++b) {
+        num += s_part[g * A.nb + b];
+        den += s_part[(A.G.n + g) * A.nb + b];
+      }
+      s_alpha[g] = den > 0.0 ? static_cast<float>(num / den) : 0.0f;
+    }
+    __syncthreads();
+    const bool next = s + 1 < A.n_sweeps;
+    for (long idx = first; idx < N; idx += stride) {
+      const Node nd(A, idx);
+      float* x = nd.on_v ? A.xv : A.xm;
+      float* r = nd.on_v ? A.rv : A.rm;
+      const float* z = nd.on_v ? A.zv : A.zm;
+      const float* az = nd.on_v ? A.av : A.am;
+      float rr[NF];
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        const long o = nd.at(f);
+        const float alpha = s_alpha[group_of(A.G, f)];
+        x[o] += alpha * z[o];
+        r[o] -= alpha * az[o];
+        rr[f] = r[o];
+      }
+      if (next) bj_node<NF>(A, nd, rr);
+    }
+    __syncthreads();  // s_alpha is rewritten by the next sweep's phase 4
+  }
+}
+
+// Co-resident CTAs of one instantiation on the current device (cached).
+template <class Lv>
+inline int resident_ctas() {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cached[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, lmr_loop_kernel<Lv>, kLoopThreads, 0) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+    cached[dev] = per_sm * sms;
+  }
+  return cached[dev];
+}
+
+// one_cta: nonzero runs one CTA, else the cooperative grid of min(blocks
+// needed, co-resident CTAs). *grid_out: the CTAs run.
+template <class Lv>
+int launch_lmr_loop(const float* params, const LoopArgs& A, int one_cta,
+                    int* grid_out, void* stream) {
+  if (A.nb < 1 || A.nb > kLoopMaxSlots || A.n_sweeps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const typename Lv::Params P = Lv::load(params);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int grid = 1;
+  if (!one_cta) {
+    const long need = std::max(
+        static_cast<long>(blocks_for(A.nvert + A.ncell, kLoopThreads)),
+        static_cast<long>(A.G.n) * A.nb);
+    const int resident = resident_ctas<Lv>();
+    if (resident < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    grid = static_cast<int>(std::min(need, static_cast<long>(resident)));
+  }
+  *grid_out = grid;
+  if (grid == 1) {
+    lmr_loop_kernel<Lv><<<1, kLoopThreads, 0, s>>>(P, A);
+    return static_cast<int>(cudaGetLastError());
+  }
+  void* args[] = {const_cast<typename Lv::Params*>(&P),
+                  const_cast<LoopArgs*>(&A)};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)lmr_loop_kernel<Lv>, dim3(grid), dim3(kLoopThreads), args,
+      0, s);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The point-count dispatch of a 2D level (rules of 1, 3 or 4 points).
+template <class Phys>
+int launch_lmr_loop2(const float* params, int nq, const LoopArgs& A,
+                     int one_cta, int* grid_out, void* stream) {
+  switch (nq) {
+    case 1:
+      return launch_lmr_loop<Level2<Phys, 1>>(params, A, one_cta, grid_out, stream);
+    case 3:
+      return launch_lmr_loop<Level2<Phys, 3>>(params, A, one_cta, grid_out, stream);
+    case 4:
+      return launch_lmr_loop<Level2<Phys, 4>>(params, A, one_cta, grid_out, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ... and of a 3D one (keast1, keast2, ffc3: 1, 4 or 8 points).
+template <class Phys>
+int launch_lmr_loop3(const float* params, int nq, const LoopArgs& A,
+                     int one_cta, int* grid_out, void* stream) {
+  switch (nq) {
+    case 1:
+      return launch_lmr_loop<Level3<Phys, 1>>(params, A, one_cta, grid_out, stream);
+    case 4:
+      return launch_lmr_loop<Level3<Phys, 4>>(params, A, one_cta, grid_out, stream);
+    case 8:
+      return launch_lmr_loop<Level3<Phys, 8>>(params, A, one_cta, grid_out, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The launch of a 2D level of physics Phys, and of a 3D one (null m
+// pointers, ncell = 0): the operands as LoopArgs names them; nb: the slots
+// per group; starts: n_groups + 1 host ints (make_groups) or null.
+template <class Phys>
+int lmr_loop2(const float* params, int nq, float* xv, float* xm, float* rv,
+              float* rm, float* zv, float* zm, float* av, float* am,
+              const float* pv, const float* pm, const float* wv, const float* wm,
+              const float* mask, double* partials, int nb, int n_groups,
+              const int* starts, int n_sweeps, int ny, int nx, int one_cta,
+              int* grid_out, void* stream) {
+  LoopArgs A{xv, xm, rv, rm, zv, zm, av, am, pv, pm, wv, wm, mask, partials,
+             static_cast<long>(ny + 1) * (nx + 1), static_cast<long>(ny) * nx,
+             0, ny, nx, n_sweeps, nb, FieldGroups{}};
+  if (!make_groups(Phys::NF, n_groups, starts, &A.G))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_lmr_loop2<Phys>(params, nq, A, one_cta, grid_out, stream);
+}
+
+template <class Phys>
+int lmr_loop3(const float* params, int nq, float* xv, float* rv, float* zv,
+              float* av, const float* pv, const float* wv, double* partials,
+              int nb, int n_groups, const int* starts, int n_sweeps, int nz,
+              int ny, int nx, int one_cta, int* grid_out, void* stream) {
+  LoopArgs A{xv, nullptr, rv, nullptr, zv, nullptr, av, nullptr, pv, nullptr,
+             wv, nullptr, nullptr, partials,
+             static_cast<long>(nz + 1) * (ny + 1) * (nx + 1), 0, nz, ny, nx,
+             n_sweeps, nb, FieldGroups{}};
+  if (!make_groups(Phys::NF, n_groups, starts, &A.G))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_lmr_loop3<Phys>(params, nq, A, one_cta, grid_out, stream);
+}
+
+}  // namespace pfh

@@ -10,9 +10,10 @@ tests import every module, and a CPU tensor never reaches a kernel.
 
 Each wrapper counts its launches in ``LAUNCHES`` (one per wrapper call that
 launches its kernel), so a run can show that its main path went through the
-kernels. The two LMR sweep loops (ops/lmr.py), the two V-cycle level steps
+kernels. The tiled LMR sweep loop (ops/lmr.py), the two V-cycle level steps
 and the two chains (ops/vcycle_chain.py) are launch sequences of those
-kernels, not kernels: they count their calls in ``CALLS``. ``SECONDS`` holds
+kernels, not kernels: they count their calls in ``CALLS``. The gather sweep
+loop is one kernel, L (``lmr_sweep``). ``SECONDS`` holds
 the host seconds of plain-torch stages (the multigrid build), so a run can
 say what share of its wall they take.
 """
@@ -39,14 +40,14 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
 
 KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp", "ch3d_jvp",
-           "block_jacobi_apply", "lmr_step", "transfer_dyadic",
+           "block_jacobi_apply", "lmr_step", "lmr_sweep", "transfer_dyadic",
            "transfer_general", "residual", "tile_jvp_recompute",
            "tile_jvp_seam", "tile_sweep", "fma_chain", "shard_sweep",
            "gridjvp_probe")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # launch sequences of the kernels that stand for one TPU kernel each
-CHAINS = ("lmr_sweep_loop", "tile_sweep_loop", "descend_level",
-          "ascend_level", "descend_chain", "ascend_chain")
+CHAINS = ("tile_sweep_loop", "descend_level", "ascend_level",
+          "descend_chain", "ascend_chain")
 CALLS = dict.fromkeys(CHAINS, 0)
 
 
@@ -104,6 +105,10 @@ class KernelLibrary:
         self.build_log = build_log
         self.lib = ctypes.CDLL(str(path))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        ip = ctypes.POINTER(ctypes.c_int)
+        # kernel L: the operands, then partials, nb, groups, n_sweeps, the
+        # grid's cells, one_cta, the grid out, the stream
+        loop2 = [vp] * 13 + [vp, i32, i32, vp, i32, i32, i32, i32, ip, vp]
         sig = {
             "pfh_ch_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
             "pfh_chp_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
@@ -119,6 +124,12 @@ class KernelLibrary:
                                             vp],
             "pfh_lmr_update": [vp, i32] + [vp] * 8 + [i64, i64, i32, i32, vp,
                                                       vp, vp],
+            "pfh_lmr_loop_ch": [vp, i32] + loop2,
+            "pfh_lmr_loop_chp": [vp, i32] + loop2,
+            "pfh_lmr_loop_ach": [vp, i32] + loop2,
+            "pfh_lmr_loop_chac": [vp, i32, i32, i32] + loop2,
+            "pfh_lmr_loop_ch3d": [vp, i32] + [vp] * 6 + [
+                vp, i32, i32, vp, i32, i32, i32, i32, i32, ip, vp],
             "pfh_shard_sweep_ch": [vp, i32] + [vp] * 11 + [i32, i32, vp],
             "pfh_shard_sweep_ach": [vp, i32] + [vp] * 11 + [i32, i32, vp],
             "pfh_gridjvp_probe": [i32, vp, i32] + [vp] * 6 + [i32] * 3 + [vp],

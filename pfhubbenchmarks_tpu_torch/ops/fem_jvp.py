@@ -50,6 +50,26 @@ class KernelPhys:
     constants: tuple[float, ...]
 
 
+@dataclasses.dataclass(frozen=True)
+class GatherLaunch:
+    """What a gather J.v's launcher receives besides its operands and dt,
+    as ``jv.launch`` carries it to kernel L (ops/lmr.py), which runs the
+    same body: ``kind`` the physics ("ch", "chp", "chac", "ach"; "ch3d" in
+    3D), ``head`` the parameter block without dt (tabulation, then the
+    constants), ``nq`` the rule's point count, ``variant`` the int arguments
+    after it (kernel F's field count and operator), ``mask`` the Dirichlet
+    vertex mask or None, ``dims`` the grid's cells ((ny, nx) or (nz, ny,
+    nx)), ``n_fields`` F."""
+
+    kind: str
+    head: np.ndarray
+    nq: int
+    variant: tuple[int, ...]
+    mask: torch.Tensor | None
+    dims: tuple[int, ...]
+    n_fields: int
+
+
 def pack_tabulation(grid: CrossedTriGrid) -> np.ndarray:
     """Bq, Gs, WB, WGx, WGy as the kernel's float32 parameter block
     (quadrature axis zero-padded to 4 points)."""
@@ -101,17 +121,21 @@ def make_fem_jvp(grid: CrossedTriGrid, tangent, n_fields: int, *, name: str,
     counter, ``symbol`` the C launcher, ``constants`` the physics constants
     in the kernel's order, ``variant`` the launcher's int arguments after
     the point count (kernel F's field count and operator). ``jv.plain`` and
-    ``jv.kernel`` are the two versions."""
+    ``jv.kernel`` are the two versions; ``jv.launch`` (GatherLaunch) is what
+    the kernel's launcher receives."""
     if grid.periodic or grid.pad_to != (1, 1):
         raise NotImplementedError(f"{name} takes unpadded, non-periodic grids")
     tangent_jv = make_tangent_jvp(grid, tangent, device=device,
                                   dirichlet=dirichlet, dtype=torch.float32)
-    head = params_head(grid, constants, name)
-    nq = grid.tab().nq
     vshape, mshape = (n_fields,) + grid.vshape, (n_fields,) + grid.mshape
     mask_np = bc_mask(grid, dirichlet, n_fields)
-    mask = (None if mask_np is None
-            else torch.as_tensor(mask_np, device=device))
+    launch = GatherLaunch(
+        kind=symbol.removeprefix("pfh_").removesuffix("_jvp"),
+        head=params_head(grid, constants, name), nq=grid.tab().nq,
+        variant=tuple(variant),
+        mask=None if mask_np is None else torch.as_tensor(mask_np, device=device),
+        dims=(grid.ny, grid.nx), n_fields=n_fields)
+    mask = launch.mask
 
     def plain(w, w0, dt, v, b=None):
         jv_ = tangent_jv(w, w0, dt, v)
@@ -124,13 +148,14 @@ def make_fem_jvp(grid: CrossedTriGrid, tangent, n_fields: int, *, name: str,
         for pair in (w, v) if b is None else (w, v, b):
             _lib.check_shapes(name, pair, vshape, mshape)
         out = (torch.empty_like(v[0]), torch.empty_like(v[1]))
-        params = with_dt(head, dt, name)
+        params = with_dt(launch.head, dt, name)
         bv, bm = (None, None) if b is None else (b[0].data_ptr(), b[1].data_ptr())
         _lib.library().call(
-            symbol, params.ctypes.data, nq, *variant, w[0].data_ptr(),
-            w[1].data_ptr(), v[0].data_ptr(), v[1].data_ptr(), bv, bm,
-            None if mask is None else mask.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), grid.ny, grid.nx, _lib.stream_handle())
+            symbol, params.ctypes.data, launch.nq, *launch.variant,
+            w[0].data_ptr(), w[1].data_ptr(), v[0].data_ptr(), v[1].data_ptr(),
+            bv, bm, None if mask is None else mask.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), grid.ny, grid.nx,
+            _lib.stream_handle())
         _lib.count_launch(name)
         return out
 
@@ -139,4 +164,5 @@ def make_fem_jvp(grid: CrossedTriGrid, tangent, n_fields: int, *, name: str,
 
     jv.plain = plain
     jv.kernel = kernel
+    jv.launch = launch
     return jv

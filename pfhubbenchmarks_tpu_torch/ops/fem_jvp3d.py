@@ -28,6 +28,7 @@ import torch
 from pfhubbenchmarks_tpu_torch.fem.assembly3d import make_tangent_jvp3d
 from pfhubbenchmarks_tpu_torch.fem.grid3d import _TETS, TetGrid
 from pfhubbenchmarks_tpu_torch.ops import _lib
+from pfhubbenchmarks_tpu_torch.ops.fem_jvp import GatherLaunch
 
 MAX_Q = 8
 RULE_POINTS = (1, 4, 8)
@@ -65,6 +66,16 @@ def pack_tabulation3d(grid: TetGrid) -> np.ndarray:
         np.float32)
 
 
+def with_dt3(head: np.ndarray, dt: float, name: str) -> np.ndarray:
+    """The whole 3D parameter block, checked against the kernels'
+    ``Jvp3Params`` layout."""
+    params = np.concatenate([head, np.array([dt], np.float32)])
+    if params.size != _lib.library().lib.pfh_jvp3_param_floats():
+        raise RuntimeError(f"{name}: parameter block does not match the "
+                           "kernel's Jvp3Params layout")
+    return params
+
+
 def make_fem_jvp3d(grid: TetGrid, tangent, n_fields: int, *, name: str,
                    symbol: str, constants: tuple[float, ...],
                    device: torch.device | str):
@@ -72,7 +83,8 @@ def make_fem_jvp3d(grid: TetGrid, tangent, n_fields: int, *, name: str,
     the benchmark's terms that the kernel computes, ``name`` the launch
     counter, ``symbol`` the C launcher, ``constants`` the physics constants
     in the kernel's order. ``jv.plain`` and ``jv.kernel`` are the two
-    versions."""
+    versions; ``jv.launch`` (ops/fem_jvp.GatherLaunch) is what the kernel's
+    launcher receives."""
     if grid.pad_to != (1, 1, 1):
         raise NotImplementedError(f"{name} takes unpadded grids")
     if len(constants) > MAX_CONST:
@@ -81,8 +93,11 @@ def make_fem_jvp3d(grid: TetGrid, tangent, n_fields: int, *, name: str,
                                     dtype=torch.float32)
     const = np.zeros(MAX_CONST, np.float32)
     const[: len(constants)] = constants
-    params_head = np.concatenate([pack_tabulation3d(grid), const])
-    nq = grid.tab().nq
+    launch = GatherLaunch(
+        kind=symbol.removeprefix("pfh_").removesuffix("_jvp"),
+        head=np.concatenate([pack_tabulation3d(grid), const]),
+        nq=grid.tab().nq, variant=(), mask=None,
+        dims=(grid.nz, grid.ny, grid.nx), n_fields=n_fields)
     vshape = (n_fields,) + grid.vshape
 
     def plain(w, w0, dt, v, b=None):
@@ -98,15 +113,11 @@ def make_fem_jvp3d(grid: TetGrid, tangent, n_fields: int, *, name: str,
                 raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                                  f"{vshape}")
         out = torch.empty_like(v[0])
-        params = np.concatenate([params_head, np.array([dt], np.float32)])
-        lib = _lib.library()
-        if params.size != lib.lib.pfh_jvp3_param_floats():
-            raise RuntimeError(f"{name}: parameter block does not match the "
-                               "kernel's Jvp3Params layout")
-        lib.call(symbol, params.ctypes.data, nq, w[0].data_ptr(),
-                 v[0].data_ptr(), None if b is None else b[0].data_ptr(),
-                 out.data_ptr(), grid.nz, grid.ny, grid.nx,
-                 _lib.stream_handle())
+        params = with_dt3(launch.head, dt, name)
+        _lib.library().call(
+            symbol, params.ctypes.data, launch.nq, w[0].data_ptr(),
+            v[0].data_ptr(), None if b is None else b[0].data_ptr(),
+            out.data_ptr(), grid.nz, grid.ny, grid.nx, _lib.stream_handle())
         _lib.count_launch(name)
         return (out,)
 
@@ -115,6 +126,7 @@ def make_fem_jvp3d(grid: TetGrid, tangent, n_fields: int, *, name: str,
 
     jv.plain = plain
     jv.kernel = kernel
+    jv.launch = launch
     return jv
 
 

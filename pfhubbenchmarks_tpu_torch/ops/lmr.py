@@ -1,5 +1,5 @@
-"""Kernels B and C of the LMR smoother (``csrc/block_jacobi.cu``,
-``csrc/lmr.cu``) and the sweep loop built from them.
+"""Kernels B, C and L of the LMR smoother (``csrc/block_jacobi.cu``,
+``csrc/lmr.cu``, ``csrc/lmr_loop.cuh``) and the sweep loops.
 
 B, ``block_jacobi_apply``: ``z = P^-1 r`` from the F x F node-block planes,
 replacing ``_bj_apply`` of ``pfhubbenchmarks_tpu/ops/pallas_vcycle.py``.
@@ -16,17 +16,20 @@ field ranges such as BM2's ``((0, 1), (2,), (3,), (4,), (5,))``. B then sums
 each output over its own group's planes only (``_bj_apply(groups)``), and C
 forms one alpha per group (``_lmr_alpha(groups)``).
 
-``make_lmr_sweep_loop`` replaces ``pfhubbenchmarks_tpu/ops/
-pallas_residual.py:make_pallas_lmr_sweep_loop`` and ``make_pallas_lmr_sweep``
-(n sweeps in one Pallas call) and ``ops/pallas_tiled.py:
-make_tiled_lmr_sweep`` (the same sweeps over row blocks, with partial dots
-and alpha outside the kernel, which is what C's two stages do), and in 3D
-``ops/pallas3d.py:make_pallas_lmr_sweep_loop3d`` and
-``make_tiled_lmr_sweep3d`` (z slabs instead of row blocks): a launch
-sequence of B, the level J.v and C per sweep. On a level routed to the tile
-kernels (ops/fem_tile.py) ``make_tile_sweep_loop`` is that of TS (B and the
-level J.v in one launch) and C; ``make_level_sweep_loop`` picks by the
-level's J.v.
+L, ``lmr_sweep`` (``make_lmr_sweep_loop``'s kernel): the n sweeps of a
+gather level in one launch, B's body, the level J.v's gather body and C's
+two stages in each, with grid barriers between them. It replaces
+``pfhubbenchmarks_tpu/ops/pallas_residual.py:make_pallas_lmr_sweep_loop``
+and ``make_pallas_lmr_sweep`` (n sweeps in one Pallas call) and
+``ops/pallas_tiled.py:make_tiled_lmr_sweep`` (the same sweeps over row
+blocks, with partial dots and alpha outside the kernel: L's slots), and in
+3D ``ops/pallas3d.py:make_pallas_lmr_sweep_loop3d`` and
+``make_tiled_lmr_sweep3d`` (z slabs instead of row blocks). It takes the
+level's physics from ``jv.launch`` (ops/fem_jvp.GatherLaunch) and gives the
+bits of the launch sequence B, the level J.v, C per sweep, which stays as
+``sweep.sequence``. On a level routed to the tile kernels (ops/fem_tile.py)
+``make_tile_sweep_loop`` is a sequence of TS (B and the level J.v in one
+launch) and C; ``make_level_sweep_loop`` picks by the level's J.v.
 
 ``lmr_partials`` and ``lmr_update`` are C's two stages alone (one alpha):
 the sharded smoother (parallel/halo_smoother.py) adds the shards' partials
@@ -40,10 +43,14 @@ axpys), which the wrapper takes for CPU tensors only.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
 from pfhubbenchmarks_tpu_torch.ops import _lib
+from pfhubbenchmarks_tpu_torch.ops.fem_jvp import with_dt
+from pfhubbenchmarks_tpu_torch.ops.fem_jvp3d import with_dt3
 
 _LMR_THREADS = 256
 _LMR_MAX_BLOCKS = 64
@@ -282,10 +289,72 @@ def lmr_update(partials, x, r, z, az) -> None:
         lmr_update_kernel(partials, x, r, z, az)
 
 
-def _sweep_loop(name, z_az, n_sweeps, field_groups):
-    """``n_sweeps`` LMR sweeps on (x, r) in place, each ``(z, A z) =
-    z_az(version, r, w, w0, dt, pinv)`` and the step (C); ``.kernel``
-    counts one ``name`` call in ``_lib.CALLS`` (``sweep.name``)."""
+def _leaf_shapes(dims):
+    """The node planes of a level with ``dims`` cells: (v, m) in 2D, (v,)
+    in 3D."""
+    if len(dims) == 3:
+        return (tuple(d + 1 for d in dims),)
+    ny, nx = dims
+    return (ny + 1, nx + 1), (ny, nx)
+
+
+def lmr_sweep_kernel(launch, n_sweeps: int, x, r, w, dt, pinv, groups=None,
+                     *, one_cta=False) -> int:
+    """Kernel L: ``n_sweeps`` LMR sweeps of the level whose gather J.v
+    ``launch`` describes (``jv.launch``, ops/fem_jvp.GatherLaunch) on (x, r),
+    in place, in one launch; ``w`` the state, ``pinv`` the block planes.
+    It runs the cooperative grid of min(blocks needed, co-resident CTAs);
+    ``one_cta`` one CTA synced by __syncthreads instead, which on the H100
+    is 1.8-40x slower than the grid at every level of the main paths, 25^2
+    included (chip_smoke.py phase 22). Returns the CTAs run."""
+    starts = group_starts(groups)
+    shapes = _leaf_shapes(launch.dims)
+    if _leaves("lmr_sweep", x, r, w, pinv) != len(shapes):
+        raise ValueError(f"lmr_sweep: a level of {len(launch.dims)} dims "
+                         f"takes {len(shapes)}-leaf states")
+    F = launch.n_fields
+    for pair in (x, r, w):
+        if any(tuple(t.shape) != (F,) + s for t, s in zip(pair, shapes)):
+            raise ValueError(f"lmr_sweep: shapes {[tuple(t.shape) for t in pair]}"
+                             f", expected {[(F,) + s for s in shapes]}")
+    if any(tuple(t.shape) != (F, F) + s for t, s in zip(pinv, shapes)):
+        raise ValueError(f"lmr_sweep: planes {[tuple(t.shape) for t in pinv]}")
+    mask = [] if launch.mask is None else [launch.mask]
+    _lib.check_cuda("lmr_sweep", [*x, *r, *w, *pinv, *mask])
+    _check_groups("lmr_sweep", starts, F)
+    if n_sweeps < 1:
+        return 0
+    n_nodes = sum(math.prod(s) for s in shapes)
+    n_groups, c_starts = c_groups(starts)
+    nb = lmr_partial_blocks(F * n_nodes)
+    z = tuple(torch.empty_like(t) for t in x)
+    az = tuple(torch.empty_like(t) for t in x)
+    partials = torch.empty(2 * max(n_groups, 1) * nb, dtype=torch.float64,
+                           device=x[0].device)
+    grid = ctypes.c_int(0)
+    tail = (partials.data_ptr(), nb, n_groups, c_starts, n_sweeps,
+            *launch.dims, int(one_cta), ctypes.byref(grid),
+            _lib.stream_handle())
+    lib = _lib.library()
+    if len(shapes) == 1:
+        params = with_dt3(launch.head, dt, "lmr_sweep")
+        lib.call("pfh_lmr_loop_" + launch.kind, params.ctypes.data, launch.nq,
+                 x[0].data_ptr(), r[0].data_ptr(), z[0].data_ptr(),
+                 az[0].data_ptr(), pinv[0].data_ptr(), w[0].data_ptr(), *tail)
+    else:
+        params = with_dt(launch.head, dt, "lmr_sweep")
+        lib.call("pfh_lmr_loop_" + launch.kind, params.ctypes.data, launch.nq,
+                 *launch.variant, *_ptrs(x), *_ptrs(r), *_ptrs(z), *_ptrs(az),
+                 *_ptrs(pinv), *_ptrs(w),
+                 None if launch.mask is None else launch.mask.data_ptr(), *tail)
+    _lib.count_launch("lmr_sweep")
+    return grid.value
+
+
+def _sweep_body(z_az, n_sweeps, field_groups):
+    """``body(version, x, r, w, w0, dt, *pinv)``: ``n_sweeps`` LMR sweeps
+    on (x, r) in place, each ``(z, A z) = z_az(version, r, w, w0, dt,
+    pinv)`` and the step (C, or its plain version)."""
     group_starts(field_groups)
     steps = {"kernel": lmr_step_kernel, "plain": lmr_step_plain}
 
@@ -295,14 +364,12 @@ def _sweep_loop(name, z_az, n_sweeps, field_groups):
             steps[version](x, r, z, az, field_groups)
         return x, r
 
-    def kernel(*args):
-        out = body("kernel", *args)
-        _lib.count_call(name)
-        return out
+    return body
 
-    def plain(*args):
-        return body("plain", *args)
 
+def _sweep(name, kernel, plain):
+    """``sweep(x, r, w, w0, dt, *pinv)``: ``plain`` for CPU tensors, else
+    ``kernel``; both are attributes, with the loop's ``name``."""
     def sweep(x, r, w, w0, dt, *pinv):
         return (plain if _lib.on_cpu(x[0]) else kernel)(x, r, w, w0, dt, *pinv)
 
@@ -314,20 +381,30 @@ def make_lmr_sweep_loop(jv, n_sweeps: int, field_groups=None):
     """Returns ``sweep(x, r, w, w0, dt, *pinv) -> (x, r)``, the signature of
     the TPU sweep kernels (``pinv`` the block planes, one per leaf of the
     state: ``pinv_v, pinv_m`` in 2D, ``pinv_v`` in 3D): ``n_sweeps`` LMR
-    sweeps on (x, r),
-    updated in place and returned. A sweep is ``z = P^-1 r`` (B, reading
-    the in-group planes of ``field_groups``), ``A z`` by ``jv`` (the level's
-    J.v, ops/fem_jvp.make_fem_jvp) and the step (C, one alpha per group of
-    ``field_groups``). ``sweep.plain`` runs the plain versions;
-    ``sweep.kernel`` the kernels, counting one ``lmr_sweep_loop`` call in
-    ``_lib.CALLS``."""
+    sweeps on (x, r), updated in place and returned. A sweep is ``z = P^-1
+    r`` (reading the in-group planes of ``field_groups``), ``A z`` by ``jv``
+    (the level's gather J.v, ops/fem_jvp.make_fem_jvp or
+    ops/fem_jvp3d.make_fem_jvp3d) and the step (one alpha per group of
+    ``field_groups``). ``sweep.kernel`` is kernel L, all sweeps in one
+    launch of the body ``jv.launch`` describes; ``sweep.sequence`` the
+    launch sequence B, ``jv.kernel`` and C per sweep, with the same bits;
+    ``sweep.plain`` their plain versions."""
     bj = {"kernel": block_jacobi_apply_kernel, "plain": block_jacobi_apply_plain}
 
     def z_az(version, r, w, w0, dt, pinv):
         z = bj[version](pinv, r, field_groups)
         return z, getattr(jv, version)(w, w0, dt, z)
 
-    return _sweep_loop("lmr_sweep_loop", z_az, n_sweeps, field_groups)
+    body = _sweep_body(z_az, n_sweeps, field_groups)
+
+    def kernel(x, r, w, w0, dt, *pinv):
+        del w0  # the tangents do not read the previous time level
+        lmr_sweep_kernel(jv.launch, n_sweeps, x, r, w, dt, pinv, field_groups)
+        return x, r
+
+    sweep = _sweep("lmr_sweep_loop", kernel, functools.partial(body, "plain"))
+    sweep.sequence = functools.partial(body, "kernel")
+    return sweep
 
 
 def make_tile_sweep_loop(ts, n_sweeps: int, field_groups=None):
@@ -342,7 +419,14 @@ def make_tile_sweep_loop(ts, n_sweeps: int, field_groups=None):
     def z_az(version, r, w, w0, dt, pinv):
         return getattr(ts, version)(w, w0, dt, r, pinv, field_groups)
 
-    return _sweep_loop("tile_sweep_loop", z_az, n_sweeps, field_groups)
+    body = _sweep_body(z_az, n_sweeps, field_groups)
+
+    def kernel(*args):
+        out = body("kernel", *args)
+        _lib.count_call("tile_sweep_loop")
+        return out
+
+    return _sweep("tile_sweep_loop", kernel, functools.partial(body, "plain"))
 
 
 def make_level_sweep_loop(jv, n_sweeps: int, field_groups=None):

@@ -33,9 +33,9 @@ level steps.
 are the sweeps' (ops/lmr.make_lmr_sweep_loop): the in-group block-Jacobi
 planes and one LMR step length per group of a field-split cycle (BM2). On
 the card a level step is a launch sequence of the port's kernels: the sweep
-loop of the level J.v (kernel G for BM3, F for BM2, E for BM6 with its
-Dirichlet mask, A for BM1), B (block-Jacobi) and C (LMR step), or on a
-level routed to the tile kernels the tiled sweep loop of TS and C
+loop, one launch of kernel L over the level J.v's body (kernel G's physics
+for BM3, F's for BM2, E's with its Dirichlet mask for BM6, A's for BM1), or
+on a level routed to the tile kernels the tiled sweep loop of TS and C
 (ops/lmr.make_level_sweep_loop picks by the level's J.v); the level J.v
 (T12 on a tiled level) for the ascent's residual; and the pair's transfer, picked by its
 ratio (ops/transfer.transfer_ops): kernel D for a dyadic pair, H for an

@@ -12,11 +12,11 @@ make_fused_vcycle`` too:
   node-block-Jacobi inverses (solve/precond.py);
 - ``descend_chain`` (ops/vcycle_chain.py): per level the descend step (TPU
   kernel 6): local-minimal-residual pre-sweeps from zero (the sweep loop of
-  ops/lmr.py: z = P^-1 r by kernel B, A z by the level's J.v kernel, the
-  alpha step and both axpys by kernel C) and restriction (kernel D, or H for
-  an odd ratio);
+  ops/lmr.py, one launch of kernel L: per sweep z = P^-1 r, A z by the
+  level J.v's body, the alpha step and both axpys) and restriction (kernel
+  D, or H for an odd ratio);
 - the coarsest level solved by ``coarse_sweeps`` LMR sweeps from zero (one
-  call of the same sweep loop), or by the exact dense inverse when its dof
+  launch of L), or by the exact dense inverse when its dof
   count is at most ``dense_coarse_max_dofs`` (the Jacobian by
   ``torch.func.jacfwd`` and ``torch.linalg.inv`` once per build, applied
   by one f32 matmul: bench3's 7^2, 226 dofs);

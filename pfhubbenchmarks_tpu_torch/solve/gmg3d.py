@@ -12,8 +12,8 @@ and 5).
   JAX package's fixed 3D cap, ``gmg3d.py:127``) the exact dense inverse (the
   Jacobian by ``torch.func.jacfwd`` of the f32 residual, rows equilibrated,
   ``torch.linalg.inv``: the JAX package's CPU branch, ``gmg3d.py:143-144``).
-- Smoothing: the sweep loop of ops/lmr.py (B, the level's J.v by kernel I,
-  C per sweep), which stands for the TPU sweep kernels
+- Smoothing: the sweep loop of ops/lmr.py (one launch of kernel L over
+  kernel I's body), which stands for the TPU sweep kernels
   ``make_pallas_lmr_sweep_loop3d`` and ``make_tiled_lmr_sweep3d``.
 - ``vcycle(l, b)``: pre-sweeps from zero, restriction, the coarse visit,
   prolongation of its correction, the residual ``b - A x`` in one J.v

@@ -214,10 +214,10 @@ def test_launch_counters_untouched_by_plain_versions():
     assert all(n == 0 for n in _lib.LAUNCHES.values())
     assert set(_lib.LAUNCHES) == {"ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp",
                                   "ch3d_jvp", "block_jacobi_apply", "lmr_step",
-                                  "transfer_dyadic", "transfer_general",
+                                  "lmr_sweep", "transfer_dyadic",
+                                  "transfer_general",
                                   "residual", "tile_jvp_recompute",
                                   "tile_jvp_seam", "tile_sweep", "fma_chain",
                                   "shard_sweep", "gridjvp_probe"}
-    assert set(_lib.CALLS) == {"lmr_sweep_loop", "tile_sweep_loop",
-                               "descend_level", "ascend_level",
-                               "descend_chain", "ascend_chain"}
+    assert set(_lib.CALLS) == {"tile_sweep_loop", "descend_level",
+                               "ascend_level", "descend_chain", "ascend_chain"}
