@@ -12,7 +12,9 @@ Phases, each printing its results; any failure raises (non-zero exit):
    seeded inputs at bench1's shapes (J.v at 100^2/50^2/25^2 for both
    quadrature rules, at 100^2 also against ``torch.func.jvp`` of the
    residual, block-Jacobi and LMR at every level, transfers 100<->50 and
-   50<->25), with CUDA-event times of both.
+   50<->25), with CUDA-event times of both; at 100<->50 also the library
+   time of the transfers, ``torch.sparse.mm`` of the prolongation's CSR
+   matrix and its transpose (checked against the plain versions).
 4. bench1's main path: the port's bench1 at full size (100x100) through
    ``Runner.run``, the whole adaptive run to its final time (t = 1000, the
    JAX run's 74 rows to t = 1025.5), held against the committed
@@ -51,7 +53,8 @@ Phases, each printing its results; any failure raises (non-zero exit):
    ratios 2, 5, 5): the AC + heat J.v (kernel G) at every level with
    dunavant2 and at 350^2 with ffc3, both forms, at 350^2 also against
    ``torch.func.jvp`` of the residual; the general-ratio transfers (kernel
-   H) for 175<->35 and 35<->7 and kernel D for 350<->175, to the bit;
+   H) for 175<->35 and 35<->7 and kernel D for 350<->175, to the bit, with
+   the library time (``torch.sparse.mm``) at 350<->175 and 175<->35;
    block-Jacobi and LMR at 350^2; both level steps (TPU kernels 6 and 9) at
    each of the three pairs; and the warm multigrid build of the 4-level
    hierarchy, with and without the dense 7^2 inverse, timed (medians of 5).
@@ -65,19 +68,24 @@ Phases, each printing its results; any failure raises (non-zero exit):
    inverse), timed inside the run, and their share of its wall. bench3's
    full length runs in phase 19's replay.
 11. the same checks at bench1_3d's shapes (F = 2, Kuhn tets, levels
-   50^3/25^3/5^3): the 3D Cahn-Hilliard J.v (kernel I) at 50^3 with keast2
-   and ffc3, at 25^3 and 5^3 with keast2, against its plain version and
-   ``torch.func.jvp`` of the residual (which is also its library time), the
-   b - J.v form at 50^3; its device time per launch (launches queued behind
-   a sleep kernel); B and C on 1-leaf states at 50^3; the per-call times of
+   50^3/25^3/5^3): the 3D Cahn-Hilliard J.v over tet boxes (kernel U) at
+   50^3 with keast2 and ffc3, at 25^3 and 5^3 with keast2, against its plain
+   version, ``torch.func.jvp`` of the residual (which is also its library
+   time), the gather form (kernel I, its comparison: the max abs difference
+   printed, I also against the plain version) and itself on a rerun (to the
+   bit); the b - J.v form at keast2 50^3; U's and I's device time per launch
+   in the same call (launches queued behind a sleep kernel), U's per-call
+   time, bound, boxes, recompute factor, registers, spills and shared
+   memory; B and C on 1-leaf states at 50^3; the per-call times of
    the 3D transfers (plain torch) 50<->25 and 25<->5; two warm multigrid
    builds of 50/25/5, with and without the dense 5^3 inverse (medians of 5
    in turns); and one K-cycle apply.
 12. bench1_3d's main path: the port's bench1_3d at full size (50^3) through
    ``Runner.run`` to t = 52.7; the 24 rows against the committed
    ``results/bench1_3d_out.csv`` (the JAX package's run; time column rtol
-   1e-9, TFE rel 1e-6, solute rel 1e-9); its coarsest solve must be the
-   dense inverse, and kernels I and L must have run; the
+   1e-9, TFE rel 1e-6, solute rel 1e-9) and the JAX run's Newton counts
+   (98 accepted, 102 over all attempts); its coarsest solve must be the
+   dense inverse, kernels U and L must have run and I must not; the
    seconds of its multigrid builds, timed inside the run. If the smoke has
    already run 1000 s when this phase starts, it runs the first 10 rows (to
    t = 12.7) and says so.
@@ -147,10 +155,12 @@ Phases, each printing its results; any failure raises (non-zero exit):
    Dirichlet mask, bench2 with the field groups at 100^2 and 25^2, bench3
    350^2/175^2/35^2, bench1_3d 50^3 and 25^3): against its plain version
    (TOL_F32), against the launch sequence B, J.v, C (the max abs difference
-   printed; the target 0) and against itself on a rerun (to the bit); device
+   printed; the target 0, required in 3D, where the J.v is kernel U and L
+   runs U's box body) and against itself on a rerun (to the bit); device
    and per-call times of L and of the sequence, the bound, the grid and
    barrier count, and at levels of at most 20,201 nodes one CTA against the
-   cooperative grid.
+   cooperative grid; in 3D also L's device time before kernel U (over I's
+   gather body, PERF.md) and L's registers and shared memory.
 23. prints the card line, the per-kernel JSON line, then
    ``{"ok": true, "device": ...}``.
 
@@ -171,11 +181,13 @@ card could take for that case: the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its f32 operations over
 67 TFLOP/s (H100 SXM data sheet), with ``bound_by`` naming which.
 ``library_ms`` is one PyTorch call computing the same function where there
-is one (block-Jacobi's einsum pair; for the J.v kernels A, E, F, G, I, T10,
-T12 and Q ``torch.func.jvp`` of the f32 residual, for S over the shard's
-slab), else null.
+is one (block-Jacobi's einsum pair; for the J.v kernels A, E, F, G, I, U,
+T10, T12 and Q ``torch.func.jvp`` of the f32 residual, for S over the shard's
+slab; for the transfers D and H ``torch.sparse.mm`` of the transfer's CSR
+matrix), else null. Kernel I's record names U as ``comparison_of``: U took
+its place on the main path, so its launches there are 0.
 ``device_ms``, where present (L at bench2's 25^2 with 8 sweeps and the
-groups, its main shape; kernel I, B and C at bench1_3d's 50^3, R at
+groups, its main shape; kernels U, I, B and C at bench1_3d's 50^3, R at
 bench6's 100^2, T10, T12 and TS at bench3's 350^2, S on one shard of
 bench3's 350^2 on 2 x 4, Q's case a without its fold), is the device time of one launch: launches
 queued behind a sleep kernel, between two CUDA events. For kernel P the
@@ -199,6 +211,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -221,6 +234,10 @@ BENCH3_ROWS = 14                      # phases 10, 15: to t = 12.15
 BENCH1_3D_ROWS = 24                   # results/bench1_3d_out.csv, to t = 52.7
 BENCH1_3D_PREFIX_ROWS = 10            # to t = 12.7, if the smoke runs late
 BENCH1_3D_LATE_S = 1000.0
+JAX_BENCH1_3D_NEWTON = (98, 102)      # accepted, over all attempts
+# kernel L's device us per call in 3D before kernel U, over kernel I's gather
+# body (2 sweeps; PERF.md)
+L3D_BEFORE_U_US = {50: 99.3, 25: 42.2}
 P_DEPTH = 200                         # phase 16: the TPU probe's default
 # phase 20: kernel S and the dry run at bench1 100^2 and bench3 350^2;
 # phase 21: kernel Q at bench3 350^2 in 7 row blocks of 50 (the TPU probe's)
@@ -418,6 +435,77 @@ def transfer_work(coarse, fine, F, op, masked=False, accumulate=False):
     return 4 * (F * nf + F * nc + mask), flops
 
 
+def transfer_matrices(coarse, fine, prolong, dev, k=4):
+    """The prolongation ``prolong(wc, coarse, fine)`` as a CSR matrix P [fine
+    nodes, coarse nodes] (vertex plane, then centre plane, flattened) and
+    R = P^T, f32 on the card: the one PyTorch call (``torch.sparse.mm``)
+    that computes what kernels D and H compute. From 4 k^2 probes in f64:
+    per leaf and class (iy mod k, ix mod k) of coarse nodes, the ones of
+    the class, and the same with each node's flat index plus one; a P1
+    prolongation reaches one coarse cell's corners and centre, so a fine
+    node i meets at most one node j of a class, and its two values are
+    P[i, j] and (j + 1) P[i, j]."""
+    shapes = (coarse.vshape, coarse.mshape)
+    n_leaf = [math.prod(sh) for sh in shapes]
+    B = 4 * k * k
+    probe = [torch.zeros((B,) + sh, dtype=torch.float64, device=dev)
+             for sh in shapes]
+    p = 0
+    for leaf, sh in enumerate(shapes):
+        iy = torch.arange(sh[0], device=dev)[:, None]
+        ix = torch.arange(sh[1], device=dev)[None, :]
+        index = (sum(n_leaf[:leaf]) + iy * sh[1] + ix + 1).double()
+        for a in range(k):
+            for b in range(k):
+                sel = ((iy % k == a) & (ix % k == b)).double()
+                probe[leaf][p], probe[leaf][p + 1] = sel, sel * index
+                p += 2
+    vf, mf = prolong(tuple(probe), coarse, fine)
+    flat = torch.cat([vf.reshape(B, -1), mf.reshape(B, -1)], 1)
+    unit, weighted = flat[0::2], flat[1::2]
+    pi, fi = torch.nonzero(unit, as_tuple=True)
+    val = unit[pi, fi]
+    cj = torch.round(weighted[pi, fi] / val).long() - 1
+    P = torch.sparse_coo_tensor(torch.stack([fi, cj]), val.float(),
+                                (flat.shape[1], sum(n_leaf)),
+                                check_invariants=False).coalesce()
+    return P.to_sparse_csr(), P.t().coalesce().to_sparse_csr()
+
+
+def library_transfer_ms(label, coarse, fine, prolong, restrict, dev, F, rng):
+    """The library times (ms per call) of one prolongation and one
+    restriction, ``torch.sparse.mm`` of ``transfer_matrices``' P and R on
+    F columns, checked against the plain versions (max abs difference
+    printed, rel 1e-6 of max|ref|)."""
+    P, R = transfer_matrices(coarse, fine, prolong, dev)
+
+    def pair(g):
+        return tuple(torch.tensor(rng.standard_normal((F,) + sh),
+                                  dtype=torch.float32, device=dev)
+                     for sh in (g.vshape, g.mshape))
+
+    def cols(w):  # [nodes, F]: the library's layout
+        return torch.cat([t.reshape(F, -1) for t in w], 1).t().contiguous()
+
+    xc, rf = pair(coarse), pair(fine)
+    Xc, Rf = cols(xc), cols(rf)
+    out = {}
+    for name, M, X, ref in (("prolong", P, Xc, prolong(xc, coarse, fine)),
+                            ("restrict", R, Rf, restrict(rf, coarse, fine))):
+        got = torch.sparse.mm(M, X)
+        want = cols(ref)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        out[name] = cuda_ms(lambda M=M, X=X: torch.sparse.mm(M, X))
+        print(f"{label}: library {name} (torch.sparse.mm, {M._nnz()} nonzeros, "
+              f"{F} columns): {out[name] * 1e3:.1f} us per call; max abs diff "
+              f"to the plain version {err:.3e} (max|ref| {scale:.3e})",
+              flush=True)
+        if err > 1e-6 * max(scale, 1.0):
+            raise AssertionError(f"{label}: the library {name} disagrees")
+    return out
+
+
 def sweep_work(g, F, n, jv_kw=None, groups=None):
     """n sweeps: state, block planes and (x, r) in once, (x, r) out once;
     the flops of n block-Jacobi applies, J.v and LMR steps."""
@@ -479,8 +567,9 @@ def jvp3d_work(g, F=2, ns=1, with_b=False):
     """(bytes, flops) of one 3D J.v of BM1: ``ns`` state planes + F tangent
     planes (+ b) in, F planes out, over the (nz+1)(ny+1)(nx+1) vertices; each
     of the 6 tets of a cell counted once (CH3D_TET_OPS, CH3D_POINT_OPS per
-    point; the kernel evaluates each tet once per vertex, 4 times), and for
-    b - J v one subtraction per node and field."""
+    point; kernel I evaluates each tet once per vertex, 4 times, kernel U
+    once per box that holds its cell, 1.5 times on average), and for b - J v
+    one subtraction per node and field."""
     N, nq = g.n_vertices, g.tab().nq
     assert nq >= 4, "the count takes the mass matrix as exact (degree 2)"
     byts = 4 * N * (ns + 2 * F + (F if with_b else 0))
@@ -517,9 +606,11 @@ def bound(work):
 class Kernel:
     """Per-kernel aggregate of the comparisons against the plain twins."""
 
-    def __init__(self, name, source, replaces, also_replaces=()):
+    def __init__(self, name, source, replaces, also_replaces=(),
+                 comparison_of=None):
         self.name, self.source, self.replaces = name, source, replaces
         self.also_replaces = also_replaces
+        self.comparison_of = comparison_of
         self.max_abs_err = 0.0
         self.ms = self.plain_ms = self.bound_ms = self.bound_by = None
         self.library_ms = self.device_ms = None
@@ -568,6 +659,8 @@ class Kernel:
             rec["device_ms"] = self.device_ms
         if self.also_replaces:
             rec["also_replaces"] = list(self.also_replaces)
+        if self.comparison_of:
+            rec["comparison_of"] = self.comparison_of
         return rec
 
 
@@ -810,10 +903,15 @@ def kernel_records():
         "chp_jvp": Kernel("chp_jvp", csrc + "chp_jvp.cu", replaces_jv),
         "chac_jvp": Kernel("chac_jvp", csrc + "chac_jvp.cu", replaces_jv),
         "ach_jvp": Kernel("ach_jvp", csrc + "ach_jvp.cu", replaces_jv),
-        # the z-slab J.v (row 16) and the whole-array one (row 14)
+        # the z-slab J.v (row 16) and the whole-array one (row 14): U on
+        # every path, I (the gather form) its comparison in phase 11
         "ch3d_jvp": Kernel("ch3d_jvp", csrc + "ch3d_jvp.cu",
                            "pfhubbenchmarks_tpu/ops/pallas3d.py:294",
-                           ("pfhubbenchmarks_tpu/ops/pallas3d.py:149",)),
+                           ("pfhubbenchmarks_tpu/ops/pallas3d.py:149",),
+                           comparison_of="ch3d_tile"),
+        "ch3d_tile": Kernel("ch3d_tile", csrc + "fem_tet_tile.cuh",
+                            "pfhubbenchmarks_tpu/ops/pallas3d.py:294",
+                            ("pfhubbenchmarks_tpu/ops/pallas3d.py:149",)),
         "block_jacobi_apply": Kernel("block_jacobi_apply",
                                      csrc + "block_jacobi.cu", replaces_vc),
         "lmr_step": Kernel("lmr_step", csrc + "lmr.cu", replaces_vc),
@@ -886,7 +984,7 @@ def bench1_3d_phases(dev, K, C, rng, t_start, paths):
     from pfhubbenchmarks_tpu_torch import timeloop
     from pfhubbenchmarks_tpu_torch.benchmarks import bench1_3d
     from pfhubbenchmarks_tpu_torch.fem.assembly3d import make_residual3d
-    from pfhubbenchmarks_tpu_torch.ops import _lib, lmr
+    from pfhubbenchmarks_tpu_torch.ops import _lib, fem_jvp3d, lmr
     from pfhubbenchmarks_tpu_torch.solve import gmg3d
     from pfhubbenchmarks_tpu_torch.solve import transfer3d as t3
     from pfhubbenchmarks_tpu_torch.solve.precond import make_block_jacobi3d
@@ -910,7 +1008,8 @@ def bench1_3d_phases(dev, K, C, rng, t_start, paths):
         return (torch.tensor(v, dtype=f32, device=dev) + noise(g, 0.01)[0],)
 
     t11 = time.perf_counter()
-    KI = K["ch3d_jvp"]
+    KU, KI = K["ch3d_tile"], K["ch3d_jvp"]
+    lib = _lib.library()
     for rule, g0 in [("keast2", grids[0]), ("ffc3", grids[0]),
                      ("keast2", grids[1]), ("keast2", grids[2])]:
         g = dataclasses.replace(g0, rule_name=rule)
@@ -922,20 +1021,46 @@ def bench1_3d_phases(dev, K, C, rng, t_start, paths):
             return torch.func.jvp(lambda u: res(u, w, dt), (w,), (v,))[1]
 
         lab = f"{rule} {g.nz}^3"
-        timing = (cuda_ms(lambda: jv.kernel(w, w, dt, v)),
-                  cuda_ms(lambda: jv.plain(w, w, dt, v), reps=10))
-        KI.check(f"{lab} Jv", jv.kernel(w, w, dt, v), jv.plain(w, w, dt, v),
-                 TOL_F32, timing, jvp3d_work(g), library_ms=cuda_ms(library, reps=5),
-                 dev_ms=device_ms(lambda: jv.kernel(w, w, dt, v)))
-        KI.check(f"{lab} Jv vs torch.func.jvp", jv.kernel(w, w, dt, v),
-                 library(), TOL_F32)
+        dims = (g.nz, g.ny, g.nx)
+        # U and I in turns, each queued behind a sleep kernel
+        u_dev = device_ms(lambda: jv.kernel(w, w, dt, v))
+        i_dev = device_ms(lambda: jv.gather(w, w, dt, v))
+        u_dev2 = device_ms(lambda: jv.kernel(w, w, dt, v))
+        plain_ms = cuda_ms(lambda: jv.plain(w, w, dt, v), reps=10)
+        u_ms = cuda_ms(lambda: jv.kernel(w, w, dt, v))
+        i_ms = cuda_ms(lambda: jv.gather(w, w, dt, v))
+        lib_ms = cuda_ms(library, reps=5)
+        ref = jv.plain(w, w, dt, v)
+        got, again = jv.kernel(w, w, dt, v), jv.kernel(w, w, dt, v)
+        KU.check(f"{lab} Jv", got, ref, TOL_F32, (u_ms, plain_ms),
+                 jvp3d_work(g), library_ms=lib_ms, dev_ms=u_dev)
+        KU.check(f"{lab} Jv vs torch.func.jvp", got, library(), TOL_F32)
+        if not torch.equal(got[0], again[0]):
+            raise AssertionError(f"U {lab}: a rerun changed the bits")
+        gat = jv.gather(w, w, dt, v)
+        KI.check(f"{lab} Jv", gat, ref, TOL_F32, (i_ms, plain_ms),
+                 jvp3d_work(g), library_ms=lib_ms, dev_ms=i_dev)
+        d_ui = float((got[0] - gat[0]).abs().max())
+        iu = lib.kernel_info("pfh_ch3d_tile_info", jv.launch.nq)
+        ii = lib.kernel_info("pfh_ch3d_jvp_info", jv.launch.nq)
+        b_ms, b_by = bound(jvp3d_work(g))
+        print(f"phase 11: U {lab}: device {u_dev * 1e3:.2f} us per launch "
+              f"({u_dev2 * 1e3:.2f} again) vs I's {i_dev * 1e3:.2f} in the "
+              f"same call ({i_dev / u_dev:.2f}x); per call {u_ms * 1e3:.1f} "
+              f"us (I {i_ms * 1e3:.1f}); bound {b_ms * 1e3:.3f} us ({b_by}); "
+              f"{math.prod(fem_jvp3d.tet_boxes(dims))} boxes of "
+              f"{fem_jvp3d.TET_BOX} vertices (z, y, x), recompute factor "
+              f"{fem_jvp3d.recompute_factor(dims):.3f}; U {iu}; I {ii}; U vs "
+              f"I max abs diff {d_ui:.3e}; rerun bit-identical", flush=True)
         if g.nz == 50 and rule == "keast2":
-            KI.check(f"{lab} b-Jv", jv.kernel(w, w, dt, v, b=b),
+            u_b = device_ms(lambda: jv.kernel(w, w, dt, v, b=b))
+            KU.check(f"{lab} b-Jv", jv.kernel(w, w, dt, v, b=b),
                      jv.plain(w, w, dt, v, b=b), TOL_F32,
                      (cuda_ms(lambda: jv.kernel(w, w, dt, v, b=b)),
                       cuda_ms(lambda: jv.plain(w, w, dt, v, b=b), reps=10)),
-                     jvp3d_work(g, with_b=True),
-                     dev_ms=device_ms(lambda: jv.kernel(w, w, dt, v, b=b)))
+                     jvp3d_work(g, with_b=True), dev_ms=u_b)
+            KI.check(f"{lab} b-Jv", jv.gather(w, w, dt, v, b=b),
+                     jv.plain(w, w, dt, v, b=b), TOL_F32)
 
     # the per-level states and block planes of the hierarchy
     w_ls, pinvs = [], []
@@ -1054,8 +1179,15 @@ def bench1_3d_phases(dev, K, C, rng, t_start, paths):
               f"{n_rows} rows only", flush=True)
     paths["bench1_3d"], result, wall, seconds = run_main_path(
         "phase 12: bench1_3d", runner, None, "bench1_3d_out.csv", n_rows,
-        ("ch3d_jvp", "lmr_sweep"),
-        tfe_tol=1e-6, col2_tol=1e-9)
+        ("ch3d_tile", "lmr_sweep"), tfe_tol=1e-6, col2_tol=1e-9,
+        absent=("block_jacobi_apply", "lmr_step", "ch3d_jvp"))
+    newton = (sum(st.newton_iters for st in result.stats),
+              sum(st.newton_iters_all for st in result.stats))
+    print(f"phase 12: bench1_3d newton / newton_all {newton[0]} / {newton[1]} "
+          f"against the JAX run's {JAX_BENCH1_3D_NEWTON} over all 24 rows",
+          flush=True)
+    if n_rows == BENCH1_3D_ROWS and newton != JAX_BENCH1_3D_NEWTON:
+        raise AssertionError("bench1_3d's Newton counts part from the JAX run's")
     n_builds = sum(st.newton_iters_all for st in result.stats)
     build_s = seconds["precond_build"]
     print(f"phase 12: multigrid builds on the main path (with the dense 5^3 "
@@ -1722,7 +1854,7 @@ def sweep_loop_phase(dev, K, rng):
     ``one_cta``)."""
     from pfhubbenchmarks_tpu_torch.benchmarks import (bench1, bench1_3d,
                                                       bench2, bench3, bench6)
-    from pfhubbenchmarks_tpu_torch.ops import _lib, lmr
+    from pfhubbenchmarks_tpu_torch.ops import _lib, fem_jvp3d, lmr
     from pfhubbenchmarks_tpu_torch.ops import transfer as kt
     from pfhubbenchmarks_tpu_torch.solve import transfer3d as t3
     from pfhubbenchmarks_tpu_torch.solve.precond import (make_block_jacobi,
@@ -1733,6 +1865,7 @@ def sweep_loop_phase(dev, K, rng):
     f32 = torch.float32
 
     def case(label, g, n, jv, w, pinv, dt, groups, work, nodes_, main=False):
+        three_d = getattr(g, "dim", 2) == 3
         sweep = lmr.make_lmr_sweep_loop(jv, n, groups)
         b = tuple(torch.tensor(rng.standard_normal(t.shape), dtype=f32,
                                device=dev) for t in w)
@@ -1765,6 +1898,13 @@ def sweep_loop_phase(dev, K, rng):
             forms = (f"; one CTA {one * 1e3:.2f} us, cooperative grid "
                      f"{coop * 1e3:.2f} us")
         b_ms, b_by = bound(work)
+        if three_d:
+            info = _lib.library().kernel_info("pfh_lmr_loop_ch3d_info",
+                                              jv.launch.nq)
+            forms += (f"; L before U (I's gather body) {L3D_BEFORE_U_US[g.nz]} "
+                      f"us, {l_dev * 1e3 / L3D_BEFORE_U_US[g.nz]:.3f} of it; U's boxes "
+                      f"{math.prod(fem_jvp3d.tet_boxes((g.nz, g.ny, g.nx)))}; "
+                      f"L {info}")
         print(f"phase 22: L {label} n={n}: {nodes_} nodes, grid {grid} CTAs, "
               f"{3 * n} barriers; device {l_dev * 1e3:.2f} us per call vs "
               f"the sequence's {seq_dev * 1e3:.2f}; per call {l_ms * 1e3:.1f} "
@@ -1772,6 +1912,9 @@ def sweep_loop_phase(dev, K, rng):
               f"{forms}; vs the sequence max abs diff {d_seq:.3e}"
               f"{' (bit-identical)' if d_seq == 0.0 else ''}; rerun "
               f"bit-identical", flush=True)
+        if three_d and d_seq != 0.0:
+            raise AssertionError(f"L {label} n={n}: not the bits of the "
+                                 f"sequence B, U, C ({d_seq:.3e})")
         KL.check(f"{label} n={n}", got, ref, TOL_F32, (l_ms, plain_ms), work,
                  dev_ms=l_dev, main=main)
         KL.check(f"{label} n={n} vs the sequence", got, seq, TOL_F32)
@@ -1972,12 +2115,18 @@ def main() -> None:
             mf, mc = (None if m is None else torch.as_tensor(m, device=dev)
                       for m in (bc_mask(g, problem.dirichlet_for(g), F)
                                 for g in (fine, coarse)))
+            lib_ms = {}
+            if label == "bench1" and fine.nx == 100:
+                lib_ms = library_transfer_ms(f"phase 3: D {lab}", coarse, fine,
+                                             kt.prolong_plain, kt.restrict_plain,
+                                             dev, F, rng)
             xc, rf = noise_pair(coarse, F), noise_pair(fine, F)
             timing = (cuda_ms(lambda: kt.prolong_kernel(xc, coarse, fine, mask=mf)),
                       cuda_ms(lambda: kt.prolong_plain(xc, coarse, fine, mf)))
             kd.check(f"prolong {lab}", kt.prolong_kernel(xc, coarse, fine, mask=mf),
                      kt.prolong_plain(xc, coarse, fine, mf), TOL_EXACT, timing,
-                     transfer_work(coarse, fine, F, "prolong", mf is not None))
+                     transfer_work(coarse, fine, F, "prolong", mf is not None),
+                     library_ms=lib_ms.get("prolong"))
             acc = tuple(t.clone() for t in rf)
             kt.prolong_kernel(xc, coarse, fine, out=acc, mask=mf)
             kd.check(f"prolong+= {lab}", acc, kt.prolong_accumulate_plain(
@@ -1986,7 +2135,8 @@ def main() -> None:
                       cuda_ms(lambda: kt.restrict_plain(rf, coarse, fine, mc)))
             kd.check(f"restrict {lab}", kt.restrict_kernel(rf, coarse, fine, mc),
                      kt.restrict_plain(rf, coarse, fine, mc), TOL_EXACT, timing,
-                     transfer_work(coarse, fine, F, "restrict", mc is not None))
+                     transfer_work(coarse, fine, F, "restrict", mc is not None),
+                     library_ms=lib_ms.get("restrict"))
             kd.check(f"inject {lab}", kt.inject_kernel(rf, coarse, fine),
                      kt.inject_plain(rf, coarse, fine), TOL_EXACT)
 
@@ -2275,11 +2425,17 @@ def main() -> None:
         pp, rp = ((kt.prolong_plain, kt.restrict_plain) if dyadic else
                   (kt.prolong_general_plain, kt.restrict_general_plain))
         lab = f"bench3 {fine.nx}<->{coarse.nx}"
+        lib_ms = {}
+        if fine.nx in (350, 175):
+            lib_ms = library_transfer_ms(
+                f"phase 9: {'D' if dyadic else 'H'} {lab}", coarse, fine, pp, rp,
+                dev, F3, rng)
         xc, rf = noise_pair(coarse, F3), noise_pair(fine, F3)
         timing = (cuda_ms(lambda: pk(xc, coarse, fine)),
                   cuda_ms(lambda: pp(xc, coarse, fine)))
         kk.check(f"prolong {lab}", pk(xc, coarse, fine), pp(xc, coarse, fine),
-                 TOL_EXACT, timing, transfer_work(coarse, fine, F3, "prolong"))
+                 TOL_EXACT, timing, transfer_work(coarse, fine, F3, "prolong"),
+                 library_ms=lib_ms.get("prolong"))
         acc = tuple(t.clone() for t in rf)
         pk(xc, coarse, fine, out=acc)
         kk.check(f"prolong+= {lab}", acc, kt.transfer_ops(coarse, fine, "plain")[1](
@@ -2287,7 +2443,8 @@ def main() -> None:
         timing = (cuda_ms(lambda: rk(rf, coarse, fine)),
                   cuda_ms(lambda: rp(rf, coarse, fine), reps=10))
         kk.check(f"restrict {lab}", rk(rf, coarse, fine), rp(rf, coarse, fine),
-                 TOL_EXACT, timing, transfer_work(coarse, fine, F3, "restrict"))
+                 TOL_EXACT, timing, transfer_work(coarse, fine, F3, "restrict"),
+                 library_ms=lib_ms.get("restrict"))
 
     check_bj_lmr(problem3, grids3[:1], F3, "bench3", rule=s3.precond_rule)
 

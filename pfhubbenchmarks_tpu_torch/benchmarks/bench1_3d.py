@@ -12,8 +12,8 @@ Its committed trajectory is ``results/bench1_3d_out.csv`` (24 rows to
 t = 52.7, from the JAX package).
 
 On a CUDA device the outer Krylov J.v (ffc3) and every level's J.v (keast2)
-are kernel I (ops/fem_jvp3d.py), the smoothing sweeps the sweep loop of B,
-I and C (ops/lmr.py).
+are kernel U (ops/fem_jvp3d.py), the smoothing sweeps kernel L over U's body
+(ops/lmr.py).
 
 Run: ``python -m pfhubbenchmarks_tpu_torch.benchmarks.bench1_3d``.
 """
@@ -43,7 +43,7 @@ class Benchmark3DProblem:
     grid: TetGrid
     field_names: tuple
     terms: Callable                       # QPContext -> (source, flux)
-    # the hand-written pointwise tangent of terms (kernel I's physics, the
+    # the hand-written pointwise tangent of terms (kernel U's physics, the
     # block-Jacobi blocks)
     terms_tangent: Callable
     ic_fns: list                          # per-field fn(x, y, z)
@@ -97,7 +97,7 @@ class Benchmark3DProblem:
 
     def lowp_jvp_factory(self, device: torch.device | str):
         """``factory(x_lp, wprev_lp, dt_lp) -> jvp(v)``: the outer f32 J.v on
-        the true-rule grid (kernel I at ffc3)."""
+        the true-rule grid (kernel U at ffc3)."""
         jv = self.kernel_jvp(self.grid, device)
 
         def factory(x_lp, wprev_lp, dt_lp):

@@ -86,7 +86,7 @@ class SolverConfig:
     # the gather kernels everywhere.
     tiled_grid_kernels: bool = False
     # TPU-only (z-slab Pallas kernels on the 3D level whose slab is the whole
-    # grid): no-op. On a CUDA device kernel I covers every level in one launch.
+    # grid): no-op. On a CUDA device kernel U covers every level in one launch.
     tiled_nb1_3d: bool = False
     # TPU-only (how the V-cycle is split into Pallas calls): no-op. Every
     # value computes the same cycle; the port always runs it as the descend

@@ -27,3 +27,15 @@ PFH_EXPORT int pfh_ach_jvp(const float* params, int nq, const float* wv,
   return pfh::launch_fem_jvp<pfh::ACH>(params, nq, wv, wm, tv, tm, bv, bm, mask, ov,
                                   om, ny, nx, stream);
 }
+
+// Registers, spill bytes, shared bytes and co-resident CTAs per SM of G at
+// nq points (common.cuh kernel_info; tools/torch_tile_probe.py).
+PFH_EXPORT int pfh_ach_jvp_info(int nq, int* out) {
+  if (nq == 3)
+    return pfh::kernel_info(pfh::fem_jvp_kernel<pfh::ACH, 3>, pfh::kThreads, 0,
+                            out);
+  if (nq == 4)
+    return pfh::kernel_info(pfh::fem_jvp_kernel<pfh::ACH, 4>, pfh::kThreads, 0,
+                            out);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

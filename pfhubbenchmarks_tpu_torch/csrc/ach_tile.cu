@@ -25,3 +25,24 @@ PFH_EXPORT int pfh_ach_tile(int form, const float* params, int nq,
                                              ny, nx, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// Registers, spill bytes, shared bytes and co-resident CTAs per SM of the
+// tile kernel of `form` at nq points (common.cuh kernel_info): the T12
+// question of tools/torch_tile_probe.py. The fold is a second, small kernel.
+PFH_EXPORT int pfh_ach_tile_info(int form, int nq, int* out) {
+  constexpr int bytes = static_cast<int>(pfh::tile_smem_bytes<pfh::ACH>());
+  using pfh::ACH;
+  if (form == pfh::kSeam && nq == 3)
+    return pfh::kernel_info(pfh::fem_tile_kernel<ACH, 3, pfh::kSeam>,
+                            pfh::kTileCells, bytes, out);
+  if (form == pfh::kSeam && nq == 4)
+    return pfh::kernel_info(pfh::fem_tile_kernel<ACH, 4, pfh::kSeam>,
+                            pfh::kTileCells, bytes, out);
+  if (form == pfh::kRecompute && nq == 3)
+    return pfh::kernel_info(pfh::fem_tile_kernel<ACH, 3, pfh::kRecompute>,
+                            pfh::kTileCells, bytes, out);
+  if (form == pfh::kRecompute && nq == 4)
+    return pfh::kernel_info(pfh::fem_tile_kernel<ACH, 4, pfh::kRecompute>,
+                            pfh::kTileCells, bytes, out);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

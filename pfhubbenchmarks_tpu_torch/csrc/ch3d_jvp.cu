@@ -2,11 +2,11 @@
 // Kuhn-tet grid (bench1_3d), (w, dt, v) -> Jv, f32; fields (c, mu) on one
 // vertex grid [2, nz+1, ny+1, nx+1].
 //
-// Replaces pfhubbenchmarks_tpu/ops/pallas3d.py:make_pallas_jvp3d (the
-// whole-array 3D J.v) and make_tiled_jvp3d (the z-slab J.v: the outer Krylov
-// matvec at ffc3 and every level's smoothing and residual J.v at keast2),
-// and is the J.v inside the 3D sweep loop that stands for
-// make_pallas_lmr_sweep_loop3d and make_tiled_lmr_sweep3d (ops/lmr.py). The
+// The gather form of pfhubbenchmarks_tpu/ops/pallas3d.py:make_pallas_jvp3d
+// (the whole-array 3D J.v) and make_tiled_jvp3d (the z-slab J.v). Kernel U
+// (ch3d_tile.cu, tet boxes) took its place on every path, the outer J.v,
+// the level J.v and, as its body, kernel L's 3D A z; I stays built as U's
+// comparison (ops/fem_jvp3d.py jv.gather, chip_smoke.py phase 11). The
 // gather body is fem_jvp3d.cuh's; this file supplies the 3D form of BM1's
 // pointwise tangent (the mirror of benchmarks/bench1.py:terms_tangent, which
 // bench1_3d reuses: its fluxes are written per axis). It does not depend on
@@ -29,4 +29,16 @@ PFH_EXPORT int pfh_ch3d_jvp(const float* params, int nq, const float* wv,
                             int ny, int nx, void* stream) {
   return pfh::launch_fem_jvp3d<pfh::CH3>(params, nq, wv, tv, bv, ov, nz, ny, nx,
                                     stream);
+}
+
+// Registers, spill bytes, shared bytes and co-resident CTAs per SM of I at
+// nq points (common.cuh kernel_info; chip_smoke.py phase 11).
+PFH_EXPORT int pfh_ch3d_jvp_info(int nq, int* out) {
+  using pfh::CH3;
+  switch (nq) {
+    case 8: return pfh::kernel_info(pfh::fem_jvp3d_kernel<CH3, 8>, pfh::kThreads, 0, out);
+    case 4: return pfh::kernel_info(pfh::fem_jvp3d_kernel<CH3, 4>, pfh::kThreads, 0, out);
+    case 1: return pfh::kernel_info(pfh::fem_jvp3d_kernel<CH3, 1>, pfh::kThreads, 0, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

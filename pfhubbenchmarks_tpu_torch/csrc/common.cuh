@@ -59,6 +59,27 @@ struct LoadCG {
   __device__ __forceinline__ static float ld(const float* p) { return __ldcg(p); }
 };
 
+// What the compiler and the occupancy calculator give for kernel k launched
+// with `threads` threads and `smem` dynamic shared bytes: out[0] registers
+// per thread, out[1] local (spill and stack) bytes per thread, out[2] static
+// shared bytes, out[3] the dynamic shared bytes, out[4] co-resident CTAs per
+// SM. For the probes and chip_smoke.py; no launch reads it.
+template <class Kernel>
+inline int kernel_info(Kernel* k, int threads, int smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, reinterpret_cast<const void*>(k));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = smem;
+  out[4] = per_sm;
+  return 0;
+}
+
 // The group of field f.
 __device__ __forceinline__ int group_of(const FieldGroups& G, int f) {
   int g = 0;

@@ -1,8 +1,9 @@
 // The gather-form J.v of a Kuhn-tet P1 weak form in 3D, templated on the
 // physics.
 //
-// Shared body of kernel I (ch3d_jvp.cu, the 3D BM1 Cahn-Hilliard) and, per
-// node (jvp3_node), of kernel L's 3D A z (lmr_loop.cuh). Computes
+// The body of kernel I (ch3d_jvp.cu, the 3D BM1 Cahn-Hilliard), the gather
+// form that kernel U (fem_tet_tile.cuh) replaced on every path and that stays
+// as U's comparison; its parameter block is U's too. Computes
 //     out = J(w, dt) v        (b == nullptr), or   out = b - J(w, dt) v
 // in f32 on one vertex grid [F, nz+1, ny+1, nx+1] (unpadded storage; no
 // cell centres in 3D, fem/grid3d.py). Replaces the element loop of
@@ -125,9 +126,8 @@ __device__ __forceinline__ void tet_contrib(const Jvp3Params& P,
   }
 }
 
-// Contribution of cell (cz, cy, cx) to its slot S, every field; the tangent
-// plane tv is read by Ld (fem_params.cuh's LoadRO or LoadCG).
-template <class Phys, int NQ, int S, class Ld>
+// Contribution of cell (cz, cy, cx) to its slot S, every field.
+template <class Phys, int NQ, int S>
 __device__ __forceinline__ void cell_contrib3(const Jvp3Params& P,
                                               const float* __restrict__ wv,
                                               const float* __restrict__ tv,
@@ -147,7 +147,7 @@ __device__ __forceinline__ void cell_contrib3(const Jvp3Params& P,
     for (int f = 0; f < NS; ++f)
       wc[f][s] = __ldg(wv + Phys::state_field(f) * nvert + o);
 #pragma unroll
-    for (int f = 0; f < NF; ++f) d[f][s] = Ld::ld(tv + f * nvert + o);
+    for (int f = 0; f < NF; ++f) d[f][s] = __ldg(tv + f * nvert + o);
   }
   tet_contrib<Phys, NQ, S, 0>(P, wc, d, acc);
   tet_contrib<Phys, NQ, S, 1>(P, wc, d, acc);
@@ -158,7 +158,7 @@ __device__ __forceinline__ void cell_contrib3(const Jvp3Params& P,
 }
 
 // The node is slot S of cell (iz - dz, iy - dy, ix - dx), if that cell exists.
-template <class Phys, int NQ, int S, class Ld>
+template <class Phys, int NQ, int S>
 __device__ __forceinline__ void visit(const Jvp3Params& P,
                                       const float* __restrict__ wv,
                                       const float* __restrict__ tv, int iz,
@@ -166,13 +166,12 @@ __device__ __forceinline__ void visit(const Jvp3Params& P,
                                       long nvert, float (&acc)[Phys::NF]) {
   const int cz = iz - (S >> 2), cy = iy - ((S >> 1) & 1), cx = ix - (S & 1);
   if (cz >= 0 && cz < nz && cy >= 0 && cy < ny && cx >= 0 && cx < nx)
-    cell_contrib3<Phys, NQ, S, Ld>(P, wv, tv, cz, cy, cx, ny, nx, nvert, acc);
+    cell_contrib3<Phys, NQ, S>(P, wv, tv, cz, cy, cx, ny, nx, nvert, acc);
 }
 
 // The gather sum of J(w) t at vertex idx, every field: the node's (up to) 8
-// cells in slot order. The body of the J.v kernel below and of kernel L's
-// A z (lmr_loop.cuh).
-template <class Phys, int NQ, class Ld = LoadRO>
+// cells in slot order.
+template <class Phys, int NQ>
 __device__ __forceinline__ void jvp3_node(const Jvp3Params& P,
                                           const float* __restrict__ wv,
                                           const float* __restrict__ tv, long idx,
@@ -186,14 +185,14 @@ __device__ __forceinline__ void jvp3_node(const Jvp3Params& P,
   const int iz = static_cast<int>(rest / nvy);
 #pragma unroll
   for (int f = 0; f < Phys::NF; ++f) acc[f] = 0.f;
-  visit<Phys, NQ, 0, Ld>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
-  visit<Phys, NQ, 1, Ld>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
-  visit<Phys, NQ, 2, Ld>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
-  visit<Phys, NQ, 3, Ld>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
-  visit<Phys, NQ, 4, Ld>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
-  visit<Phys, NQ, 5, Ld>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
-  visit<Phys, NQ, 6, Ld>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
-  visit<Phys, NQ, 7, Ld>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
+  visit<Phys, NQ, 0>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
+  visit<Phys, NQ, 1>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
+  visit<Phys, NQ, 2>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
+  visit<Phys, NQ, 3>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
+  visit<Phys, NQ, 4>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
+  visit<Phys, NQ, 5>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
+  visit<Phys, NQ, 6>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
+  visit<Phys, NQ, 7>(P, wv, tv, iz, iy, ix, nz, ny, nx, nvert, acc);
 }
 
 template <class Phys, int NQ>

@@ -324,14 +324,21 @@ tile_fold_kernel(const float* __restrict__ seam, const float* __restrict__ bv,
 
 }  // namespace
 
+// The dynamic shared bytes of a tile: the staged state and tangent planes
+// and the vertex accumulators.
+template <class Phys>
+constexpr size_t tile_smem_bytes() {
+  return sizeof(float)
+         * ((Phys::NS + Phys::NF) * kTileNodes + Phys::NF * kTileVerts);
+}
+
 template <class Phys, int NQ, int FORM>
 int launch_tile_form(const JvpParams& P, const TileIO& io, const FieldGroups& G,
                      int ny, int nx, cudaStream_t s) {
   constexpr int NF = Phys::NF;
   const int nby = (ny + tile_ty(FORM) - 1) / tile_ty(FORM);
   const int nbx = (nx + tile_tx(FORM) - 1) / tile_tx(FORM);
-  constexpr size_t bytes =
-      sizeof(float) * ((Phys::NS + NF) * kTileNodes + NF * kTileVerts);
+  constexpr size_t bytes = tile_smem_bytes<Phys>();
   // past 48 KB a launch would have to raise the limit with
   // cudaFuncSetAttribute(MaxDynamicSharedMemorySize); BM2's 6 fields take 16 KB
   static_assert(bytes <= 48 * 1024, "the tile's shared memory passes 48 KB");

@@ -9,9 +9,12 @@
 //
 //   1. z = P^-1 r            per node, the in-group planes only (kernel B's
 //                            body, block_jacobi.cu)
-//   2. A z                   per node, the level J.v's gather body
-//                            (fem_jvp.cuh jvp_node, fem_jvp3d.cuh jvp3_node);
-//                            a Dirichlet row (mask != 0) gives z
+//   2. A z                   the level J.v's body: in 2D per node, the
+//                            gather (fem_jvp.cuh jvp_node; a Dirichlet row,
+//                            mask != 0, gives z); in 3D per box, kernel U's
+//                            (fem_tet_tile.cuh tet_box), the boxes
+//                            grid-stride over the CTAs, with U's dynamic
+//                            shared memory
 //   3. <Az, r>_g, <Az, Az>_g C's stage-1 partials in f64 (lmr.cu), slot by
 //                            slot
 //   4. alpha_g, x += alpha_g z, r -= alpha_g Az (C's stage 2), and the next
@@ -20,9 +23,10 @@
 // with a barrier after phases 1, 2 and 3: 3 per sweep. Phase 4 and the next
 // phase 1 need none between them, since one thread owns a node in both.
 //
-// Same bits as the launch sequence B, J.v, C: phase 1 sums each output over
-// its group's j in increasing order from 0 (B's order, with nvcc's FMA
-// contraction of the same expression); phase 2 is the J.v's own body; phase
+// Same bits as the launch sequence B, J.v, C (in 3D the J.v is kernel U):
+// phase 1 sums each output over its group's j in increasing order from 0
+// (B's order, with nvcc's FMA contraction of the same expression); phase 2
+// is the J.v's own body and order; phase
 // 3 is C's partition (nb = lmr_partial_blocks(n) slots of 256 entries per
 // group, C's strided assignment and shared-memory tree), one CTA of 256
 // threads reducing one slot as C's stage-1 block does, the slots spread over
@@ -57,7 +61,7 @@
 #include <algorithm>
 
 #include "fem_jvp.cuh"
-#include "fem_jvp3d.cuh"
+#include "fem_tet_tile.cuh"
 
 namespace pfh {
 
@@ -88,30 +92,6 @@ struct LoopArgs {
   FieldGroups G;
 };
 
-// The level's A z at node idx: the 2D gather J.v of Phys at NQ points.
-template <class Phys, int NQ>
-struct Level2 {
-  using Params = JvpParams;
-  static constexpr int NF = Phys::NF;
-  static Params load(const float* params) { return load_params(params); }
-  __device__ __forceinline__ static void az(const Params& P, const LoopArgs& A,
-                                            long idx, float (&acc)[NF]) {
-    jvp_node<Phys, NQ, LoadCG>(P, A.wv, A.wm, A.zv, A.zm, idx, A.ny, A.nx, acc);
-  }
-};
-
-// ... and the 3D one (Kuhn tets).
-template <class Phys, int NQ>
-struct Level3 {
-  using Params = Jvp3Params;
-  static constexpr int NF = Phys::NF;
-  static Params load(const float* params) { return load_params3(params); }
-  __device__ __forceinline__ static void az(const Params& P, const LoopArgs& A,
-                                            long idx, float (&acc)[NF]) {
-    jvp3_node<Phys, NQ, LoadCG>(P, A.wv, A.zv, idx, A.nz, A.ny, A.nx, acc);
-  }
-};
-
 // A node's plane offset: its leaf's base pointer is picked by on_v.
 struct Node {
   bool on_v;
@@ -122,6 +102,64 @@ struct Node {
         n(on_v ? A.nvert : A.ncell) {}
   __device__ __forceinline__ long at(int f) const { return f * n + i; }
 };
+
+// The level's phase 2, A z of the whole level into av/am, grid-stride, and
+// the CTAs and dynamic shared bytes it asks for. 2D: per node, the gather
+// J.v of Phys at NQ points; a Dirichlet row (mask != 0) gives z.
+template <class Phys, int NQ>
+struct Level2 {
+  using Params = JvpParams;
+  static constexpr int NF = Phys::NF;
+  static constexpr int kSmemBytes = 0;
+  static Params load(const float* params) { return load_params(params); }
+  static long blocks(const LoopArgs& A) {
+    return blocks_for(A.nvert + A.ncell, kLoopThreads);
+  }
+  __device__ __forceinline__ static void az(const Params& P, const LoopArgs& A,
+                                            float*) {
+    const long N = A.nvert + A.ncell;
+    for (long idx = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+         idx < N; idx += static_cast<long>(gridDim.x) * blockDim.x) {
+      const Node nd(A, idx);
+      float acc[NF];
+      jvp_node<Phys, NQ, LoadCG>(P, A.wv, A.wm, A.zv, A.zm, idx, A.ny, A.nx,
+                                 acc);
+      const float* z = nd.on_v ? A.zv : A.zm;
+      float* az = nd.on_v ? A.av : A.am;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        float val = acc[f];
+        if (nd.on_v && A.mask != nullptr && __ldg(A.mask + nd.at(f)) != 0.f)
+          val = __ldcg(z + nd.at(f));
+        az[nd.at(f)] = val;
+      }
+    }
+  }
+};
+
+// ... and 3D (Kuhn tets): kernel U's body (fem_tet_tile.cuh) per box, in
+// U's order, so that L gives the bits of the launch sequence B, U, C. The
+// CTA is U's (kLoopThreads == kTetThreads).
+template <class Phys, int NQ>
+struct Level3 {
+  using Params = Jvp3Params;
+  static constexpr int NF = Phys::NF;
+  static constexpr int kSmemBytes =
+      static_cast<int>(sizeof(float)) * tet_box_floats<Phys>();
+  static Params load(const float* params) { return load_params3(params); }
+  static long blocks(const LoopArgs& A) {
+    return std::max(static_cast<long>(blocks_for(A.nvert, kLoopThreads)),
+                    tet_boxes(A.nz, A.ny, A.nx));
+  }
+  __device__ __forceinline__ static void az(const Params& P, const LoopArgs& A,
+                                            float* smem) {
+    const long nbox = tet_boxes(A.nz, A.ny, A.nx);
+    for (long b = blockIdx.x; b < nbox; b += gridDim.x)
+      tet_box<Phys, NQ, LoadCG>(P, A.wv, A.zv, nullptr, A.av, A.nz, A.ny, A.nx,
+                                b, smem);
+  }
+};
+static_assert(kLoopThreads == kTetThreads, "L's 3D A z runs U's CTA");
 
 // Phase 1: z = P^-1 r at the node from its r values rr; in-group j only, in
 // increasing order (B's sum; j unrolled, so rr stays in registers).
@@ -199,6 +237,7 @@ lmr_loop_kernel(const typename Lv::Params P, const LoopArgs A) {
   __shared__ double s_den[kLoopThreads];
   __shared__ double s_part[2 * kMaxGroups * kLoopMaxSlots];
   __shared__ float s_alpha[kMaxGroups];
+  extern __shared__ float lmr_smem[];  // Lv::kSmemBytes: phase 2's
   const long N = A.nvert + A.ncell;
   const long first = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long stride = static_cast<long>(gridDim.x) * blockDim.x;
@@ -213,20 +252,7 @@ lmr_loop_kernel(const typename Lv::Params P, const LoopArgs A) {
   }
   for (int s = 0; s < A.n_sweeps; ++s) {
     loop_barrier();
-    for (long idx = first; idx < N; idx += stride) {  // phase 2
-      const Node nd(A, idx);
-      float acc[NF];
-      Lv::az(P, A, idx, acc);
-      const float* z = nd.on_v ? A.zv : A.zm;
-      float* az = nd.on_v ? A.av : A.am;
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        float val = acc[f];
-        if (nd.on_v && A.mask != nullptr && __ldg(A.mask + nd.at(f)) != 0.f)
-          val = __ldcg(z + nd.at(f));
-        az[nd.at(f)] = val;
-      }
-    }
+    Lv::az(P, A, lmr_smem);  // phase 2
     loop_barrier();
     partial_slots(A, s_num, s_den);  // phase 3
     loop_barrier();
@@ -268,7 +294,21 @@ lmr_loop_kernel(const typename Lv::Params P, const LoopArgs A) {
   }
 }
 
-// Co-resident CTAs of one instantiation on the current device (cached).
+// Lets an instantiation take its level's dynamic shared bytes (above 48 KB
+// a kernel must ask for them), once.
+template <class Lv>
+inline cudaError_t allow_loop_smem() {
+  static const cudaError_t err =
+      Lv::kSmemBytes == 0
+          ? cudaSuccess
+          : cudaFuncSetAttribute(
+                reinterpret_cast<const void*>(lmr_loop_kernel<Lv>),
+                cudaFuncAttributeMaxDynamicSharedMemorySize, Lv::kSmemBytes);
+  return err;
+}
+
+// Co-resident CTAs of one instantiation on the current device (cached), with
+// its dynamic shared bytes.
 template <class Lv>
 inline int resident_ctas() {
   static int cached[64] = {0};
@@ -276,8 +316,10 @@ inline int resident_ctas() {
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
   if (cached[dev] == 0) {
     int per_sm = 0, sms = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, lmr_loop_kernel<Lv>, kLoopThreads, 0) != cudaSuccess ||
+    if (allow_loop_smem<Lv>() != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, lmr_loop_kernel<Lv>, kLoopThreads, Lv::kSmemBytes) !=
+            cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
             cudaSuccess)
       return 0;
@@ -295,25 +337,26 @@ int launch_lmr_loop(const float* params, const LoopArgs& A, int one_cta,
     return static_cast<int>(cudaErrorInvalidValue);
   const typename Lv::Params P = Lv::load(params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t smem_err = allow_loop_smem<Lv>();
+  if (smem_err != cudaSuccess) return static_cast<int>(smem_err);
   int grid = 1;
   if (!one_cta) {
-    const long need = std::max(
-        static_cast<long>(blocks_for(A.nvert + A.ncell, kLoopThreads)),
-        static_cast<long>(A.G.n) * A.nb);
+    const long need =
+        std::max(Lv::blocks(A), static_cast<long>(A.G.n) * A.nb);
     const int resident = resident_ctas<Lv>();
     if (resident < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     grid = static_cast<int>(std::min(need, static_cast<long>(resident)));
   }
   *grid_out = grid;
   if (grid == 1) {
-    lmr_loop_kernel<Lv><<<1, kLoopThreads, 0, s>>>(P, A);
+    lmr_loop_kernel<Lv><<<1, kLoopThreads, Lv::kSmemBytes, s>>>(P, A);
     return static_cast<int>(cudaGetLastError());
   }
   void* args[] = {const_cast<typename Lv::Params*>(&P),
                   const_cast<LoopArgs*>(&A)};
   const cudaError_t err = cudaLaunchCooperativeKernel(
       (const void*)lmr_loop_kernel<Lv>, dim3(grid), dim3(kLoopThreads), args,
-      0, s);
+      Lv::kSmemBytes, s);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 

@@ -40,7 +40,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
 
 KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp", "ch3d_jvp",
-           "block_jacobi_apply", "lmr_step", "lmr_sweep", "transfer_dyadic",
+           "ch3d_tile", "block_jacobi_apply", "lmr_step", "lmr_sweep", "transfer_dyadic",
            "transfer_general", "residual", "tile_jvp_recompute",
            "tile_jvp_seam", "tile_sweep", "fma_chain", "shard_sweep",
            "gridjvp_probe")
@@ -116,7 +116,13 @@ class KernelLibrary:
             "pfh_ach_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
             "pfh_jvp_param_floats": [],
             "pfh_ch3d_jvp": [vp, i32] + [vp] * 4 + [i32] * 3 + [vp],
+            "pfh_ch3d_tile": [vp, i32] + [vp] * 4 + [i32] * 3 + [vp],
             "pfh_jvp3_param_floats": [],
+            "pfh_ch3d_tile_info": [i32, ip],
+            "pfh_ch3d_jvp_info": [i32, ip],
+            "pfh_lmr_loop_ch3d_info": [i32, ip],
+            "pfh_ach_jvp_info": [i32, ip],
+            "pfh_ach_tile_info": [i32, i32, ip],
             "pfh_block_jacobi_apply": [vp] * 6 + [i32, i64, i64, i32, vp, vp],
             "pfh_lmr_step": [vp] * 8 + [i64, i64, i32, i32, vp, vp, i32, vp,
                                         vp],
@@ -159,6 +165,16 @@ class KernelLibrary:
         err = getattr(self.lib, name)(*args)
         if err != 0:
             raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+    def kernel_info(self, name: str, *args) -> dict:
+        """What a ``pfh_*_info`` export reports of one kernel instantiation
+        (csrc/common.cuh kernel_info): registers and local (spill) bytes
+        per thread, static and dynamic shared bytes and co-resident CTAs per
+        SM."""
+        out = (ctypes.c_int * 5)()
+        self.call(name, *args, out)
+        return dict(zip(("registers", "local_bytes", "static_smem",
+                         "dynamic_smem", "ctas_per_sm"), out))
 
 
 def _sources() -> list[Path]:

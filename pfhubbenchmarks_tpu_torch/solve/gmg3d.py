@@ -13,7 +13,7 @@ and 5).
   Jacobian by ``torch.func.jacfwd`` of the f32 residual, rows equilibrated,
   ``torch.linalg.inv``: the JAX package's CPU branch, ``gmg3d.py:143-144``).
 - Smoothing: the sweep loop of ops/lmr.py (one launch of kernel L over
-  kernel I's body), which stands for the TPU sweep kernels
+  kernel U's box body), which stands for the TPU sweep kernels
   ``make_pallas_lmr_sweep_loop3d`` and ``make_tiled_lmr_sweep3d``.
 - ``vcycle(l, b)``: pre-sweeps from zero, restriction, the coarse visit,
   prolongation of its correction, the residual ``b - A x`` in one J.v
@@ -99,7 +99,7 @@ def make_gmg3d(grid: TetGrid, terms, n_fields: int, *,
     """Returns ``build(w, w0, dt) -> Minv`` applying one f32 cycle.
 
     ``jvp_for(g)`` makes the level J.v ``jv(w, w0, dt, v, b=None)`` on grid
-    ``g`` (kernel I, ops/fem_jvp3d.py); ``tangent`` is the benchmark's
+    ``g`` (kernel U, ops/fem_jvp3d.py); ``tangent`` is the benchmark's
     hand-written pointwise tangent (the block-Jacobi build); ``terms`` its
     weak form (the dense coarse Jacobian). ``precond_rule`` rediscretizes the
     whole hierarchy at a cheaper tet rule (bench1_3d: keast2). ``build.grids``

@@ -213,7 +213,8 @@ def test_launch_counters_untouched_by_plain_versions():
     prolong(_t(_rand_pair(coarse, rng)), coarse, fine)
     assert all(n == 0 for n in _lib.LAUNCHES.values())
     assert set(_lib.LAUNCHES) == {"ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp",
-                                  "ch3d_jvp", "block_jacobi_apply", "lmr_step",
+                                  "ch3d_jvp", "ch3d_tile",
+                                  "block_jacobi_apply", "lmr_step",
                                   "lmr_sweep", "transfer_dyadic",
                                   "transfer_general",
                                   "residual", "tile_jvp_recompute",

@@ -114,8 +114,9 @@ def test_plain_sweep_loop_matches_pallas(name, n):
 
 class _Recorder:
     """Stands in for the kernel library: records each launcher's name and
-    arguments; for a J.v or L launcher (whose first argument is the
-    parameter block) the block, copied out while it is alive."""
+    arguments; for a J.v (gather or 3D tet box) or L launcher (whose first
+    argument is the parameter block) the block, copied out while it is
+    alive."""
 
     def __init__(self, param_floats):
         self.calls = []
@@ -128,7 +129,7 @@ class _Recorder:
     pfh_jvp3_param_floats = pfh_jvp_param_floats
 
     def call(self, name, *args):
-        if name.endswith("_jvp") or name.startswith("pfh_lmr_loop_"):
+        if name.endswith(("_jvp", "_tile")) or name.startswith("pfh_lmr_loop_"):
             block = np.ctypeslib.as_array((ctypes.c_float * self.param_floats)
                                           .from_address(args[0])).copy()
             self.calls.append((name, block, args[1:]))
@@ -183,7 +184,8 @@ def test_launch_description_is_the_jvps(name, monkeypatch):
         (c_name, _, c_args) = rec.calls
 
     # the physics, its constants, tabulation and dt, the rule, the variant
-    assert jv_name == f"pfh_{launch.kind}_jvp"
+    # (a 3D level's J.v is kernel U, the tet boxes whose body L runs)
+    assert jv_name == f"pfh_{launch.kind}_{'tile' if three_d else 'jvp'}"
     assert l_name == f"pfh_lmr_loop_{launch.kind}"
     np.testing.assert_array_equal(l_block, jv_block)
     n_var = len(launch.variant)
