@@ -11,10 +11,20 @@ Phases, each printing its results; any failure raises (non-zero exit):
 3. holds each kernel against its plain PyTorch version on the card, on
    seeded inputs at bench1's shapes (J.v at 100^2/50^2/25^2 for both
    quadrature rules, at 100^2 also against ``torch.func.jvp`` of the
-   residual, block-Jacobi and LMR at every level, transfers 100<->50 and
-   50<->25), with CUDA-event times of both; at 100<->50 also the library
-   time of the transfers, ``torch.sparse.mm`` of the prolongation's CSR
-   matrix and its transpose (checked against the plain versions).
+   residual, block-Jacobi and LMR at every level), with CUDA-event times of
+   both; that ``_lib.stream_handle()`` is PyTorch's current stream (on a
+   side stream too), with both getters' host us; and the transfers at every
+   pair (100<->50, 50<->25; ``transfer_pair_checks``): kernel D through
+   ``TransferPlan``, the object the main path calls, for prolong, prolong
+   with ``out``, restrict and inject, unmasked and with seeded 0/1 masks,
+   to the bit against the plain versions and against itself on a rerun;
+   per-call and device times (launches queued behind a sleep kernel) of
+   each op beside the library's, ``torch.sparse.mm`` of the prolongation's
+   CSR matrix and its transpose (checked against the plain versions), per
+   call and on the device; at 100->50 the host path of one restriction in
+   parts (checks, allocation, stream handle, ctypes call; 1,000 calls
+   each), the plan's and the old path's (a copy of the launch path before
+   the plans, around the new kernel).
 4. bench1's main path: the port's bench1 at full size (100x100) through
    ``Runner.run``, the whole adaptive run to its final time (t = 1000, the
    JAX run's 74 rows to t = 1025.5), held against the committed
@@ -29,8 +39,9 @@ Phases, each printing its results; any failure raises (non-zero exit):
 5. the same checks at bench6's shapes (F = 3, levels 100^2/50^2/25^2): the
    CH+Poisson J.v (kernel E) for both rules, J.v and b - J.v forms, with
    and without the Dirichlet mask, at 100^2 also against ``torch.func.jvp``
-   of the residual; the masked transfers; the descend and ascend chains
-   against their plain twins.
+   of the residual; the transfers at every pair as in phase 3, with the
+   problem's Dirichlet masks (the main path's case) and without; the
+   descend and ascend chains against their plain twins.
 6. bench6's main path: the port's bench6 at full size (100x100) through
    ``Runner.run`` to t = 3.19; the 14 rows against the committed
    ``results/bench6_out.csv`` (time column rtol 1e-9, TFE rel 1e-6, solute
@@ -41,7 +52,8 @@ Phases, each printing its results; any failure raises (non-zero exit):
    forms, with 4 order parameters at every level and with 1 and 2 at 100^2,
    also against ``torch.func.jvp`` of the residual; block-Jacobi and LMR
    with the field groups; both chains with the groups; and the time of one
-   block-Jacobi build of the hierarchy.
+   block-Jacobi build of the hierarchy; the transfers (D, F = 6) at every
+   pair as in phase 3.
 8. bench2's main path: the port's bench2 at full size (100x100, six
    fields) through ``Runner.run`` to t = 2.15; the first 14 rows against
    the committed ``results/bench2_out.csv`` (time column rtol 1e-9, TFE rel
@@ -52,9 +64,9 @@ Phases, each printing its results; any failure raises (non-zero exit):
 9. the same checks at bench3's shapes (F = 2, levels 350^2/175^2/35^2/7^2,
    ratios 2, 5, 5): the AC + heat J.v (kernel G) at every level with
    dunavant2 and at 350^2 with ffc3, both forms, at 350^2 also against
-   ``torch.func.jvp`` of the residual; the general-ratio transfers (kernel
-   H) for 175<->35 and 35<->7 and kernel D for 350<->175, to the bit, with
-   the library time (``torch.sparse.mm``) at 350<->175 and 175<->35;
+   ``torch.func.jvp`` of the residual; the transfers at every pair as in
+   phase 3: kernel H for 175<->35 and 35<->7, kernel D for 350<->175, with
+   the host path of H's restriction at 175->35;
    block-Jacobi and LMR at 350^2; both level steps (TPU kernels 6 and 9) at
    each of the three pairs; and the warm multigrid build of the 4-level
    hierarchy, with and without the dense 7^2 inverse, timed (medians of 5).
@@ -187,7 +199,8 @@ slab; for the transfers D and H ``torch.sparse.mm`` of the transfer's CSR
 matrix), else null. Kernel I's record names U as ``comparison_of``: U took
 its place on the main path, so its launches there are 0.
 ``device_ms``, where present (L at bench2's 25^2 with 8 sweeps and the
-groups, its main shape; kernels U, I, B and C at bench1_3d's 50^3, R at
+groups, its main shape; D at bench1's 100<->50 prolongation and H at
+bench3's 175<->35 prolongation; kernels U, I, B and C at bench1_3d's 50^3, R at
 bench6's 100^2, T10, T12 and TS at bench3's 350^2, S on one shard of
 bench3's 350^2 on 2 x 4, Q's case a without its fold), is the device time of one launch: launches
 queued behind a sleep kernel, between two CUDA events. For kernel P the
@@ -352,6 +365,27 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def interleaved_ms(fns: dict, rounds: int = 8, reps: int = 8) -> dict:
+    """Median per-call ms of each function of ``fns`` (CUDA events around one
+    call), timed in turns: ``rounds`` rounds of ``reps`` calls of each, so a
+    drift of the host's speed reaches all of them alike."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            for _ in range(reps):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn()
+                b.record()
+                b.synchronize()
+                times[name].append(a.elapsed_time(b))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 # ---- work of one call, from the shapes (for bound_ms) ----------------------
 
 def nodes(g) -> int:
@@ -473,10 +507,12 @@ def transfer_matrices(coarse, fine, prolong, dev, k=4):
 
 
 def library_transfer_ms(label, coarse, fine, prolong, restrict, dev, F, rng):
-    """The library times (ms per call) of one prolongation and one
-    restriction, ``torch.sparse.mm`` of ``transfer_matrices``' P and R on
-    F columns, checked against the plain versions (max abs difference
-    printed, rel 1e-6 of max|ref|)."""
+    """The library calls of one prolongation and one restriction,
+    ``torch.sparse.mm`` of ``transfer_matrices``' P and R on F columns,
+    checked against the plain versions (max abs difference printed, rel 1e-6
+    of max|ref|): the calls (key "prolong" / "restrict"), to be timed per
+    call beside the kernels (``interleaved_ms``), and their device ms (queued
+    behind a sleep kernel, key "prolong_device" / "restrict_device")."""
     P, R = transfer_matrices(coarse, fine, prolong, dev)
 
     def pair(g):
@@ -496,14 +532,245 @@ def library_transfer_ms(label, coarse, fine, prolong, restrict, dev, F, rng):
         want = cols(ref)
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
-        out[name] = cuda_ms(lambda M=M, X=X: torch.sparse.mm(M, X))
+        out[name] = lambda M=M, X=X: torch.sparse.mm(M, X)
+        out[name + "_device"] = device_ms(out[name])
         print(f"{label}: library {name} (torch.sparse.mm, {M._nnz()} nonzeros, "
-              f"{F} columns): {out[name] * 1e3:.1f} us per call; max abs diff "
-              f"to the plain version {err:.3e} (max|ref| {scale:.3e})",
-              flush=True)
+              f"{F} columns): {out[name + '_device'] * 1e3:.2f} us on the "
+              f"device; max abs diff to the plain version {err:.3e} (max|ref| "
+              f"{scale:.3e})", flush=True)
         if err > 1e-6 * max(scale, 1.0):
             raise AssertionError(f"{label}: the library {name} disagrees")
     return out
+
+
+def host_us(fn, n: int = 1000) -> float:
+    """Host microseconds per call of ``fn`` over ``n`` calls (what it
+    launches is queued, not waited for; the card is synchronized after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n / 1e3
+
+
+def old_transfer_parts(plan, src):
+    """The launch path of a transfer before the plans (``ops/transfer.py``'s
+    ``_check``, two ``new_empty``, ``_launch`` / ``_launch_general`` of the
+    parent), copied here only to time it, around the new kernels: (check,
+    allocate, library and stream, call) for one call of ``plan``'s op
+    without ``out``. H's call also makes the parent's ``param_floats``
+    query and ``params.ctypes`` object, which the new launcher no longer
+    takes."""
+    from pfhubbenchmarks_tpu_torch.ops import _lib
+    from pfhubbenchmarks_tpu_torch.ops import transfer as kt
+
+    coarse, fine, op, mask = plan.coarse, plan.fine, plan.op, plan.mask
+    src_g, dst_g = (coarse, fine) if op == "prolong" else (fine, coarse)
+    code = {"prolong": 0, "restrict": 1, "inject": 2}[op]
+
+    def check():
+        if plan.R == 2:
+            kt._check_dyadic(coarse, fine)
+        else:
+            kt._general_ratio(coarse, fine)
+        for g in (coarse, fine):
+            if g.periodic or g.pad_to != (1, 1):
+                raise NotImplementedError(op)
+        _lib.check_cuda(op, [t for p in [src] for t in p]
+                        + ([mask] if mask is not None else []))
+        F = src[0].shape[0]
+        _lib.check_shapes(op, src, (F,) + src_g.vshape, (F,) + src_g.mshape)
+        if mask is not None and tuple(mask.shape) != (F,) + dst_g.vshape:
+            raise ValueError(op)
+
+    def alloc():
+        F = src[0].shape[0]
+        return (src[0].new_empty((F,) + dst_g.vshape),
+                src[0].new_empty((F,) + dst_g.mshape))
+
+    def stream():
+        _lib.library()
+        return torch.cuda.current_stream().cuda_stream
+
+    dst = alloc()
+    s = stream()
+
+    def call():
+        lib = _lib.library()
+        mp = None if mask is None else mask.data_ptr()
+        if plan.R == 2:
+            lib.call("pfh_transfer", code, src[0].data_ptr(), src[1].data_ptr(),
+                     dst[0].data_ptr(), dst[1].data_ptr(), mp, src[0].shape[0],
+                     coarse.ny, coarse.nx, 0, s)
+            _lib.count_launch("transfer_dyadic")
+            return
+        params = kt._general_params(plan.R)
+        if params.size != lib.lib.pfh_transfer_general_param_floats():
+            raise RuntimeError("GenWeights")
+        params.ctypes.data  # noqa: B018 (the parent passed this address)
+        lib.call("pfh_transfer_general", code, plan.R, src[0].data_ptr(),
+                 src[1].data_ptr(), dst[0].data_ptr(), dst[1].data_ptr(), mp,
+                 src[0].shape[0], coarse.ny, coarse.nx, 0, s)
+        _lib.count_launch("transfer_general")
+
+    return check, alloc, stream, call
+
+
+def host_breakdown(label, plan, src):
+    """Host us per call of each part of one call of ``plan`` (no ``out``):
+    its check, the allocation, the stream handle and the ctypes call with
+    its launch, and the whole call; the same for the old path
+    (``old_transfer_parts``); over 1,000 calls each."""
+    from pfhubbenchmarks_tpu_torch.ops import _lib
+
+    v = src[0]
+    dst = plan.kernel(src)   # binds the plan's launcher
+    fn = plan._fn
+    s = _lib.stream_handle()
+
+    def call():
+        fn(*plan._head, src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(),
+           dst[1].data_ptr(), plan._mask_ptr, *plan._ints, 0, s)
+        _lib.count_launch(plan.kernel_name)
+
+    new = {"check": host_us(lambda: plan.check(src)),
+           "allocate": host_us(lambda: (v.new_empty(plan.dst_shapes[0]),
+                                        v.new_empty(plan.dst_shapes[1]))),
+           "stream": host_us(_lib.stream_handle),
+           "call": host_us(call),
+           "whole": host_us(lambda: plan.kernel(src))}
+    check, alloc, stream, ocall = old_transfer_parts(plan, src)
+
+    def old_whole():
+        check()
+        alloc()
+        stream()
+        ocall()
+
+    old = {"check": host_us(check), "allocate": host_us(alloc),
+           "stream": host_us(stream), "call": host_us(ocall),
+           "whole": host_us(old_whole)}
+    for name, parts in (("plan", new), ("old path", old)):
+        print(f"{label}: host us per call, {name}: "
+              + ", ".join(f"{k} {t:.2f}" for k, t in parts.items())
+              + f" (parts sum {sum(parts[k] for k in parts if k != 'whole'):.2f})",
+              flush=True)
+    return new, old
+
+
+def check_stream_handle(label):
+    """``_lib.stream_handle()`` must be PyTorch's current stream, on the
+    default stream and inside ``torch.cuda.stream``; prints both getters'
+    host us per call."""
+    from pfhubbenchmarks_tpu_torch.ops import _lib
+
+    side = torch.cuda.Stream()
+    for ctx in (None, side):
+        if ctx is None:
+            got, want = _lib.stream_handle(), torch.cuda.current_stream().cuda_stream
+        else:
+            with torch.cuda.stream(ctx):
+                got = _lib.stream_handle()
+                want = torch.cuda.current_stream().cuda_stream
+            if want != side.cuda_stream:
+                raise AssertionError("torch.cuda.stream did not switch streams")
+        if got != want:
+            raise AssertionError(f"stream_handle {got:#x} is not the current "
+                                 f"stream {want:#x}")
+    torch.cuda.synchronize()
+    print(f"{label}: stream handle: _lib.stream_handle() "
+          f"{host_us(_lib.stream_handle):.3f} us per call, "
+          f"torch.cuda.current_stream().cuda_stream "
+          f"{host_us(lambda: torch.cuda.current_stream().cuda_stream):.3f} us; "
+          f"equal on the default stream and on a side stream", flush=True)
+
+
+def transfer_pair_checks(K, phase, label, coarse, fine, F, masks, noise_pair,
+                         rng, dev, breakdown=False):
+    """Kernel D or H at one level pair through ``TransferPlan``, the object
+    the main path calls: prolong, prolong+=, restrict and (dyadic) inject
+    against the plain versions to the bit (TOL_EXACT), unmasked and masked
+    (``masks`` = the pair's (fine, coarse) Dirichlet masks, or seeded 0/1
+    masks where the problem has none), each also against itself on a rerun;
+    on the main path's variant (masked where the problem has masks) the
+    per-call and device times of each op beside the plain version's and the
+    library's (``torch.sparse.mm``, per call and device). ``breakdown``:
+    also the host path of one restriction, new and old."""
+    from pfhubbenchmarks_tpu_torch.ops import transfer as kt
+
+    dyadic = fine.nx == 2 * coarse.nx
+    kk = K["transfer_dyadic" if dyadic else "transfer_general"]
+    tag = f"{phase}: {'D' if dyadic else 'H'} {label} {fine.nx}<->{coarse.nx}"
+    main_masked = masks[0] is not None or masks[1] is not None
+
+    def seeded_mask(g):
+        return torch.tensor((rng.random((F,) + g.vshape) < 0.2).astype(np.float32),
+                            device=dev)
+
+    if not main_masked:
+        masks = (seeded_mask(fine), seeded_mask(coarse))
+    lib_ms = library_transfer_ms(tag, coarse, fine, kt.transfer_ops(
+        coarse, fine, "plain")[1], kt.transfer_ops(coarse, fine, "plain")[0],
+        dev, F, rng)
+    summary = {}
+    for masked in (False, True):
+        mf, mc = masks if masked else (None, None)
+        lab = f"{label} {fine.nx}<->{coarse.nx}{' masked' if masked else ''}"
+        P = kt.TransferPlan(coarse, fine, F, "prolong", mf)
+        Rt = kt.TransferPlan(coarse, fine, F, "restrict", mc)
+        ops = [("prolong", P, None), ("prolong+=", P, "out"),
+               ("restrict", Rt, None)]
+        if dyadic and not masked:
+            ops.append(("inject", kt.TransferPlan(coarse, fine, F, "inject"),
+                        None))
+        main = masked == main_masked
+        for name, plan, out in ops:
+            src = noise_pair(coarse if plan.op == "prolong" else fine, F)
+            base = noise_pair(fine, F) if out else None
+
+            def run(version, plan=plan, src=src, base=base):
+                o = None if base is None else tuple(t.clone() for t in base)
+                return getattr(plan, version)(src, o)
+
+            got, again = run("kernel"), run("kernel")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{tag} {name}: a rerun changed bits")
+            timing = work = lib = dev_ms = None
+            if main:
+                o = None if base is None else tuple(t.clone() for t in base)
+                calls = {"plan": lambda: plan(src, o)}
+                if name in lib_ms:
+                    calls["library"] = lib_ms[name]
+                per_call = interleaved_ms(calls)
+                timing = (per_call["plan"],
+                          cuda_ms(lambda: plan.plain(src, o), reps=10))
+                dev_ms = device_ms(lambda: plan(src, o))
+                if plan.op != "inject":
+                    work = transfer_work(coarse, fine, F, plan.op, masked,
+                                         accumulate=bool(out))
+                else:   # reads and writes the coarse nodes' values
+                    work = (8 * F * nodes(coarse), 0)
+                lib = per_call.get("library")
+                summary[name] = (timing[0], dev_ms, lib,
+                                 lib_ms.get(name + "_device"))
+            kk.check(f"{name} {lab} (rerun equal)", got, run("plain"),
+                     TOL_EXACT, timing, work, library_ms=lib, dev_ms=dev_ms)
+    print(f"{tag}: us per call through the plan / on the device (library per "
+          f"call / device; per call timed in turns with the library): " + "; ".join(
+              f"{n} {t * 1e3:.1f} / {d * 1e3:.2f}"
+              + (f" ({lt * 1e3:.1f} / {ld * 1e3:.2f})" if lt is not None else "")
+              for n, (t, d, lt, ld) in summary.items()), flush=True)
+    print(f"{tag}: below the library per call / on the device: " + "; ".join(
+        f"{n} {t < lt} / {d < ld}" for n, (t, d, lt, ld) in summary.items()
+        if lt is not None), flush=True)
+    if breakdown:
+        plan = kt.TransferPlan(coarse, fine, F, "restrict",
+                               masks[1] if main_masked else None)
+        host_breakdown(f"{tag} restrict", plan, noise_pair(fine, F))
+    return summary
 
 
 def sweep_work(g, F, n, jv_kw=None, groups=None):
@@ -2108,40 +2375,21 @@ def main() -> None:
             K["lmr_step"].check(f"{label} {g.ny}x{g.nx}", xk + rk, xp + rp,
                                 TOL_F32, timing, lmr_work(g, F))
 
-    def check_transfers(problem, grids, F, label):
-        kd = K["transfer_dyadic"]
+    def check_transfers(phase, problem, grids, F, label, breakdown=()):
+        """D or H at every pair of ``grids`` (transfer_pair_checks), with the
+        problem's Dirichlet masks; the host-path breakdown at the fine
+        sizes in ``breakdown``."""
         for fine, coarse in zip(grids[:-1], grids[1:]):
-            lab = f"{label} {fine.nx}<->{coarse.nx}"
-            mf, mc = (None if m is None else torch.as_tensor(m, device=dev)
-                      for m in (bc_mask(g, problem.dirichlet_for(g), F)
-                                for g in (fine, coarse)))
-            lib_ms = {}
-            if label == "bench1" and fine.nx == 100:
-                lib_ms = library_transfer_ms(f"phase 3: D {lab}", coarse, fine,
-                                             kt.prolong_plain, kt.restrict_plain,
-                                             dev, F, rng)
-            xc, rf = noise_pair(coarse, F), noise_pair(fine, F)
-            timing = (cuda_ms(lambda: kt.prolong_kernel(xc, coarse, fine, mask=mf)),
-                      cuda_ms(lambda: kt.prolong_plain(xc, coarse, fine, mf)))
-            kd.check(f"prolong {lab}", kt.prolong_kernel(xc, coarse, fine, mask=mf),
-                     kt.prolong_plain(xc, coarse, fine, mf), TOL_EXACT, timing,
-                     transfer_work(coarse, fine, F, "prolong", mf is not None),
-                     library_ms=lib_ms.get("prolong"))
-            acc = tuple(t.clone() for t in rf)
-            kt.prolong_kernel(xc, coarse, fine, out=acc, mask=mf)
-            kd.check(f"prolong+= {lab}", acc, kt.prolong_accumulate_plain(
-                xc, coarse, fine, tuple(t.clone() for t in rf), mf), TOL_EXACT)
-            timing = (cuda_ms(lambda: kt.restrict_kernel(rf, coarse, fine, mc)),
-                      cuda_ms(lambda: kt.restrict_plain(rf, coarse, fine, mc)))
-            kd.check(f"restrict {lab}", kt.restrict_kernel(rf, coarse, fine, mc),
-                     kt.restrict_plain(rf, coarse, fine, mc), TOL_EXACT, timing,
-                     transfer_work(coarse, fine, F, "restrict", mc is not None),
-                     library_ms=lib_ms.get("restrict"))
-            kd.check(f"inject {lab}", kt.inject_kernel(rf, coarse, fine),
-                     kt.inject_plain(rf, coarse, fine), TOL_EXACT)
+            masks = tuple(None if m is None else torch.as_tensor(m, device=dev)
+                          for m in (bc_mask(g, problem.dirichlet_for(g), F)
+                                    for g in (fine, coarse)))
+            transfer_pair_checks(K, phase, label, coarse, fine, F, masks,
+                                 noise_pair, rng, dev,
+                                 breakdown=fine.nx in breakdown)
 
     check_bj_lmr(problem1, grids1, 2, "bench1")
-    check_transfers(problem1, grids1, 2, "bench1")
+    check_stream_handle("phase 3")
+    check_transfers("phase 3", problem1, grids1, 2, "bench1", breakdown=(100,))
     torch.cuda.synchronize()
     print(f"phase 3: bench1-shape kernels agree with their plain versions "
           f"({time.perf_counter() - t3:.1f} s)", flush=True)
@@ -2205,7 +2453,7 @@ def main() -> None:
                         library(), TOL_F32)
 
     check_bj_lmr(problem6, grids6, F6, "bench6")
-    check_transfers(problem6, grids6, F6, "bench6")
+    check_transfers("phase 5", problem6, grids6, F6, "bench6")
 
     # the chains, on the injected per-level states and their block planes
     masks6 = [None if m is None else torch.as_tensor(m, device=dev)
@@ -2301,6 +2549,7 @@ def main() -> None:
 
     check_bj_lmr(problem2, grids2, F2, "bench2 groups", rule=s2.precond_rule,
                  terms=problem2.terms_precond, groups=groups2)
+    check_transfers("phase 7", problem2, grids2, F2, "bench2")
 
     # the per-level split states, block planes and J.v of the cycle
     jvs2 = [problem2.kernel_jvp(g, dev, split=True) for g in grids2]
@@ -2417,34 +2666,7 @@ def main() -> None:
                                jv.kernel(w, w, dt3, v), library(), TOL_F32)
 
     # the transfers of the hierarchy: H for the ratio-5 pairs, D for 350<->175
-    for fine, coarse in zip(grids3[:-1], grids3[1:]):
-        dyadic = fine.nx == 2 * coarse.nx
-        kk = K["transfer_dyadic" if dyadic else "transfer_general"]
-        pk, rk = ((kt.prolong_kernel, kt.restrict_kernel) if dyadic else
-                  (kt.prolong_general_kernel, kt.restrict_general_kernel))
-        pp, rp = ((kt.prolong_plain, kt.restrict_plain) if dyadic else
-                  (kt.prolong_general_plain, kt.restrict_general_plain))
-        lab = f"bench3 {fine.nx}<->{coarse.nx}"
-        lib_ms = {}
-        if fine.nx in (350, 175):
-            lib_ms = library_transfer_ms(
-                f"phase 9: {'D' if dyadic else 'H'} {lab}", coarse, fine, pp, rp,
-                dev, F3, rng)
-        xc, rf = noise_pair(coarse, F3), noise_pair(fine, F3)
-        timing = (cuda_ms(lambda: pk(xc, coarse, fine)),
-                  cuda_ms(lambda: pp(xc, coarse, fine)))
-        kk.check(f"prolong {lab}", pk(xc, coarse, fine), pp(xc, coarse, fine),
-                 TOL_EXACT, timing, transfer_work(coarse, fine, F3, "prolong"),
-                 library_ms=lib_ms.get("prolong"))
-        acc = tuple(t.clone() for t in rf)
-        pk(xc, coarse, fine, out=acc)
-        kk.check(f"prolong+= {lab}", acc, kt.transfer_ops(coarse, fine, "plain")[1](
-            xc, coarse, fine, tuple(t.clone() for t in rf)), TOL_EXACT)
-        timing = (cuda_ms(lambda: rk(rf, coarse, fine)),
-                  cuda_ms(lambda: rp(rf, coarse, fine), reps=10))
-        kk.check(f"restrict {lab}", rk(rf, coarse, fine), rp(rf, coarse, fine),
-                 TOL_EXACT, timing, transfer_work(coarse, fine, F3, "restrict"),
-                 library_ms=lib_ms.get("restrict"))
+    check_transfers("phase 9", problem3, grids3, F3, "bench3", breakdown=(175,))
 
     check_bj_lmr(problem3, grids3[:1], F3, "bench3", rule=s3.precond_rule)
 

@@ -141,7 +141,8 @@ class KernelLibrary:
             "pfh_gridjvp_probe": [i32, vp, i32] + [vp] * 6 + [i32] * 3 + [vp],
             "pfh_gridjvp_fold": [vp, vp] + [i32] * 4 + [vp],
             "pfh_transfer": [i32] + [vp] * 5 + [i32] * 4 + [vp],
-            "pfh_transfer_general": [i32, i32] + [vp] * 6 + [i32] * 4 + [vp],
+            "pfh_transfer_general": [i32, i32] + [vp] * 5 + [i32] * 4 + [vp],
+            "pfh_transfer_general_upload": [i32, vp],
             "pfh_transfer_general_param_floats": [],
             "pfh_ch_residual": [vp, i32] + [vp] * 8 + [i32, i32, vp],
             "pfh_chp_residual": [vp, i32] + [vp] * 8 + [i32, i32, vp],
@@ -221,8 +222,20 @@ def library() -> KernelLibrary:
     return KernelLibrary(out, time.perf_counter() - t0, log)
 
 
+@functools.cache
+def _raw_stream():
+    """PyTorch's getters of the current device and of a device's current
+    stream as a raw handle (what ``torch.cuda.current_stream().cuda_stream``
+    reads, without building a ``Stream`` object); resolved at the first CUDA
+    launch, since a CPU build of torch lacks them."""
+    return torch._C._cuda_getDevice, torch._C._cuda_getCurrentRawStream
+
+
 def stream_handle() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current CUDA stream of the current device, as the launchers take
+    it."""
+    device, stream = _raw_stream()
+    return stream(device())
 
 
 def check_cuda(name: str, tensors, dtype=torch.float32) -> None:

@@ -199,7 +199,7 @@ def make_tile_jvp(grid: CrossedTriGrid, tangent, n_fields: int, *, form: str,
     def jv(w, w0, dt, v, b=None):
         return (plain if _lib.on_cpu(v[0]) else kernel)(w, w0, dt, v, b)
 
-    jv.plain, jv.kernel = plain, kernel
+    jv.plain, jv.kernel, jv.n_fields = plain, kernel, F
     if form == "seam":
         jv.tile_sweep = _make_sweep(plain, launch, vshape, mshape, F)
     return jv

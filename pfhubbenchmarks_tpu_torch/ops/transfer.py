@@ -23,6 +23,10 @@ term, so on the card the two agree to the bit. General injection stays
 strided slicing (``inject_state_general``, computed outside any Pallas
 kernel in the JAX package too).
 
+Both kernels run one thread per (field, output node) over the per-node
+bodies of ``csrc/transfer.cuh``; H's restriction stages the fine rows a
+coarse row reads in shared memory first.
+
 Dirichlet rows: prolongation and restriction take an optional 0/1 vertex
 mask of their OUTPUT grid ([F, Yv, Xv] float32, nonzero on a BC row, from
 fem/assembly.bc_mask). Restriction writes 0 on the coarse BC rows;
@@ -32,9 +36,16 @@ and the keep masks of ``ops/pallas_vcycle.py``'s level and chain kernels.
 The fine residual's BC rows are not zeroed before restriction, there or
 here.
 
-``transfer_ops(coarse, fine, version)`` picks D or H by the pair's ratio;
-unequal per-axis ratios, even ratios other than 2 and periodic pairs raise
-"not yet ported". The wrappers take the plain versions for CPU tensors only.
+``TransferPlan(coarse, fine, F, op, mask)`` is one transfer of one level
+pair, built once where the level steps and the multigrid build are built:
+every check and constant is fixed there, so a call on the card only checks
+its tensors, allocates its output and launches. The functions below
+(``prolong``, ``restrict``, ``inject``, ``transfer_ops(coarse, fine,
+version)``, which picks D or H by the pair's ratio, and the ``*_kernel``
+wrappers, which build a plan per call) serve the tests and callers off the
+main path. Unequal per-axis ratios, even ratios other
+than 2 and periodic pairs raise "not yet ported". The wrappers take the
+plain versions for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -46,9 +57,6 @@ import torch
 
 from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
 from pfhubbenchmarks_tpu_torch.ops import _lib
-
-_PROLONG, _RESTRICT, _INJECT = 0, 1, 2
-
 
 def _check_dyadic(coarse: CrossedTriGrid, fine: CrossedTriGrid) -> None:
     if fine.ny != 2 * coarse.ny or fine.nx != 2 * coarse.nx:
@@ -125,69 +133,6 @@ def inject_plain(wf, coarse: CrossedTriGrid, fine: CrossedTriGrid):
     return vc_p, mc_p
 
 
-# ---------------------------------------------------------------------------
-# kernel wrappers
-# ---------------------------------------------------------------------------
-
-def _launch(op, src, dst, coarse, accumulate=False, mask=None):
-    _lib.library().call(
-        "pfh_transfer", op, src[0].data_ptr(), src[1].data_ptr(),
-        dst[0].data_ptr(), dst[1].data_ptr(),
-        None if mask is None else mask.data_ptr(), src[0].shape[0], coarse.ny,
-        coarse.nx, int(accumulate), _lib.stream_handle())
-    _lib.count_launch("transfer_dyadic")
-
-
-def _check(name, src, src_grid, pairs, coarse, fine, mask=None, dst_grid=None,
-           dyadic=True):
-    if dyadic:
-        _check_dyadic(coarse, fine)
-    for g in (coarse, fine):
-        if g.periodic or g.pad_to != (1, 1):
-            raise NotImplementedError(f"{name}: unpadded, non-periodic only")
-    _lib.check_cuda(name, [t for p in pairs for t in p]
-                    + ([mask] if mask is not None else []))
-    F = src[0].shape[0]
-    _lib.check_shapes(name, src, (F,) + src_grid.vshape, (F,) + src_grid.mshape)
-    if mask is not None and tuple(mask.shape) != (F,) + dst_grid.vshape:
-        raise ValueError(f"{name}: mask {tuple(mask.shape)}, expected "
-                         f"{(F,) + dst_grid.vshape}")
-
-
-def prolong_kernel(wc, coarse, fine, out=None, mask=None):
-    """P wc; with ``out``, accumulate in place: out += P wc. ``mask``: the
-    fine grid's BC rows, which get nothing."""
-    pairs = [wc] + ([out] if out is not None else [])
-    _check("prolong", wc, coarse, pairs, coarse, fine, mask, fine)
-    F = wc[0].shape[0]
-    if out is not None:
-        _lib.check_shapes("prolong", out, (F,) + fine.vshape, (F,) + fine.mshape)
-        _launch(_PROLONG, wc, out, coarse, accumulate=True, mask=mask)
-        return out
-    dst = (wc[0].new_empty((F,) + fine.vshape), wc[0].new_empty((F,) + fine.mshape))
-    _launch(_PROLONG, wc, dst, coarse, mask=mask)
-    return dst
-
-
-def restrict_kernel(wf, coarse, fine, mask=None):
-    """R wf; ``mask``: the coarse grid's BC rows, written as 0."""
-    _check("restrict", wf, fine, [wf], coarse, fine, mask, coarse)
-    F = wf[0].shape[0]
-    dst = (wf[0].new_empty((F,) + coarse.vshape),
-           wf[0].new_empty((F,) + coarse.mshape))
-    _launch(_RESTRICT, wf, dst, coarse, mask=mask)
-    return dst
-
-
-def inject_kernel(wf, coarse, fine):
-    _check("inject", wf, fine, [wf], coarse, fine)
-    F = wf[0].shape[0]
-    dst = (wf[0].new_empty((F,) + coarse.vshape),
-           wf[0].new_empty((F,) + coarse.mshape))
-    _launch(_INJECT, wf, dst, coarse)
-    return dst
-
-
 def _accumulate(p, out):
     """out += p in place (p itself without ``out``)."""
     if out is None:
@@ -253,9 +198,10 @@ def _tables(R: int, dtype, device):
 
 @functools.cache
 def _general_params(R: int) -> np.ndarray:
-    """The f32 tables as kernel H's by-value parameter block (``GenWeights``:
-    wv, wm zero-padded to 7 x 7 classes, frac, 1 - frac), built once per
-    ratio: the launch path only passes its address."""
+    """The f32 tables as kernel H's parameter block (``GenWeights`` of
+    csrc/transfer.cuh: wv, wm zero-padded to 7 x 7 classes, frac, 1 - frac),
+    built once per ratio and uploaded once per device into the kernel's
+    device memory (``TransferPlan``)."""
     wv, wm, frac, om = (t.numpy() for t in _tables(R, torch.float32, "cpu"))
     pv = np.zeros((_MAX_R, _MAX_R, 5), np.float32)
     pm = np.zeros((_MAX_R, _MAX_R, 5), np.float32)
@@ -399,50 +345,193 @@ def inject_general(wf, coarse: CrossedTriGrid, fine: CrossedTriGrid):
     return vc_p, mc_p
 
 
-def _launch_general(op, R, src, dst, coarse, accumulate=False, mask=None):
+# ---------------------------------------------------------------------------
+# launch plans: kernel D for a dyadic pair, H for an equal odd ratio
+# ---------------------------------------------------------------------------
+
+_OPS = {"prolong": 0, "restrict": 1, "inject": 2}
+# (library path, device index, R): H's class tables are in R's slot
+_WEIGHTS_ON: set[tuple[str, int, int]] = set()
+
+
+def _upload_general_weights(lib, R: int, dev: int) -> None:
+    """Kernel H's class tables for ratio R into R's slot in the kernel's
+    device memory on CUDA device ``dev``, once per library, device and R."""
+    key = (str(lib.path), dev, R)
+    if key in _WEIGHTS_ON:
+        return
     params = _general_params(R)
-    lib = _lib.library()
     if params.size != lib.lib.pfh_transfer_general_param_floats():
         raise RuntimeError("transfer_general: parameter block does not match "
                            "the kernel's GenWeights layout")
-    lib.call(
-        "pfh_transfer_general", op, R, params.ctypes.data, src[0].data_ptr(),
-        src[1].data_ptr(), dst[0].data_ptr(), dst[1].data_ptr(),
-        None if mask is None else mask.data_ptr(), src[0].shape[0], coarse.ny,
-        coarse.nx, int(accumulate), _lib.stream_handle())
-    _lib.count_launch("transfer_general")
+    with torch.cuda.device(dev):
+        lib.call("pfh_transfer_general_upload", R, params.ctypes.data)
+    _WEIGHTS_ON.add(key)
+
+
+class TransferPlan:
+    """One transfer of one level pair for F fields, fixed when it is built:
+    ``op`` "prolong" (coarse -> fine; with ``out``, out += P wc in place),
+    "restrict" (fine -> coarse, R = P^T) or "inject" (state injection), and
+    ``mask`` the Dirichlet vertex mask of the OUTPUT grid or None (prolong
+    and restrict only).
+
+    Construction picks kernel D (dyadic) or H (equal odd ratio) by
+    ``equal_ratio``, checks the grids (unpadded, non-periodic) and the mask,
+    and fixes the shapes and the kernel's ints; odd-ratio injection is
+    strided slicing on any device (``inject_general``). ``plan(src, out=None)``
+    runs the plain version for CPU tensors and the kernel otherwise:
+    ``.kernel`` checks the tensors (CUDA, float32, contiguous, the fixed
+    shapes, one device) and raises on anything else, allocates the output
+    where there is one, and makes one ctypes call on the current stream;
+    nothing is built before the first CUDA call. ``.plain`` is the plain
+    version."""
+
+    def __init__(self, coarse: CrossedTriGrid, fine: CrossedTriGrid, F: int,
+                 op: str, mask: torch.Tensor | None = None):
+        if op not in _OPS:
+            raise ValueError(f"transfer op {op!r}: one of {sorted(_OPS)}")
+        R = equal_ratio(coarse, fine)
+        for g in (coarse, fine):
+            if g.periodic or g.pad_to != (1, 1):
+                raise NotImplementedError(f"{op}: unpadded, non-periodic "
+                                          "grids only")
+        src, dst = (coarse, fine) if op == "prolong" else (fine, coarse)
+        self.coarse, self.fine, self.F, self.op, self.R = coarse, fine, F, op, R
+        self.name = op if R == 2 else f"{op}_general"
+        self.src_shapes = tuple(torch.Size((F,) + s)
+                                for s in (src.vshape, src.mshape))
+        self.dst_shapes = tuple(torch.Size((F,) + s)
+                                for s in (dst.vshape, dst.mshape))
+        if mask is not None:
+            if op == "inject":
+                raise ValueError("inject: takes no mask")
+            if mask.shape != self.dst_shapes[0]:
+                raise ValueError(f"{self.name}: mask {tuple(mask.shape)}, "
+                                 f"expected {tuple(self.dst_shapes[0])}")
+            if mask.is_cuda and not (mask.dtype == torch.float32
+                                     and mask.is_contiguous()):
+                raise ValueError(f"{self.name}: a CUDA mask must be "
+                                 "contiguous float32")
+        self.mask = mask
+        self._mask_dev = None if mask is None else mask.get_device()
+        self._mask_ptr = None if mask is None or not mask.is_cuda else mask.data_ptr()
+        self.kernel_name = "transfer_dyadic" if R == 2 else "transfer_general"
+        self._symbol = "pfh_transfer" if R == 2 else "pfh_transfer_general"
+        self._head = (_OPS[op],) if R == 2 else (_OPS[op], R)
+        self._ints = (F, coarse.ny, coarse.nx)
+        self._fn, self._dev = None, None
+        if op == "inject" and R != 2:
+            self.kernel = self.plain
+
+    def __call__(self, src, out=None):
+        return (self.plain if src[0].is_cpu else self.kernel)(src, out)
+
+    def plain(self, src, out=None):
+        c, f = self.coarse, self.fine
+        if self.op == "prolong":
+            return (prolong_accumulate_plain if self.R == 2 else
+                    prolong_general_accumulate_plain)(src, c, f, out, self.mask)
+        if out is not None:
+            raise ValueError(f"{self.name}: takes no out")
+        if self.op == "restrict":
+            return (restrict_plain if self.R == 2 else
+                    restrict_general_plain)(src, c, f, self.mask)
+        return (inject_plain if self.R == 2 else inject_general)(src, c, f)
+
+    def check(self, src, out=None) -> int:
+        """The CUDA device index of ``src`` (and ``out``); raises unless
+        every tensor is a contiguous float32 CUDA tensor of the fixed shape
+        on that device, with the mask."""
+        dev = src[0].get_device()
+        pairs = ((src, self.src_shapes),)
+        if out is not None:
+            if self.op != "prolong":
+                raise ValueError(f"{self.name}: takes no out")
+            pairs += ((out, self.dst_shapes),)
+        for pair, shapes in pairs:
+            for t, shape in zip(pair, shapes):
+                if not (t.is_cuda and t.dtype == torch.float32
+                        and t.is_contiguous() and t.shape == shape
+                        and t.get_device() == dev):
+                    self._refuse(t, shape, dev)
+        if self._mask_dev is not None and self._mask_dev != dev:
+            raise ValueError(f"{self.name}: mask on {self.mask.device}, "
+                             f"tensors on cuda:{dev}")
+        return dev
+
+    def _refuse(self, t, shape, dev):
+        if not t.is_cuda:
+            raise ValueError(f"{self.name}: kernel needs CUDA tensors, got "
+                             f"{t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{self.name}: dtype {t.dtype}, kernel takes "
+                             "torch.float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{self.name}: non-contiguous tensor")
+        if t.shape != shape:
+            raise ValueError(f"{self.name}: shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+        raise ValueError(f"{self.name}: tensors on {t.device} and cuda:{dev}")
+
+    def _bind(self, dev: int):
+        """The C launcher, resolved once; H's tables on device ``dev``."""
+        lib = _lib.library()
+        if self.R != 2:
+            _upload_general_weights(lib, self.R, dev)
+        self._fn, self._dev = getattr(lib.lib, self._symbol), dev
+        return self._fn
+
+    def kernel(self, src, out=None):
+        dev = self.check(src, out)
+        accumulate = out is not None
+        if not accumulate:
+            out = (src[0].new_empty(self.dst_shapes[0]),
+                   src[0].new_empty(self.dst_shapes[1]))
+        fn = self._fn if dev == self._dev else self._bind(dev)
+        err = fn(*self._head, src[0].data_ptr(), src[1].data_ptr(),
+                 out[0].data_ptr(), out[1].data_ptr(), self._mask_ptr,
+                 *self._ints, int(accumulate), _lib.stream_handle())
+        if err != 0:
+            raise RuntimeError(f"{self._symbol}: CUDA error {err} at launch")
+        _lib.count_launch(self.kernel_name)
+        return out
+
+
+def prolong_kernel(wc, coarse, fine, out=None, mask=None):
+    """P wc by kernel D; with ``out``, accumulate in place: out += P wc.
+    ``mask``: the fine grid's BC rows, which get nothing."""
+    _check_dyadic(coarse, fine)
+    return TransferPlan(coarse, fine, wc[0].shape[0], "prolong",
+                        mask).kernel(wc, out)
+
+
+def restrict_kernel(wf, coarse, fine, mask=None):
+    """R wf by kernel D; ``mask``: the coarse grid's BC rows, written as 0."""
+    _check_dyadic(coarse, fine)
+    return TransferPlan(coarse, fine, wf[0].shape[0], "restrict",
+                        mask).kernel(wf)
+
+
+def inject_kernel(wf, coarse, fine):
+    _check_dyadic(coarse, fine)
+    return TransferPlan(coarse, fine, wf[0].shape[0], "inject").kernel(wf)
 
 
 def prolong_general_kernel(wc, coarse, fine, out=None, mask=None):
-    """P wc for an equal odd ratio; with ``out``, out += P wc in place.
-    ``mask``: the fine grid's BC rows, which get nothing."""
-    R = _general_ratio(coarse, fine)
-    pairs = [wc] + ([out] if out is not None else [])
-    _check("prolong_general", wc, coarse, pairs, coarse, fine, mask, fine,
-           dyadic=False)
-    F = wc[0].shape[0]
-    if out is not None:
-        _lib.check_shapes("prolong_general", out, (F,) + fine.vshape,
-                          (F,) + fine.mshape)
-        _launch_general(_PROLONG, R, wc, out, coarse, accumulate=True,
-                        mask=mask)
-        return out
-    dst = (wc[0].new_empty((F,) + fine.vshape), wc[0].new_empty((F,) + fine.mshape))
-    _launch_general(_PROLONG, R, wc, dst, coarse, mask=mask)
-    return dst
+    """P wc by kernel H for an equal odd ratio; with ``out``, out += P wc in
+    place. ``mask``: the fine grid's BC rows, which get nothing."""
+    _general_ratio(coarse, fine)
+    return TransferPlan(coarse, fine, wc[0].shape[0], "prolong",
+                        mask).kernel(wc, out)
 
 
 def restrict_general_kernel(wf, coarse, fine, mask=None):
-    """P^T wf for an equal odd ratio; ``mask``: the coarse grid's BC rows,
-    written as 0."""
-    R = _general_ratio(coarse, fine)
-    _check("restrict_general", wf, fine, [wf], coarse, fine, mask, coarse,
-           dyadic=False)
-    F = wf[0].shape[0]
-    dst = (wf[0].new_empty((F,) + coarse.vshape),
-           wf[0].new_empty((F,) + coarse.mshape))
-    _launch_general(_RESTRICT, R, wf, dst, coarse, mask=mask)
-    return dst
+    """P^T wf by kernel H for an equal odd ratio; ``mask``: the coarse
+    grid's BC rows, written as 0."""
+    _general_ratio(coarse, fine)
+    return TransferPlan(coarse, fine, wf[0].shape[0], "restrict",
+                        mask).kernel(wf)
 
 
 # ---------------------------------------------------------------------------

@@ -37,9 +37,10 @@ loop, one launch of kernel L over the level J.v's body (kernel G's physics
 for BM3, F's for BM2, E's with its Dirichlet mask for BM6, A's for BM1), or
 on a level routed to the tile kernels the tiled sweep loop of TS and C
 (ops/lmr.make_level_sweep_loop picks by the level's J.v); the level J.v
-(T12 on a tiled level) for the ascent's residual; and the pair's transfer, picked by its
-ratio (ops/transfer.transfer_ops): kernel D for a dyadic pair, H for an
-equal odd ratio, with the Dirichlet masks. ``.plain`` is the same sequence
+(T12 on a tiled level) for the ascent's residual; and the pair's transfer,
+a plan built once with the step (ops/transfer.TransferPlan, for the level
+J.v's ``n_fields``): kernel D for a dyadic pair, H for an equal odd ratio,
+with the Dirichlet masks. ``.plain`` is the same sequence
 through the plain versions; the wrapper takes it for CPU tensors only. A
 call of ``.kernel`` counts one ``descend_level``, ``ascend_level``,
 ``descend_chain`` or ``ascend_chain`` call in ``_lib.CALLS``; the steps,
@@ -72,18 +73,19 @@ def _wrap(name, body, probe):
 
 def make_descend_level(fine, coarse, jv, *, nu: int, mask_coarse=None,
                        field_groups=None):
-    """``jv``: the fine level's J.v (ops/fem_jvp.make_fem_jvp, with its
-    Dirichlet rows); ``mask_coarse``: the coarse grid's Dirichlet vertex
-    mask tensor or None (fem/assembly.bc_mask)."""
+    """``jv``: the fine level's J.v (ops/fem_jvp.make_fem_jvp or
+    ops/fem_tile.make_tile_jvp, with its Dirichlet rows and ``n_fields``);
+    ``mask_coarse``: the coarse grid's Dirichlet vertex mask tensor or None
+    (fem/assembly.bc_mask)."""
     sweep = lmr.make_level_sweep_loop(jv, nu, field_groups)
-    restrict = {v: kt.transfer_ops(coarse, fine, v)[0]
-                for v in ("kernel", "plain")}
+    restrict = kt.TransferPlan(coarse, fine, jv.n_fields, "restrict",
+                               mask_coarse)
 
     def body(version, b, w, w0, dt, pinv):
         x = tuple(t.new_zeros(t.shape) for t in b)
         r = tuple(t.clone() for t in b)
         getattr(sweep, version)(x, r, w, w0, dt, *pinv)
-        return x, restrict[version](r, coarse, fine, mask_coarse)
+        return x, getattr(restrict, version)(r)
 
     return _wrap("descend_level", body, lambda a: a[0][0])
 
@@ -93,12 +95,11 @@ def make_ascend_level(fine, coarse, jv, *, nu: int, mask_fine=None,
     """``mask_fine``: the fine grid's Dirichlet vertex mask tensor or None;
     the rest as for ``make_descend_level``."""
     sweep = lmr.make_level_sweep_loop(jv, nu, field_groups)
-    prolong_acc = {v: kt.transfer_ops(coarse, fine, v)[1]
-                   for v in ("kernel", "plain")}
+    prolong = kt.TransferPlan(coarse, fine, jv.n_fields, "prolong", mask_fine)
 
     def body(version, b, x, xc, w, w0, dt, pinv):
         x = tuple(t.clone() for t in x)
-        prolong_acc[version](xc, coarse, fine, x, mask_fine)
+        getattr(prolong, version)(xc, x)
         r = getattr(jv, version)(w, w0, dt, x, b=b)
         getattr(sweep, version)(x, r, w, w0, dt, *pinv)
         return x

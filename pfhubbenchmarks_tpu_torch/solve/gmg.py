@@ -8,7 +8,8 @@ cycle of ``gmg.py:654-662``, which does the arithmetic of the
 make_fused_vcycle`` too:
 
 - per-level linearization states injected once per build (kernel D for a
-  dyadic pair, strided slicing for an odd ratio), and per-level
+  dyadic pair, strided slicing for an odd ratio, through a transfer plan
+  per pair built with the cycle, ops/transfer.TransferPlan), and per-level
   node-block-Jacobi inverses (solve/precond.py);
 - ``descend_chain`` (ops/vcycle_chain.py): per level the descend step (TPU
   kernel 6): local-minimal-residual pre-sweeps from zero (the sweep loop of
@@ -73,11 +74,11 @@ from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
 from pfhubbenchmarks_tpu_torch.ops import _lib
 from pfhubbenchmarks_tpu_torch.ops.fem_tile import multi_block
 from pfhubbenchmarks_tpu_torch.ops.lmr import make_level_sweep_loop
+from pfhubbenchmarks_tpu_torch.ops.transfer import TransferPlan
 from pfhubbenchmarks_tpu_torch.ops.vcycle_chain import (make_ascend_chain,
                                                         make_descend_chain)
 from pfhubbenchmarks_tpu_torch.solve import tree as tr
 from pfhubbenchmarks_tpu_torch.solve.precond import make_block_jacobi
-from pfhubbenchmarks_tpu_torch.solve.transfer import inject_any
 
 _RATIOS = (2, 3, 5, 7)
 
@@ -198,7 +199,8 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
     bj_builders = [make_block_jacobi(g, terms, n_fields, device=device,
                                      dirichlet=bcs)
                    for g, bcs in zip(grids, level_bcs)]
-    injs = [inject_any(grids[l + 1], grids[l]) for l in range(L - 1)]
+    injs = [TransferPlan(grids[l + 1], grids[l], n_fields, "inject")
+            for l in range(L - 1)]
     dense_coarse = None
     if coarse_dof_count(grids[-1], n_fields) <= dense_coarse_max_dofs:
         residual_c = make_residual(grids[-1], terms, n_fields, device=device,
