@@ -41,7 +41,7 @@ Phases, each printing its results; any failure raises (non-zero exit):
    and without the Dirichlet mask, at 100^2 also against ``torch.func.jvp``
    of the residual; the transfers at every pair as in phase 3, with the
    problem's Dirichlet masks (the main path's case) and without; the
-   descend and ascend chains against their plain twins.
+   descend and ascend chains' launch sequences against their plain twins.
 6. bench6's main path: the port's bench6 at full size (100x100) through
    ``Runner.run`` to t = 3.19; the 14 rows against the committed
    ``results/bench6_out.csv`` (time column rtol 1e-9, TFE rel 1e-6, solute
@@ -51,7 +51,8 @@ Phases, each printing its results; any failure raises (non-zero exit):
    CH+AC J.v (kernel F), coupled at ffc3 and field-split at dunavant1, both
    forms, with 4 order parameters at every level and with 1 and 2 at 100^2,
    also against ``torch.func.jvp`` of the residual; block-Jacobi and LMR
-   with the field groups; both chains with the groups; and the time of one
+   with the field groups; both chains' launch sequences with the groups;
+   and the time of one
    block-Jacobi build of the hierarchy; the transfers (D, F = 6) at every
    pair as in phase 3.
 8. bench2's main path: the port's bench2 at full size (100x100, six
@@ -68,7 +69,8 @@ Phases, each printing its results; any failure raises (non-zero exit):
    phase 3: kernel H for 175<->35 and 35<->7, kernel D for 350<->175, with
    the host path of H's restriction at 175->35;
    block-Jacobi and LMR at 350^2; both level steps (TPU kernels 6 and 9) at
-   each of the three pairs; and the warm multigrid build of the 4-level
+   each of the three pairs, their launch sequences and their kernels (a
+   chain kernel of one level); and the warm multigrid build of the 4-level
    hierarchy, with and without the dense 7^2 inverse, timed (medians of 5).
 10. bench3's main path: the port's bench3 at full size (350x350) through
    ``Runner.run``, its first 14 rows (to t = 12.15, the
@@ -173,15 +175,31 @@ Phases, each printing its results; any failure raises (non-zero exit):
    barrier count, and at levels of at most 20,201 nodes one CTA against the
    cooperative grid; in 3D also L's device time before kernel U (over I's
    gather body, PERF.md) and L's registers and shared memory.
-23. prints the card line, the per-kernel JSON line, then
+23. the chain kernels (``vcycle_descend_chain``, ``vcycle_ascend_chain``:
+   TPU rows 7 and 8, each chain of gather levels in one launch) at every
+   main-path hierarchy (bench1 100/50/25, bench6 with its Dirichlet masks,
+   bench2 with the field groups, bench3 350/175/35/7) and its sweep counts:
+   against the launch sequence (``.sequence``; the max abs difference
+   printed, the target 0), the plain version (TOL_F32) and a rerun (to the
+   bit); device and per-call times of kernel and sequence in the same call,
+   the plain version's per call, the bound, the grid, registers, spills and
+   CTAs per SM (``chain_phase``).
+24. prints the card line, the per-kernel JSON line, then
    ``{"ok": true, "device": ...}``.
 
-Every main-path phase (4, 6, 8, 10, 12, 14, 15, 17-19) requires kernel L and
-refuses B's launches (and C's, but on the tiled runs, whose tiled levels
-sweep with TS and C): a gather level's sweeps run inside L. Each also prints
-the wrapper calls (kernel launches and chain calls) of one preconditioner
-apply in its configuration, and its Krylov counts beside those of the
-smoke before kernel L where PERF.md keeps them.
+Every main-path phase on gather levels (4, 6, 8, 10, 17-19) requires the two
+chain kernels and refuses B's and C's launches (a gather level's sweeps run
+inside L, and inside the chain kernels) and the chains' and level steps'
+launch sequences (each chain is one launch); kernel L runs the coarsest
+level's sweeps where that is not the dense inverse, and bench1_3d's K-cycle
+(12). The tiled runs (14, 15) keep the chains' launch sequences, and their
+tiled levels sweep with TS and C. Each main-path phase also prints the
+wrapper calls (kernel launches and chain calls) of one preconditioner apply
+in its configuration (at most 5 for bench1, bench6 and bench2, 4 for bench3:
+required), its wall beside that of the smokes before the chain kernels and its
+ms per Krylov iteration, and its
+Krylov counts beside those of the smoke before kernel L where PERF.md keeps
+them.
 
 In the kernel line, ``kernels`` lists the CUDA kernels: ``launches`` is the
 sum of a kernel's launches over the main-path runs (each counted from 0
@@ -210,11 +228,13 @@ depth (the launch cost cancelled). Kernel S's main shape is one shard of
 bench3 350^2 on 2 x 4, its ``launches`` those of the two dry runs; Q's is
 case a at 350^2 (``ms`` and ``plain_ms`` the whole J.v, slabs and fold),
 its ``launches`` those of the probe path (the fold counted as one more).
+The chain kernels' main shape is bench1's 100/50/25 (phase 23).
 ``chains`` lists
-the tiled sweep loop, the two V-cycle level steps and the two chains,
-launch sequences of those kernels that stand for TPU kernels 13 (the tiled
-sweep loop: TS and C), 6 and 9 (the level steps) and 7 and 8 (the chains),
-with the same keys,
+the tiled sweep loop and the launch sequences of the two V-cycle level
+steps and the two chains, which stand for TPU kernels 13 (the tiled sweep
+loop: TS and C), 6 and 9 (the level steps) and 7 and 8 (the chains; their
+kernels are ``vcycle_descend_chain`` and ``vcycle_ascend_chain``, and the
+sequences run only on the tiled configuration), with the same keys,
 except ``calls`` (calls on the main paths) in place of
 ``launches`` and ``sequence_of`` in place of ``route``; their arithmetic is
 counted again under the kernels.
@@ -270,6 +290,26 @@ KRYLOV_BEFORE_L = {("phase 4: bench1", 74): (4998, 5891),
               ("phase 18: bench6 replay", 14): (1179, None),
               ("phase 19: bench3 replay", 46): (1568, 3417)}
 TOL_F32 = dict(rtol=2e-4, atol_scale=2e-5)   # tests/test_pallas_vcycle.py
+# the walls of the last two smokes before the chain kernels, I (working tree)
+# and J (git archive), NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 5), by
+# phase label and step count
+WALLS_BEFORE_CHAINS = {
+    ("phase 4: bench1", 74): (48.020, 47.398),
+    ("phase 6: bench6", 14): (5.025, 4.371),
+    ("phase 8: bench2", 14): (125.177, 125.913),
+    ("phase 10: bench3", 14): (12.984, 11.767),
+    ("phase 12: bench1_3d", 24): (111.577, 108.040),
+    ("phase 17: bench1 replay", 73): (57.763, 53.140),
+    ("phase 18: bench6 replay", 14): (4.706, 4.937),
+    ("phase 19: bench3 replay", 46): (69.733, 59.515)}
+# the most wrapper calls one preconditioner apply may make on the gather
+# paths: two chain launches and the coarsest solve (one L launch; bench3's
+# dense inverse makes none)
+MAX_CALLS_PER_APPLY = {"bench1": 5, "bench6": 5, "bench2": 5, "bench3": 4}
+# on a gather path no level runs B or C (their bodies run in L) and no chain
+# runs as its launch sequence (it is one launch of a chain kernel)
+GATHER_ABSENT = ("block_jacobi_apply", "lmr_step", "descend_level",
+                 "ascend_level", "descend_chain", "ascend_chain")
 TOL_R = dict(rtol=1e-5, atol_scale=1e-5)     # tests/test_pallas.py:22-28
 TOL_EXACT = dict(rtol=0.0, atol_scale=0.0)
 HBM_BYTES_PER_S = 3.35e12
@@ -967,18 +1007,24 @@ def preconditioner_calls(label, problem, dt):
     calls = {k: n for k, n in _lib.CALLS.items() if n}
     n_l, n_c = sum(launches.values()), sum(calls.values())
     print(f"{label}: one preconditioner apply: {n_l + n_c} wrapper calls "
-          f"({n_l} kernel launches {launches}, {n_c} chain calls {calls})",
-          flush=True)
+          f"({n_l} kernel launches {launches}, {n_c} chain calls {calls}; "
+          "17 for bench1, bench6, bench2 and 23 for bench3 before the chain "
+          "kernels)", flush=True)
+    return n_l + n_c
 
 
-def drive(label, problem, run, required,
-          absent=("block_jacobi_apply", "lmr_step")):
+def drive(label, problem, run, required, absent=GATHER_ABSENT,
+          max_calls=None):
     """Call ``run()`` (a run of ``problem``'s main path) with the launch and
     chain-call counts and the stage seconds set to 0 just before and read
-    just after; print its counts and require each of ``required`` to have
-    run and none of ``absent`` (B and C, which a gather level's sweeps do
-    not launch: their body runs inside kernel L). Then print the wrapper
-    calls of one preconditioner apply at the run's first dt. Returns the
+    just after; print its counts, its wall beside the smokes' before the
+    chain kernels (``WALLS_BEFORE_CHAINS``) and its ms per
+    Krylov iteration, and require each of ``required`` to have run and none
+    of ``absent`` (B and C, which a gather level's sweeps do not launch:
+    their body runs inside kernel L; the chains' launch sequences, which a
+    chain of gather levels does not run: it is one launch of a chain
+    kernel). Then print the wrapper calls of one preconditioner apply at
+    the run's first dt, at most ``max_calls`` where given. Returns the
     counts, the run's result, its wall seconds and the stage seconds."""
     from pfhubbenchmarks_tpu_torch.ops import _lib
 
@@ -1009,6 +1055,10 @@ def drive(label, problem, run, required,
     print(f"{label}: krylov / krylov_all {krylov[0]} / {krylov[1]} over "
           f"{len(st)} steps; before kernel L: "
           f"{KRYLOV_BEFORE_L.get((label, len(st)), 'not recorded')}", flush=True)
+    print(f"{label}: wall {wall:.3f} s (before the chain kernels, smokes I / "
+          f"J: {WALLS_BEFORE_CHAINS.get((label, len(st)), 'not recorded')}), "
+          f"{wall / max(krylov[1], 1) * 1e3:.3f} ms per Krylov iteration over "
+          f"all attempts", flush=True)
     print(f"{label}: krylov per step {[s.krylov_iters for s in st]}, "
           f"newton per step {[s.newton_iters for s in st]}, "
           f"krylov_all per step {[s.krylov_iters_all for s in st]}, "
@@ -1023,7 +1073,10 @@ def drive(label, problem, run, required,
     extra = [k for k in absent if counts[k] > 0]
     if extra:
         raise AssertionError(f"{label}: launched on the main path: {extra}")
-    preconditioner_calls(label, problem, float(st[0].dt))
+    n_calls = preconditioner_calls(label, problem, float(st[0].dt))
+    if max_calls is not None and n_calls > max_calls:
+        raise AssertionError(f"{label}: {n_calls} wrapper calls per "
+                             f"preconditioner apply (at most {max_calls})")
     return counts, result, wall, seconds
 
 
@@ -1218,6 +1271,16 @@ def kernel_records():
         # Q: the row-block grid J.v probe
         "gridjvp_probe": Kernel("gridjvp_probe", csrc + "gridjvp_probe.cu",
                                 "tools/probes/gridjvp_probe.py:167"),
+        # the chains of gather levels in one launch each (rows 7 and 8; a
+        # level step, rows 6 and 9, is a chain of one level)
+        "vcycle_descend_chain": Kernel(
+            "vcycle_descend_chain", csrc + "vcycle_chain.cuh",
+            "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:652",
+            ("pfhubbenchmarks_tpu/ops/pallas_vcycle.py:566",)),
+        "vcycle_ascend_chain": Kernel(
+            "vcycle_ascend_chain", csrc + "vcycle_chain.cuh",
+            "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:798",
+            ("pfhubbenchmarks_tpu/ops/pallas_vcycle.py:939",)),
     }
     seq = ("level J.v (ch_jvp, chp_jvp, chac_jvp or ach_jvp)", "lmr_sweep",
            "transfer_dyadic")
@@ -1447,7 +1510,8 @@ def bench1_3d_phases(dev, K, C, rng, t_start, paths):
     paths["bench1_3d"], result, wall, seconds = run_main_path(
         "phase 12: bench1_3d", runner, None, "bench1_3d_out.csv", n_rows,
         ("ch3d_tile", "lmr_sweep"), tfe_tol=1e-6, col2_tol=1e-9,
-        absent=("block_jacobi_apply", "lmr_step", "ch3d_jvp"))
+        absent=("block_jacobi_apply", "lmr_step", "ch3d_jvp",
+                "vcycle_descend_chain", "vcycle_ascend_chain"))
     newton = (sum(st.newton_iters for st in result.stats),
               sum(st.newton_iters_all for st in result.stats))
     print(f"phase 12: bench1_3d newton / newton_all {newton[0]} / {newton[1]} "
@@ -1647,7 +1711,9 @@ def tile_phases(dev, K, C, noise_pair, state_on, residual_jvp, paths, refs):
               flush=True)
         counts, res, wall, _ = run_main_path(
             f"phase {phase}: {label} tiled", runner, end, ref_csv, n_rows,
-            tiled_required + more, absent=("block_jacobi_apply",), **tols)
+            tiled_required + more, absent=("block_jacobi_apply",
+                                           "vcycle_descend_chain",
+                                           "vcycle_ascend_chain"), **tols)
         paths[f"{label} tiled"] = counts
         ref, ref_wall = refs[label]
         ref_st = ref.stats[:n_rows]
@@ -1739,8 +1805,8 @@ def replay_phases(dev, t_start, paths, problem1, problem6, problem3):
     grids of the JAX package's replay CSVs, each cut to a prefix that keeps
     its rescued step if the smoke runs late. Adds each run's counts to
     ``paths``."""
-    chain2d = ("lmr_sweep", "transfer_dyadic", "descend_chain",
-               "ascend_chain")
+    chain2d = ("transfer_dyadic", "vcycle_descend_chain",
+               "vcycle_ascend_chain")
 
     def rows_for(phase, label, full, prefix, late_s):
         elapsed = time.perf_counter() - t_start
@@ -1755,7 +1821,7 @@ def replay_phases(dev, t_start, paths, problem1, problem6, problem3):
                  BENCH1_REPLAY_LATE_S)
     paths["bench1 replay"], res1, _ = replay_phase(
         "phase 17: bench1 replay", problem1, dev, "bench1_replay.csv", n,
-        ("ch_jvp",) + chain2d, tfe_tol=1e-5, col2_tol=1e-9)
+        ("ch_jvp", "lmr_sweep") + chain2d, tfe_tol=1e-5, col2_tol=1e-9)
     st = rescued_at(res1, 65.5)
     print(f"phase 17: the step to t=65.5 (step {st.step}): "
           f"{st.rescue or 'its first attempt'}", flush=True)
@@ -1767,14 +1833,14 @@ def replay_phases(dev, t_start, paths, problem1, problem6, problem3):
                  BENCH6_REPLAY_LATE_S)
     paths["bench6 replay"], _, _ = replay_phase(
         "phase 18: bench6 replay", problem6, dev, "bench6_replay.csv", n,
-        ("chp_jvp", "residual") + chain2d, tfe_tol=1e-6, col2_tol=1e-9)
+        ("chp_jvp", "residual", "lmr_sweep") + chain2d, tfe_tol=1e-6,
+        col2_tol=1e-9)
 
     n = rows_for(19, "bench3", BENCH3_REPLAY_ROWS, BENCH3_REPLAY_PREFIX,
                  BENCH3_REPLAY_LATE_S)
     paths["bench3 replay"], res3, _ = replay_phase(
         "phase 19: bench3 replay", problem3, dev, "bench3_replay.csv", n,
-        ("ach_jvp", "transfer_general", "descend_level", "ascend_level")
-        + chain2d, tfe_tol=5e-4, col2_tol=5e-4)
+        ("ach_jvp",) + chain2d, tfe_tol=5e-4, col2_tol=5e-4)
     st = rescued_at(res3, 41.59)
     rungs = [r["rung"] for r in st.ladder]
     print(f"phase 19: the step to t=41.59 (step {st.step}): "
@@ -2246,6 +2312,127 @@ def sweep_loop_phase(dev, K, rng):
           f"level ({time.perf_counter() - t22:.1f} s)", flush=True)
 
 
+def chain_phase(dev, K, rng):
+    """Phase 23: the chain kernels (``vcycle_descend_chain``,
+    ``vcycle_ascend_chain``: a V-cycle's descent and ascent over every level
+    in one launch each) at every main-path hierarchy: bench1 100/50/25,
+    bench6 with its Dirichlet masks, bench2 with the field groups (F = 6),
+    bench3 350/175/35/7 (ratios 2, 5, 5), with each benchmark's sweep
+    counts, on the IC plus seeded noise injected down and the levels' block
+    planes. Each chain kernel against its launch sequence (``.sequence``:
+    per level L, D or H and the level J.v; the max abs difference printed,
+    the target 0), its plain version (TOL_F32) and itself on a rerun (to the
+    bit); the device time per call (40 calls behind a sleep kernel) of the
+    kernel and of the sequence in the same call; per-call times of kernel,
+    sequence (in turns) and plain version; the bound (``chain_work``); the
+    grid, registers, spills and CTAs per SM of the instantiation."""
+    from pfhubbenchmarks_tpu_torch.benchmarks import (bench1, bench2, bench3,
+                                                      bench6)
+    from pfhubbenchmarks_tpu_torch.fem.assembly import bc_mask
+    from pfhubbenchmarks_tpu_torch.ops import transfer as kt
+    from pfhubbenchmarks_tpu_torch.ops.vcycle_chain import (make_ascend_chain,
+                                                            make_descend_chain)
+    from pfhubbenchmarks_tpu_torch.solve.precond import make_block_jacobi
+
+    t23 = time.perf_counter()
+    f32 = torch.float32
+
+    def pair(g, F):
+        return tuple(torch.tensor(rng.standard_normal((F,) + s), dtype=f32,
+                                  device=dev) for s in (g.vshape, g.mshape))
+
+    def flat(out):
+        if isinstance(out, tuple) and len(out) == 3:   # (xs, bs, bc)
+            out = out[0] + out[1] + [out[2]]
+        else:
+            out = [out]
+        return [t.clone() for p in out for t in p]
+
+    for name, pb, dt, split, jv_kw in (
+            ("bench1", bench1.make(), 0.5, False, {}),
+            ("bench6", bench6.make(), 0.32, False, {}),
+            ("bench2", bench2.make(), 0.16, True,
+             dict(ns=5, ops=TANGENT_OPS[(6, "split")])),
+            ("bench3", bench3.make(), 1.28, False,
+             dict(ns=2, ops=TANGENT_OPS["ach"]))):
+        s, F = pb.solver, pb.n_fields
+        grids = pb.precond_builder(dev).grids
+        nc = len(grids) - 1
+        groups = pb.field_groups if split else None
+        terms = pb.terms_precond if split else pb.terms
+        v, m = grids[0].interpolate(pb.ic_fns)
+        w = tuple(torch.tensor(a, dtype=f32, device=dev) + torch.tensor(
+            0.01 * rng.standard_normal((F,) + a.shape[1:]), dtype=f32,
+            device=dev) for a in (v, m))
+        for bc in pb.dirichlet_for(grids[0]):
+            w = (bc.apply_value(w[0]).contiguous(), w[1])
+        ws, pinvs, jvs, masks = [], [], [], []
+        for l, g in enumerate(grids):
+            bcs = pb.dirichlet_for(g)
+            jvs.append(pb.kernel_jvp(g, dev, bcs, split=split))
+            mk = bc_mask(g, bcs, F)
+            masks.append(None if mk is None else torch.as_tensor(mk, device=dev))
+            if l < nc:
+                ws.append(w)
+                pinvs.append(make_block_jacobi(g, terms, F, device=dev,
+                                               dirichlet=bcs)(w, w, dt).pinv_planes)
+                w = kt.inject(w, grids[l + 1], g)
+        masked = any(mk is not None for mk in masks)
+        sizes = "/".join(str(g.nx) for g in grids)
+        nud = dict(nu=s.gmg_nu_pre, nu_fine=s.gmg_nu_fine_pre or s.gmg_nu_pre)
+        nua = dict(nu=s.gmg_nu_post,
+                   nu_fine=s.gmg_nu_fine_post or s.gmg_nu_post)
+        desc = make_descend_chain(grids, jvs, masks=masks, field_groups=groups,
+                                  **nud)
+        asc = make_ascend_chain(grids, jvs, masks=masks, field_groups=groups,
+                                **nua)
+        assert desc.one_launch and asc.one_launch
+        b0, xc = pair(grids[0], F), pair(grids[-1], F)
+        dargs = (b0, ws, ws, dt, pinvs)
+        xs_s, bs_s, _ = desc.sequence(*dargs)
+        aargs = ([b0] + bs_s, xs_s, xc, ws, ws, dt, pinvs)
+        for chain, args, nus, up in ((desc, dargs, nud, False),
+                                     (asc, aargs, nua, True)):
+            rec = K[chain.plan.kernel_name]
+            got, again = flat(chain.kernel(*args)), flat(chain.kernel(*args))
+            seq, ref = flat(chain.sequence(*args)), flat(chain.plain(*args))
+            if any(not torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError(f"{rec.name} {name}: a rerun changed the "
+                                     "bits")
+            d_seq = max(float((a - c).abs().max()) for a, c in zip(got, seq))
+            k_dev = device_ms(lambda: chain.kernel(*args))
+            s_dev = device_ms(lambda: chain.sequence(*args))
+            per_call = interleaved_ms({"kernel": lambda: chain.kernel(*args),
+                                       "sequence": lambda: chain.sequence(*args)})
+            p_ms = once_ms(lambda: chain.plain(*args))
+            work = chain_work(grids, F, nus["nu"], nus["nu_fine"], ascend=up,
+                              jv_kw=jv_kw, groups=groups, masked=masked)
+            b_ms, b_by = bound(work)
+            info = chain.plan.info()
+            print(f"phase 23: {rec.name} {name} {sizes}"
+                  f"{' masked' if masked else ''}{' groups' if groups else ''}"
+                  f" nu={nus['nu_fine']}/{nus['nu']}: grid {chain.plan.grid} "
+                  f"CTAs ({info['ctas_per_sm']} per SM), {info['registers']} "
+                  f"registers, {info['local_bytes']} local bytes, "
+                  f"{info['static_smem']} static shared bytes; device "
+                  f"{k_dev * 1e3:.2f} us per call vs the sequence's "
+                  f"{s_dev * 1e3:.2f} (the sum of its level steps); per call "
+                  f"kernel / plain / sequence {per_call['kernel'] * 1e3:.1f} / "
+                  f"{p_ms * 1e3:.1f} / {per_call['sequence'] * 1e3:.1f} us; "
+                  f"bound {b_ms * 1e3:.3f} us ({b_by}); vs the sequence max "
+                  f"abs diff {d_seq:.3e}"
+                  f"{' (bit-identical)' if d_seq == 0.0 else ''}; rerun "
+                  f"bit-identical", flush=True)
+            rec.check(f"{name} {sizes}", got, ref, TOL_F32,
+                      (per_call["kernel"], p_ms), work, dev_ms=k_dev,
+                      main=name == "bench1")
+            rec.check(f"{name} {sizes} vs the sequence", got, seq, TOL_F32)
+    torch.cuda.synchronize()
+    print(f"phase 23: the chain kernels agree with their plain versions at "
+          f"every main-path hierarchy ({time.perf_counter() - t23:.1f} s)",
+          flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- phase 1: the card --------------------------------------------
@@ -2399,8 +2586,8 @@ def main() -> None:
     runner1 = timeloop.Runner(problem1, dev)
     paths["bench1"], result1, wall1, seconds1 = drive(
         "phase 4: bench1", problem1, lambda: runner1.run(verbose=True),
-        ("ch_jvp", "lmr_sweep", "transfer_dyadic", "descend_chain",
-         "ascend_chain"))
+        ("ch_jvp", "lmr_sweep", "transfer_dyadic", "vcycle_descend_chain",
+         "vcycle_ascend_chain"), max_calls=MAX_CALLS_PER_APPLY["bench1"])
     hold_trajectory("phase 4: bench1", result1, "bench1_out.csv",
                     problem1.time.end_time, BENCH1_MIN_MATCHED,
                     BENCH1_INTERP_TOL)
@@ -2472,9 +2659,10 @@ def main() -> None:
     ascend = make_ascend_chain(grids6, jvs6, masks=masks6, nu=s6.gmg_nu_post,
                                nu_fine=s6.gmg_nu_fine_post or s6.gmg_nu_post)
     b0 = noise_pair(grids6[0], F6)
-    xs_k, bs_k, bc_k = descend.kernel(b0, w_ls, w_ls, dt6, pinvs)
+    xs_k, bs_k, bc_k = descend.sequence(b0, w_ls, w_ls, dt6, pinvs)
     xs_p, bs_p, bc_p = descend.plain(b0, w_ls, w_ls, dt6, pinvs)
-    timing = (cuda_ms(lambda: descend.kernel(b0, w_ls, w_ls, dt6, pinvs), reps=10),
+    timing = (cuda_ms(lambda: descend.sequence(b0, w_ls, w_ls, dt6, pinvs),
+                      reps=10),
               cuda_ms(lambda: descend.plain(b0, w_ls, w_ls, dt6, pinvs), reps=3))
     work = chain_work(grids6, F6, nus["nu"], nus["nu_fine"], ascend=False)
     got = [t for p in xs_k + bs_k + [bc_k] for t in p]
@@ -2482,18 +2670,18 @@ def main() -> None:
     C["descend_chain"].check("100/50/25", got, ref, TOL_F32, timing, work)
     xc = noise_pair(grids6[-1], F6)
     bs_in = [b0] + bs_p
-    timing = (cuda_ms(lambda: ascend.kernel(bs_in, xs_p, xc, w_ls, w_ls, dt6,
-                                            pinvs), reps=10),
+    timing = (cuda_ms(lambda: ascend.sequence(bs_in, xs_p, xc, w_ls, w_ls, dt6,
+                                              pinvs), reps=10),
               cuda_ms(lambda: ascend.plain(bs_in, xs_p, xc, w_ls, w_ls, dt6,
                                            pinvs), reps=3))
     work = chain_work(grids6, F6, s6.gmg_nu_post,
                       s6.gmg_nu_fine_post or s6.gmg_nu_post, ascend=True)
     C["ascend_chain"].check(
-        "100/50/25", ascend.kernel(bs_in, xs_p, xc, w_ls, w_ls, dt6, pinvs),
+        "100/50/25", ascend.sequence(bs_in, xs_p, xc, w_ls, w_ls, dt6, pinvs),
         ascend.plain(bs_in, xs_p, xc, w_ls, w_ls, dt6, pinvs), TOL_F32, timing,
         work)
     torch.cuda.synchronize()
-    print(f"phase 5: bench6-shape kernels and chains agree with their plain "
+    print(f"phase 5: bench6-shape kernels and chain sequences agree with their plain "
           f"versions ({time.perf_counter() - t5:.1f} s)", flush=True)
 
     # ---- phase 6: bench6's main path at 100x100 -------------------------
@@ -2504,8 +2692,9 @@ def main() -> None:
           flush=True)
     paths["bench6"], _, _, _ = run_main_path(
         "phase 6: bench6", runner6, None, "bench6_out.csv", BENCH6_ROWS,
-        ("chp_jvp", "descend_chain", "ascend_chain", "lmr_sweep",
-         "transfer_dyadic", "residual"))
+        ("chp_jvp", "vcycle_descend_chain", "vcycle_ascend_chain",
+         "lmr_sweep", "transfer_dyadic", "residual"),
+        max_calls=MAX_CALLS_PER_APPLY["bench6"])
 
     # ---- phase 7: kernels, sweep loop and chains at bench2's shapes -----
     problem2 = bench2.make()
@@ -2587,9 +2776,10 @@ def main() -> None:
     ascend2 = make_ascend_chain(grids2, jvs2, **nua2, field_groups=groups2)
     wk2, pk2 = w_ls2[:-1], pinvs2[:-1]
     b0 = noise_pair(grids2[0], F2)
-    xs_k, bs_k, bc_k = descend2.kernel(b0, wk2, wk2, dt2, pk2)
+    xs_k, bs_k, bc_k = descend2.sequence(b0, wk2, wk2, dt2, pk2)
     xs_p, bs_p, bc_p = descend2.plain(b0, wk2, wk2, dt2, pk2)
-    timing = (cuda_ms(lambda: descend2.kernel(b0, wk2, wk2, dt2, pk2), reps=10),
+    timing = (cuda_ms(lambda: descend2.sequence(b0, wk2, wk2, dt2, pk2),
+                      reps=10),
               cuda_ms(lambda: descend2.plain(b0, wk2, wk2, dt2, pk2), reps=3))
     C["descend_chain"].check(
         "bench2 100/50/25 groups", [t for p in xs_k + bs_k + [bc_k] for t in p],
@@ -2598,13 +2788,13 @@ def main() -> None:
                    **nus2))
     xc = noise_pair(grids2[-1], F2)
     bs_in = [b0] + bs_p
-    timing = (cuda_ms(lambda: ascend2.kernel(bs_in, xs_p, xc, wk2, wk2, dt2, pk2),
-                      reps=10),
+    timing = (cuda_ms(lambda: ascend2.sequence(bs_in, xs_p, xc, wk2, wk2, dt2,
+                                               pk2), reps=10),
               cuda_ms(lambda: ascend2.plain(bs_in, xs_p, xc, wk2, wk2, dt2, pk2),
                       reps=3))
     C["ascend_chain"].check(
         "bench2 100/50/25 groups",
-        ascend2.kernel(bs_in, xs_p, xc, wk2, wk2, dt2, pk2),
+        ascend2.sequence(bs_in, xs_p, xc, wk2, wk2, dt2, pk2),
         ascend2.plain(bs_in, xs_p, xc, wk2, wk2, dt2, pk2), TOL_F32, timing,
         chain_work(grids2, F2, ascend=True, jv_kw=jv_kw2, groups=groups2,
                    **nua2))
@@ -2621,9 +2811,9 @@ def main() -> None:
           flush=True)
     paths["bench2"], result2, wall2, seconds2 = run_main_path(
         "phase 8: bench2", runner2, BENCH2_END, "bench2_out.csv", BENCH2_ROWS,
-        ("chac_jvp", "lmr_sweep", "transfer_dyadic", "descend_chain",
-         "ascend_chain", "residual"),
-        tfe_tol=1e-5)
+        ("chac_jvp", "lmr_sweep", "transfer_dyadic", "vcycle_descend_chain",
+         "vcycle_ascend_chain", "residual"),
+        tfe_tol=1e-5, max_calls=MAX_CALLS_PER_APPLY["bench2"])
     # precond_lag 'newton': one multigrid build (block-Jacobi planes of every
     # level, injections) per Newton iteration, over every attempt, timed
     # inside the run by solve/gmg.py
@@ -2688,18 +2878,41 @@ def main() -> None:
         a = make_ascend_level(fine, coarse, jv, nu=nu_a)
         wl, pl = w_ls3[l], pinvs3[l]
         b, xc = noise_pair(fine, F3), noise_pair(coarse, F3)
-        xk, bck = d.kernel(b, wl, wl, dt3, pl)
+        xk, bck = d.sequence(b, wl, wl, dt3, pl)
         xp, bcp = d.plain(b, wl, wl, dt3, pl)
-        timing = (cuda_ms(lambda: d.kernel(b, wl, wl, dt3, pl), reps=10),
+        xc1, bcc1 = (tuple(t.clone() for t in p)
+                     for p in d.kernel(b, wl, wl, dt3, pl))
+        K["vcycle_descend_chain"].check(
+            f"level step {fine.nx}->{coarse.nx} nu={nu_d}", xc1 + bcc1,
+            xp + bcp, TOL_F32)
+        K["vcycle_ascend_chain"].check(
+            f"level step {coarse.nx}->{fine.nx} nu={nu_a}",
+            a.kernel(b, xp, xc, wl, wl, dt3, pl),
+            a.plain(b, xp, xc, wl, wl, dt3, pl), TOL_F32)
+        for tag, step, args in (
+                (f"descend {fine.nx}->{coarse.nx} nu={nu_d}", d,
+                 (b, wl, wl, dt3, pl)),
+                (f"ascend {coarse.nx}->{fine.nx} nu={nu_a}", a,
+                 (b, xp, xc, wl, wl, dt3, pl))):
+            per_call = interleaved_ms({"kernel": lambda: step.kernel(*args),
+                                       "sequence": lambda: step.sequence(*args)})
+            print(f"phase 9: level step {tag} as one chain launch: device "
+                  f"{device_ms(lambda: step.kernel(*args)) * 1e3:.2f} us vs the "
+                  f"sequence's {device_ms(lambda: step.sequence(*args)) * 1e3:.2f}"
+                  f"; per call {per_call['kernel'] * 1e3:.1f} vs "
+                  f"{per_call['sequence'] * 1e3:.1f} us", flush=True)
+        timing = (cuda_ms(lambda: d.sequence(b, wl, wl, dt3, pl), reps=10),
                   cuda_ms(lambda: d.plain(b, wl, wl, dt3, pl), reps=3))
         C["descend_level"].check(
             f"{fine.nx}->{coarse.nx} nu={nu_d}", xk + bck, xp + bcp, TOL_F32,
             timing, chain_work([fine, coarse], F3, nu_d, nu_d, ascend=False,
                                jv_kw=jv_kw3, masked=False))
-        timing = (cuda_ms(lambda: a.kernel(b, xp, xc, wl, wl, dt3, pl), reps=10),
+        timing = (cuda_ms(lambda: a.sequence(b, xp, xc, wl, wl, dt3, pl),
+                          reps=10),
                   cuda_ms(lambda: a.plain(b, xp, xc, wl, wl, dt3, pl), reps=3))
         C["ascend_level"].check(
-            f"{coarse.nx}->{fine.nx} nu={nu_a}", a.kernel(b, xp, xc, wl, wl, dt3, pl),
+            f"{coarse.nx}->{fine.nx} nu={nu_a}",
+            a.sequence(b, xp, xc, wl, wl, dt3, pl),
             a.plain(b, xp, xc, wl, wl, dt3, pl), TOL_F32, timing,
             chain_work([fine, coarse], F3, nu_a, nu_a, ascend=True,
                        jv_kw=jv_kw3, masked=False))
@@ -2748,9 +2961,9 @@ def main() -> None:
         raise AssertionError("bench3's coarsest solve is not the dense inverse")
     paths["bench3"], result3, wall3, seconds3 = run_main_path(
         "phase 10: bench3", runner3, None, "bench3_out.csv", BENCH3_ROWS,
-        ("ach_jvp", "lmr_sweep", "transfer_dyadic", "transfer_general",
-         "descend_level", "ascend_level", "descend_chain", "ascend_chain"),
-        tfe_tol=1e-6, col2_tol=1e-5)
+        ("ach_jvp", "transfer_dyadic", "vcycle_descend_chain",
+         "vcycle_ascend_chain"),
+        tfe_tol=1e-6, col2_tol=1e-5, max_calls=MAX_CALLS_PER_APPLY["bench3"])
     n_builds3 = sum(st.newton_iters_all for st in result3.stats)
     build_s3 = seconds3["precond_build"]
     print(f"phase 10: multigrid builds on the main path (with the dense 7^2 "
@@ -2771,8 +2984,9 @@ def main() -> None:
     shard_sweep_phase(dev, K, paths)
     gridjvp_phase(dev, K, paths)
     sweep_loop_phase(dev, K, rng)
+    chain_phase(dev, K, rng)
 
-    # ---- phase 23: summary -----------------------------------------------
+    # ---- phase 24: summary -----------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": [K[k].record(paths) for k in _lib.KERNELS],
                       "chains": [C[k].record(paths) for k in _lib.CHAINS]}),

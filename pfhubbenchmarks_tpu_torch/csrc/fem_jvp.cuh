@@ -3,7 +3,8 @@
 // Shared body of kernel A (ch_jvp.cu, BM1's Cahn-Hilliard), kernel E
 // (chp_jvp.cu, BM6's Cahn-Hilliard + Poisson), kernel F (chac_jvp.cu,
 // BM2's Cahn-Hilliard + Allen-Cahn) and kernel G (ach_jvp.cu), and, per
-// node (jvp_node), of kernel L's A z (lmr_loop.cuh). Computes
+// node (jvp_node, jvp_store), of kernel L's A z (lmr_loop.cuh) and the
+// ascend chain's residual (vcycle_chain.cuh). Computes
 //     out = J(w, dt) v        (b == nullptr), or   out = b - J(w, dt) v
 // in f32, with an optional 0/1 vertex mask of Dirichlet rows: on a masked row
 // the J.v is v itself (the tangent of a constraint row u - g), so the result
@@ -152,6 +153,38 @@ __device__ __forceinline__ void jvp_node(const JvpParams& P,
   }
 }
 
+// The J.v's output at node idx from its gather sum acc: on a Dirichlet row
+// (mask != 0) the tangent value itself, then b - value where b is given.
+// The planes tv and b are read by Ld: the J.v kernels' LoadRO, or LoadCG in
+// a launch that wrote them earlier (the ascend chain, vcycle_chain.cuh).
+template <int NF, class Ld = LoadRO>
+__device__ __forceinline__ void jvp_store(const float (&acc)[NF], long idx,
+                                          long nvert, long ncell,
+                                          const float* __restrict__ tv,
+                                          const float* __restrict__ bv,
+                                          const float* __restrict__ bm,
+                                          const float* __restrict__ mask,
+                                          float* __restrict__ ov,
+                                          float* __restrict__ om) {
+  if (idx < nvert) {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const long o = f * nvert + idx;
+      float val = acc[f];
+      if (mask != nullptr && __ldg(mask + o) != 0.f) val = Ld::ld(tv + o);
+      if (bv != nullptr) val = Ld::ld(bv + o) - val;
+      ov[o] = val;
+    }
+  } else {
+    const long c = idx - nvert;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const long o = f * ncell + c;
+      om[o] = (bm != nullptr) ? Ld::ld(bm + o) - acc[f] : acc[f];
+    }
+  }
+}
+
 template <class Phys, int NQ>
 __global__ void __launch_bounds__(kThreads)
 fem_jvp_kernel(const JvpParams P, const float* __restrict__ wv,
@@ -167,23 +200,7 @@ fem_jvp_kernel(const JvpParams P, const float* __restrict__ wv,
   if (idx >= nvert + ncell) return;
   float acc[NF];
   jvp_node<Phys, NQ>(P, wv, wm, tv, tm, idx, ny, nx, acc);
-  if (idx < nvert) {
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      const long o = f * nvert + idx;
-      float val = acc[f];
-      if (mask != nullptr && __ldg(mask + o) != 0.f) val = __ldg(tv + o);
-      if (bv != nullptr) val = __ldg(bv + o) - val;
-      ov[o] = val;
-    }
-  } else {
-    const long c = idx - nvert;
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      const long o = f * ncell + c;
-      om[o] = (bm != nullptr) ? __ldg(bm + o) - acc[f] : acc[f];
-    }
-  }
+  jvp_store<NF>(acc, idx, nvert, ncell, tv, bv, bm, mask, ov, om);
 }
 
 // Host launcher. params: kJvpParamFloats floats in the order of JvpParams

@@ -229,15 +229,27 @@ __device__ __forceinline__ void loop_barrier() {
     cooperative_groups::this_grid().sync();
 }
 
+// The shared memory of the sweep loop: phase 3's tree, phase 4's staged
+// partials and the step lengths.
+struct LoopShared {
+  double num[kLoopThreads];
+  double den[kLoopThreads];
+  double part[2 * kMaxGroups * kLoopMaxSlots];
+  float alpha[kMaxGroups];
+};
+
+// The n sweeps of one level (A.n_sweeps) on (x, r) in place: L's body, and
+// the sweeps of each level of the V-cycle chains (vcycle_chain.cuh), which
+// run it between their own grid barriers. Every loop is grid-stride and the
+// slots are C's partition, so the bits do not depend on the grid. A thread
+// reads r at its own nodes with plain loads: a caller that wrote r before
+// must have written those nodes from the same thread (the node loop below),
+// or put a grid barrier between.
 template <class Lv>
-__global__ void __launch_bounds__(kLoopThreads)
-lmr_loop_kernel(const typename Lv::Params P, const LoopArgs A) {
+__device__ __forceinline__ void lmr_sweeps(const typename Lv::Params& P,
+                                           const LoopArgs& A, LoopShared& sh,
+                                           float* smem) {
   constexpr int NF = Lv::NF;
-  __shared__ double s_num[kLoopThreads];
-  __shared__ double s_den[kLoopThreads];
-  __shared__ double s_part[2 * kMaxGroups * kLoopMaxSlots];
-  __shared__ float s_alpha[kMaxGroups];
-  extern __shared__ float lmr_smem[];  // Lv::kSmemBytes: phase 2's
   const long N = A.nvert + A.ncell;
   const long first = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long stride = static_cast<long>(gridDim.x) * blockDim.x;
@@ -252,24 +264,24 @@ lmr_loop_kernel(const typename Lv::Params P, const LoopArgs A) {
   }
   for (int s = 0; s < A.n_sweeps; ++s) {
     loop_barrier();
-    Lv::az(P, A, lmr_smem);  // phase 2
+    Lv::az(P, A, smem);  // phase 2
     loop_barrier();
-    partial_slots(A, s_num, s_den);  // phase 3
+    partial_slots(A, sh.num, sh.den);  // phase 3
     loop_barrier();
     // phase 4: alpha per group, as C's stage 2: the partials staged in
     // shared memory by the whole CTA at once, then summed in index order
     for (int i = threadIdx.x; i < 2 * A.G.n * A.nb; i += blockDim.x)
-      s_part[i] = __ldcg(A.partials + i);
+      sh.part[i] = __ldcg(A.partials + i);
     __syncthreads();
     if (threadIdx.x < A.G.n) {
       const int g = threadIdx.x;
       double num = 0.0, den = 0.0;
 #pragma unroll 8
       for (int b = 0; b < A.nb; ++b) {
-        num += s_part[g * A.nb + b];
-        den += s_part[(A.G.n + g) * A.nb + b];
+        num += sh.part[g * A.nb + b];
+        den += sh.part[(A.G.n + g) * A.nb + b];
       }
-      s_alpha[g] = den > 0.0 ? static_cast<float>(num / den) : 0.0f;
+      sh.alpha[g] = den > 0.0 ? static_cast<float>(num / den) : 0.0f;
     }
     __syncthreads();
     const bool next = s + 1 < A.n_sweeps;
@@ -283,15 +295,23 @@ lmr_loop_kernel(const typename Lv::Params P, const LoopArgs A) {
 #pragma unroll
       for (int f = 0; f < NF; ++f) {
         const long o = nd.at(f);
-        const float alpha = s_alpha[group_of(A.G, f)];
+        const float alpha = sh.alpha[group_of(A.G, f)];
         x[o] += alpha * z[o];
         r[o] -= alpha * az[o];
         rr[f] = r[o];
       }
       if (next) bj_node<NF>(A, nd, rr);
     }
-    __syncthreads();  // s_alpha is rewritten by the next sweep's phase 4
+    __syncthreads();  // alpha is rewritten by the next sweep's phase 4
   }
+}
+
+template <class Lv>
+__global__ void __launch_bounds__(kLoopThreads)
+lmr_loop_kernel(const typename Lv::Params P, const LoopArgs A) {
+  __shared__ LoopShared sh;
+  extern __shared__ float lmr_smem[];  // Lv::kSmemBytes: phase 2's
+  lmr_sweeps<Lv>(P, A, sh, lmr_smem);
 }
 
 // Lets an instantiation take its level's dynamic shared bytes (above 48 KB

@@ -16,7 +16,7 @@
 // them through a load policy (common.cuh: LoadRO, or LoadCG for a plane
 // written earlier in the same launch). H's restriction reads its fine planes
 // through an accessor v(y, x) of global fine coordinates (TilePlane: a strip
-// of rows staged in shared memory).
+// of rows staged in shared memory; LdPlane: the plane in device memory).
 #pragma once
 
 #include "common.cuh"
@@ -214,6 +214,18 @@ __device__ __forceinline__ float general_restrict_vertex(
   if (I == nyc && J == nxc) acc = add(acc, v(nyf, nxf));
   return acc;
 }
+
+// A fine plane in device memory with row stride `stride`, read by Ld at
+// global fine coordinates: H's restriction in a launch that wrote the plane
+// earlier (the descend chain, vcycle_chain.cuh, with LoadCG).
+template <class Ld>
+struct LdPlane {
+  const float* p;
+  int stride;
+  __device__ __forceinline__ float operator()(int y, int x) const {
+    return Ld::ld(p + static_cast<long>(y) * stride + x);
+  }
+};
 
 // R: coarse centre (i, j), the fine nodes of its own cell
 template <int R, class Plane>

@@ -1,0 +1,24 @@
+// Kernels vcycle_descend_chain and vcycle_ascend_chain (vcycle_chain.cuh)
+// for BM6's Cahn-Hilliard + Poisson with its Dirichlet rows (kernel E's
+// physics, phys_chp.cuh):
+// each chain of V-cycle levels in one cooperative launch, at rules of 1, 3
+// or 4 points. Replace, at this physics, TPU rows 6-9 (pallas_vcycle.py
+// make_fused_descend, make_fused_descend_chain, make_fused_ascend_chain,
+// make_fused_ascend).
+
+#include "phys_chp.cuh"
+#include "vcycle_chain.cuh"
+
+// ascend: 0 the descent, 1 the ascent; the rest as pfh::vcycle_chain takes it
+PFH_EXPORT int pfh_vcycle_chain_chp(int ascend, int nq, const void* table,
+                                    int K, long need, const float* bv,
+                                    const float* bm, const float* xcv,
+                                    const float* xcm, float* zv, float* zm,
+                                    int* grid_out, void* stream) {
+  return pfh::vcycle_chain<pfh::CHP>(ascend, nq, table, K, need, bv, bm, xcv,
+                                     xcm, zv, zm, grid_out, stream);
+}
+
+PFH_EXPORT int pfh_vcycle_chain_chp_info(int ascend, int nq, int* out) {
+  return pfh::vcycle_chain_info<pfh::CHP>(ascend, nq, out);
+}

@@ -10,10 +10,11 @@ tests import every module, and a CPU tensor never reaches a kernel.
 
 Each wrapper counts its launches in ``LAUNCHES`` (one per wrapper call that
 launches its kernel), so a run can show that its main path went through the
-kernels. The tiled LMR sweep loop (ops/lmr.py), the two V-cycle level steps
-and the two chains (ops/vcycle_chain.py) are launch sequences of those
-kernels, not kernels: they count their calls in ``CALLS``. The gather sweep
-loop is one kernel, L (``lmr_sweep``). ``SECONDS`` holds
+kernels. The tiled LMR sweep loop (ops/lmr.py) and the launch sequences of
+the two V-cycle level steps and the two chains (ops/vcycle_chain.py
+``.sequence``) are not kernels: they count their calls in ``CALLS``. The
+gather sweep loop is one kernel, L (``lmr_sweep``), and each chain of gather
+levels one launch of ``vcycle_descend_chain`` or ``vcycle_ascend_chain``. ``SECONDS`` holds
 the host seconds of plain-torch stages (the multigrid build), so a run can
 say what share of its wall they take.
 """
@@ -43,7 +44,7 @@ KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp", "ch3d_jvp",
            "ch3d_tile", "block_jacobi_apply", "lmr_step", "lmr_sweep", "transfer_dyadic",
            "transfer_general", "residual", "tile_jvp_recompute",
            "tile_jvp_seam", "tile_sweep", "fma_chain", "shard_sweep",
-           "gridjvp_probe")
+           "gridjvp_probe", "vcycle_descend_chain", "vcycle_ascend_chain")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # launch sequences of the kernels that stand for one TPU kernel each
 CHAINS = ("tile_sweep_loop", "descend_level", "ascend_level",
@@ -109,6 +110,9 @@ class KernelLibrary:
         # kernel L: the operands, then partials, nb, groups, n_sweeps, the
         # grid's cells, one_cta, the grid out, the stream
         loop2 = [vp] * 13 + [vp, i32, i32, vp, i32, i32, i32, i32, ip, vp]
+        # the chain kernels: ascend, nq, the table, K, the CTAs needed, the
+        # call's six pointers, the grid out, the stream
+        chain = [i32, i32, vp, i32, i64] + [vp] * 6 + [ip, vp]
         sig = {
             "pfh_ch_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
             "pfh_chp_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
@@ -155,6 +159,16 @@ class KernelLibrary:
                 i32, vp, i32, i32, vp],
             "pfh_tile_seam_floats": [i32, i32, i32],
             "pfh_fma_chain": [vp, vp, vp, i64, i32, vp],
+            "pfh_vcycle_chain_level_bytes": [],
+            "pfh_vcycle_chain_pack": [vp] * 6,
+            "pfh_vcycle_chain_ch": chain,
+            "pfh_vcycle_chain_chp": chain,
+            "pfh_vcycle_chain_ach": chain,
+            "pfh_vcycle_chain_chac": chain[:2] + [i32, i32] + chain[2:],
+            "pfh_vcycle_chain_ch_info": [i32, i32, ip],
+            "pfh_vcycle_chain_chp_info": [i32, i32, ip],
+            "pfh_vcycle_chain_ach_info": [i32, i32, ip],
+            "pfh_vcycle_chain_chac_info": [i32, i32, i32, i32, ip],
         }
         for name, argtypes in sig.items():
             fn = getattr(self.lib, name)

@@ -12,18 +12,20 @@ make_fused_vcycle`` too:
   per pair built with the cycle, ops/transfer.TransferPlan), and per-level
   node-block-Jacobi inverses (solve/precond.py);
 - ``descend_chain`` (ops/vcycle_chain.py): per level the descend step (TPU
-  kernel 6): local-minimal-residual pre-sweeps from zero (the sweep loop of
-  ops/lmr.py, one launch of kernel L: per sweep z = P^-1 r, A z by the
-  level J.v's body, the alpha step and both axpys) and restriction (kernel
-  D, or H for an odd ratio);
+  kernel 6): local-minimal-residual pre-sweeps from zero (per sweep z =
+  P^-1 r, A z by the level J.v's body, the alpha step and both axpys: kernel
+  L's body) and restriction (kernel D's bodies, or H's for an odd ratio);
 - the coarsest level solved by ``coarse_sweeps`` LMR sweeps from zero (one
   launch of L), or by the exact dense inverse when its dof
   count is at most ``dense_coarse_max_dofs`` (the Jacobian by
   ``torch.func.jacfwd`` and ``torch.linalg.inv`` once per build, applied
   by one f32 matmul: bench3's 7^2, 226 dofs);
 - ``ascend_chain``: per level the ascend step (TPU kernel 9): prolongation
-  with the correction added in place (D or H), the residual recomputed as
-  b - A x in one J.v launch, and the post-sweeps;
+  with the correction added (D's or H's bodies), the residual recomputed as
+  b - A x by the level J.v's body, and the post-sweeps; each chain is one
+  launch of its chain kernel (``vcycle_descend_chain``,
+  ``vcycle_ascend_chain``) when every level is a gather level, which is so
+  on every main path;
 - ``Minv.minv_matvec`` returns the pair (z, A z), with A z the true-rule
   fine-level J.v (the fine grid's own rule) that FGMRES consumes in place of
   its outer matvec.
@@ -54,7 +56,9 @@ Dirichlet rows and more than one row block (ops/fem_tile.multi_block, the
 JAX package's ``not bcs`` and ``bc_rows < g.ny``) takes the seam-form tile
 J.v (T12, ``jvp_for(g, split, "seam")``) and its tiled sweep loop (TS and
 C per sweep, ops/lmr.make_level_sweep_loop); every other level keeps the
-gather kernels.
+gather kernels. A chain with a routed level runs as its launch sequence
+(``.sequence``: per level L or the tiled loop, D or H, the level J.v), a
+choice made once when the chains are built, from the levels' J.v.
 
 On CUDA tensors every step above except the dense coarse solve and the
 odd-ratio injection is a hand-written kernel launch; on CPU tensors the same
