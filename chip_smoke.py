@@ -41,7 +41,8 @@ Phases, each printing its results; any failure raises (non-zero exit):
    and without the Dirichlet mask, at 100^2 also against ``torch.func.jvp``
    of the residual; the transfers at every pair as in phase 3, with the
    problem's Dirichlet masks (the main path's case) and without; the
-   descend and ascend chains' launch sequences against their plain twins.
+   descend and ascend chains' launch sequences against their plain twins;
+   kernel N at every level with the Dirichlet masks, as in phase 3.
 6. bench6's main path: the port's bench6 at full size (100x100) through
    ``Runner.run`` to t = 3.19; the 14 rows against the committed
    ``results/bench6_out.csv`` (time column rtol 1e-9, TFE rel 1e-6, solute
@@ -51,17 +52,23 @@ Phases, each printing its results; any failure raises (non-zero exit):
    CH+AC J.v (kernel F), coupled at ffc3 and field-split at dunavant1, both
    forms, with 4 order parameters at every level and with 1 and 2 at 100^2,
    also against ``torch.func.jvp`` of the residual; block-Jacobi and LMR
-   with the field groups; both chains' launch sequences with the groups;
-   and the time of one
-   block-Jacobi build of the hierarchy; the transfers (D, F = 6) at every
-   pair as in phase 3.
+   with the field groups; kernel N as in phase 3, field-split (the main
+   path's) and coupled, with 4 order parameters at every level and with 1
+   and 2 at 100^2; both chains' launch sequences with the groups; the warm
+   multigrid build of the hierarchy (kernel N per level and the
+   injections, median of 5); the transfers (D, F = 6) at every pair as in
+   phase 3.
 8. bench2's main path: the port's bench2 at full size (100x100, six
-   fields) through ``Runner.run`` to t = 2.15; the first 14 rows against
-   the committed ``results/bench2_out.csv`` (time column rtol 1e-9, TFE rel
-   1e-5, solute rel 1e-9; step 11 holds the failed attempt that kernel R
-   moves); each kernel (R among them), the sweep loop and both chains must
-   have run; the seconds of its multigrid builds (plain torch), timed
-   inside the run, and their share of its wall.
+   fields) through ``Runner.run``, the whole adaptive run to its final time
+   (t = 100, the JAX run's 126 rows to t = 101.99), held against the
+   committed ``results/bench2_out.csv`` by the ``tools/check_trajectories.py``
+   BOUNDS for bench2: the time column equal (rtol 1e-9) for at least the
+   first 28 rows, with TFE rel 1e-5 and solute rel 1e-9 on those rows; TFE
+   interpolated onto the JAX run's times within rel 3e-2; the final time
+   reached. It prints the matched rows, the first row that parts and the
+   dt decisions that flip. Each kernel (R and N among them) and both chains
+   must have run; the seconds of its multigrid builds, timed inside the
+   run, and their share of its wall.
 9. the same checks at bench3's shapes (F = 2, levels 350^2/175^2/35^2/7^2,
    ratios 2, 5, 5): the AC + heat J.v (kernel G) at every level with
    dunavant2 and at 350^2 with ffc3, both forms, at 350^2 also against
@@ -70,17 +77,19 @@ Phases, each printing its results; any failure raises (non-zero exit):
    the host path of H's restriction at 175->35;
    block-Jacobi and LMR at 350^2; both level steps (TPU kernels 6 and 9) at
    each of the three pairs, their launch sequences and their kernels (a
-   chain kernel of one level); and the warm multigrid build of the 4-level
-   hierarchy, with and without the dense 7^2 inverse, timed (medians of 5).
+   chain kernel of one level); kernel N at every level as in phase 3; and
+   the warm multigrid build of the 4-level hierarchy, with and without the
+   dense 7^2 inverse, timed (medians of 5).
 10. bench3's main path: the port's bench3 at full size (350x350) through
    ``Runner.run``, its first 14 rows (to t = 12.15, the
    ``tools/check_trajectories.py`` prefix) against the committed
    ``results/bench3_out.csv`` (time column rtol 1e-9, TFE rel 1e-6, solid
    fraction rel 1e-5); its coarsest solve must be the dense inverse, and
    each kernel, the sweep loop, both level steps and both chains must have
-   run; the seconds of its multigrid builds (plain torch, with the dense
-   inverse), timed inside the run, and their share of its wall. bench3's
-   full length runs in phase 19's replay.
+   run; the seconds of its multigrid builds, timed inside the run, and
+   their share of its wall, split between kernel N's planes with the
+   injections and the dense 7^2 inverse. bench3's full length runs in phase
+   19's replay.
 11. the same checks at bench1_3d's shapes (F = 2, Kuhn tets, levels
    50^3/25^3/5^3): the 3D Cahn-Hilliard J.v over tet boxes (kernel U) at
    50^3 with keast2 and ffc3, at 25^3 and 5^3 with keast2, against its plain
@@ -184,11 +193,28 @@ Phases, each printing its results; any failure raises (non-zero exit):
    bit); device and per-call times of kernel and sequence in the same call,
    the plain version's per call, the bound, the grid, registers, spills and
    CTAs per SM (``chain_phase``).
-24. prints the card line, the per-kernel JSON line, then
+25. bench2's replay: 100x100 on the 120 rows of
+   ``results/bench2_replay.csv`` (to t = 101.67), TFE rel 3e-2 (the
+   REPLAY_BOUNDS) and solute rel 1e-9; it prints the rung that solves the
+   t = 81.51 step (the JAX run's: the continuation in dt). Its first 40
+   rows if the smoke has run BENCH2_REPLAY_LATE_S by then.
+26. bench2_eta1 (one order parameter), made through the registry
+   (``benchmarks/registry.get_benchmark``), its whole adaptive run against
+   ``results/bench2_eta1_out.csv`` (121 rows to t = 100.15): the final time
+   reached and TFE interpolated onto its times within rel 3e-2, with the
+   matched rows and the flipped dt decisions printed. Its first 28 rows
+   if the smoke runs late.
+27. prints the card line, the per-kernel JSON line, then
    ``{"ok": true, "device": ...}``.
 
-Every main-path phase on gather levels (4, 6, 8, 10, 17-19) requires the two
-chain kernels and refuses B's and C's launches (a gather level's sweeps run
+Phases 20-24 run after 25 and 26. Every main-path phase prints its Newton
+and Krylov counts, its wall, and the seconds of its multigrid builds and
+their share of its wall (the dense coarse inverse apart) beside those of the
+smokes before kernel N (PERF.md section 5), and refuses a ``torch.func.jvp`` block
+build on its path. Every 2D main path (4, 6, 8, 10, 14, 15, 17-19, 25, 26)
+requires kernel N. Every main-path phase on gather levels (4, 6, 8, 10,
+17-19, 25, 26) requires the two chain kernels and refuses B's and C's
+launches (a gather level's sweeps run
 inside L, and inside the chain kernels) and the chains' and level steps'
 launch sequences (each chain is one launch); kernel L runs the coarsest
 level's sweeps where that is not the dense inverse, and bench1_3d's K-cycle
@@ -196,10 +222,7 @@ level's sweeps where that is not the dense inverse, and bench1_3d's K-cycle
 tiled levels sweep with TS and C. Each main-path phase also prints the
 wrapper calls (kernel launches and chain calls) of one preconditioner apply
 in its configuration (at most 5 for bench1, bench6 and bench2, 4 for bench3:
-required), its wall beside that of the smokes before the chain kernels and its
-ms per Krylov iteration, and its
-Krylov counts beside those of the smoke before kernel L where PERF.md keeps
-them.
+required) and its ms per Krylov iteration.
 
 In the kernel line, ``kernels`` lists the CUDA kernels: ``launches`` is the
 sum of a kernel's launches over the main-path runs (each counted from 0
@@ -228,7 +251,11 @@ depth (the launch cost cancelled). Kernel S's main shape is one shard of
 bench3 350^2 on 2 x 4, its ``launches`` those of the two dry runs; Q's is
 case a at 350^2 (``ms`` and ``plain_ms`` the whole J.v, slabs and fold),
 its ``launches`` those of the probe path (the fold counted as one more).
-The chain kernels' main shape is bench1's 100/50/25 (phase 23).
+The chain kernels' main shape is bench1's 100/50/25 (phase 23). Kernel N's
+(``node_blocks``, a port kernel with no TPU row: its ``replaces`` names the
+JAX function it computes, and ``note`` says so) is bench2's 100^2 with the
+field-split tangent, its ``library_ms`` the ``torch.func.jvp`` build of the
+same planes and its ``device_ms`` one launch queued behind a sleep kernel.
 ``chains`` lists
 the tiled sweep loop and the launch sequences of the two V-cycle level
 steps and the two chains, which stand for TPU kernels 13 (the tiled sweep
@@ -262,7 +289,9 @@ JAX_BENCH1 = dict(steps=74, attempts=86, newton=327, krylov=4936,
                   krylov_all=5874)
 BENCH1_TILED_ROWS = 10                # phase 14: to t = 11.1
 BENCH6_ROWS = 14                      # results/bench6_out.csv, to t = 3.19
-BENCH2_END, BENCH2_ROWS = 2.15, 14    # rows 1-14 of results/bench2_out.csv
+# bench2's whole adaptive run (phase 8, 126 rows to t = 101.99): the
+# tools/check_trajectories.py BOUNDS
+BENCH2_MIN_MATCHED, BENCH2_INTERP_TOL = 28, 3e-2
 BENCH3_ROWS = 14                      # phases 10, 15: to t = 12.15
 BENCH1_3D_ROWS = 24                   # results/bench1_3d_out.csv, to t = 52.7
 BENCH1_3D_PREFIX_ROWS = 10            # to t = 12.7, if the smoke runs late
@@ -281,27 +310,39 @@ Q_NX, Q_BR = 350, 50
 BENCH1_REPLAY_ROWS, BENCH1_REPLAY_PREFIX, BENCH1_REPLAY_LATE_S = 73, 23, 780.0
 BENCH6_REPLAY_ROWS, BENCH6_REPLAY_PREFIX, BENCH6_REPLAY_LATE_S = 14, 7, 900.0
 BENCH3_REPLAY_ROWS, BENCH3_REPLAY_PREFIX, BENCH3_REPLAY_LATE_S = 46, 28, 900.0
-# Krylov / Krylov over all attempts of the smoke before kernel L (the sweeps
-# as the launch sequence B, J.v, C), where PERF.md section 5 keeps them, by
-# phase label and step count
-KRYLOV_BEFORE_L = {("phase 4: bench1", 74): (4998, 5891),
-              ("phase 12: bench1_3d", 24): (8528, 8858),
-              ("phase 17: bench1 replay", 73): (7713, 10502),
-              ("phase 18: bench6 replay", 14): (1179, None),
-              ("phase 19: bench3 replay", 46): (1568, 3417)}
+# phases 25, 26: bench2's replay (the t = 81.51 step is its row 110) and
+# bench2_eta1's whole run (121 rows), or these prefixes if the smoke runs
+# late
+BENCH2_REPLAY_ROWS, BENCH2_REPLAY_PREFIX, BENCH2_REPLAY_LATE_S = 120, 40, 800.0
+BENCH2_ETA1_PREFIX, BENCH2_ETA1_LATE_S = 28, 880.0
+# Newton / Krylov and Newton / Krylov over all attempts of the smokes before
+# kernel N (PERF.md section 5), by phase label and step count
+COUNTS_BEFORE_N = {("phase 4: bench1", 74): ((327, 4998), (368, 5891)),
+                   ("phase 6: bench6", 14): ((28, 1114), None),
+                   ("phase 8: bench2", 14): ((62, 684), (71, 1131)),
+                   ("phase 10: bench3", 14): ((58, 357), None),
+                   ("phase 12: bench1_3d", 24): ((98, 8675), (102, 9005)),
+                   ("phase 17: bench1 replay", 73): ((285, 7713), (388, 10502)),
+                   ("phase 19: bench3 replay", 46): ((193, 1568), (308, 3417))}
 TOL_F32 = dict(rtol=2e-4, atol_scale=2e-5)   # tests/test_pallas_vcycle.py
-# the walls of the last two smokes before the chain kernels, I (working tree)
-# and J (git archive), NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 5), by
-# phase label and step count
-WALLS_BEFORE_CHAINS = {
-    ("phase 4: bench1", 74): (48.020, 47.398),
-    ("phase 6: bench6", 14): (5.025, 4.371),
-    ("phase 8: bench2", 14): (125.177, 125.913),
-    ("phase 10: bench3", 14): (12.984, 11.767),
-    ("phase 12: bench1_3d", 24): (111.577, 108.040),
-    ("phase 17: bench1 replay", 73): (57.763, 53.140),
-    ("phase 18: bench6 replay", 14): (4.706, 4.937),
-    ("phase 19: bench3 replay", 46): (69.733, 59.515)}
+# the walls of the last two smokes before kernel N, A (working tree) and B
+# (git archive), NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 5), by phase
+# label and step count
+WALLS_BEFORE_N = {
+    ("phase 4: bench1", 74): (49.331, 38.322),
+    ("phase 6: bench6", 14): (5.377, 4.138),
+    ("phase 8: bench2", 14): (169.736, 133.619),
+    ("phase 10: bench3", 14): (17.645, 13.890),
+    ("phase 12: bench1_3d", 24): (151.956, 121.097),
+    ("phase 17: bench1 replay", 73): (60.930, 49.609),
+    ("phase 18: bench6 replay", 14): (5.175, 4.144),
+    ("phase 19: bench3 replay", 46): (76.347, 68.817)}
+# the multigrid builds of smoke A, before kernel N: seconds and share of the
+# wall (PERF.md section 5)
+BUILDS_BEFORE_N = {
+    ("phase 4: bench1", 74): (38.578, 0.782),
+    ("phase 8: bench2", 14): (166.6, 0.9816),
+    ("phase 10: bench3", 14): (16.13, 0.9141)}
 # the most wrapper calls one preconditioner apply may make on the gather
 # paths: two chain launches and the coarsest solve (one L launch; bench3's
 # dense inverse makes none)
@@ -910,14 +951,89 @@ def bound(work):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def node_blocks_work(g, F, ns, tangent_ops, masked=False):
+    """(bytes, flops) of kernel N at level ``g``: the ``ns`` state planes
+    the tangent reads and the 3 diagonals (+ the F mask planes on the
+    vertices) in, the F^2 block planes out. Per node one tangent's state
+    coefficients (``tangent_ops``, as TANGENT_OPS counts them: the one-hot
+    directions fold the rest), the F^2 entries of P (3 mul + 2 add each) and
+    the Gauss-Jordan on [P | I]: per pivot 2F divisions and (F - 1) rows of
+    2F mul + sub."""
+    N = nodes(g)
+    byts = 4 * ((ns + 3 + F * F) * N
+                + (F * (g.ny + 1) * (g.nx + 1) if masked else 0))
+    flops = N * (tangent_ops + 5 * F * F + F * (2 * F + 4 * F * (F - 1)))
+    return byts, flops
+
+
+def node_plan(problem, g, dev, split=False):
+    """Kernel N's plan at level ``g`` of ``problem``, as solve/gmg.py
+    builds it (from the level's gather J.v; the split operator's for
+    ``split``)."""
+    from pfhubbenchmarks_tpu_torch.ops.node_blocks import NodeBlockPlan
+
+    bcs = problem.dirichlet_for(g)
+    return NodeBlockPlan(g, problem.kernel_jvp(g, dev, bcs, split=split),
+                         problem.terms_precond if split else problem.terms,
+                         device=dev, dirichlet=bcs)
+
+
+def node_blocks_phase(phase, label, K, problem, grids, dt, dev, state_on,
+                      split=False, ns=1, ops=None, main=False, library_at=1):
+    """Kernel N at every level of ``grids`` (the main path's plans):
+    against its plain version (the hand-written tangent with one-hot
+    directions, TOL_F32), its rerun (to the bit) and the library build
+    (``torch.func.jvp``, TOL_F32; and whether to the bit, the target for
+    BM1, whose source column N takes in torch's forward-mode order); device
+    us (launches queued behind a sleep kernel), per-call us of kernel / plain / library (the library
+    timed at the first ``library_at`` levels, it takes up to seconds), the
+    bound, registers, spills and CTAs per SM. ``main``: the finest level is
+    N's main shape in the kernel line."""
+    F = problem.n_fields
+    ops = TANGENT_OPS[F] if ops is None else ops
+    for l, g in enumerate(grids):
+        plan = node_plan(problem, g, dev, split)
+        w = state_on(problem, g)
+        got = plan.kernel(w, w, dt)
+        again = plan.kernel(w, w, dt)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        k_ms = cuda_ms(lambda: plan.kernel(w, w, dt))
+        p_ms = cuda_ms(lambda: plan.plain(w, w, dt), reps=10)
+        lib_ms = (cuda_ms(lambda: plan.library(w, w, dt), reps=3, warmup=1)
+                  if l < library_at else None)
+        dev_ms = device_ms(lambda: plan.kernel(w, w, dt))
+        lab = f"{label} {g.ny}x{g.nx}"
+        K["node_blocks"].check(
+            lab, got, plan.plain(w, w, dt), TOL_F32, (k_ms, p_ms),
+            node_blocks_work(g, F, ns, ops, plan.mask is not None),
+            library_ms=lib_ms, dev_ms=dev_ms, main=main and l == 0)
+        lib = plan.library(w, w, dt)
+        K["node_blocks"].check(f"{lab} vs the torch.func.jvp build", got, lib,
+                               TOL_F32)
+        lib_bits = all(torch.equal(a, b) for a, b in zip(got, lib))
+        info = plan.info()
+        print(f"phase {phase}: kernel N {lab}: rerun "
+              f"{'bit-identical' if same else 'DIFFERS'}, the torch.func.jvp "
+              f"build {'bit-identical' if lib_bits else 'within TOL_F32'}, "
+              f"device "
+              f"{dev_ms * 1e3:.2f} us, per call {k_ms * 1e3:.1f} us (plain "
+              f"{p_ms * 1e3:.1f}, library "
+              f"{'not timed' if lib_ms is None else f'{lib_ms * 1e3:.1f}'}),"
+              f" {info['registers']} registers, {info['local_bytes']} local "
+              f"bytes, {info['ctas_per_sm']} CTAs per SM", flush=True)
+        if not same:
+            raise AssertionError(f"kernel N {lab}: a rerun gives other bits")
+
+
 class Kernel:
     """Per-kernel aggregate of the comparisons against the plain twins."""
 
     def __init__(self, name, source, replaces, also_replaces=(),
-                 comparison_of=None):
+                 comparison_of=None, note=None):
         self.name, self.source, self.replaces = name, source, replaces
         self.also_replaces = also_replaces
         self.comparison_of = comparison_of
+        self.note = note
         self.max_abs_err = 0.0
         self.ms = self.plain_ms = self.bound_ms = self.bound_by = None
         self.library_ms = self.device_ms = None
@@ -968,6 +1084,8 @@ class Kernel:
             rec["also_replaces"] = list(self.also_replaces)
         if self.comparison_of:
             rec["comparison_of"] = self.comparison_of
+        if self.note:
+            rec["note"] = self.note
         return rec
 
 
@@ -1017,9 +1135,12 @@ def drive(label, problem, run, required, absent=GATHER_ABSENT,
           max_calls=None):
     """Call ``run()`` (a run of ``problem``'s main path) with the launch and
     chain-call counts and the stage seconds set to 0 just before and read
-    just after; print its counts, its wall beside the smokes' before the
-    chain kernels (``WALLS_BEFORE_CHAINS``) and its ms per
-    Krylov iteration, and require each of ``required`` to have run and none
+    just after; print its counts (beside ``COUNTS_BEFORE_N``), its wall
+    (beside ``WALLS_BEFORE_N``) and its ms per Krylov iteration, its
+    multigrid builds' seconds and share of the wall (the dense coarse
+    inverse apart; beside ``BUILDS_BEFORE_N``), refuse
+    a ``torch.func.jvp`` block build on the path (``SECONDS['jvp_blocks']``),
+    and require each of ``required`` to have run and none
     of ``absent`` (B and C, which a gather level's sweeps do not launch:
     their body runs inside kernel L; the chains' launch sequences, which a
     chain of gather levels does not run: it is one launch of a chain
@@ -1052,11 +1173,15 @@ def drive(label, problem, run, required, absent=GATHER_ABSENT,
           f"stage_s={seconds}", flush=True)
     krylov = (sum(s.krylov_iters for s in st),
               sum(s.krylov_iters_all for s in st))
-    print(f"{label}: krylov / krylov_all {krylov[0]} / {krylov[1]} over "
-          f"{len(st)} steps; before kernel L: "
-          f"{KRYLOV_BEFORE_L.get((label, len(st)), 'not recorded')}", flush=True)
-    print(f"{label}: wall {wall:.3f} s (before the chain kernels, smokes I / "
-          f"J: {WALLS_BEFORE_CHAINS.get((label, len(st)), 'not recorded')}), "
+    newton = (sum(s.newton_iters for s in st),
+              sum(s.newton_iters_all for s in st))
+    print(f"{label}: newton / krylov, newton_all / krylov_all {newton[0]} / "
+          f"{krylov[0]}, {newton[1]} / {krylov[1]} over {len(st)} steps; "
+          f"before kernel N: "
+          f"{COUNTS_BEFORE_N.get((label, len(st)), 'not recorded')}",
+          flush=True)
+    print(f"{label}: wall {wall:.3f} s (before kernel N, smokes A / "
+          f"B: {WALLS_BEFORE_N.get((label, len(st)), 'not recorded')}), "
           f"{wall / max(krylov[1], 1) * 1e3:.3f} ms per Krylov iteration over "
           f"all attempts", flush=True)
     print(f"{label}: krylov per step {[s.krylov_iters for s in st]}, "
@@ -1064,8 +1189,20 @@ def drive(label, problem, run, required, absent=GATHER_ABSENT,
           f"krylov_all per step {[s.krylov_iters_all for s in st]}, "
           f"newton_all per step {[s.newton_iters_all for s in st]}, "
           f"retries per step {[s.retries for s in st]}", flush=True)
+    build_s, dense_s = seconds["precond_build"], seconds["dense_coarse"]
+    print(f"{label}: multigrid builds {build_s:.3f} s over "
+          f"{sum(s.newton_iters_all for s in st)} Newton iterations, share "
+          f"{build_s / wall:.4f} of the {wall:.3f} s wall (of it the dense "
+          f"coarse inverse {dense_s:.3f} s, share {dense_s / wall:.4f}; the "
+          f"block planes and injections {build_s - dense_s:.3f} s, share "
+          f"{(build_s - dense_s) / wall:.4f}); before kernel N: "
+          f"{BUILDS_BEFORE_N.get((label, len(st)), 'not recorded')}",
+          flush=True)
     if not np.isfinite(rows).all():
         raise AssertionError(f"{label}: rows are not finite")
+    if seconds["jvp_blocks"] > 0:
+        raise AssertionError(f"{label}: the torch.func.jvp block build ran "
+                             "on the main path")
     counts = {**launches, **calls}
     missing = [k for k in required if counts[k] <= 0]
     if missing:
@@ -1172,7 +1309,7 @@ def hold_trajectory(label, result, ref_csv, end_time, min_matched, interp_tol,
         print(f"{label}: dt decision flipped at row {row}: from t={t0:.6g} "
               f"to {t:.6g} (dt {t - t0:.6g}) against {t_ref:.6g} (dt "
               f"{t_ref - t0:.6g})", flush=True)
-    if (k < min_matched or tfe_rel > tfe_tol or sol_rel > col2_tol
+    if (k < min_matched or (k and (tfe_rel > tfe_tol or sol_rel > col2_tol))
             or interp_rel > interp_tol or ours[-1, 0] < end_time * (1 - 1e-12)):
         raise AssertionError(f"{label}: the run fails the bounds against "
                              f"results/{ref_csv}")
@@ -1281,6 +1418,14 @@ def kernel_records():
             "vcycle_ascend_chain", csrc + "vcycle_chain.cuh",
             "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:798",
             ("pfhubbenchmarks_tpu/ops/pallas_vcycle.py:939",)),
+        # N: the 2D node-block-Jacobi build, a port kernel with no TPU row
+        "node_blocks": Kernel(
+            "node_blocks", csrc + "node_blocks.cuh",
+            "pfhubbenchmarks_tpu/solve/precond.py:54",
+            note="a port kernel with no TPU row: the JAX package builds "
+                 "these blocks with jax.jvp in XLA (make_block_jacobi, "
+                 "outside any Pallas kernel); library_ms is the port's "
+                 "torch.func.jvp build of the same planes"),
     }
     seq = ("level J.v (ch_jvp, chp_jvp, chac_jvp or ach_jvp)", "lmr_sweep",
            "transfer_dyadic")
@@ -1538,7 +1683,6 @@ def tile_phases(dev, K, C, noise_pair, state_on, residual_jvp, paths, refs):
     from pfhubbenchmarks_tpu_torch import timeloop
     from pfhubbenchmarks_tpu_torch.benchmarks import bench1, bench2, bench3, bench6
     from pfhubbenchmarks_tpu_torch.ops import lmr
-    from pfhubbenchmarks_tpu_torch.solve.precond import make_block_jacobi
 
     t13 = time.perf_counter()
     p1, p2, p3, p6 = bench1.make(), bench2.make(), bench3.make(), bench6.make()
@@ -1645,9 +1789,8 @@ def tile_phases(dev, K, C, noise_pair, state_on, residual_jvp, paths, refs):
     for pb, rule, split, groups, dt_, n_sw, jv_kw in ts_cases:
         g = dataclasses.replace(pb.grid, rule_name=rule)
         F = pb.n_fields
-        terms = pb.terms_precond if split else pb.terms
         w = state_on(pb, g)
-        pinv = make_block_jacobi(g, terms, F, device=dev)(w, w, dt_).pinv_planes
+        pinv = node_plan(pb, g, dev, split).kernel(w, w, dt_)
         jv = pb.kernel_jvp(g, dev, form="seam",
                            **(dict(split=split) if pb.name.startswith("bench2")
                               else {}))
@@ -1693,7 +1836,7 @@ def tile_phases(dev, K, C, noise_pair, state_on, residual_jvp, paths, refs):
     # ---- phases 14 and 15: bench1 and bench3 in the tiled configuration ---
     tiled_required = ("tile_jvp_recompute", "tile_jvp_seam", "tile_sweep",
                       "tile_sweep_loop", "lmr_step", "transfer_dyadic",
-                      "descend_chain", "ascend_chain")
+                      "descend_chain", "ascend_chain", "node_blocks")
     # a tiled level's sweeps are TS and C, a gather level's L: no B
     for phase, label, pb, end, n_rows, ref_csv, tols, more in (
             (14, "bench1", p1, None, BENCH1_TILED_ROWS, "bench1_out.csv",
@@ -1800,28 +1943,33 @@ def fma_chain_phase(dev, K, paths):
           f"({time.perf_counter() - t16:.1f} s)", flush=True)
 
 
+# what every 2D main path on gather levels launches besides its J.v
+CHAIN_2D = ("transfer_dyadic", "vcycle_descend_chain", "vcycle_ascend_chain",
+            "node_blocks")
+
+
+def prefix_rows(t_start, phase, label, full, prefix, late_s):
+    """``full`` rows, or ``prefix`` if the smoke has run more than
+    ``late_s`` seconds since ``t_start`` (and says so)."""
+    elapsed = time.perf_counter() - t_start
+    if elapsed <= late_s:
+        return full
+    print(f"phase {phase}: the smoke has run {elapsed:.0f} s (> "
+          f"{late_s:.0f} s): {label} runs its first {prefix} rows only",
+          flush=True)
+    return prefix
+
+
 def replay_phases(dev, t_start, paths, problem1, problem6, problem3):
     """Phases 17-19: the replays of bench1, bench6 and bench3 on the time
     grids of the JAX package's replay CSVs, each cut to a prefix that keeps
     its rescued step if the smoke runs late. Adds each run's counts to
     ``paths``."""
-    chain2d = ("transfer_dyadic", "vcycle_descend_chain",
-               "vcycle_ascend_chain")
-
-    def rows_for(phase, label, full, prefix, late_s):
-        elapsed = time.perf_counter() - t_start
-        if elapsed <= late_s:
-            return full
-        print(f"phase {phase}: the smoke has run {elapsed:.0f} s (> "
-              f"{late_s:.0f} s): {label} replays its first {prefix} rows only",
-              flush=True)
-        return prefix
-
-    n = rows_for(17, "bench1", BENCH1_REPLAY_ROWS, BENCH1_REPLAY_PREFIX,
-                 BENCH1_REPLAY_LATE_S)
+    n = prefix_rows(t_start, 17, "bench1", BENCH1_REPLAY_ROWS,
+                    BENCH1_REPLAY_PREFIX, BENCH1_REPLAY_LATE_S)
     paths["bench1 replay"], res1, _ = replay_phase(
         "phase 17: bench1 replay", problem1, dev, "bench1_replay.csv", n,
-        ("ch_jvp", "lmr_sweep") + chain2d, tfe_tol=1e-5, col2_tol=1e-9)
+        ("ch_jvp", "lmr_sweep") + CHAIN_2D, tfe_tol=1e-5, col2_tol=1e-9)
     st = rescued_at(res1, 65.5)
     print(f"phase 17: the step to t=65.5 (step {st.step}): "
           f"{st.rescue or 'its first attempt'}", flush=True)
@@ -1829,18 +1977,18 @@ def replay_phases(dev, t_start, paths, problem1, problem6, problem3):
         raise AssertionError("bench1 replay: the t = 65.5 step did not go "
                              "through the substep warm start")
 
-    n = rows_for(18, "bench6", BENCH6_REPLAY_ROWS, BENCH6_REPLAY_PREFIX,
-                 BENCH6_REPLAY_LATE_S)
+    n = prefix_rows(t_start, 18, "bench6", BENCH6_REPLAY_ROWS,
+                    BENCH6_REPLAY_PREFIX, BENCH6_REPLAY_LATE_S)
     paths["bench6 replay"], _, _ = replay_phase(
         "phase 18: bench6 replay", problem6, dev, "bench6_replay.csv", n,
-        ("chp_jvp", "residual", "lmr_sweep") + chain2d, tfe_tol=1e-6,
+        ("chp_jvp", "residual", "lmr_sweep") + CHAIN_2D, tfe_tol=1e-6,
         col2_tol=1e-9)
 
-    n = rows_for(19, "bench3", BENCH3_REPLAY_ROWS, BENCH3_REPLAY_PREFIX,
-                 BENCH3_REPLAY_LATE_S)
+    n = prefix_rows(t_start, 19, "bench3", BENCH3_REPLAY_ROWS,
+                    BENCH3_REPLAY_PREFIX, BENCH3_REPLAY_LATE_S)
     paths["bench3 replay"], res3, _ = replay_phase(
         "phase 19: bench3 replay", problem3, dev, "bench3_replay.csv", n,
-        ("ach_jvp",) + chain2d, tfe_tol=5e-4, col2_tol=5e-4)
+        ("ach_jvp",) + CHAIN_2D, tfe_tol=5e-4, col2_tol=5e-4)
     st = rescued_at(res3, 41.59)
     rungs = [r["rung"] for r in st.ladder]
     print(f"phase 19: the step to t=41.59 (step {st.step}): "
@@ -1849,6 +1997,47 @@ def replay_phases(dev, t_start, paths, problem1, problem6, problem3):
             or "damped from continuation" not in rungs):
         raise AssertionError("bench3 replay: the t = 41.59 step did not take "
                              "the 2x(dt/2) fallback after both damped rungs")
+
+
+def bench2_more_phases(dev, t_start, paths, problem2):
+    """Phases 25 and 26: bench2's replay on the time grid of the JAX
+    package's ``results/bench2_replay.csv`` (120 rows; the REPLAY_BOUNDS:
+    every row, TFE rel 3e-2, solute rel 1e-9) with the rung that solves the
+    t = 81.51 step (the JAX run's: the continuation in dt); bench2_eta1's
+    whole adaptive run, made through the registry, against
+    ``results/bench2_eta1_out.csv`` (121 rows to t = 100.15): the final
+    time reached, TFE interpolated onto its times within rel 3e-2, the
+    matched rows printed. Each is cut to a prefix if the smoke runs late.
+    Adds each run's counts to ``paths``."""
+    from pfhubbenchmarks_tpu_torch import timeloop
+    from pfhubbenchmarks_tpu_torch.benchmarks import registry
+
+    required = ("chac_jvp", "lmr_sweep", "residual") + CHAIN_2D
+    n = prefix_rows(t_start, 25, "bench2's replay", BENCH2_REPLAY_ROWS,
+                    BENCH2_REPLAY_PREFIX, BENCH2_REPLAY_LATE_S)
+    paths["bench2 replay"], res2, _ = replay_phase(
+        "phase 25: bench2 replay", problem2, dev, "bench2_replay.csv", n,
+        required, tfe_tol=3e-2, col2_tol=1e-9)
+    if res2.rows[-1, 0] >= 81.51 * (1 - 1e-9):
+        st = rescued_at(res2, 81.51)
+        print(f"phase 25: the step to t=81.51 (step {st.step}): solved by "
+              f"{st.rescue or 'its first attempt'} (the JAX run: "
+              "continuation)", flush=True)
+    else:
+        print("phase 25: the replay stops before the t=81.51 step",
+              flush=True)
+
+    problem = registry.get_benchmark("bench2_eta1")
+    runner = timeloop.Runner(problem, dev)
+    full = prefix_rows(t_start, 26, "bench2_eta1", None, BENCH2_ETA1_PREFIX,
+                       BENCH2_ETA1_LATE_S)
+    paths["bench2_eta1"], res, _, _ = drive(
+        "phase 26: bench2_eta1", problem,
+        lambda: runner.run(max_steps=full, verbose=True), required,
+        max_calls=MAX_CALLS_PER_APPLY["bench2"])
+    end = problem.time.end_time if full is None else float(res.rows[-1, 0])
+    hold_trajectory("phase 26: bench2_eta1", res, "bench2_eta1_out.csv", end,
+                    0, BENCH2_INTERP_TOL, tfe_tol=1e-5)
 
 
 def shard_sweep_work(slab, F, ns, ops):
@@ -2190,8 +2379,7 @@ def sweep_loop_phase(dev, K, rng):
     from pfhubbenchmarks_tpu_torch.ops import _lib, fem_jvp3d, lmr
     from pfhubbenchmarks_tpu_torch.ops import transfer as kt
     from pfhubbenchmarks_tpu_torch.solve import transfer3d as t3
-    from pfhubbenchmarks_tpu_torch.solve.precond import (make_block_jacobi,
-                                                         make_block_jacobi3d)
+    from pfhubbenchmarks_tpu_torch.solve.precond import make_block_jacobi3d
 
     t22 = time.perf_counter()
     KL = K["lmr_sweep"]
@@ -2266,7 +2454,6 @@ def sweep_loop_phase(dev, K, rng):
         build = pb.precond_builder(dev)
         grids = build.grids
         groups = pb.field_groups if split else None
-        terms = pb.terms_precond if split else pb.terms
         v, m = grids[0].interpolate(pb.ic_fns)
         w = tuple(torch.tensor(a, dtype=f32, device=dev) + torch.tensor(
             0.01 * rng.standard_normal((F,) + a.shape[1:]), dtype=f32, device=dev)
@@ -2277,8 +2464,7 @@ def sweep_loop_phase(dev, K, rng):
             counts = sweep_counts(s, l, len(grids), build.dense_coarse)
             if counts and g.nx not in skip:
                 bcs = pb.dirichlet_for(g)
-                pinv = make_block_jacobi(g, terms, F, device=dev, dirichlet=bcs)(
-                    w, w, dt).pinv_planes
+                pinv = node_plan(pb, g, dev, split).kernel(w, w, dt)
                 jv = pb.kernel_jvp(g, dev, bcs, split=split)
                 for n in sorted(counts):
                     case(f"{name} {g.ny}x{g.nx}{' masked' if bcs else ''}"
@@ -2332,7 +2518,6 @@ def chain_phase(dev, K, rng):
     from pfhubbenchmarks_tpu_torch.ops import transfer as kt
     from pfhubbenchmarks_tpu_torch.ops.vcycle_chain import (make_ascend_chain,
                                                             make_descend_chain)
-    from pfhubbenchmarks_tpu_torch.solve.precond import make_block_jacobi
 
     t23 = time.perf_counter()
     f32 = torch.float32
@@ -2359,7 +2544,6 @@ def chain_phase(dev, K, rng):
         grids = pb.precond_builder(dev).grids
         nc = len(grids) - 1
         groups = pb.field_groups if split else None
-        terms = pb.terms_precond if split else pb.terms
         v, m = grids[0].interpolate(pb.ic_fns)
         w = tuple(torch.tensor(a, dtype=f32, device=dev) + torch.tensor(
             0.01 * rng.standard_normal((F,) + a.shape[1:]), dtype=f32,
@@ -2374,8 +2558,7 @@ def chain_phase(dev, K, rng):
             masks.append(None if mk is None else torch.as_tensor(mk, device=dev))
             if l < nc:
                 ws.append(w)
-                pinvs.append(make_block_jacobi(g, terms, F, device=dev,
-                                               dirichlet=bcs)(w, w, dt).pinv_planes)
+                pinvs.append(node_plan(pb, g, dev, split).kernel(w, w, dt))
                 w = kt.inject(w, grids[l + 1], g)
         masked = any(mk is not None for mk in masks)
         sizes = "/".join(str(g.nx) for g in grids)
@@ -2449,7 +2632,6 @@ def main() -> None:
         make_descend_level)
     from pfhubbenchmarks_tpu_torch.solve.gmg import (build_hierarchy,
                                                      coarse_dof_count)
-    from pfhubbenchmarks_tpu_torch.solve.precond import make_block_jacobi
 
     dev = torch.device("cuda", 0)
     smi = smi_line()
@@ -2501,6 +2683,7 @@ def main() -> None:
         return lambda: torch.func.jvp(lambda u: res(u, w, dt_), (w,), (v,))[1]
 
     problem1 = bench1.make()
+    s1 = problem1.solver
     dt = 0.5
     grids1 = build_hierarchy(problem1.grid,
                              min_cells=problem1.solver.gmg_min_cells)
@@ -2527,16 +2710,15 @@ def main() -> None:
                 K["ch_jvp"].check(f"{rule} {g.ny}x{g.nx} Jv vs torch.func.jvp",
                                   jv.kernel(w, w, dt, v), library(), TOL_F32)
 
-    def check_bj_lmr(problem, grids, F, label, rule="dunavant2", terms=None,
-                     groups=None):
-        """B and C at each level; ``terms`` (default the problem's) builds
-        the block planes, ``groups`` are B's and C's field groups."""
+    def check_bj_lmr(problem, grids, F, label, rule="dunavant2", groups=None):
+        """B and C at each level, on kernel N's block planes (of the
+        field-split operator with ``groups``, which are also B's and C's
+        field groups)."""
         for g0 in grids:
             g = dataclasses.replace(g0, rule_name=rule)
             w = state_on(problem, g)
-            planes = make_block_jacobi(
-                g, terms or problem.terms, F, device=dev,
-                dirichlet=problem.dirichlet_for(g))(w, w, dt).pinv_planes
+            planes = node_plan(problem, g, dev, groups is not None).kernel(
+                w, w, dt)
             r = noise_pair(g, F)
             # the library call: one einsum pair over all F^2 planes (the same
             # function where the cross-group planes are 0)
@@ -2575,6 +2757,9 @@ def main() -> None:
                                  breakdown=fine.nx in breakdown)
 
     check_bj_lmr(problem1, grids1, 2, "bench1")
+    node_blocks_phase(3, "bench1", K, problem1,
+                      [dataclasses.replace(g, rule_name=s1.precond_rule)
+                       for g in grids1], dt, dev, state_on)
     check_stream_handle("phase 3")
     check_transfers("phase 3", problem1, grids1, 2, "bench1", breakdown=(100,))
     torch.cuda.synchronize()
@@ -2587,7 +2772,8 @@ def main() -> None:
     paths["bench1"], result1, wall1, seconds1 = drive(
         "phase 4: bench1", problem1, lambda: runner1.run(verbose=True),
         ("ch_jvp", "lmr_sweep", "transfer_dyadic", "vcycle_descend_chain",
-         "vcycle_ascend_chain"), max_calls=MAX_CALLS_PER_APPLY["bench1"])
+         "vcycle_ascend_chain", "node_blocks"),
+        max_calls=MAX_CALLS_PER_APPLY["bench1"])
     hold_trajectory("phase 4: bench1", result1, "bench1_out.csv",
                     problem1.time.end_time, BENCH1_MIN_MATCHED,
                     BENCH1_INTERP_TOL)
@@ -2640,6 +2826,8 @@ def main() -> None:
                         library(), TOL_F32)
 
     check_bj_lmr(problem6, grids6, F6, "bench6")
+    node_blocks_phase(5, "bench6 masked", K, problem6, grids6, dt6, dev,
+                      state_on)
     check_transfers("phase 5", problem6, grids6, F6, "bench6")
 
     # the chains, on the injected per-level states and their block planes
@@ -2650,9 +2838,7 @@ def main() -> None:
     wl = state_on(problem6, grids6[0])
     for l, g in enumerate(grids6[:-1]):
         w_ls.append(wl)
-        pinvs.append(make_block_jacobi(
-            g, problem6.terms, F6, device=dev,
-            dirichlet=problem6.dirichlet_for(g))(wl, wl, dt6).pinv_planes)
+        pinvs.append(node_plan(problem6, g, dev).kernel(wl, wl, dt6))
         wl = kt.inject_plain(wl, grids6[l + 1], g)
     nus = dict(nu=s6.gmg_nu_pre, nu_fine=s6.gmg_nu_fine_pre or s6.gmg_nu_pre)
     descend = make_descend_chain(grids6, jvs6, masks=masks6, **nus)
@@ -2693,7 +2879,7 @@ def main() -> None:
     paths["bench6"], _, _, _ = run_main_path(
         "phase 6: bench6", runner6, None, "bench6_out.csv", BENCH6_ROWS,
         ("chp_jvp", "vcycle_descend_chain", "vcycle_ascend_chain",
-         "lmr_sweep", "transfer_dyadic", "residual"),
+         "lmr_sweep", "transfer_dyadic", "residual", "node_blocks"),
         max_calls=MAX_CALLS_PER_APPLY["bench6"])
 
     # ---- phase 7: kernels, sweep loop and chains at bench2's shapes -----
@@ -2737,36 +2923,49 @@ def main() -> None:
                         library(), TOL_F32)
 
     check_bj_lmr(problem2, grids2, F2, "bench2 groups", rule=s2.precond_rule,
-                 terms=problem2.terms_precond, groups=groups2)
+                 groups=groups2)
+    # kernel N: the main path's field-split planes with 4 order parameters
+    # at every level (its main shape at 100^2), the coupled ones, and 1 and 2
+    # order parameters at 100^2
+    for num_eta in (4, 2, 1):
+        pb = problem2 if num_eta == 4 else bench2.make(num_eta=num_eta)
+        for split in (True, False):
+            node_blocks_phase(
+                7, f"bench2 NE={num_eta} {'split' if split else 'coupled'}", K,
+                pb, grids2 if num_eta == 4 else grids2[:1], dt2, dev, state_on,
+                split=split, ns=1 + num_eta, ops=chac_tangent_ops(num_eta, split),
+                main=num_eta == 4 and split, library_at=int(num_eta == 4))
     check_transfers("phase 7", problem2, grids2, F2, "bench2")
 
-    # the per-level split states, block planes and J.v of the cycle
+    # the per-level split states, block planes (kernel N) and J.v of the
+    # cycle
     jvs2 = [problem2.kernel_jvp(g, dev, split=True) for g in grids2]
-    bj_builders2 = [make_block_jacobi(g, problem2.terms_precond, F2, device=dev)
-                    for g in grids2]
+    plans2 = [node_plan(problem2, g, dev, split=True) for g in grids2]
+    w_ls2, pinvs2 = [], []
+    w = state_on(problem2, grids2[0])
+    for l, g in enumerate(grids2):
+        w_ls2.append(w)
+        pinvs2.append(plans2[l].kernel(w, w, dt2))
+        if l + 1 < len(grids2):
+            w = kt.inject_plain(w, grids2[l + 1], g)
 
-    def build_hierarchy_planes(w):
-        w_ls, pinvs = [], []
-        for l, g in enumerate(grids2):
-            w_ls.append(w)
-            pinvs.append(bj_builders2[l](w, w, dt2).pinv_planes)
-            if l + 1 < len(grids2):
-                w = kt.inject_plain(w, grids2[l + 1], g)
-        return w_ls, pinvs
-
-    # the first build pays one-time costs (torch.func set-up, allocations);
-    # the main path builds once per Newton iteration, so the second is timed
+    # the main path's multigrid build (kernel N per level, the injections),
+    # warm: the path builds once per Newton iteration
+    build2 = problem2.precond_builder(dev)
+    w2 = problem2.initial_state(dev)
     times = []
-    for _ in range(2):
+    for _ in range(6):
         torch.cuda.synchronize()
         t_bj = time.perf_counter()
-        w_ls2, pinvs2 = build_hierarchy_planes(state_on(problem2, grids2[0]))
+        build2(w2, w2, dt2)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t_bj)
-    bj_build_s = times[-1]
-    print(f"phase 7: block-Jacobi build of the 100/50/25 hierarchy (plain "
-          f"torch, {F2} fields, with the injections): first "
-          f"{times[0] * 1e3:.1f} ms, then {bj_build_s * 1e3:.1f} ms", flush=True)
+        times.append((time.perf_counter() - t_bj) * 1e3)
+    bj_build_ms = statistics.median(times[1:])
+    print(f"phase 7: multigrid build of the 100/50/25 hierarchy ({F2} "
+          f"fields, kernel N per level and the injections): first "
+          f"{times[0]:.2f} ms, then median {bj_build_ms:.3f} ms of "
+          f"{[round(x, 3) for x in times[1:]]} (the torch.func.jvp build before "
+          f"kernel N: 2,346.7 ms a build on the main path)", flush=True)
 
     jv_kw2 = dict(ns=5, ops=TANGENT_OPS[(F2, "split")])
     n_coarse = s2.gmg_coarse_sweeps
@@ -2809,20 +3008,24 @@ def main() -> None:
           f"{s2.precond_rule}, field groups {groups2}, coarsest solve "
           f"{'dense' if build.dense_coarse else f'{n_coarse} LMR sweeps'}",
           flush=True)
-    paths["bench2"], result2, wall2, seconds2 = run_main_path(
-        "phase 8: bench2", runner2, BENCH2_END, "bench2_out.csv", BENCH2_ROWS,
+    paths["bench2"], result2, wall2, seconds2 = drive(
+        "phase 8: bench2", problem2, lambda: runner2.run(verbose=True),
         ("chac_jvp", "lmr_sweep", "transfer_dyadic", "vcycle_descend_chain",
-         "vcycle_ascend_chain", "residual"),
-        tfe_tol=1e-5, max_calls=MAX_CALLS_PER_APPLY["bench2"])
-    # precond_lag 'newton': one multigrid build (block-Jacobi planes of every
+         "vcycle_ascend_chain", "residual", "node_blocks"),
+        max_calls=MAX_CALLS_PER_APPLY["bench2"])
+    hold_trajectory("phase 8: bench2", result2, "bench2_out.csv",
+                    problem2.time.end_time, BENCH2_MIN_MATCHED,
+                    BENCH2_INTERP_TOL, tfe_tol=1e-5)
+    # precond_lag 'newton': one multigrid build (kernel N's planes of every
     # level, injections) per Newton iteration, over every attempt, timed
     # inside the run by solve/gmg.py
     n_builds = sum(st.newton_iters_all for st in result2.stats)
     build_s = seconds2["precond_build"]
     print(f"phase 8: multigrid builds on the main path: {n_builds} builds, "
-          f"{build_s:.3f} s measured ({build_s / n_builds * 1e3:.1f} ms each; "
-          f"phase 7's warm build {bj_build_s * 1e3:.1f} ms), share "
-          f"{build_s / wall2:.4f} of the {wall2:.3f} s run", flush=True)
+          f"{build_s:.3f} s measured ({build_s / n_builds * 1e3:.3f} ms each; "
+          f"phase 7's warm build {bj_build_ms:.3f} ms; before kernel N "
+          f"2,346.7 ms), share {build_s / wall2:.4f} of the {wall2:.3f} s run",
+          flush=True)
 
     # ---- phase 9: kernels, transfers and level steps at bench3's shapes ---
     problem3 = bench3.make()
@@ -2859,6 +3062,8 @@ def main() -> None:
     check_transfers("phase 9", problem3, grids3, F3, "bench3", breakdown=(175,))
 
     check_bj_lmr(problem3, grids3[:1], F3, "bench3", rule=s3.precond_rule)
+    node_blocks_phase(9, "bench3", K, problem3, grids3, dt3, dev, state_on,
+                      ns=2, ops=TANGENT_OPS["ach"])
 
     # the level steps (TPU kernels 6 and 9) on the injected per-level states
     # and their block planes, with bench3's sweep counts
@@ -2866,8 +3071,7 @@ def main() -> None:
     wl = state_on(problem3, grids3[0])
     for l, g in enumerate(grids3):
         w_ls3.append(wl)
-        pinvs3.append(make_block_jacobi(g, problem3.terms, F3, device=dev)(
-            wl, wl, dt3).pinv_planes)
+        pinvs3.append(node_plan(problem3, g, dev).kernel(wl, wl, dt3))
         if l + 1 < len(grids3):
             wl = kt.inject(wl, grids3[l + 1], g)
     for l, (fine, coarse) in enumerate(zip(grids3[:-1], grids3[1:])):
@@ -2962,15 +3166,19 @@ def main() -> None:
     paths["bench3"], result3, wall3, seconds3 = run_main_path(
         "phase 10: bench3", runner3, None, "bench3_out.csv", BENCH3_ROWS,
         ("ach_jvp", "transfer_dyadic", "vcycle_descend_chain",
-         "vcycle_ascend_chain"),
+         "vcycle_ascend_chain", "node_blocks"),
         tfe_tol=1e-6, col2_tol=1e-5, max_calls=MAX_CALLS_PER_APPLY["bench3"])
     n_builds3 = sum(st.newton_iters_all for st in result3.stats)
-    build_s3 = seconds3["precond_build"]
+    build_s3, dense_s3 = seconds3["precond_build"], seconds3["dense_coarse"]
     print(f"phase 10: multigrid builds on the main path (with the dense 7^2 "
           f"inverse): {n_builds3} builds, {build_s3:.3f} s measured "
-          f"({build_s3 / n_builds3 * 1e3:.1f} ms each; phase 9's warm build "
-          f"{build_ms['with the dense inverse']:.1f} ms), share "
-          f"{build_s3 / wall3:.4f} of the {wall3:.3f} s run", flush=True)
+          f"({build_s3 / n_builds3 * 1e3:.2f} ms each: kernel N's planes and "
+          f"the injections {(build_s3 - dense_s3) / n_builds3 * 1e3:.2f} ms, "
+          f"the dense 7^2 inverse {dense_s3 / n_builds3 * 1e3:.2f} ms; phase "
+          f"9's warm build {build_ms['with the dense inverse']:.1f} ms), share "
+          f"{build_s3 / wall3:.4f} of the {wall3:.3f} s run (planes and "
+          f"injections {(build_s3 - dense_s3) / wall3:.4f}, dense inverse "
+          f"{dense_s3 / wall3:.4f})", flush=True)
 
     bench1_3d_phases(dev, K, C, rng, t_start, paths)
 
@@ -2981,12 +3189,13 @@ def main() -> None:
 
     fma_chain_phase(dev, K, paths)
     replay_phases(dev, t_start, paths, problem1, problem6, problem3)
+    bench2_more_phases(dev, t_start, paths, problem2)
     shard_sweep_phase(dev, K, paths)
     gridjvp_phase(dev, K, paths)
     sweep_loop_phase(dev, K, rng)
     chain_phase(dev, K, rng)
 
-    # ---- phase 24: summary -----------------------------------------------
+    # ---- phase 27: summary -----------------------------------------------
     print(smi, flush=True)
     print(json.dumps({"kernels": [K[k].record(paths) for k in _lib.KERNELS],
                       "chains": [C[k].record(paths) for k in _lib.CHAINS]}),

@@ -14,9 +14,9 @@ kernels. The tiled LMR sweep loop (ops/lmr.py) and the launch sequences of
 the two V-cycle level steps and the two chains (ops/vcycle_chain.py
 ``.sequence``) are not kernels: they count their calls in ``CALLS``. The
 gather sweep loop is one kernel, L (``lmr_sweep``), and each chain of gather
-levels one launch of ``vcycle_descend_chain`` or ``vcycle_ascend_chain``. ``SECONDS`` holds
-the host seconds of plain-torch stages (the multigrid build), so a run can
-say what share of its wall they take.
+levels one launch of ``vcycle_descend_chain`` or ``vcycle_ascend_chain``.
+``SECONDS`` holds the host seconds of the multigrid build and its stages,
+so a run can say what share of its wall they take.
 """
 
 from __future__ import annotations
@@ -44,7 +44,8 @@ KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp", "ch3d_jvp",
            "ch3d_tile", "block_jacobi_apply", "lmr_step", "lmr_sweep", "transfer_dyadic",
            "transfer_general", "residual", "tile_jvp_recompute",
            "tile_jvp_seam", "tile_sweep", "fma_chain", "shard_sweep",
-           "gridjvp_probe", "vcycle_descend_chain", "vcycle_ascend_chain")
+           "gridjvp_probe", "vcycle_descend_chain", "vcycle_ascend_chain",
+           "node_blocks")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # launch sequences of the kernels that stand for one TPU kernel each
 CHAINS = ("tile_sweep_loop", "descend_level", "ascend_level",
@@ -52,8 +53,11 @@ CHAINS = ("tile_sweep_loop", "descend_level", "ascend_level",
 CALLS = dict.fromkeys(CHAINS, 0)
 
 
-# host seconds of plain-torch stages on the main path
-SECONDS = {"precond_build": 0.0}
+# host seconds of stages: the whole multigrid build (kernel N's planes, the
+# injections and the dense coarse inverse) and the dense coarse inverse
+# within it (``jacfwd`` and ``torch.linalg.inv``, plain torch, bench3), and
+# the ``torch.func.jvp`` block build, which no main path runs
+SECONDS = {"precond_build": 0.0, "dense_coarse": 0.0, "jvp_blocks": 0.0}
 
 
 def reset_launches() -> None:
@@ -113,6 +117,9 @@ class KernelLibrary:
         # the chain kernels: ascend, nq, the table, K, the CTAs needed, the
         # call's six pointers, the grid out, the stream
         chain = [i32, i32, vp, i32, i64] + [vp] * 6 + [ip, vp]
+        # kernel N: params, the state pair, the diagonals, the mask, the
+        # planes out, the node counts, the stream
+        nodeb = [vp] * 7 + [i64, i64, vp]
         sig = {
             "pfh_ch_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
             "pfh_chp_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
@@ -169,6 +176,14 @@ class KernelLibrary:
             "pfh_vcycle_chain_chp_info": [i32, i32, ip],
             "pfh_vcycle_chain_ach_info": [i32, i32, ip],
             "pfh_vcycle_chain_chac_info": [i32, i32, i32, i32, ip],
+            "pfh_node_blocks_ch": nodeb,
+            "pfh_node_blocks_chp": nodeb,
+            "pfh_node_blocks_ach": nodeb,
+            "pfh_node_blocks_chac": nodeb[:1] + [i32, i32] + nodeb[1:],
+            "pfh_node_blocks_ch_info": [ip],
+            "pfh_node_blocks_chp_info": [ip],
+            "pfh_node_blocks_ach_info": [ip],
+            "pfh_node_blocks_chac_info": [i32, i32, ip],
         }
         for name, argtypes in sig.items():
             fn = getattr(self.lib, name)

@@ -122,7 +122,8 @@ def make_fem_jvp(grid: CrossedTriGrid, tangent, n_fields: int, *, name: str,
     in the kernel's order, ``variant`` the launcher's int arguments after
     the point count (kernel F's field count and operator). ``jv.plain`` and
     ``jv.kernel`` are the two versions; ``jv.launch`` (GatherLaunch) is what
-    the kernel's launcher receives; ``jv.n_fields`` is F."""
+    the kernel's launcher receives; ``jv.tangent`` is ``tangent`` (kernel
+    N's plan reads both, ops/node_blocks.py); ``jv.n_fields`` is F."""
     if grid.periodic or grid.pad_to != (1, 1):
         raise NotImplementedError(f"{name} takes unpadded, non-periodic grids")
     tangent_jv = make_tangent_jvp(grid, tangent, device=device,
@@ -165,5 +166,6 @@ def make_fem_jvp(grid: CrossedTriGrid, tangent, n_fields: int, *, name: str,
     jv.plain = plain
     jv.kernel = kernel
     jv.launch = launch
+    jv.tangent = tangent
     jv.n_fields = n_fields
     return jv

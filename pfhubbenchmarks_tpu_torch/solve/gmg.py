@@ -10,7 +10,12 @@ make_fused_vcycle`` too:
 - per-level linearization states injected once per build (kernel D for a
   dyadic pair, strided slicing for an odd ratio, through a transfer plan
   per pair built with the cycle, ops/transfer.TransferPlan), and per-level
-  node-block-Jacobi inverses (solve/precond.py);
+  node-block-Jacobi inverses: on CUDA tensors one launch of kernel N per
+  level (ops/node_blocks.NodeBlockPlan, built with the cycle from the
+  level's gather J.v), on CPU tensors its plain version, the hand-written
+  tangent with one-hot directions (solve/precond.
+  make_block_jacobi_tangent); the ``torch.func.jvp`` build
+  (``make_block_jacobi``) is not on this path;
 - ``descend_chain`` (ops/vcycle_chain.py): per level the descend step (TPU
   kernel 6): local-minimal-residual pre-sweeps from zero (per sweep z =
   P^-1 r, A z by the level J.v's body, the alpha step and both axpys: kernel
@@ -60,10 +65,10 @@ gather kernels. A chain with a routed level runs as its launch sequence
 (``.sequence``: per level L or the tiled loop, D or H, the level J.v), a
 choice made once when the chains are built, from the levels' J.v.
 
-On CUDA tensors every step above except the dense coarse solve and the
-odd-ratio injection is a hand-written kernel launch; on CPU tensors the same
-code runs the plain versions. The W-cycle, GCR ``inner_mr`` and
-semicoarsened or periodic hierarchies are not yet ported.
+On CUDA tensors every step above except the dense coarse inverse (built
+and applied) and the odd-ratio injection is a hand-written kernel launch;
+on CPU tensors the same code runs the plain versions. The W-cycle, GCR
+``inner_mr`` and semicoarsened or periodic hierarchies are not yet ported.
 """
 
 from __future__ import annotations
@@ -78,11 +83,11 @@ from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
 from pfhubbenchmarks_tpu_torch.ops import _lib
 from pfhubbenchmarks_tpu_torch.ops.fem_tile import multi_block
 from pfhubbenchmarks_tpu_torch.ops.lmr import make_level_sweep_loop
+from pfhubbenchmarks_tpu_torch.ops.node_blocks import NodeBlockPlan
 from pfhubbenchmarks_tpu_torch.ops.transfer import TransferPlan
 from pfhubbenchmarks_tpu_torch.ops.vcycle_chain import (make_ascend_chain,
                                                         make_descend_chain)
 from pfhubbenchmarks_tpu_torch.solve import tree as tr
-from pfhubbenchmarks_tpu_torch.solve.precond import make_block_jacobi
 
 _RATIOS = (2, 3, 5, 7)
 
@@ -177,9 +182,14 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
     ``Minv.minv_matvec(r)``, where exposed, the pair (z, A z) with the
     coupled true-rule A. ``build.grids`` is the hierarchy,
     ``build.dense_coarse`` says whether the coarsest level is solved by the
-    dense inverse (else by ``coarse_sweeps`` LMR sweeps) and
-    ``build.tiled_levels`` which levels are routed to the tile kernels. Each
-    build adds its seconds to ``_lib.SECONDS['precond_build']``.
+    dense inverse (else by ``coarse_sweeps`` LMR sweeps),
+    ``build.tiled_levels`` which levels are routed to the tile kernels and
+    ``build.node_blocks`` the levels' kernel-N plans. Each build adds its
+    seconds to ``_lib.SECONDS['precond_build']``, and those of the dense
+    inverse within it to ``_lib.SECONDS['dense_coarse']``. ``terms`` is the
+    weak form the levels linearize (the dense coarse residual's, and the
+    plans' library build's); the blocks come from each level J.v's
+    hand-written tangent.
     """
     if cycle != "v" or inner_mr != 1:
         raise NotImplementedError("only the plain V-cycle is ported")
@@ -200,9 +210,12 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
            else jvp_for(g, split) for g, bcs in zip(grids, level_bcs)]
     # exported pair: the TRUE-rule fine-level J.v of the coupled operator
     mv_jv = jvp_for(grid, False)
-    bj_builders = [make_block_jacobi(g, terms, n_fields, device=device,
-                                     dirichlet=bcs)
-                   for g, bcs in zip(grids, level_bcs)]
+    # kernel N's plan per level, from the level's gather J.v (a tiled
+    # level's T12 J.v carries no gather launch record)
+    nb_plans = [NodeBlockPlan(
+        g, jv if hasattr(jv, "launch") else jvp_for(g, split), terms,
+        device=device, dirichlet=bcs)
+        for g, jv, bcs in zip(grids, jvs, level_bcs)]
     injs = [TransferPlan(grids[l + 1], grids[l], n_fields, "inject")
             for l in range(L - 1)]
     dense_coarse = None
@@ -225,27 +238,29 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
         with _lib.timed("precond_build", w[0]):
             wl = tr.cast(w, torch.float32)
             w0l = tr.cast(w0, torch.float32)
-            states, bjs = [], []
+            states, planes = [], []
             for l in range(L):
                 states.append((wl, w0l))
-                bjs.append(bj_builders[l](wl, w0l, dtf))
+                planes.append(nb_plans[l](wl, w0l, dtf))
                 if l + 1 < L:
                     wl = injs[l](wl)
                     w0l = injs[l](w0l)
-            Jinv_coarse = (dense_coarse[0](wl, w0l, dtf)
-                           if dense_coarse is not None else None)
+            Jinv_coarse = None
+            if dense_coarse is not None:
+                with _lib.timed("dense_coarse", wl[0]):
+                    Jinv_coarse = dense_coarse[0](wl, w0l, dtf)
 
         # the chains' per-level inputs: levels 0..L-2
         chain_states = ([st[0] for st in states[:-1]],
                         [st[1] for st in states[:-1]])
-        pinvs = [bj.pinv_planes for bj in bjs[:-1]]
+        pinvs = planes[:-1]
 
         def coarse_solve(b):
             if Jinv_coarse is not None:
                 return dense_coarse[1](Jinv_coarse, b)
             x = tr.zeros_like(b)
             r = tuple(t.clone() for t in b)
-            return coarse_sweep(x, r, wl, w0l, dtf, *bjs[-1].pinv_planes)[0]
+            return coarse_sweep(x, r, wl, w0l, dtf, *planes[-1])[0]
 
         def Minv(r):
             b = tr.cast(r, torch.float32)
@@ -266,4 +281,5 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
     build.grids = grids
     build.dense_coarse = dense_coarse is not None
     build.tiled_levels = [hasattr(jv, "tile_sweep") for jv in jvs]
+    build.node_blocks = nb_plans
     return build

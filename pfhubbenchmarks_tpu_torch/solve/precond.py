@@ -7,12 +7,21 @@ Per grid node, the exact F x F diagonal block of the Jacobian
              dflux_x/d(du_x) * stiff_xx_diag(node) +
              dflux_y/d(du_y) * stiff_yy_diag(node)
 
-with the pointwise derivative blocks from ``torch.func.jvp`` of the
-model's ``terms`` at nodal values, one-hot field tangents, then a batched
-F x F inverse. The build is plain torch (XLA in the JAX package); applying
-the inverse is kernel B (ops/lmr.block_jacobi_apply). The 3D form
-(``make_block_jacobi3d``) builds its blocks from the benchmark's
-hand-written tangent.
+at nodal values, one-hot field tangents, then a batched F x F inverse
+(``small_inv``). Two forms build the same blocks:
+
+- ``make_block_jacobi_tangent`` (2D) and ``make_block_jacobi3d`` take the
+  pointwise derivative blocks from the benchmark's hand-written tangent
+  with one-hot directions. The 2D one is the plain version of kernel N
+  (ops/node_blocks.py), which builds the planes of every 2D multigrid level
+  on the card; on CPU tensors the multigrid build runs it.
+- ``make_block_jacobi`` takes them from ``torch.func.jvp`` of the model's
+  ``terms``, as the JAX package takes them from ``jax.jvp``. It is off the
+  main paths: kernel N's library comparison, and the callers that hold a
+  build against the JAX package's.
+
+Applying the inverse is kernel B (ops/lmr.block_jacobi_apply), or its body
+inside kernel L and the chain kernels.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import torch
 from pfhubbenchmarks_tpu_torch.fem.assembly import QPContext
 from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
 from pfhubbenchmarks_tpu_torch.fem.grid3d import TetGrid
+from pfhubbenchmarks_tpu_torch.ops import _lib
 from pfhubbenchmarks_tpu_torch.ops.lmr import block_jacobi_apply
 
 
@@ -59,6 +69,49 @@ def small_inv(A):
     return aug[..., :, n:]
 
 
+def padded_diagonals(grid: CrossedTriGrid, device, dtype=torch.float32):
+    """The node diagonals of mass, stiff_xx and stiff_yy
+    (``grid.node_diagonals()``) as ((v, m), (v, m), (v, m)) tensors of the
+    stored shapes, padded with 1.0 (padding blocks stay well-conditioned;
+    state and residual are zero there)."""
+    diags = grid.node_diagonals()
+
+    def pad(dv, dm):
+        pv = np.ones(grid.vshape)
+        pv[: dv.shape[0], : dv.shape[1]] = dv
+        pm = np.ones(grid.mshape)
+        pm[: dm.shape[0], : dm.shape[1]] = dm
+        return (torch.as_tensor(pv, dtype=dtype, device=device),
+                torch.as_tensor(pm, dtype=dtype, device=device))
+
+    return tuple(pad(*diags[k]) for k in ("mass", "stiff_xx", "stiff_yy"))
+
+
+def _unit_rows(Pv, dirichlet, n_fields):
+    """Row ``field`` of the vertex blocks of each ``DirichletBC`` set to the
+    unit row (the residual row is ``u - g``), in place, before the inverse."""
+    for bc in dirichlet:
+        row = torch.zeros(n_fields, dtype=Pv.dtype, device=Pv.device)
+        row[bc.field] = 1.0
+        if bc.side in ("left", "right"):
+            Pv[:, bc.index, bc.field, :] = row
+        else:
+            Pv[bc.index, :, bc.field, :] = row
+
+
+def _planes(Pv_inv, Pm_inv):
+    """[Y, X, F, F] inverses -> the contiguous [F, F, Y, X] planes, wrapped
+    as ``Minv`` (kernel B's apply) with ``Minv.pinv_planes``."""
+    planes = (Pv_inv.permute(2, 3, 0, 1).contiguous(),
+              Pm_inv.permute(2, 3, 0, 1).contiguous())
+
+    def Minv(r):
+        return block_jacobi_apply(planes, r)
+
+    Minv.pinv_planes = planes
+    return Minv
+
+
 def make_block_jacobi(grid: CrossedTriGrid, terms, n_fields: int, *,
                       device: torch.device | str, dirichlet=(),
                       dtype=torch.float32):
@@ -67,21 +120,8 @@ def make_block_jacobi(grid: CrossedTriGrid, terms, n_fields: int, *,
     planes (the layout kernel B reads). On the vertex blocks of each
     ``DirichletBC`` row, row ``field`` of the block is the unit row (the
     residual row is ``u - g``), set before the inverse."""
-    diags = grid.node_diagonals()
-
-    def _pad(dv, dm):
-        """Pad diagonals to the stored shapes with 1.0 (padding blocks stay
-        well-conditioned; state and residual are zero there)."""
-        pv = np.ones(grid.vshape)
-        pv[: dv.shape[0], : dv.shape[1]] = dv
-        pm = np.ones(grid.mshape)
-        pm[: dm.shape[0], : dm.shape[1]] = dm
-        return (torch.as_tensor(pv, dtype=dtype, device=device),
-                torch.as_tensor(pm, dtype=dtype, device=device))
-
-    mass_v, mass_m = _pad(*diags["mass"])
-    sxx_v, sxx_m = _pad(*diags["stiff_xx"])
-    syy_v, syy_m = _pad(*diags["stiff_yy"])
+    (mass_v, mass_m), (sxx_v, sxx_m), (syy_v, syy_m) = padded_diagonals(
+        grid, device, dtype)
 
     def blocks_for(u, u0, dt, mass_d, sxx_d, syy_d):
         """u [F, Y, X] -> P [Y, X, F, F]."""
@@ -103,26 +143,71 @@ def make_block_jacobi(grid: CrossedTriGrid, terms, n_fields: int, *,
         return torch.movedim(P, 0, -2)     # [Y, X, F, F]
 
     def build(w, w0, dt):
+        with _lib.timed("jvp_blocks", w[0]):
+            v, m = (a.to(dtype) for a in w)
+            v0, m0 = (a.to(dtype) for a in w0)
+            Pv = blocks_for(v, v0, dt, mass_v, sxx_v, syy_v)
+            _unit_rows(Pv, dirichlet, n_fields)
+            return _planes(small_inv(Pv),
+                           small_inv(blocks_for(m, m0, dt, mass_m, sxx_m,
+                                                syy_m)))
+
+    return build
+
+
+def make_block_jacobi_tangent(grid: CrossedTriGrid, tangent, n_fields: int, *,
+                              device: torch.device | str, dirichlet=(),
+                              dtype=torch.float32):
+    """The 2D twin of ``make_block_jacobi3d`` and the plain version of
+    kernel N (ops/node_blocks.py): the blocks of ``make_block_jacobi`` from
+    the benchmark's hand-written pointwise ``tangent(ctx, tctx)`` (bench1's
+    and bench6's ``terms_tangent``, bench2's ``make_terms_tangent(p, ne,
+    split)``, bench3's ``terms_tangent``) with one-hot directions: the value
+    direction for the source, one gradient axis at a time for the fluxes,
+    at zero state gradients, which gives the numbers ``torch.func.jvp`` of
+    ``terms`` gives there, without forward AD. The unit rows of
+    ``dirichlet``, then ``small_inv``. Returns ``build(w, w0, dt) ->
+    Minv`` with ``Minv.pinv_planes`` the [F, F, Y, X] planes."""
+    (mass_v, mass_m), (sxx_v, sxx_m), (syy_v, syy_m) = padded_diagonals(
+        grid, device, dtype)
+    F = n_fields
+
+    def blocks_for(u, u0, dt, mass_d, sxx_d, syy_d):
+        """u [F, Y, X] -> P [Y, X, F, F]."""
+        zer = torch.zeros_like(u[0])
+        one = torch.ones_like(u[0])
+        grad0 = tuple((zer, zer) for _ in range(F))
+        ctx = QPContext(u=tuple(u[i] for i in range(F)), du=grad0,
+                        u0=tuple(u0[i] for i in range(F)), du0=grad0, dt=dt)
+
+        def along(u_dir, du_dir):
+            return tangent(ctx, QPContext(u=u_dir, du=du_dir, u0=None,
+                                          du0=None, dt=None))
+
+        def stacked(parts):
+            return torch.stack([torch.broadcast_to(p, u.shape[1:])
+                                for p in parts])
+
+        zeros = tuple(zer for _ in range(F))
+        cols = []
+        for j in range(F):
+            e = tuple(one if i == j else zer for i in range(F))
+            src, _ = along(e, grad0)
+            _, flux_x = along(zeros, tuple((e[i], zer) for i in range(F)))
+            _, flux_y = along(zeros, tuple((zer, e[i]) for i in range(F)))
+            cols.append(stacked(src) * mass_d
+                        + stacked([fl[0] for fl in flux_x]) * sxx_d
+                        + stacked([fl[1] for fl in flux_y]) * syy_d)
+        P = torch.stack(cols, dim=-1)      # [F, Y, X, F] (row, y, x, col)
+        return torch.movedim(P, 0, -2)     # [Y, X, F, F]
+
+    def build(w, w0, dt):
         v, m = (a.to(dtype) for a in w)
         v0, m0 = (a.to(dtype) for a in w0)
         Pv = blocks_for(v, v0, dt, mass_v, sxx_v, syy_v)
-        for bc in dirichlet:
-            row = torch.zeros(n_fields, dtype=dtype, device=Pv.device)
-            row[bc.field] = 1.0
-            if bc.side in ("left", "right"):
-                Pv[:, bc.index, bc.field, :] = row
-            else:
-                Pv[bc.index, :, bc.field, :] = row
-        Pv_inv = small_inv(Pv)
-        Pm_inv = small_inv(blocks_for(m, m0, dt, mass_m, sxx_m, syy_m))
-        planes = (Pv_inv.permute(2, 3, 0, 1).contiguous(),
-                  Pm_inv.permute(2, 3, 0, 1).contiguous())
-
-        def Minv(r):
-            return block_jacobi_apply(planes, r)
-
-        Minv.pinv_planes = planes
-        return Minv
+        _unit_rows(Pv, dirichlet, F)
+        return _planes(small_inv(Pv),
+                       small_inv(blocks_for(m, m0, dt, mass_m, sxx_m, syy_m)))
 
     return build
 
