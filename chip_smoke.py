@@ -206,9 +206,22 @@ Phases, each printing its results; any failure raises (non-zero exit):
    if the smoke runs late.
 27. prints the card line, the per-kernel JSON line, then
    ``{"ok": true, "device": ...}``.
+28. kernel W (``tri_box``, the triangle-box J.v: each triangle's point
+   tangents once, every node summed in the gather's order) at the shapes
+   of ``TRI_BOX_CASES`` (bench2 100^2, 50^2, 25^2 coupled at ffc3 with 4
+   order parameters, 100^2 with 2 and 1; bench3 350^2, 175^2, 35^2, 7^2 at
+   ffc3), J.v and b - J.v: against its plain version (TOL_F32), against F
+   or G with ``torch.equal`` and against itself on a rerun (both
+   required); device us of W, F or G and T10 in the same call, per-call
+   us, the bound, boxes, registers, spills, shared bytes and CTAs per SM
+   (``tri_box_phase``); then kernel A's device us at bench1 100^2.
 
-Phases 20-24 run after 25 and 26. Every main-path phase prints its Newton
-and Krylov counts, its wall, and the seconds of its multigrid builds and
+Phase 28 runs between 7 and 8, phases 20-24 after 25 and 26. The outer
+J.v and the exported A z of bench2 (8, 25), bench2_eta1 (26) and bench3
+(10, 19) are kernel W: those phases require it and refuse F's or G's
+launches; the tiled bench3 (15) requires T10 and W. Every main-path phase
+prints its Newton and Krylov counts, its wall, and the seconds of its
+multigrid builds and
 their share of its wall (the dense coarse inverse apart) beside those of the
 smokes before kernel N (PERF.md section 5), and refuses a ``torch.func.jvp`` block
 build on its path. Every 2D main path (4, 6, 8, 10, 14, 15, 17-19, 25, 26)
@@ -235,12 +248,14 @@ once, each output written once) over 3.35 TB/s and its f32 operations over
 67 TFLOP/s (H100 SXM data sheet), with ``bound_by`` naming which.
 ``library_ms`` is one PyTorch call computing the same function where there
 is one (block-Jacobi's einsum pair; for the J.v kernels A, E, F, G, I, U,
-T10, T12 and Q ``torch.func.jvp`` of the f32 residual, for S over the shard's
+W, T10, T12 and Q ``torch.func.jvp`` of the f32 residual, for S over the shard's
 slab; for the transfers D and H ``torch.sparse.mm`` of the transfer's CSR
 matrix), else null. Kernel I's record names U as ``comparison_of``: U took
 its place on the main path, so its launches there are 0.
 ``device_ms``, where present (L at bench2's 25^2 with 8 sweeps and the
-groups, its main shape; D at bench1's 100<->50 prolongation and H at
+groups, its main shape; W at bench2's 100^2 with 4 order parameters, its
+main shape, and A and F at theirs, from phase 28; G at bench3's 350^2 at
+ffc3, from phase 9; D at bench1's 100<->50 prolongation and H at
 bench3's 175<->35 prolongation; kernels U, I, B and C at bench1_3d's 50^3, R at
 bench6's 100^2, T10, T12 and TS at bench3's 350^2, S on one shard of
 bench3's 350^2 on 2 x 4, Q's case a without its fold), is the device time of one launch: launches
@@ -1317,12 +1332,13 @@ def hold_trajectory(label, result, ref_csv, end_time, min_matched, interp_tol,
 
 
 def replay_phase(label, problem, dev, ref_csv, n_rows, required, tfe_tol,
-                 col2_tol):
+                 col2_tol, absent=GATHER_ABSENT):
     """``timeloop.run`` of ``problem`` on the time grid of ``ref_csv``
     (column 0), at most ``n_rows`` steps, with ``replay_partial`` (a step
     no rung solves ends the run short, which the row check refuses), held
     against ``ref_csv``; prints the rung and ladder of every rescued step.
-    Returns ``drive``'s counts, result and wall."""
+    ``required`` and ``absent`` as for ``drive``. Returns ``drive``'s
+    counts, result and wall."""
     from pfhubbenchmarks_tpu_torch import timeloop
     from pfhubbenchmarks_tpu_torch.io.csvout import read_csv
 
@@ -1330,7 +1346,7 @@ def replay_phase(label, problem, dev, ref_csv, n_rows, required, tfe_tol,
     counts, result, wall, _ = drive(
         label, problem, lambda: timeloop.run(
             problem, device=dev, time_grid=grid, max_steps=n_rows,
-            replay_partial=True, verbose=True), required)
+            replay_partial=True, verbose=True), required, absent)
     for st in result.stats:
         if st.rescue:
             ladder = ", ".join(
@@ -1418,6 +1434,9 @@ def kernel_records():
             "vcycle_ascend_chain", csrc + "vcycle_chain.cuh",
             "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:798",
             ("pfhubbenchmarks_tpu/ops/pallas_vcycle.py:939",)),
+        # W: the triangle-box J.v (each triangle's point tangents once), the
+        # outer J.v and exported A z of bench2 and bench3 in place of F and G
+        "tri_box": Kernel("tri_box", csrc + "fem_tri_box.cuh", replaces_jv),
         # N: the 2D node-block-Jacobi build, a port kernel with no TPU row
         "node_blocks": Kernel(
             "node_blocks", csrc + "node_blocks.cuh",
@@ -1843,7 +1862,7 @@ def tile_phases(dev, K, C, noise_pair, state_on, residual_jvp, paths, refs):
              dict(), ("ch_jvp", "lmr_sweep")),
             (15, "bench3", p3, None, BENCH3_ROWS, "bench3_out.csv",
              dict(tfe_tol=1e-6, col2_tol=1e-5),
-             ("ach_jvp", "transfer_general", "descend_level", "ascend_level"))):
+             ("tri_box", "transfer_general", "descend_level", "ascend_level"))):
         pt = dataclasses.replace(pb, solver=dataclasses.replace(
             pb.solver, tiled_grid_kernels=True))
         runner = timeloop.Runner(pt, dev)
@@ -1988,7 +2007,8 @@ def replay_phases(dev, t_start, paths, problem1, problem6, problem3):
                     BENCH3_REPLAY_PREFIX, BENCH3_REPLAY_LATE_S)
     paths["bench3 replay"], res3, _ = replay_phase(
         "phase 19: bench3 replay", problem3, dev, "bench3_replay.csv", n,
-        ("ach_jvp",) + CHAIN_2D, tfe_tol=5e-4, col2_tol=5e-4)
+        ("tri_box",) + CHAIN_2D, tfe_tol=5e-4, col2_tol=5e-4,
+        absent=GATHER_ABSENT + ("ach_jvp",))
     st = rescued_at(res3, 41.59)
     rungs = [r["rung"] for r in st.ladder]
     print(f"phase 19: the step to t=41.59 (step {st.step}): "
@@ -2012,12 +2032,13 @@ def bench2_more_phases(dev, t_start, paths, problem2):
     from pfhubbenchmarks_tpu_torch import timeloop
     from pfhubbenchmarks_tpu_torch.benchmarks import registry
 
-    required = ("chac_jvp", "lmr_sweep", "residual") + CHAIN_2D
+    required = ("tri_box", "lmr_sweep", "residual") + CHAIN_2D
+    absent = GATHER_ABSENT + ("chac_jvp",)
     n = prefix_rows(t_start, 25, "bench2's replay", BENCH2_REPLAY_ROWS,
                     BENCH2_REPLAY_PREFIX, BENCH2_REPLAY_LATE_S)
     paths["bench2 replay"], res2, _ = replay_phase(
         "phase 25: bench2 replay", problem2, dev, "bench2_replay.csv", n,
-        required, tfe_tol=3e-2, col2_tol=1e-9)
+        required, tfe_tol=3e-2, col2_tol=1e-9, absent=absent)
     if res2.rows[-1, 0] >= 81.51 * (1 - 1e-9):
         st = rescued_at(res2, 81.51)
         print(f"phase 25: the step to t=81.51 (step {st.step}): solved by "
@@ -2033,7 +2054,7 @@ def bench2_more_phases(dev, t_start, paths, problem2):
                        BENCH2_ETA1_LATE_S)
     paths["bench2_eta1"], res, _, _ = drive(
         "phase 26: bench2_eta1", problem,
-        lambda: runner.run(max_steps=full, verbose=True), required,
+        lambda: runner.run(max_steps=full, verbose=True), required, absent,
         max_calls=MAX_CALLS_PER_APPLY["bench2"])
     end = problem.time.end_time if full is None else float(res.rows[-1, 0])
     hold_trajectory("phase 26: bench2_eta1", res, "bench2_eta1_out.csv", end,
@@ -2496,6 +2517,140 @@ def sweep_loop_phase(dev, K, rng):
     torch.cuda.synchronize()
     print(f"phase 22: kernel L agrees with its plain version at every gather "
           f"level ({time.perf_counter() - t22:.1f} s)", flush=True)
+
+
+# phase 28: kernel W against F and G at the main shapes (bench2 100^2 and its
+# levels, bench3 350^2 and its levels, all at ffc3, the outer rule), and the
+# gather kernels' device us in their first profiles (PERF.md section 6)
+TRI_BOX_CASES = (("bench2", 4, (100, 50, 25)), ("bench2", 2, (100,)),
+                 ("bench2", 1, (100,)), ("bench3", None, (350, 175, 35, 7)))
+GATHER_DEVICE_US_BEFORE = {"chac_jvp": 37.12, "ach_jvp": 24.78, "ch_jvp": 6.48}
+
+
+def tri_box_phase(dev, K, rng):
+    """Phase 28: kernel W (``tri_box``, the triangle-box J.v, each
+    triangle's point tangents once) at every shape of ``TRI_BOX_CASES``
+    (bench2 coupled at ffc3 with 4 order parameters at 100^2, 50^2, 25^2
+    and with 2 and 1 at 100^2; bench3 at ffc3 at 350^2, 175^2, 35^2, 7^2), J.v
+    and b - J.v: against its plain version (TOL_F32), against the gather
+    kernel it replaces on the outer J.v (F or G, ``jv.gather``) with
+    ``torch.equal``, and against itself on a rerun (to the bit), each
+    required; device us per launch (launches queued behind a sleep kernel)
+    of W, the gather kernel and, where it has the physics (bench2 with 4
+    order parameters, bench3), T10, in two rounds in turns; per-call us of
+    W, the gather kernel and the plain version; W's bound (``jvp_work``,
+    the work count of F and G), boxes, registers, spills, shared bytes and
+    CTAs per SM; at the two main shapes (bench2 100^2 with 4 order
+    parameters, W's main shape in the kernel line, and bench3 350^2) also
+    against ``torch.func.jvp`` of the f32 residual, its library call. Then
+    kernel A's device us at bench1 100^2 ffc3. Sets the device time of W,
+    F and A in the kernel line (G's, at its main shape, comes from phase 9,
+    which runs after this phase)."""
+    from pfhubbenchmarks_tpu_torch.benchmarks import bench1, bench2, bench3
+    from pfhubbenchmarks_tpu_torch.fem.assembly import make_residual
+
+    t28 = time.perf_counter()
+    f32 = torch.float32
+    KW = K["tri_box"]
+
+    def pair(g, F, scale=1.0):
+        return tuple(torch.tensor(scale * rng.standard_normal((F,) + s),
+                                  dtype=f32, device=dev)
+                     for s in (g.vshape, g.mshape))
+
+    def state(pb, g):
+        v, m = g.interpolate(pb.ic_fns)
+        return tuple(torch.tensor(a, dtype=f32, device=dev) + n
+                     for a, n in zip((v, m), pair(g, pb.n_fields, 0.01)))
+
+    for name, ne, sizes in TRI_BOX_CASES:
+        for n in sizes:
+            pb = (bench2.make(nx=n, ny=n, num_eta=ne) if name == "bench2"
+                  else bench3.make(nx=n, ny=n))
+            g, F = pb.grid, pb.n_fields
+            assert g.rule_name == "ffc3" and pb.outer_jvp_form == "box"
+            dt = 0.16 if name == "bench2" else 1.28
+            jv = pb.kernel_jvp(g, dev, form="box")
+            gather = jv.gather
+            w, v, b = state(pb, g), pair(g, F), pair(g, F)
+            lab = (f"{name}{f' NE={ne}' if ne else ''} coupled ffc3 "
+                   f"{g.ny}x{g.nx}")
+            main = name == "bench2" and ne == 4 and n == 100
+            first = name == "bench3" and n == 350
+            work = (jvp_work(g, F, ns=1 + ne, ops=chac_tangent_ops(ne, False))
+                    if ne else jvp_work(g, F, ns=2, ops=TANGENT_OPS["ach"]))
+            got = jv.kernel(w, w, dt, v)
+            got_b = jv.kernel(w, w, dt, v, b=b)
+            again = jv.kernel(w, w, dt, v) + jv.kernel(w, w, dt, v, b=b)
+            ref_g = gather.kernel(w, w, dt, v) + gather.kernel(w, w, dt, v, b=b)
+            library = library_ms = None
+            if main or first:
+                res = make_residual(g, pb.terms, F, device=dev, dtype=f32)
+                library = (lambda res=res, w=w, v=v, dt=dt: torch.func.jvp(
+                    lambda u: res(u, w, dt), (w,), (v,))[1])
+                library_ms = cuda_ms(library, reps=10)
+            per = interleaved_ms({"W": lambda: jv.kernel(w, w, dt, v),
+                                  "gather": lambda: gather.kernel(w, w, dt, v)})
+            timing = (per["W"], cuda_ms(lambda: jv.plain(w, w, dt, v), reps=10))
+            t10 = (pb.kernel_jvp(g, dev, form="recompute")
+                   if ne in (None, 4) else None)
+            fns = {"W": lambda: jv.kernel(w, w, dt, v),
+                   "gather": lambda: gather.kernel(w, w, dt, v)}
+            if t10 is not None:
+                fns["T10"] = lambda: t10.kernel(w, w, dt, v)
+            rounds = [{k: device_ms(fn) for k, fn in fns.items()}
+                      for _ in range(2)]
+            dev_us = {k: statistics.mean(r[k] for r in rounds) * 1e3
+                      for k in fns}
+            KW.check(f"{lab} Jv", got, jv.plain(w, w, dt, v), TOL_F32, timing,
+                     work, library_ms=library_ms, dev_ms=dev_us["W"] * 1e-3,
+                     main=main)
+            KW.check(f"{lab} b-Jv", got_b, jv.plain(w, w, dt, v, b=b), TOL_F32)
+            if library is not None:
+                KW.check(f"{lab} Jv vs torch.func.jvp", got, library(), TOL_F32)
+            rerun = all(torch.equal(x, y) for x, y in zip(got + got_b, again))
+            diff = max(float((x - y).abs().max())
+                       for x, y in zip(got + got_b, ref_g))
+            bits = all(torch.equal(x, y) for x, y in zip(got + got_b, ref_g))
+            info = jv.plan.info()
+            gname = "F" if ne else "G"
+            print(f"phase 28: kernel W {lab}: vs {gname} (J.v and b - J.v) "
+                  f"{'bit-identical' if bits else f'DIFFERS by {diff:.3e}'}, "
+                  f"rerun {'bit-identical' if rerun else 'DIFFERS'}; device "
+                  f"us W {dev_us['W']:.2f}, {gname} {dev_us['gather']:.2f}"
+                  + (f", T10 {dev_us['T10']:.2f}" if "T10" in dev_us else "")
+                  + f" (rounds {[{k: round(x * 1e3, 2) for k, x in r.items()} for r in rounds]})"
+                  f"; per call W {per['W'] * 1e3:.1f} us, {gname} "
+                  f"{per['gather'] * 1e3:.1f} us, plain {timing[1] * 1e3:.1f}"
+                  f" us; bound {bound(work)[0] * 1e3:.3f} us "
+                  f"({bound(work)[1]}); boxes {jv.plan.boxes} of "
+                  f"{jv.plan.box}; {info['registers']} registers, "
+                  f"{info['local_bytes']} local bytes, {info['dynamic_smem']} "
+                  f"shared bytes, {info['ctas_per_sm']} CTAs per SM",
+                  flush=True)
+            if not rerun:
+                raise AssertionError(f"W {lab}: a rerun changed the bits")
+            if not bits:
+                raise AssertionError(f"W {lab}: differs from {gname} by {diff:.3e}")
+            if main or first:
+                gk = K["chac_jvp" if ne else "ach_jvp"]
+                if main:   # G's is set at its main shape in phase 9
+                    gk.device_ms = dev_us["gather"] * 1e-3
+                print(f"phase 28: {gname} ({gk.name}) {lab}: device "
+                      f"{dev_us['gather']:.2f} us (first profile "
+                      f"{GATHER_DEVICE_US_BEFORE[gk.name]} us)", flush=True)
+    p1 = bench1.make()
+    g = p1.grid
+    ja = p1.kernel_jvp(g, dev)
+    w, v = state(p1, g), pair(g, 2)
+    a_us = device_ms(lambda: ja.kernel(w, w, 0.5, v)) * 1e3
+    K["ch_jvp"].device_ms = a_us * 1e-3
+    print(f"phase 28: A (ch_jvp) bench1 ffc3 100x100: device {a_us:.2f} us "
+          f"(first profile {GATHER_DEVICE_US_BEFORE['ch_jvp']} us)",
+          flush=True)
+    torch.cuda.synchronize()
+    print(f"phase 28: kernel W agrees with its plain version and equals F and "
+          f"G to the bit ({time.perf_counter() - t28:.1f} s)", flush=True)
 
 
 def chain_phase(dev, K, rng):
@@ -3001,6 +3156,9 @@ def main() -> None:
     print(f"phase 7: bench2-shape kernels, sweep loop and chains agree with "
           f"their plain versions ({time.perf_counter() - t7:.1f} s)", flush=True)
 
+    # ---- phase 28: kernel W against F and G at their main shapes ---------
+    tri_box_phase(dev, K, rng)
+
     # ---- phase 8: bench2's main path at 100x100 -------------------------
     runner2 = timeloop.Runner(problem2, dev)
     build = runner2.problem.precond_builder(dev)
@@ -3010,8 +3168,9 @@ def main() -> None:
           flush=True)
     paths["bench2"], result2, wall2, seconds2 = drive(
         "phase 8: bench2", problem2, lambda: runner2.run(verbose=True),
-        ("chac_jvp", "lmr_sweep", "transfer_dyadic", "vcycle_descend_chain",
+        ("tri_box", "lmr_sweep", "transfer_dyadic", "vcycle_descend_chain",
          "vcycle_ascend_chain", "residual", "node_blocks"),
+        absent=GATHER_ABSENT + ("chac_jvp",),
         max_calls=MAX_CALLS_PER_APPLY["bench2"])
     hold_trajectory("phase 8: bench2", result2, "bench2_out.csv",
                     problem2.time.end_time, BENCH2_MIN_MATCHED,
@@ -3043,15 +3202,16 @@ def main() -> None:
         jv = problem3.kernel_jvp(g, dev)
         lab = f"{rule} {g.ny}x{g.nx}"
         library = residual_jvp(problem3, g, w, dt3, v)
-        timing = work = library_ms = None
+        timing = work = library_ms = dev_ms = None
         if g.nx == 350:
             timing = (cuda_ms(lambda: jv.kernel(w, w, dt3, v)),
                       cuda_ms(lambda: jv.plain(w, w, dt3, v), reps=10))
             work = jvp_work(g, F3, **jv_kw3)
             library_ms = cuda_ms(library, reps=10)
+            dev_ms = device_ms(lambda: jv.kernel(w, w, dt3, v))
         K["ach_jvp"].check(f"{lab} Jv", jv.kernel(w, w, dt3, v),
                            jv.plain(w, w, dt3, v), TOL_F32, timing, work,
-                           library_ms=library_ms)
+                           library_ms=library_ms, dev_ms=dev_ms)
         K["ach_jvp"].check(f"{lab} b-Jv", jv.kernel(w, w, dt3, v, b=b),
                            jv.plain(w, w, dt3, v, b=b), TOL_F32)
         if g.nx == 350:
@@ -3165,8 +3325,9 @@ def main() -> None:
         raise AssertionError("bench3's coarsest solve is not the dense inverse")
     paths["bench3"], result3, wall3, seconds3 = run_main_path(
         "phase 10: bench3", runner3, None, "bench3_out.csv", BENCH3_ROWS,
-        ("ach_jvp", "transfer_dyadic", "vcycle_descend_chain",
+        ("tri_box", "transfer_dyadic", "vcycle_descend_chain",
          "vcycle_ascend_chain", "node_blocks"),
+        absent=GATHER_ABSENT + ("ach_jvp",),
         tfe_tol=1e-6, col2_tol=1e-5, max_calls=MAX_CALLS_PER_APPLY["bench3"])
     n_builds3 = sum(st.newton_iters_all for st in result3.stats)
     build_s3, dense_s3 = seconds3["precond_build"], seconds3["dense_coarse"]

@@ -11,7 +11,9 @@ matvec (the JAX package re-sets those rows after its kernel,
 ``base.py:201-215``) and every multigrid level; ``split=True`` gives the
 J.v of ``terms_precond``, the field-split operator of
 ``SolverConfig.field_split``; ``form`` "recompute" or "seam" the tile
-kernels T10 or T12 (ops/fem_tile.py) in place of the gather kernel.
+kernels T10 or T12 (ops/fem_tile.py) in place of the gather kernel, "box"
+kernel W (ops/tri_box.py, BM2 and BM3), which ``outer_jvp_form`` gives the
+outer J.v and the exported A z of bench2 and bench3.
 ``kernel_residual(grid, device, dirichlet)`` makes the f32 residual of
 kernel R (ops/fem_residual.py), where the benchmark has one, and
 ``kernel_phys()`` the physics of the gather kernels S and Q (ops/fem_jvp.py,
@@ -78,6 +80,10 @@ class BenchmarkProblem:
     # optional early-abort predicate on a CSV row dict (bench3: TFE < 0,
     # dolfin/bench3.py:254-258), read by the host loop (timeloop.run)
     abort_condition: Callable[[dict], bool] | None = None
+    # the form of kernel_jvp for the outer f32 J.v (T10 in its place in the
+    # tiled configuration) and the exported A z on the true-rule grid:
+    # "gather", or "box" (kernel W, ops/tri_box.py; bench2 and bench3)
+    outer_jvp_form: str = "gather"
 
     @property
     def n_fields(self) -> int:
@@ -123,11 +129,13 @@ class BenchmarkProblem:
 
     def lowp_jvp_factory(self, device: torch.device | str):
         """``factory(x_lp, wprev_lp, dt_lp) -> jvp(v)``: the outer f32 J.v
-        on the true-rule grid, whose Dirichlet rows equal ``v``; T10 in the
-        tiled configuration on a grid of several row blocks."""
+        on the true-rule grid, whose Dirichlet rows equal ``v``, of the form
+        ``outer_jvp_form``; T10 in the tiled configuration on a grid of
+        several row blocks."""
         from pfhubbenchmarks_tpu_torch.ops.fem_tile import multi_block
 
-        form = "recompute" if self.tiled and multi_block(self.grid) else "gather"
+        form = ("recompute" if self.tiled and multi_block(self.grid)
+                else self.outer_jvp_form)
         jv = self.kernel_jvp(self.grid, device, self.dirichlet, form=form)
 
         def factory(x_lp, wprev_lp, dt_lp):
@@ -149,6 +157,7 @@ class BenchmarkProblem:
             self.n_fields, device=device,
             jvp_for=lambda g, split, form="gather": self.kernel_jvp(
                 g, device, self.dirichlet_for(g), split=split, form=form),
+            mv_form=self.outer_jvp_form,
             tiled=self.tiled,
             field_groups=self.field_groups if field_split else None,
             dirichlet_for=self.dirichlet_for,

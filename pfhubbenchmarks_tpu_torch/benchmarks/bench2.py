@@ -261,6 +261,7 @@ def make(nx: int = 100, ny: int = 100, Lx: float = 200.0, Ly: float = 200.0,
         csv_columns=("time", "total_free_energy", "total_solute"),
         kernel_jvp=kernel_jvp,
         kernel_residual=kernel_residual,
+        outer_jvp_form="box",
         **{"time": TimeConfig(dt0=1e-2, dt_min=1e-4, end_time=100.0,
                               grow_threshold=5),
            "solver": SolverConfig(line_search="cp", precond_rule="dunavant1",

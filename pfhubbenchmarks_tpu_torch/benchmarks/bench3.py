@@ -171,6 +171,7 @@ def make(nx: int = 350, ny: int = 350, Lx: float = 960.0, Ly: float = 960.0,
         csv_columns=("time", "total_free_energy", "solid_fraction"),
         kernel_jvp=kernel_jvp,
         kernel_phys=kernel_phys,
+        outer_jvp_form="box",
         **{"time": TimeConfig(dt0=1e-2, dt_min=1e-4, end_time=100.0,
                               grow_threshold=5),
            "solver": SolverConfig(line_search="basic", precond_rule="dunavant2",

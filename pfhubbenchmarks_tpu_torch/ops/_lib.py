@@ -45,7 +45,7 @@ KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp", "ch3d_jvp",
            "transfer_general", "residual", "tile_jvp_recompute",
            "tile_jvp_seam", "tile_sweep", "fma_chain", "shard_sweep",
            "gridjvp_probe", "vcycle_descend_chain", "vcycle_ascend_chain",
-           "node_blocks")
+           "node_blocks", "tri_box")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # launch sequences of the kernels that stand for one TPU kernel each
 CHAINS = ("tile_sweep_loop", "descend_level", "ascend_level",
@@ -184,6 +184,13 @@ class KernelLibrary:
             "pfh_node_blocks_chp_info": [ip],
             "pfh_node_blocks_ach_info": [ip],
             "pfh_node_blocks_chac_info": [i32, i32, ip],
+            # kernel W: params, nq (, ne), the box, the eight planes, the
+            # grid's cells, the stream
+            "pfh_chac_box": [vp, i32, i32, i32, i32] + [vp] * 8 + [i32, i32,
+                                                                vp],
+            "pfh_ach_box": [vp, i32, i32, i32] + [vp] * 8 + [i32, i32, vp],
+            "pfh_chac_box_info": [i32, ip],
+            "pfh_ach_box_info": [ip],
         }
         for name, argtypes in sig.items():
             fn = getattr(self.lib, name)

@@ -14,7 +14,9 @@ tangent, which ``CHAC::tangent`` mirrors, assembled in f32 by
 fem/assembly.make_tangent_jvp) and the parameter block are
 ops/fem_jvp.py's. BM2's forms of the tile kernels T10, T12, TS
 (``csrc/chac_tile.cu``, ops/fem_tile.py; 4 order parameters, the coupled
-operator at ffc3 and the split one at dunavant1) and of the residual R
+operator at ffc3 and the split one at dunavant1), of kernel W
+(``csrc/chac_box.cu``, ops/tri_box.py: the coupled operator at ffc3 over
+triangle boxes, bench2's outer J.v) and of the residual R
 (``csrc/chac_residual.cu``, ops/fem_residual.py) are here too.
 """
 
@@ -26,6 +28,7 @@ from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
 from pfhubbenchmarks_tpu_torch.ops.fem_jvp import make_fem_jvp
 from pfhubbenchmarks_tpu_torch.ops.fem_residual import make_fem_residual
 from pfhubbenchmarks_tpu_torch.ops.fem_tile import make_tile_jvp
+from pfhubbenchmarks_tpu_torch.ops.tri_box import make_box_jvp
 
 # physics constants the kernel takes, in its parameter order
 CONSTANTS = ("rho2", "c_alpha", "c_beta", "kappa_c", "kappa_eta", "M", "w",
@@ -37,22 +40,24 @@ def make_chac_jvp(grid: CrossedTriGrid, tangent, constants: dict, *,
                   num_eta: int, split: bool, device: torch.device | str,
                   dirichlet=(), form="gather"):
     """Returns ``jv(w, w0, dt, v, b=None)`` for the (2 + num_eta)-field
-    system: kernel F (ops/fem_jvp.make_fem_jvp) for ``form`` "gather", else
-    the tile kernel of that form (ops/fem_tile.make_tile_jvp); ``tangent``
-    must be the one the kernel variant computes (bench2's
-    ``make_terms_tangent(p, num_eta, split)``)."""
+    system: kernel F (ops/fem_jvp.make_fem_jvp) for ``form`` "gather",
+    kernel W over F's launch record (ops/tri_box.make_box_jvp; the coupled
+    operator at a 4-point rule) for "box", else the tile kernel of that form
+    (ops/fem_tile.make_tile_jvp); ``tangent`` must be the one the kernel
+    variant computes (bench2's ``make_terms_tangent(p, num_eta, split)``)."""
     if num_eta not in NUM_ETA:
         raise ValueError(f"chac_jvp is built for num_eta in {NUM_ETA}, "
                          f"got {num_eta}")
     k = tuple(constants[n] for n in CONSTANTS)
-    if form != "gather":
+    if form not in ("gather", "box"):
         return make_tile_jvp(grid, tangent, 2 + num_eta, form=form,
                              symbol="pfh_chac_tile", constants=k,
                              device=device, dirichlet=dirichlet,
                              variant=(num_eta, int(split)))
-    return make_fem_jvp(grid, tangent, 2 + num_eta, name="chac_jvp",
-                        symbol="pfh_chac_jvp", constants=k, device=device,
-                        dirichlet=dirichlet, variant=(num_eta, int(split)))
+    jv = make_fem_jvp(grid, tangent, 2 + num_eta, name="chac_jvp",
+                      symbol="pfh_chac_jvp", constants=k, device=device,
+                      dirichlet=dirichlet, variant=(num_eta, int(split)))
+    return make_box_jvp(jv) if form == "box" else jv
 
 
 def make_chac_residual(grid: CrossedTriGrid, terms, constants: dict, *,

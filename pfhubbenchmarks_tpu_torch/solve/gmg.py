@@ -169,7 +169,7 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
              max_levels: int = 10, precond_rule: str | None = None,
              min_cells: int = 7, dense_coarse_max_dofs: int = 1500,
              cycle: str = "v", inner_mr: int = 1, field_groups=None,
-             tiled: bool = False):
+             tiled: bool = False, mv_form: str = "gather"):
     """Returns ``build(w, w0, dt) -> Minv`` applying one f32 V-cycle.
 
     ``jvp_for(g, split, form="gather")`` makes the J.v ``jv(w, w0, dt, v,
@@ -180,7 +180,8 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
     coupled one; ``form`` "seam" is the tile kernel T12 that ``tiled``
     routes a level to. ``Minv(r)`` returns z = M^-1 r and
     ``Minv.minv_matvec(r)``, where exposed, the pair (z, A z) with the
-    coupled true-rule A. ``build.grids`` is the hierarchy,
+    coupled true-rule A, by the J.v of form ``mv_form`` ("box": kernel W,
+    bench2 and bench3). ``build.grids`` is the hierarchy,
     ``build.dense_coarse`` says whether the coarsest level is solved by the
     dense inverse (else by ``coarse_sweeps`` LMR sweeps),
     ``build.tiled_levels`` which levels are routed to the tile kernels and
@@ -209,7 +210,8 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
     jvs = [jvp_for(g, split, "seam") if tiled and not bcs and multi_block(g)
            else jvp_for(g, split) for g, bcs in zip(grids, level_bcs)]
     # exported pair: the TRUE-rule fine-level J.v of the coupled operator
-    mv_jv = jvp_for(grid, False)
+    mv_jv = (jvp_for(grid, False) if mv_form == "gather"
+             else jvp_for(grid, False, mv_form))
     # kernel N's plan per level, from the level's gather J.v (a tiled
     # level's T12 J.v carries no gather launch record)
     nb_plans = [NodeBlockPlan(
