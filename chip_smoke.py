@@ -208,20 +208,35 @@ Phases, each printing its results; any failure raises (non-zero exit):
    ``{"ok": true, "device": ...}``.
 28. kernel W (``tri_box``, the triangle-box J.v: each triangle's point
    tangents once, every node summed in the gather's order) at the shapes
-   of ``TRI_BOX_CASES`` (bench2 100^2, 50^2, 25^2 coupled at ffc3 with 4
-   order parameters, 100^2 with 2 and 1; bench3 350^2, 175^2, 35^2, 7^2 at
-   ffc3), J.v and b - J.v: against its plain version (TOL_F32), against F
-   or G with ``torch.equal`` and against itself on a rerun (both
-   required); device us of W, F or G and T10 in the same call, per-call
-   us, the bound, boxes, registers, spills, shared bytes and CTAs per SM
-   (``tri_box_phase``); then kernel A's device us at bench1 100^2.
+   of ``TRI_BOX_CASES`` (bench1 100^2 and 37 x 23 at ffc3; bench2 100^2,
+   50^2, 25^2 coupled at ffc3 with 4 order parameters, 100^2 with 2 and 1;
+   bench3 350^2, 175^2, 35^2, 7^2 at ffc3), J.v and b - J.v: against its
+   plain version (TOL_F32), against A, F or G with ``torch.equal`` and
+   against itself on a rerun (both required); device us of W, A, F or G
+   and T10 in the same call, per-call us of W, the gather kernel, the plain
+   version and (at bench1 and bench2 100^2 and bench3 350^2)
+   ``torch.func.jvp`` of the f32 residual, the bound, boxes, registers,
+   spills, shared bytes and CTAs per SM (``tri_box_phase``).
+29. the residual box (``residual_box``: kernel R's residual over triangle
+   boxes, each point residual once, every node summed in R's order) at the
+   shapes of ``RESIDUAL_BOX_CASES`` (bench2 100^2 with 4, 2 and 1 order
+   parameters, bench6 100^2 with its Dirichlet rows, both at 37 x 23):
+   against its plain version (TOL_R), against R with ``torch.equal`` and
+   against itself on a rerun (both required); device us of the box and R
+   in turns, per-call us of both and of the plain version, the bound,
+   boxes, registers, spills, shared bytes and CTAs per SM
+   (``residual_box_phase``).
 
-Phase 28 runs between 7 and 8, phases 20-24 after 25 and 26. The outer
-J.v and the exported A z of bench2 (8, 25), bench2_eta1 (26) and bench3
-(10, 19) are kernel W: those phases require it and refuse F's or G's
-launches; the tiled bench3 (15) requires T10 and W. Every main-path phase
-prints its Newton and Krylov counts, its wall, and the seconds of its
-multigrid builds and
+Phases 28 and 29 run between 7 and 8, phases 20-24 after 25 and 26. The
+outer J.v and the exported A z of bench1 (4, 17), bench2 (8, 25),
+bench2_eta1 (26) and bench3 (10, 19) are kernel W: those phases require it
+and refuse A's, F's or G's launches; the tiled bench1 (14) and bench3 (15)
+require T10 and W. The f32 residual of the cp line search of bench6 (6,
+18), bench2 (8, 25) and bench2_eta1 (26) is the residual box: those phases
+require it and refuse R's launches. Every main-path phase prints its Newton
+and Krylov counts beside those of the smokes before the boxes of A and R
+(``COUNTS_BEFORE_BOXES``), its wall, and the
+seconds of its multigrid builds and
 their share of its wall (the dense coarse inverse apart) beside those of the
 smokes before kernel N (PERF.md section 5), and refuses a ``torch.func.jvp`` block
 build on its path. Every 2D main path (4, 6, 8, 10, 14, 15, 17-19, 25, 26)
@@ -250,11 +265,13 @@ once, each output written once) over 3.35 TB/s and its f32 operations over
 is one (block-Jacobi's einsum pair; for the J.v kernels A, E, F, G, I, U,
 W, T10, T12 and Q ``torch.func.jvp`` of the f32 residual, for S over the shard's
 slab; for the transfers D and H ``torch.sparse.mm`` of the transfer's CSR
-matrix), else null. Kernel I's record names U as ``comparison_of``: U took
-its place on the main path, so its launches there are 0.
+matrix), else null (R and the residual box have no library call). Kernel
+I's record names U as ``comparison_of``, and R's the residual box: each
+took the other's place on the main paths, so its launches there are 0.
 ``device_ms``, where present (L at bench2's 25^2 with 8 sweeps and the
 groups, its main shape; W at bench2's 100^2 with 4 order parameters, its
-main shape, and A and F at theirs, from phase 28; G at bench3's 350^2 at
+main shape, and A and F at theirs, from phase 28; the residual box at
+bench2's 100^2 with 4 order parameters, from phase 29; G at bench3's 350^2 at
 ffc3, from phase 9; D at bench1's 100<->50 prolongation and H at
 bench3's 175<->35 prolongation; kernels U, I, B and C at bench1_3d's 50^3, R at
 bench6's 100^2, T10, T12 and TS at bench3's 350^2, S on one shard of
@@ -339,6 +356,21 @@ COUNTS_BEFORE_N = {("phase 4: bench1", 74): ((327, 4998), (368, 5891)),
                    ("phase 12: bench1_3d", 24): ((98, 8675), (102, 9005)),
                    ("phase 17: bench1 replay", 73): ((285, 7713), (388, 10502)),
                    ("phase 19: bench3 replay", 46): ((193, 1568), (308, 3417))}
+# Newton / Krylov and Newton / Krylov over all attempts of the smokes before
+# W at BM1 and the residual box took A's and R's place (PERF.md section 5),
+# which the boxes keep (they give the gather kernels' bits), by phase label
+# and step count
+COUNTS_BEFORE_BOXES = {
+    ("phase 4: bench1", 74): ((327, 4998), (368, 5891)),
+    ("phase 6: bench6", 14): ((28, 1107), None),
+    ("phase 8: bench2", 126): ((583, 9431), (672, 12475)),
+    ("phase 10: bench3", 14): ((58, 369), (61, 604)),
+    ("phase 12: bench1_3d", 24): ((98, 8675), (102, 9005)),
+    ("phase 17: bench1 replay", 73): ((285, 7713), (388, 10502)),
+    ("phase 18: bench6 replay", 14): ((28, 1104), None),
+    ("phase 19: bench3 replay", 46): ((193, 1577), (308, 3472)),
+    ("phase 25: bench2 replay", 120): ((544, 9048), (689, 11893)),
+    ("phase 26: bench2_eta1", 121): ((558, 8478), (586, 9705))}
 TOL_F32 = dict(rtol=2e-4, atol_scale=2e-5)   # tests/test_pallas_vcycle.py
 # the walls of the last two smokes before kernel N, A (working tree) and B
 # (git archive), NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 5), by phase
@@ -1190,10 +1222,15 @@ def drive(label, problem, run, required, absent=GATHER_ABSENT,
               sum(s.krylov_iters_all for s in st))
     newton = (sum(s.newton_iters for s in st),
               sum(s.newton_iters_all for s in st))
+    gather = COUNTS_BEFORE_BOXES.get((label, len(st)))
+    same = (gather is not None and gather[0] == newton[:1] + krylov[:1]
+            and (gather[1] is None or gather[1] == (newton[1], krylov[1])))
     print(f"{label}: newton / krylov, newton_all / krylov_all {newton[0]} / "
           f"{krylov[0]}, {newton[1]} / {krylov[1]} over {len(st)} steps; "
           f"before kernel N: "
-          f"{COUNTS_BEFORE_N.get((label, len(st)), 'not recorded')}",
+          f"{COUNTS_BEFORE_N.get((label, len(st)), 'not recorded')}; before "
+          f"the boxes of A and R: {gather if gather else 'not recorded'}"
+          f"{(' (equal)' if same else ' (DIFFERS)') if gather else ''}",
           flush=True)
     print(f"{label}: wall {wall:.3f} s (before kernel N, smokes A / "
           f"B: {WALLS_BEFORE_N.get((label, len(st)), 'not recorded')}), "
@@ -1403,9 +1440,11 @@ def kernel_records():
         "transfer_general": Kernel("transfer_general",
                                    csrc + "transfer_general.cu",
                                    "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:97"),
-        # R: one body (fem_residual.cuh), one source per physics
+        # R: one body (fem_residual.cuh), one source per physics; the
+        # residual box took its place on the cp line search
         "residual": Kernel("residual", csrc + "fem_residual.cuh",
-                           "pfhubbenchmarks_tpu/ops/pallas_residual.py:226"),
+                           "pfhubbenchmarks_tpu/ops/pallas_residual.py:226",
+                           comparison_of="residual_box"),
         # T10, T12, TS: one body (fem_tile.cuh), one source per physics
         "tile_jvp_recompute": Kernel(
             "tile_jvp_recompute", csrc + "fem_tile.cuh",
@@ -1435,8 +1474,14 @@ def kernel_records():
             "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:798",
             ("pfhubbenchmarks_tpu/ops/pallas_vcycle.py:939",)),
         # W: the triangle-box J.v (each triangle's point tangents once), the
-        # outer J.v and exported A z of bench2 and bench3 in place of F and G
+        # outer J.v and exported A z of bench1, bench2 and bench3 in place of
+        # A, F and G
         "tri_box": Kernel("tri_box", csrc + "fem_tri_box.cuh", replaces_jv),
+        # the residual box (R's residual over triangle boxes, each point
+        # residual once), the cp line search's f32 residual of bench2 and
+        # bench6 in place of R
+        "residual_box": Kernel("residual_box", csrc + "fem_tri_box.cuh",
+                               "pfhubbenchmarks_tpu/ops/pallas_residual.py:226"),
         # N: the 2D node-block-Jacobi build, a port kernel with no TPU row
         "node_blocks": Kernel(
             "node_blocks", csrc + "node_blocks.cuh",
@@ -1859,7 +1904,7 @@ def tile_phases(dev, K, C, noise_pair, state_on, residual_jvp, paths, refs):
     # a tiled level's sweeps are TS and C, a gather level's L: no B
     for phase, label, pb, end, n_rows, ref_csv, tols, more in (
             (14, "bench1", p1, None, BENCH1_TILED_ROWS, "bench1_out.csv",
-             dict(), ("ch_jvp", "lmr_sweep")),
+             dict(), ("tri_box", "lmr_sweep")),
             (15, "bench3", p3, None, BENCH3_ROWS, "bench3_out.csv",
              dict(tfe_tol=1e-6, col2_tol=1e-5),
              ("tri_box", "transfer_general", "descend_level", "ascend_level"))):
@@ -1988,7 +2033,8 @@ def replay_phases(dev, t_start, paths, problem1, problem6, problem3):
                     BENCH1_REPLAY_PREFIX, BENCH1_REPLAY_LATE_S)
     paths["bench1 replay"], res1, _ = replay_phase(
         "phase 17: bench1 replay", problem1, dev, "bench1_replay.csv", n,
-        ("ch_jvp", "lmr_sweep") + CHAIN_2D, tfe_tol=1e-5, col2_tol=1e-9)
+        ("tri_box", "lmr_sweep") + CHAIN_2D, tfe_tol=1e-5, col2_tol=1e-9,
+        absent=GATHER_ABSENT + ("ch_jvp",))
     st = rescued_at(res1, 65.5)
     print(f"phase 17: the step to t=65.5 (step {st.step}): "
           f"{st.rescue or 'its first attempt'}", flush=True)
@@ -2000,8 +2046,8 @@ def replay_phases(dev, t_start, paths, problem1, problem6, problem3):
                     BENCH6_REPLAY_PREFIX, BENCH6_REPLAY_LATE_S)
     paths["bench6 replay"], _, _ = replay_phase(
         "phase 18: bench6 replay", problem6, dev, "bench6_replay.csv", n,
-        ("chp_jvp", "residual", "lmr_sweep") + CHAIN_2D, tfe_tol=1e-6,
-        col2_tol=1e-9)
+        ("chp_jvp", "residual_box", "lmr_sweep") + CHAIN_2D, tfe_tol=1e-6,
+        col2_tol=1e-9, absent=GATHER_ABSENT + ("residual",))
 
     n = prefix_rows(t_start, 19, "bench3", BENCH3_REPLAY_ROWS,
                     BENCH3_REPLAY_PREFIX, BENCH3_REPLAY_LATE_S)
@@ -2032,8 +2078,8 @@ def bench2_more_phases(dev, t_start, paths, problem2):
     from pfhubbenchmarks_tpu_torch import timeloop
     from pfhubbenchmarks_tpu_torch.benchmarks import registry
 
-    required = ("tri_box", "lmr_sweep", "residual") + CHAIN_2D
-    absent = GATHER_ABSENT + ("chac_jvp",)
+    required = ("tri_box", "lmr_sweep", "residual_box") + CHAIN_2D
+    absent = GATHER_ABSENT + ("chac_jvp", "residual")
     n = prefix_rows(t_start, 25, "bench2's replay", BENCH2_REPLAY_ROWS,
                     BENCH2_REPLAY_PREFIX, BENCH2_REPLAY_LATE_S)
     paths["bench2 replay"], res2, _ = replay_phase(
@@ -2519,33 +2565,40 @@ def sweep_loop_phase(dev, K, rng):
           f"level ({time.perf_counter() - t22:.1f} s)", flush=True)
 
 
-# phase 28: kernel W against F and G at the main shapes (bench2 100^2 and its
-# levels, bench3 350^2 and its levels, all at ffc3, the outer rule), and the
-# gather kernels' device us in their first profiles (PERF.md section 6)
-TRI_BOX_CASES = (("bench2", 4, (100, 50, 25)), ("bench2", 2, (100,)),
+# phase 28: kernel W against A, F and G at the main shapes (bench1 100^2 and
+# a ragged 37 x 23, bench2 100^2 and its levels, bench3 350^2 and its
+# levels, all at ffc3, the outer rule), and the gather kernels' device us in
+# their first profiles (PERF.md section 6); a size is n (n x n cells) or
+# (ny, nx)
+TRI_BOX_CASES = (("bench1", None, (100, (37, 23))),
+                 ("bench2", 4, (100, 50, 25)), ("bench2", 2, (100,)),
                  ("bench2", 1, (100,)), ("bench3", None, (350, 175, 35, 7)))
 GATHER_DEVICE_US_BEFORE = {"chac_jvp": 37.12, "ach_jvp": 24.78, "ch_jvp": 6.48}
+# the gather J.v that W replaces on each benchmark's outer J.v: its record
+# and its letter
+TRI_BOX_GATHER = {"bench1": ("ch_jvp", "A"), "bench2": ("chac_jvp", "F"),
+                  "bench3": ("ach_jvp", "G")}
 
 
 def tri_box_phase(dev, K, rng):
     """Phase 28: kernel W (``tri_box``, the triangle-box J.v, each
     triangle's point tangents once) at every shape of ``TRI_BOX_CASES``
-    (bench2 coupled at ffc3 with 4 order parameters at 100^2, 50^2, 25^2
-    and with 2 and 1 at 100^2; bench3 at ffc3 at 350^2, 175^2, 35^2, 7^2), J.v
-    and b - J.v: against its plain version (TOL_F32), against the gather
-    kernel it replaces on the outer J.v (F or G, ``jv.gather``) with
-    ``torch.equal``, and against itself on a rerun (to the bit), each
-    required; device us per launch (launches queued behind a sleep kernel)
-    of W, the gather kernel and, where it has the physics (bench2 with 4
-    order parameters, bench3), T10, in two rounds in turns; per-call us of
-    W, the gather kernel and the plain version; W's bound (``jvp_work``,
-    the work count of F and G), boxes, registers, spills, shared bytes and
-    CTAs per SM; at the two main shapes (bench2 100^2 with 4 order
-    parameters, W's main shape in the kernel line, and bench3 350^2) also
-    against ``torch.func.jvp`` of the f32 residual, its library call. Then
-    kernel A's device us at bench1 100^2 ffc3. Sets the device time of W,
-    F and A in the kernel line (G's, at its main shape, comes from phase 9,
-    which runs after this phase)."""
+    (bench1 at ffc3 at 100^2 and 37 x 23; bench2 coupled at ffc3 with 4
+    order parameters at 100^2, 50^2, 25^2 and with 2 and 1 at 100^2; bench3
+    at ffc3 at 350^2, 175^2, 35^2, 7^2), J.v and b - J.v: against its plain
+    version (TOL_F32), against the gather kernel it replaces on the outer
+    J.v (A, F or G, ``jv.gather``) with ``torch.equal``, and against itself
+    on a rerun (to the bit), each required; device us per launch (launches
+    queued behind a sleep kernel) of W, the gather kernel and, where it has
+    the physics (bench1 100^2, bench2 with 4 order parameters, bench3), T10,
+    in two rounds in turns; per-call us of W, the gather kernel and the
+    plain version; W's bound (``jvp_work``, the work count of A, F and G),
+    boxes, registers, spills, shared bytes and CTAs per SM; at the first
+    shape of each benchmark (bench1 and bench2 100^2, bench3 350^2; bench2's
+    is W's main shape in the kernel line) also against ``torch.func.jvp`` of
+    the f32 residual, its library call, timed per call. Sets the device time
+    of W, A and F in the kernel line (G's, at its main shape, comes from
+    phase 9, which runs after this phase)."""
     from pfhubbenchmarks_tpu_torch.benchmarks import bench1, bench2, bench3
     from pfhubbenchmarks_tpu_torch.fem.assembly import make_residual
 
@@ -2564,27 +2617,33 @@ def tri_box_phase(dev, K, rng):
                      for a, n in zip((v, m), pair(g, pb.n_fields, 0.01)))
 
     for name, ne, sizes in TRI_BOX_CASES:
-        for n in sizes:
-            pb = (bench2.make(nx=n, ny=n, num_eta=ne) if name == "bench2"
-                  else bench3.make(nx=n, ny=n))
+        for size in sizes:
+            ny, nx = (size, size) if isinstance(size, int) else size
+            pb = {"bench1": lambda: bench1.make(nx=nx, ny=ny),
+                  "bench2": lambda: bench2.make(nx=nx, ny=ny, num_eta=ne),
+                  "bench3": lambda: bench3.make(nx=nx, ny=ny)}[name]()
             g, F = pb.grid, pb.n_fields
             assert g.rule_name == "ffc3" and pb.outer_jvp_form == "box"
-            dt = 0.16 if name == "bench2" else 1.28
+            dt = {"bench1": 0.5, "bench2": 0.16, "bench3": 1.28}[name]
             jv = pb.kernel_jvp(g, dev, form="box")
             gather = jv.gather
             w, v, b = state(pb, g), pair(g, F), pair(g, F)
-            lab = (f"{name}{f' NE={ne}' if ne else ''} coupled ffc3 "
+            lab = (f"{name}{f' NE={ne}' if ne else ''}"
+                   f"{' coupled' if name == 'bench2' else ''} ffc3 "
                    f"{g.ny}x{g.nx}")
-            main = name == "bench2" and ne == 4 and n == 100
-            first = name == "bench3" and n == 350
-            work = (jvp_work(g, F, ns=1 + ne, ops=chac_tangent_ops(ne, False))
-                    if ne else jvp_work(g, F, ns=2, ops=TANGENT_OPS["ach"]))
+            main = name == "bench2" and ne == 4 and size == 100
+            first = size == sizes[0] and (ne in (None, 4))
+            work = {"bench1": lambda: jvp_work(g, F),
+                    "bench2": lambda: jvp_work(
+                        g, F, ns=1 + ne, ops=chac_tangent_ops(ne, False)),
+                    "bench3": lambda: jvp_work(g, F, ns=2,
+                                               ops=TANGENT_OPS["ach"])}[name]()
             got = jv.kernel(w, w, dt, v)
             got_b = jv.kernel(w, w, dt, v, b=b)
             again = jv.kernel(w, w, dt, v) + jv.kernel(w, w, dt, v, b=b)
             ref_g = gather.kernel(w, w, dt, v) + gather.kernel(w, w, dt, v, b=b)
             library = library_ms = None
-            if main or first:
+            if first:
                 res = make_residual(g, pb.terms, F, device=dev, dtype=f32)
                 library = (lambda res=res, w=w, v=v, dt=dt: torch.func.jvp(
                     lambda u: res(u, w, dt), (w,), (v,))[1])
@@ -2593,7 +2652,7 @@ def tri_box_phase(dev, K, rng):
                                   "gather": lambda: gather.kernel(w, w, dt, v)})
             timing = (per["W"], cuda_ms(lambda: jv.plain(w, w, dt, v), reps=10))
             t10 = (pb.kernel_jvp(g, dev, form="recompute")
-                   if ne in (None, 4) else None)
+                   if ne in (None, 4) and isinstance(size, int) else None)
             fns = {"W": lambda: jv.kernel(w, w, dt, v),
                    "gather": lambda: gather.kernel(w, w, dt, v)}
             if t10 is not None:
@@ -2613,7 +2672,7 @@ def tri_box_phase(dev, K, rng):
                        for x, y in zip(got + got_b, ref_g))
             bits = all(torch.equal(x, y) for x, y in zip(got + got_b, ref_g))
             info = jv.plan.info()
-            gname = "F" if ne else "G"
+            gkey, gname = TRI_BOX_GATHER[name]
             print(f"phase 28: kernel W {lab}: vs {gname} (J.v and b - J.v) "
                   f"{'bit-identical' if bits else f'DIFFERS by {diff:.3e}'}, "
                   f"rerun {'bit-identical' if rerun else 'DIFFERS'}; device "
@@ -2622,7 +2681,10 @@ def tri_box_phase(dev, K, rng):
                   + f" (rounds {[{k: round(x * 1e3, 2) for k, x in r.items()} for r in rounds]})"
                   f"; per call W {per['W'] * 1e3:.1f} us, {gname} "
                   f"{per['gather'] * 1e3:.1f} us, plain {timing[1] * 1e3:.1f}"
-                  f" us; bound {bound(work)[0] * 1e3:.3f} us "
+                  f" us"
+                  + (f", library {library_ms * 1e3:.1f} us" if library_ms
+                     else "")
+                  + f"; bound {bound(work)[0] * 1e3:.3f} us "
                   f"({bound(work)[1]}); boxes {jv.plan.boxes} of "
                   f"{jv.plan.box}; {info['registers']} registers, "
                   f"{info['local_bytes']} local bytes, {info['dynamic_smem']} "
@@ -2632,25 +2694,104 @@ def tri_box_phase(dev, K, rng):
                 raise AssertionError(f"W {lab}: a rerun changed the bits")
             if not bits:
                 raise AssertionError(f"W {lab}: differs from {gname} by {diff:.3e}")
-            if main or first:
-                gk = K["chac_jvp" if ne else "ach_jvp"]
-                if main:   # G's is set at its main shape in phase 9
+            if first:
+                gk = K[gkey]
+                if name != "bench3":   # G's is set at its main shape in phase 9
                     gk.device_ms = dev_us["gather"] * 1e-3
                 print(f"phase 28: {gname} ({gk.name}) {lab}: device "
                       f"{dev_us['gather']:.2f} us (first profile "
                       f"{GATHER_DEVICE_US_BEFORE[gk.name]} us)", flush=True)
-    p1 = bench1.make()
-    g = p1.grid
-    ja = p1.kernel_jvp(g, dev)
-    w, v = state(p1, g), pair(g, 2)
-    a_us = device_ms(lambda: ja.kernel(w, w, 0.5, v)) * 1e3
-    K["ch_jvp"].device_ms = a_us * 1e-3
-    print(f"phase 28: A (ch_jvp) bench1 ffc3 100x100: device {a_us:.2f} us "
-          f"(first profile {GATHER_DEVICE_US_BEFORE['ch_jvp']} us)",
-          flush=True)
     torch.cuda.synchronize()
-    print(f"phase 28: kernel W agrees with its plain version and equals F and "
-          f"G to the bit ({time.perf_counter() - t28:.1f} s)", flush=True)
+    print(f"phase 28: kernel W agrees with its plain version and equals A, F "
+          f"and G to the bit ({time.perf_counter() - t28:.1f} s)", flush=True)
+
+
+# phase 29: the residual box against kernel R at the cp line search's shapes
+# (bench2 100^2 with 4, 2 and 1 order parameters, bench6 100^2 with its
+# Dirichlet rows) and ragged ones; name, order parameters, (ny, nx), dt
+RESIDUAL_BOX_CASES = (("bench2", 4, (100, 100), 0.16),
+                      ("bench2", 2, (100, 100), 0.16),
+                      ("bench2", 1, (100, 100), 0.16),
+                      ("bench6", None, (100, 100), 0.32),
+                      ("bench2", 4, (37, 23), 0.16),
+                      ("bench6", None, (37, 23), 0.32))
+
+
+def residual_box_phase(dev, K):
+    """Phase 29: the residual box (``residual_box``, kernel R's residual over
+    triangle boxes, each point residual once) at every shape of
+    ``RESIDUAL_BOX_CASES``: against its plain version (TOL_R, kernel R's),
+    against kernel R (``res.gather``) with ``torch.equal`` and against itself
+    on a rerun (both required); device us per launch of the box and R in
+    two rounds in turns (launches queued behind a sleep kernel); per-call us
+    of the box and R in turns and of the plain version; the bound
+    (``residual_work``, R's count), boxes, registers, spills, shared bytes
+    and CTAs per SM. The states are the IC plus seeded noise (w, with the
+    Dirichlet values on their rows) against the IC (w0). Sets the residual
+    box's record in the kernel line at bench2 100^2 with 4 order
+    parameters, its main shape."""
+    from pfhubbenchmarks_tpu_torch.benchmarks import bench2, bench6
+
+    t29 = time.perf_counter()
+    KB = K["residual_box"]
+    rng = np.random.default_rng(20261018)
+    for name, ne, (ny, nx), dt in RESIDUAL_BOX_CASES:
+        pb = (bench2.make(nx=nx, ny=ny, num_eta=ne) if name == "bench2"
+              else bench6.make(nx=nx, ny=ny))
+        g, F = pb.grid, pb.n_fields
+        assert g.rule_name == "ffc3" and pb.residual_form == "box"
+        res = pb.kernel_residual(g, dev, pb.dirichlet, form="box")
+        w0 = tuple(t.float().contiguous() for t in pb.initial_state(dev))
+        v = (w0[0] + torch.tensor(0.02 * rng.standard_normal(w0[0].shape),
+                                  dtype=torch.float32, device=dev),
+             w0[1] + torch.tensor(0.02 * rng.standard_normal(w0[1].shape),
+                                  dtype=torch.float32, device=dev))
+        for bc in pb.dirichlet:
+            v = (bc.apply_value(v[0]).contiguous(), v[1])
+        w = v
+        lab = (f"{name}{f' NE={ne}' if ne else ''} ffc3 {ny}x{nx}"
+               f"{' Dirichlet' if pb.dirichlet else ''}")
+        main = name == "bench2" and ne == 4 and nx == 100
+        ops = RESIDUAL_OPS[ne] if ne else RESIDUAL_OPS["chp"]
+        work = residual_work(g, F, ops, 1 + ne if ne else 1,
+                             masked=bool(pb.dirichlet))
+        got = res.kernel(w, w0, dt)
+        again = res.kernel(w, w0, dt)
+        ref = res.gather.kernel(w, w0, dt)
+        per = interleaved_ms({"box": lambda: res.kernel(w, w0, dt),
+                              "R": lambda: res.gather.kernel(w, w0, dt)})
+        timing = (per["box"], cuda_ms(lambda: res.plain(w, w0, dt), reps=10))
+        fns = {"box": lambda: res.kernel(w, w0, dt),
+               "R": lambda: res.gather.kernel(w, w0, dt)}
+        rounds = [{k: device_ms(fn) for k, fn in fns.items()} for _ in range(2)]
+        dev_us = {k: statistics.mean(r[k] for r in rounds) * 1e3 for k in fns}
+        KB.check(lab, got, res.plain(w, w0, dt), TOL_R, timing, work,
+                 dev_ms=dev_us["box"] * 1e-3, main=main)
+        rerun = all(torch.equal(x, y) for x, y in zip(got, again))
+        bits = all(torch.equal(x, y) for x, y in zip(got, ref))
+        diff = max(float((x - y).abs().max()) for x, y in zip(got, ref))
+        info = res.plan.info()
+        print(f"phase 29: residual box {lab}: vs R "
+              f"{'bit-identical' if bits else f'DIFFERS by {diff:.3e}'}, rerun "
+              f"{'bit-identical' if rerun else 'DIFFERS'}; device us box "
+              f"{dev_us['box']:.2f}, R {dev_us['R']:.2f} (rounds "
+              f"{[{k: round(x * 1e3, 2) for k, x in r.items()} for r in rounds]}"
+              f"); per call box {per['box'] * 1e3:.1f} us, R "
+              f"{per['R'] * 1e3:.1f} us, plain {timing[1] * 1e3:.1f} us; bound "
+              f"{bound(work)[0] * 1e3:.3f} us ({bound(work)[1]}); boxes "
+              f"{res.plan.boxes} of {res.plan.box}; {info['registers']} "
+              f"registers, {info['local_bytes']} local bytes, "
+              f"{info['dynamic_smem']} shared bytes, {info['ctas_per_sm']} "
+              f"CTAs per SM", flush=True)
+        if not rerun:
+            raise AssertionError(f"residual box {lab}: a rerun changed the bits")
+        if not bits:
+            raise AssertionError(f"residual box {lab}: differs from R by "
+                                 f"{diff:.3e}")
+    torch.cuda.synchronize()
+    print(f"phase 29: the residual box agrees with its plain version and "
+          f"equals R to the bit ({time.perf_counter() - t29:.1f} s)",
+          flush=True)
 
 
 def chain_phase(dev, K, rng):
@@ -2926,8 +3067,9 @@ def main() -> None:
     runner1 = timeloop.Runner(problem1, dev)
     paths["bench1"], result1, wall1, seconds1 = drive(
         "phase 4: bench1", problem1, lambda: runner1.run(verbose=True),
-        ("ch_jvp", "lmr_sweep", "transfer_dyadic", "vcycle_descend_chain",
+        ("tri_box", "lmr_sweep", "transfer_dyadic", "vcycle_descend_chain",
          "vcycle_ascend_chain", "node_blocks"),
+        absent=GATHER_ABSENT + ("ch_jvp",),
         max_calls=MAX_CALLS_PER_APPLY["bench1"])
     hold_trajectory("phase 4: bench1", result1, "bench1_out.csv",
                     problem1.time.end_time, BENCH1_MIN_MATCHED,
@@ -3034,7 +3176,8 @@ def main() -> None:
     paths["bench6"], _, _, _ = run_main_path(
         "phase 6: bench6", runner6, None, "bench6_out.csv", BENCH6_ROWS,
         ("chp_jvp", "vcycle_descend_chain", "vcycle_ascend_chain",
-         "lmr_sweep", "transfer_dyadic", "residual", "node_blocks"),
+         "lmr_sweep", "transfer_dyadic", "residual_box", "node_blocks"),
+        absent=GATHER_ABSENT + ("residual",),
         max_calls=MAX_CALLS_PER_APPLY["bench6"])
 
     # ---- phase 7: kernels, sweep loop and chains at bench2's shapes -----
@@ -3156,8 +3299,10 @@ def main() -> None:
     print(f"phase 7: bench2-shape kernels, sweep loop and chains agree with "
           f"their plain versions ({time.perf_counter() - t7:.1f} s)", flush=True)
 
-    # ---- phase 28: kernel W against F and G at their main shapes ---------
+    # ---- phases 28 and 29: kernel W against A, F and G, the residual box
+    # against R, at their main shapes ---------------------------------------
     tri_box_phase(dev, K, rng)
+    residual_box_phase(dev, K)
 
     # ---- phase 8: bench2's main path at 100x100 -------------------------
     runner2 = timeloop.Runner(problem2, dev)
@@ -3169,8 +3314,8 @@ def main() -> None:
     paths["bench2"], result2, wall2, seconds2 = drive(
         "phase 8: bench2", problem2, lambda: runner2.run(verbose=True),
         ("tri_box", "lmr_sweep", "transfer_dyadic", "vcycle_descend_chain",
-         "vcycle_ascend_chain", "residual", "node_blocks"),
-        absent=GATHER_ABSENT + ("chac_jvp",),
+         "vcycle_ascend_chain", "residual_box", "node_blocks"),
+        absent=GATHER_ABSENT + ("chac_jvp", "residual"),
         max_calls=MAX_CALLS_PER_APPLY["bench2"])
     hold_trajectory("phase 8: bench2", result2, "bench2_out.csv",
                     problem2.time.end_time, BENCH2_MIN_MATCHED,

@@ -12,10 +12,12 @@ matvec (the JAX package re-sets those rows after its kernel,
 J.v of ``terms_precond``, the field-split operator of
 ``SolverConfig.field_split``; ``form`` "recompute" or "seam" the tile
 kernels T10 or T12 (ops/fem_tile.py) in place of the gather kernel, "box"
-kernel W (ops/tri_box.py, BM2 and BM3), which ``outer_jvp_form`` gives the
-outer J.v and the exported A z of bench2 and bench3.
-``kernel_residual(grid, device, dirichlet)`` makes the f32 residual of
-kernel R (ops/fem_residual.py), where the benchmark has one, and
+kernel W (ops/tri_box.py, BM1, BM2 and BM3), which ``outer_jvp_form`` gives
+the outer J.v and the exported A z of bench1, bench2 and bench3.
+``kernel_residual(grid, device, dirichlet, form="gather")`` makes the f32
+residual of kernel R (ops/fem_residual.py), where the benchmark has one, or
+for ``form`` "box" the residual box (ops/residual_box.py, BM2 and BM6),
+which ``residual_form`` gives the cp line search of bench2 and bench6; and
 ``kernel_phys()`` the physics of the gather kernels S and Q (ops/fem_jvp.py,
 BM1 and BM3).
 
@@ -54,8 +56,9 @@ class BenchmarkProblem:
     # v, b=None), the f32 J.v of terms (split: of terms_precond; form: the
     # gather kernel or a tile kernel's form)
     kernel_jvp: Callable
-    # (grid, device, dirichlet) -> res(w, w0, dt), the f32 residual of
-    # kernel R, or None (the plain f32 assembly then serves)
+    # (grid, device, dirichlet, form="gather") -> res(w, w0, dt), the f32
+    # residual of kernel R (form "box": the residual box), or None (the
+    # plain f32 assembly then serves)
     kernel_residual: Callable | None = None
     # () -> ops/fem_jvp.KernelPhys, the physics of the gather kernels S (the
     # sharded LMR smoother) and Q (the row-block probe), or None where they
@@ -82,8 +85,13 @@ class BenchmarkProblem:
     abort_condition: Callable[[dict], bool] | None = None
     # the form of kernel_jvp for the outer f32 J.v (T10 in its place in the
     # tiled configuration) and the exported A z on the true-rule grid:
-    # "gather", or "box" (kernel W, ops/tri_box.py; bench2 and bench3)
+    # "gather", or "box" (kernel W, ops/tri_box.py; bench1, bench2 and
+    # bench3)
     outer_jvp_form: str = "gather"
+    # the form of kernel_residual for the f32 residual of the cp line search
+    # (residual_lowp): "gather" (kernel R), or "box" (the residual box,
+    # ops/residual_box.py; bench2 and bench6)
+    residual_form: str = "gather"
 
     @property
     def n_fields(self) -> int:
@@ -114,13 +122,15 @@ class BenchmarkProblem:
 
     def residual_lowp(self, device: torch.device | str):
         """f32 true-rule residual, the one the fast cp line search and its
-        noise floor read (solve/newton.py): kernel R where the benchmark has
-        it, else the f32 assembly."""
+        noise floor read (solve/newton.py): kernel R or the residual box
+        (``residual_form``) where the benchmark has it, else the f32
+        assembly."""
         if not self.mixed_precision:
             return None
         if self.kernel_residual is None:
             return self.residual(device, dtype=torch.float32)
-        return self.kernel_residual(self.grid, device, self.dirichlet)
+        return self.kernel_residual(self.grid, device, self.dirichlet,
+                                    form=self.residual_form)
 
     @property
     def tiled(self) -> bool:

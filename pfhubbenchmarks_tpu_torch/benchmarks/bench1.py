@@ -110,11 +110,11 @@ def make(nx: int = 100, ny: int = 100, Lx: float = 200.0, Ly: float = 200.0,
         return make_ch_jvp(grid, terms_tangent, kernel_constants(p),
                            device=device, dirichlet=dirichlet, form=form)
 
-    def kernel_residual(grid, device, dirichlet=()):
+    def kernel_residual(grid, device, dirichlet=(), form="gather"):
         from pfhubbenchmarks_tpu_torch.ops.ch_jvp import make_ch_residual
 
         return make_ch_residual(grid, terms, kernel_constants(p),
-                                device=device, dirichlet=dirichlet)
+                                device=device, dirichlet=dirichlet, form=form)
 
     def kernel_phys():
         from pfhubbenchmarks_tpu_torch.ops.ch_jvp import CONSTANTS
@@ -137,6 +137,7 @@ def make(nx: int = 100, ny: int = 100, Lx: float = 200.0, Ly: float = 200.0,
         kernel_jvp=kernel_jvp,
         kernel_phys=kernel_phys,
         kernel_residual=kernel_residual,
+        outer_jvp_form="box",
         **{"time": TimeConfig(dt0=1e-1, dt_min=1e-2, end_time=1e3,
                               grow_threshold=5),
            "solver": SolverConfig(line_search="basic", report_atol=2.6e-5,

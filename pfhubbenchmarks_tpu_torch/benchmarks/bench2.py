@@ -237,12 +237,12 @@ def make(nx: int = 100, ny: int = 100, Lx: float = 200.0, Ly: float = 200.0,
                              num_eta=num_eta, split=split, device=device,
                              dirichlet=dirichlet, form=form)
 
-    def kernel_residual(grid, device, dirichlet=()):
+    def kernel_residual(grid, device, dirichlet=(), form="gather"):
         from pfhubbenchmarks_tpu_torch.ops.chac_jvp import make_chac_residual
 
         return make_chac_residual(grid, terms, kernel_constants(p),
                                   num_eta=num_eta, device=device,
-                                  dirichlet=dirichlet)
+                                  dirichlet=dirichlet, form=form)
 
     return BenchmarkProblem(
         name="bench2" if num_eta == NUM_ETA else f"bench2_eta{num_eta}",
@@ -262,6 +262,7 @@ def make(nx: int = 100, ny: int = 100, Lx: float = 200.0, Ly: float = 200.0,
         kernel_jvp=kernel_jvp,
         kernel_residual=kernel_residual,
         outer_jvp_form="box",
+        residual_form="box",
         **{"time": TimeConfig(dt0=1e-2, dt_min=1e-4, end_time=100.0,
                               grow_threshold=5),
            "solver": SolverConfig(line_search="cp", precond_rule="dunavant1",

@@ -139,11 +139,11 @@ def make(nx: int = 100, ny: int = 100, Lx: float = 100.0, Ly: float = 100.0,
         return make_chp_jvp(grid, terms_tangent, kernel_constants(p),
                             device=device, dirichlet=dirichlet)
 
-    def kernel_residual(grid, device, dirichlet=()):
+    def kernel_residual(grid, device, dirichlet=(), form="gather"):
         from pfhubbenchmarks_tpu_torch.ops.chp_jvp import make_chp_residual
 
         return make_chp_residual(grid, terms, kernel_constants(p),
-                                 device=device, dirichlet=dirichlet)
+                                 device=device, dirichlet=dirichlet, form=form)
 
     return BenchmarkProblem(
         name="bench6",
@@ -158,6 +158,7 @@ def make(nx: int = 100, ny: int = 100, Lx: float = 100.0, Ly: float = 100.0,
         csv_columns=("time", "total_free_energy", "total_solute"),
         kernel_jvp=kernel_jvp,
         kernel_residual=kernel_residual,
+        residual_form="box",
         **{"time": TimeConfig(dt0=1e-2, dt_min=1e-4, end_time=3.0,
                               grow_threshold=5, dt_max=0.32),
            "solver": SolverConfig(line_search="cp", krylov_max_iters=300,

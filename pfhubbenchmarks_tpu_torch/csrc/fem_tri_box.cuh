@@ -1,17 +1,18 @@
 // Kernel W: the crossed-P1 J.v over shared-memory triangle boxes, templated
 // on the physics; each triangle's quadrature-point tangent is evaluated once
 // and every node is summed in the gather's order, so W gives the gather
-// kernel's bits.
+// kernel's bits. The residual box (residual_box_kernel, below) is the same
+// design over Phys::residual: kernel R's bits (fem_residual.cuh).
 //
 // Computes, as the gather body (fem_jvp.cuh) does,
 //     out = J(w, dt) v        (b == nullptr), or   out = b - J(w, dt) v
 // in f32 on the unpadded v and m planes of fem_params.cuh, with no Dirichlet
 // rows, at a 4-point rule (ffc3, the outer rule). It is the outer Krylov J.v
-// and the exported A z of bench2 (chac_box.cu) and bench3 (ach_box.cu), in
-// place of kernels F and G there; both replace
-// pfhubbenchmarks_tpu/ops/pallas_residual.py:make_pallas_jvp (:198). F and G
-// stay built: every multigrid level, kernel L and the chains run the gather
-// body.
+// and the exported A z of bench1 (ch_box.cu), bench2 (chac_box.cu) and
+// bench3 (ach_box.cu), in place of kernels A, F and G there; all replace
+// pfhubbenchmarks_tpu/ops/pallas_residual.py:make_pallas_jvp (:198). A, F
+// and G stay built: every multigrid level, kernel L and the chains run the
+// gather body.
 //
 // Why: a gather thread (one per node) evaluates the tangent of every
 // triangle it touches, so each (triangle, point) tangent is evaluated once
@@ -180,65 +181,55 @@ __device__ __forceinline__ void add_slot(const float* __restrict__ terms,
   }
 }
 
-template <class Phys, int NQ, class Box>
-__global__ void __launch_bounds__(Box::kThreads, Box::kMinCtas)
-tri_box_kernel(const JvpParams P, const float* __restrict__ wv,
-               const float* __restrict__ wm, const float* __restrict__ tv,
-               const float* __restrict__ tm, const float* __restrict__ bv,
-               const float* __restrict__ bm, float* __restrict__ ov,
-               float* __restrict__ om, int ny, int nx) {
-  constexpr int NF = Phys::NF;
-  constexpr int NS = Phys::NS;
-  extern __shared__ float tri_smem[];
-  float* ss = tri_smem;                                // (NS + NF) planes
-  float* terms = ss + (NS + NF) * Box::kPlane;         // 12 NQ NF kCells
-  const int nbx = (nx + Box::BX) / Box::BX;
-  const int oy = (blockIdx.x / nbx) * Box::BY;
-  const int ox = (blockIdx.x % nbx) * Box::BX;
+// Phase 1 of a box: stage NP planes of the cells the box evaluates, by
+// cp.async: staged vertex (ly, lx) is global vertex (oy - 1 + ly, ox - 1 +
+// lx), staged centre likewise (outside the grid nothing is copied: no cell
+// in the grid reads there). plane(p, vert) is the global vertex (vert) or
+// centre plane of staged plane p.
+template <class Box, int NP, class Plane>
+__device__ __forceinline__ void stage_box(float* __restrict__ ss, int oy,
+                                          int ox, int ny, int nx,
+                                          Plane plane) {
   const int nvx = nx + 1;
-  const long nvert = static_cast<long>(ny + 1) * nvx;
-  const long ncell = static_cast<long>(ny) * nx;
-
-  // 1. stage the planes: staged vertex (ly, lx) is global vertex
-  // (oy - 1 + ly, ox - 1 + lx), staged centre likewise (outside the grid
-  // nothing is copied: no cell in the grid reads there)
-  for (int k = threadIdx.x; k < (NS + NF) * Box::kPlane; k += blockDim.x) {
+  for (int k = threadIdx.x; k < NP * Box::kPlane; k += blockDim.x) {
     const int p = k / Box::kPlane, i = k % Box::kPlane;
     const bool vert = i < Box::kVerts;
     const int li = vert ? i : i - Box::kVerts;
     const int w = vert ? Box::kVX : Box::kCX;
     const int gy = oy - 1 + li / w, gx = ox - 1 + li % w;
     if (gy < 0 || gx < 0 || gy > ny - !vert || gx > nx - !vert) continue;
-    const float* plane =
-        p < NS ? (vert ? wv : wm) + Phys::state_field(p) * (vert ? nvert : ncell)
-               : (vert ? tv : tm) + (p - NS) * (vert ? nvert : ncell);
-    __pipeline_memcpy_async(ss + k, plane + (vert ? gy * nvx : gy * nx) + gx,
+    __pipeline_memcpy_async(ss + k,
+                            plane(p, vert) + (vert ? gy * nvx : gy * nx) + gx,
                             sizeof(float));
   }
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
+}
 
-  // 2. one thread per (cell, triangle, point group): its terms
-  {
-    const int t = threadIdx.x / (Box::kQSplit * Box::kCells);
-    const int qg = (threadIdx.x / Box::kCells) % Box::kQSplit;
-    const int lc = threadIdx.x % Box::kCells;
-    const int ly = lc / Box::kCX, lx = lc % Box::kCX;
-    const int cy = oy - 1 + ly, cx = ox - 1 + lx;
-    if (cy >= 0 && cx >= 0 && cy < ny && cx < nx) {
-      const int v0 = ly * Box::kVX + lx;
-      switch (t) {
-        case 0: tri_terms<Phys, NQ, 0, Box>(P, ss, v0, lc, qg, terms); break;
-        case 1: tri_terms<Phys, NQ, 1, Box>(P, ss, v0, lc, qg, terms); break;
-        case 2: tri_terms<Phys, NQ, 2, Box>(P, ss, v0, lc, qg, terms); break;
-        default: tri_terms<Phys, NQ, 3, Box>(P, ss, v0, lc, qg, terms); break;
-      }
-    }
-  }
-  __syncthreads();
+// Phase 2's thread: its triangle t, point group qg, local cell lc and the
+// staged index v0 of the cell's slot-0 vertex; false for a cell outside
+// the grid.
+template <class Box>
+__device__ __forceinline__ bool box_cell(int oy, int ox, int ny, int nx,
+                                         int& t, int& qg, int& lc, int& v0) {
+  t = threadIdx.x / (Box::kQSplit * Box::kCells);
+  qg = (threadIdx.x / Box::kCells) % Box::kQSplit;
+  lc = threadIdx.x % Box::kCells;
+  const int ly = lc / Box::kCX, lx = lc % Box::kCX;
+  const int cy = oy - 1 + ly, cx = ox - 1 + lx;
+  v0 = ly * Box::kVX + lx;
+  return cy >= 0 && cx >= 0 && cy < ny && cx < nx;
+}
 
-  // 3. one thread per owned node: its terms in jvp_node's order
+// Phase 3: one thread per owned node adds its terms in the gather's order
+// (jvp_node, fem_residual_kernel): a vertex its cells SW, SE, NE, NW (the
+// node as slot 0, 1, 2, 3), a centre its cell; then store(vert, i, acc),
+// i the vertex's or the centre's index in its plane.
+template <int NF, int NQ, class Box, class Store>
+__device__ __forceinline__ void sum_owned(const float* __restrict__ terms,
+                                          int oy, int ox, int ny, int nx,
+                                          Store store) {
   for (int k = threadIdx.x; k < 2 * Box::kOwned; k += blockDim.x) {
     const bool vert = k < Box::kOwned;
     const int kk = vert ? k : k - Box::kOwned;
@@ -258,23 +249,64 @@ tri_box_kernel(const JvpParams P, const float* __restrict__ wv,
       if (y > 0 && x > 0)
         add_slot<NF, NQ, 2, Box>(terms, lc - Box::kCX - 1, acc);
       if (y > 0 && x < nx) add_slot<NF, NQ, 3, Box>(terms, lc - Box::kCX, acc);
-      const long node = static_cast<long>(y) * nvx + x;
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        const long o = f * nvert + node;
-        ov[o] = (bv != nullptr) ? __ldg(bv + o) - acc[f] : acc[f];
-      }
+      store(true, static_cast<long>(y) * (nx + 1) + x, acc);
     } else {
       if (y >= ny || x >= nx) continue;
       add_slot<NF, NQ, 4, Box>(terms, lc, acc);
-      const long c = static_cast<long>(y) * nx + x;
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        const long o = f * ncell + c;
-        om[o] = (bm != nullptr) ? __ldg(bm + o) - acc[f] : acc[f];
+      store(false, static_cast<long>(y) * nx + x, acc);
+    }
+  }
+}
+
+template <class Phys, int NQ, class Box>
+__global__ void __launch_bounds__(Box::kThreads, Box::kMinCtas)
+tri_box_kernel(const JvpParams P, const float* __restrict__ wv,
+               const float* __restrict__ wm, const float* __restrict__ tv,
+               const float* __restrict__ tm, const float* __restrict__ bv,
+               const float* __restrict__ bm, float* __restrict__ ov,
+               float* __restrict__ om, int ny, int nx) {
+  constexpr int NF = Phys::NF;
+  constexpr int NS = Phys::NS;
+  extern __shared__ float tri_smem[];
+  float* ss = tri_smem;                                // (NS + NF) planes
+  float* terms = ss + (NS + NF) * Box::kPlane;         // 12 NQ NF kCells
+  const int nbx = (nx + Box::BX) / Box::BX;
+  const int oy = (blockIdx.x / nbx) * Box::BY;
+  const int ox = (blockIdx.x % nbx) * Box::BX;
+  const long nvert = static_cast<long>(ny + 1) * (nx + 1);
+  const long ncell = static_cast<long>(ny) * nx;
+
+  // 1. the NS state planes, then the NF tangent planes
+  stage_box<Box, NS + NF>(ss, oy, ox, ny, nx, [&](int p, bool vert) {
+    return p < NS ? (vert ? wv : wm) + Phys::state_field(p) * (vert ? nvert : ncell)
+                  : (vert ? tv : tm) + (p - NS) * (vert ? nvert : ncell);
+  });
+
+  // 2. one thread per (cell, triangle, point group): its terms
+  {
+    int t, qg, lc, v0;
+    if (box_cell<Box>(oy, ox, ny, nx, t, qg, lc, v0)) {
+      switch (t) {
+        case 0: tri_terms<Phys, NQ, 0, Box>(P, ss, v0, lc, qg, terms); break;
+        case 1: tri_terms<Phys, NQ, 1, Box>(P, ss, v0, lc, qg, terms); break;
+        case 2: tri_terms<Phys, NQ, 2, Box>(P, ss, v0, lc, qg, terms); break;
+        default: tri_terms<Phys, NQ, 3, Box>(P, ss, v0, lc, qg, terms); break;
       }
     }
   }
+  __syncthreads();
+
+  // 3. one thread per owned node: its terms in jvp_node's order, then the
+  // store of jvp_store
+  sum_owned<NF, NQ, Box>(terms, oy, ox, ny, nx,
+                         [&](bool vert, long i, const float (&acc)[NF]) {
+    const float* b = vert ? bv : bm;
+    float* o = vert ? ov : om;
+    const long n = vert ? nvert : ncell;
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      o[f * n + i] = (b != nullptr) ? __ldg(b + f * n + i) - acc[f] : acc[f];
+  });
 }
 
 // The dynamic shared bytes of one instantiation of kernel W, allowed once
@@ -317,6 +349,199 @@ int tri_box_info(int* out) {
   const cudaError_t err = tri_box_smem<Phys, 4, Box>(&bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   return kernel_info(tri_box_kernel<Phys, 4, Box>, Box::kThreads, bytes, out);
+}
+
+// ---- The residual box: kernel R's residual over triangle boxes -----------
+//
+// Computes, as fem_residual_kernel (fem_residual.cuh) does,
+//     out = R(w, w0, dt)
+// in f32, with the Dirichlet rows (mask != 0) u - g, at the 4-point rule.
+// It is the f32 residual of the cp line search and its noise floor
+// (solve/newton.py) of bench2 and bench2_eta1 (chac_rbox.cu) and bench6
+// (chp_rbox.cu), in place of kernel R there; it replaces
+// pfhubbenchmarks_tpu/ops/pallas_residual.py:make_pallas_residual (:226).
+// The design is W's: the NF planes of w and the NF planes of w0 staged,
+// one thread per (cell, triangle) that computes the triangle's gradients
+// once and Phys::residual once per point, writing the triangle's 3 slot
+// terms (cell_residual's expression, statement for statement) into shared
+// memory, then one thread per owned node adding its terms in
+// fem_residual_kernel's order. So the residual box gives R's bits.
+
+// shared floats of one residual box: 2 NF staged planes, then the terms
+template <class Phys, int NQ, class Box>
+constexpr int residual_box_floats() {
+  return 2 * Phys::NF * Box::kPlane + 12 * NQ * Phys::NF * Box::kCells;
+}
+
+// The residual terms of triangle T of one cell at the points of group qg:
+// ss the staged planes (NF of w, then NF of w0), v0, lc and the terms'
+// layout as tri_terms'. The arithmetic is cell_residual's
+// (fem_residual.cuh), statement for statement.
+template <class Phys, int NQ, int T, class Box>
+__device__ __forceinline__ void tri_residual_terms(
+    const JvpParams& P, const float* __restrict__ ss, int v0, int lc, int qg,
+    float* __restrict__ terms) {
+  constexpr int NF = Phys::NF;
+  constexpr int kQPer = NQ / Box::kQSplit;
+  static_assert(NQ % Box::kQSplit == 0, "the point groups split NQ evenly");
+  const int off[5] = {v0, v0 + 1, v0 + Box::kVX + 1, v0 + Box::kVX,
+                      Box::kVerts + lc};
+  float wc[NF][5], w0c[NF][5];
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      wc[f][s] = ss[f * Box::kPlane + off[s]];
+      w0c[f][s] = ss[(NF + f) * Box::kPlane + off[s]];
+    }
+  }
+  float gx[NF], gy[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) gx[f] = gy[f] = 0.f;
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      gx[f] += P.Gs[T][s][0] * wc[f][s];
+      gy[f] += P.Gs[T][s][1] * wc[f][s];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    if (q / kQPer != qg) continue;
+    float u[NF], u0[NF];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) u[f] = u0[f] = 0.f;
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        u[f] += P.Bq[T][q][s] * wc[f][s];
+        u0[f] += P.Bq[T][q][s] * w0c[f][s];
+      }
+    }
+    float src[NF], fx[NF], fy[NF];
+    Phys::residual(P, u, gx, gy, u0, src, fx, fy);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int S = j < 2 ? tri_vslot(T, j) : 4;
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        terms[(((T * NQ + q) * 3 + j) * NF + f) * Box::kCells + lc] =
+            P.WB[T][q][S] * src[f] + P.WGx[T][q][S] * fx[f]
+            + P.WGy[T][q][S] * fy[f];
+    }
+  }
+}
+
+template <class Phys, int NQ, class Box>
+__global__ void __launch_bounds__(Box::kThreads, Box::kMinCtas)
+residual_box_kernel(const JvpParams P, const float* __restrict__ wv,
+                    const float* __restrict__ wm,
+                    const float* __restrict__ w0v,
+                    const float* __restrict__ w0m,
+                    const float* __restrict__ mask,
+                    const float* __restrict__ gv, float* __restrict__ ov,
+                    float* __restrict__ om, int ny, int nx) {
+  constexpr int NF = Phys::NF;
+  extern __shared__ float tri_smem[];
+  float* ss = tri_smem;                                // 2 NF planes
+  float* terms = ss + 2 * NF * Box::kPlane;            // 12 NQ NF kCells
+  const int nbx = (nx + Box::BX) / Box::BX;
+  const int oy = (blockIdx.x / nbx) * Box::BY;
+  const int ox = (blockIdx.x % nbx) * Box::BX;
+  const long nvert = static_cast<long>(ny + 1) * (nx + 1);
+  const long ncell = static_cast<long>(ny) * nx;
+
+  // 1. the NF planes of w, then the NF planes of w0
+  stage_box<Box, 2 * NF>(ss, oy, ox, ny, nx, [&](int p, bool vert) {
+    return (p < NF ? (vert ? wv : wm) : (vert ? w0v : w0m))
+           + (p % NF) * (vert ? nvert : ncell);
+  });
+
+  // 2. one thread per (cell, triangle, point group): its terms
+  {
+    int t, qg, lc, v0;
+    if (box_cell<Box>(oy, ox, ny, nx, t, qg, lc, v0)) {
+      switch (t) {
+        case 0:
+          tri_residual_terms<Phys, NQ, 0, Box>(P, ss, v0, lc, qg, terms);
+          break;
+        case 1:
+          tri_residual_terms<Phys, NQ, 1, Box>(P, ss, v0, lc, qg, terms);
+          break;
+        case 2:
+          tri_residual_terms<Phys, NQ, 2, Box>(P, ss, v0, lc, qg, terms);
+          break;
+        default:
+          tri_residual_terms<Phys, NQ, 3, Box>(P, ss, v0, lc, qg, terms);
+          break;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. one thread per owned node: its terms in fem_residual_kernel's order,
+  // then its store (a Dirichlet row is w - g)
+  sum_owned<NF, NQ, Box>(terms, oy, ox, ny, nx,
+                         [&](bool vert, long i, const float (&acc)[NF]) {
+    if (vert) {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        const long o = f * nvert + i;
+        ov[o] = (mask != nullptr && __ldg(mask + o) != 0.f)
+                    ? __ldg(wv + o) - __ldg(gv + o) : acc[f];
+      }
+    } else {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) om[f * ncell + i] = acc[f];
+    }
+  });
+}
+
+// The dynamic shared bytes of one instantiation of the residual box,
+// allowed once.
+template <class Phys, int NQ, class Box>
+inline cudaError_t residual_box_smem(int* bytes) {
+  *bytes = static_cast<int>(sizeof(float)) * residual_box_floats<Phys, NQ, Box>();
+  static const cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(residual_box_kernel<Phys, NQ, Box>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, *bytes);
+  return err;
+}
+
+// Host launcher: params as launch_fem_residual's (fem_residual.cuh); mask
+// and gv both null (no Dirichlet rows) or both given; by, bx the box the
+// caller planned with, which must be Box's. One CTA per box, the 4-point
+// rule only.
+template <class Phys, class Box>
+int launch_residual_box(const float* params, int nq, int by, int bx,
+                        const float* wv, const float* wm, const float* w0v,
+                        const float* w0m, const float* mask, const float* gv,
+                        float* ov, float* om, int ny, int nx, void* stream) {
+  if (nq != 4 || by != Box::BY || bx != Box::BX
+      || (mask == nullptr) != (gv == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int bytes = 0;
+  const cudaError_t err = residual_box_smem<Phys, 4, Box>(&bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const JvpParams P = load_params(params);
+  residual_box_kernel<Phys, 4, Box>
+      <<<tri_boxes<Box>(ny, nx), Box::kThreads, bytes,
+         static_cast<cudaStream_t>(stream)>>>(P, wv, wm, w0v, w0m, mask, gv,
+                                              ov, om, ny, nx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers, spill bytes, shared bytes and co-resident CTAs per SM of the
+// residual box (common.cuh kernel_info).
+template <class Phys, class Box>
+int residual_box_info(int* out) {
+  int bytes = 0;
+  const cudaError_t err = residual_box_smem<Phys, 4, Box>(&bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return kernel_info(residual_box_kernel<Phys, 4, Box>, Box::kThreads, bytes,
+                     out);
 }
 
 }  // namespace pfh

@@ -45,7 +45,7 @@ KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp", "ch3d_jvp",
            "transfer_general", "residual", "tile_jvp_recompute",
            "tile_jvp_seam", "tile_sweep", "fma_chain", "shard_sweep",
            "gridjvp_probe", "vcycle_descend_chain", "vcycle_ascend_chain",
-           "node_blocks", "tri_box")
+           "node_blocks", "tri_box", "residual_box")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # launch sequences of the kernels that stand for one TPU kernel each
 CHAINS = ("tile_sweep_loop", "descend_level", "ascend_level",
@@ -189,8 +189,17 @@ class KernelLibrary:
             "pfh_chac_box": [vp, i32, i32, i32, i32] + [vp] * 8 + [i32, i32,
                                                                 vp],
             "pfh_ach_box": [vp, i32, i32, i32] + [vp] * 8 + [i32, i32, vp],
+            "pfh_ch_box": [vp, i32, i32, i32] + [vp] * 8 + [i32, i32, vp],
             "pfh_chac_box_info": [i32, ip],
             "pfh_ach_box_info": [ip],
+            "pfh_ch_box_info": [ip],
+            # the residual box: params, nq (, ne), the box, the eight planes
+            # (w, w0, mask, g, out), the grid's cells, the stream
+            "pfh_chac_rbox": [vp, i32, i32, i32, i32] + [vp] * 8 + [i32, i32,
+                                                                 vp],
+            "pfh_chp_rbox": [vp, i32, i32, i32] + [vp] * 8 + [i32, i32, vp],
+            "pfh_chac_rbox_info": [i32, ip],
+            "pfh_chp_rbox_info": [ip],
         }
         for name, argtypes in sig.items():
             fn = getattr(self.lib, name)

@@ -16,8 +16,10 @@ ops/fem_jvp.py's. BM2's forms of the tile kernels T10, T12, TS
 (``csrc/chac_tile.cu``, ops/fem_tile.py; 4 order parameters, the coupled
 operator at ffc3 and the split one at dunavant1), of kernel W
 (``csrc/chac_box.cu``, ops/tri_box.py: the coupled operator at ffc3 over
-triangle boxes, bench2's outer J.v) and of the residual R
-(``csrc/chac_residual.cu``, ops/fem_residual.py) are here too.
+triangle boxes, bench2's outer J.v), of the residual R
+(``csrc/chac_residual.cu``, ops/fem_residual.py) and of the residual box
+(``csrc/chac_rbox.cu``, ops/residual_box.py: bench2's cp line search) are
+here too.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
 from pfhubbenchmarks_tpu_torch.ops.fem_jvp import make_fem_jvp
 from pfhubbenchmarks_tpu_torch.ops.fem_residual import make_fem_residual
 from pfhubbenchmarks_tpu_torch.ops.fem_tile import make_tile_jvp
+from pfhubbenchmarks_tpu_torch.ops.residual_box import make_box_residual
 from pfhubbenchmarks_tpu_torch.ops.tri_box import make_box_jvp
 
 # physics constants the kernel takes, in its parameter order
@@ -61,14 +64,18 @@ def make_chac_jvp(grid: CrossedTriGrid, tangent, constants: dict, *,
 
 
 def make_chac_residual(grid: CrossedTriGrid, terms, constants: dict, *,
-                       num_eta: int, device: torch.device | str, dirichlet=()):
-    """Returns ``res(w, w0, dt)`` (ops/fem_residual.make_fem_residual) for
-    the (2 + num_eta)-field system; ``terms`` is bench2's coupled one."""
+                       num_eta: int, device: torch.device | str, dirichlet=(),
+                       form="gather"):
+    """Returns ``res(w, w0, dt)`` for the (2 + num_eta)-field system: kernel
+    R (ops/fem_residual.make_fem_residual) for ``form`` "gather", the
+    residual box over R's launch record (ops/residual_box.make_box_residual;
+    a 4-point rule) for "box"; ``terms`` is bench2's coupled one."""
     if num_eta not in NUM_ETA:
         raise ValueError(f"chac_residual is built for num_eta in {NUM_ETA}, "
                          f"got {num_eta}")
-    return make_fem_residual(grid, terms, 2 + num_eta,
-                             symbol="pfh_chac_residual",
-                             constants=tuple(constants[n] for n in CONSTANTS),
-                             device=device, dirichlet=dirichlet,
-                             variant=(num_eta,))
+    res = make_fem_residual(grid, terms, 2 + num_eta,
+                            symbol="pfh_chac_residual",
+                            constants=tuple(constants[n] for n in CONSTANTS),
+                            device=device, dirichlet=dirichlet,
+                            variant=(num_eta,))
+    return make_box_residual(res) if form == "box" else res

@@ -1,7 +1,8 @@
 """Kernel E (``csrc/chp_jvp.cu``): J.v of BM6's Cahn-Hilliard + Poisson
-weak form, with the Dirichlet rows of phi as identity rows; and BM6's form
-of the residual R (``csrc/chp_residual.cu``, ops/fem_residual.py), whose
-Dirichlet rows are u - g.
+weak form, with the Dirichlet rows of phi as identity rows; and BM6's forms
+of the residual R (``csrc/chp_residual.cu``, ops/fem_residual.py) and of
+the residual box (``csrc/chp_rbox.cu``, ops/residual_box.py: bench6's cp
+line search), whose Dirichlet rows are u - g.
 
 Replaces ``pfhubbenchmarks_tpu/ops/pallas_residual.py:make_pallas_jvp`` at
 BM6's physics (the outer Krylov J.v, whose BC rows the JAX package re-sets
@@ -20,6 +21,7 @@ import torch
 from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
 from pfhubbenchmarks_tpu_torch.ops.fem_jvp import make_fem_jvp
 from pfhubbenchmarks_tpu_torch.ops.fem_residual import make_fem_residual
+from pfhubbenchmarks_tpu_torch.ops.residual_box import make_box_residual
 
 # physics constants the kernel takes, in its parameter order
 CONSTANTS = ("M", "kappa", "rho", "c_alpha", "c_beta", "k", "epsilon")
@@ -36,9 +38,12 @@ def make_chp_jvp(grid: CrossedTriGrid, tangent, constants: dict, *,
 
 
 def make_chp_residual(grid: CrossedTriGrid, terms, constants: dict, *,
-                      device: torch.device | str, dirichlet=()):
-    """Returns ``res(w, w0, dt)`` (ops/fem_residual.make_fem_residual) for
-    the 3-field system; ``terms`` is bench6's."""
-    return make_fem_residual(grid, terms, 3, symbol="pfh_chp_residual",
-                             constants=tuple(constants[k] for k in CONSTANTS),
-                             device=device, dirichlet=dirichlet)
+                      device: torch.device | str, dirichlet=(), form="gather"):
+    """Returns ``res(w, w0, dt)`` for the 3-field system: kernel R
+    (ops/fem_residual.make_fem_residual) for ``form`` "gather", the
+    residual box over R's launch record (ops/residual_box.make_box_residual)
+    for "box"; ``terms`` is bench6's."""
+    res = make_fem_residual(grid, terms, 3, symbol="pfh_chp_residual",
+                            constants=tuple(constants[k] for k in CONSTANTS),
+                            device=device, dirichlet=dirichlet)
+    return make_box_residual(res) if form == "box" else res

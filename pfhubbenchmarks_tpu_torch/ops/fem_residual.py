@@ -12,9 +12,14 @@ kernels (ops/fem_jvp.py).
 The plain version beside it is the residual's einsum assembly in f32
 (fem/assembly.make_residual, the port's f32 residual before kernel R), which
 the wrapper takes for CPU tensors only; a CUDA tensor launches the kernel.
+``res.launch`` (``ResidualLaunch``) is what R's launcher receives besides
+its operands and dt; the residual box (ops/residual_box.py) is planned from
+it.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -25,6 +30,25 @@ from pfhubbenchmarks_tpu_torch.ops import _lib
 from pfhubbenchmarks_tpu_torch.ops.fem_jvp import params_head, with_dt
 
 NAME = "residual"
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidualLaunch:
+    """What kernel R's launcher receives besides its operands and dt:
+    ``kind`` the physics ("ch", "chp", "chac"), ``head`` the parameter block
+    without dt, ``nq`` the rule's point count, ``variant`` the int arguments
+    after it (BM2's field count), ``mask`` and ``g`` the Dirichlet planes
+    (``dirichlet_planes``, on the device) or None, ``dims`` the grid's cells
+    (ny, nx), ``n_fields`` F."""
+
+    kind: str
+    head: np.ndarray
+    nq: int
+    variant: tuple[int, ...]
+    mask: torch.Tensor | None
+    g: torch.Tensor | None
+    dims: tuple[int, int]
+    n_fields: int
 
 
 def dirichlet_planes(grid: CrossedTriGrid, dirichlet, n_fields: int):
@@ -51,7 +75,8 @@ def make_fem_residual(grid: CrossedTriGrid, terms, n_fields: int, *,
     assembles it), ``symbol`` the C launcher, ``constants`` the physics
     constants in the kernel's order, ``variant`` the launcher's int
     arguments after the point count (BM2's field count). ``res.plain`` and
-    ``res.kernel`` are the two versions."""
+    ``res.kernel`` are the two versions, ``res.launch`` the launch record
+    (``ResidualLaunch``)."""
     if grid.periodic or grid.pad_to != (1, 1):
         raise NotImplementedError(f"{NAME} takes unpadded, non-periodic grids")
     plain = make_residual(grid, terms, n_fields, device=device,
@@ -82,4 +107,8 @@ def make_fem_residual(grid: CrossedTriGrid, terms, n_fields: int, *,
 
     res.plain = plain
     res.kernel = kernel
+    res.launch = ResidualLaunch(
+        kind=symbol.removeprefix("pfh_").removesuffix("_residual"), head=head,
+        nq=nq, variant=tuple(variant), mask=mask, g=g, dims=(grid.ny, grid.nx),
+        n_fields=n_fields)
     return res

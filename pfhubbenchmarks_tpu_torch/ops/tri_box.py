@@ -1,22 +1,24 @@
-"""Kernel W (``csrc/fem_tri_box.cuh``; ``csrc/chac_box.cu`` at BM2's
-coupled physics, ``csrc/ach_box.cu`` at BM3's): the crossed-P1 J.v over
-shared-memory triangle boxes, each triangle's quadrature-point tangent
-evaluated once, every node summed in the gather's order.
+"""Kernel W (``csrc/fem_tri_box.cuh``; ``csrc/ch_box.cu`` at BM1's physics,
+``csrc/chac_box.cu`` at BM2's coupled physics, ``csrc/ach_box.cu`` at
+BM3's): the crossed-P1 J.v over shared-memory triangle boxes, each
+triangle's quadrature-point tangent evaluated once, every node summed in
+the gather's order.
 
-It is the ``form="box"`` of ops/chac_jvp.make_chac_jvp and
-ops/ach_jvp.make_ach_jvp: the outer Krylov J.v and the exported A z of
-bench2, bench2_eta1 and bench3 (``BenchmarkProblem.outer_jvp_form``), in
-place of kernels F and G there; like them it replaces
-``pfhubbenchmarks_tpu/ops/pallas_residual.py:make_pallas_jvp``. F and G stay
-on every multigrid level (inside kernel L and the chains).
+It is the ``form="box"`` of ops/ch_jvp.make_ch_jvp, ops/chac_jvp.make_chac_jvp
+and ops/ach_jvp.make_ach_jvp: the outer Krylov J.v and the exported A z of
+bench1, bench2, bench2_eta1 and bench3 (``BenchmarkProblem.outer_jvp_form``),
+in place of kernels A, F and G there; like them it replaces
+``pfhubbenchmarks_tpu/ops/pallas_residual.py:make_pallas_jvp``. A, F and G
+stay on every multigrid level (inside kernel L and the chains).
 
 A CTA owns a box of ``TRI_BOX[kind]`` = (rows, columns) vertices and the
 centres of the cells with the same indices (``box_ranges``), one CTA per box
-(``tri_boxes``). ``TriBoxPlan`` fixes, once per grid, the box grid, the
-launcher and the parameter block (the gather J.v's tabulation and constants;
-each call writes dt into its last float). W takes the 4-point rule, no
-Dirichlet rows and the coupled operator; a plan refuses anything else when
-it is made.
+(``tri_boxes``). The residual box (ops/residual_box.py) plans its boxes with
+the same geometry (``grid_boxes``, ``grid_box_ranges``). ``TriBoxPlan``
+fixes, once per grid, the box grid, the launcher and the parameter block
+(the gather J.v's tabulation and constants; each call writes dt into its
+last float). W takes the 4-point rule, no Dirichlet rows and the coupled
+operator; a plan refuses anything else when it is made.
 
 ``make_box_jvp(gather)`` returns ``jv(w, w0, dt, v, b=None)`` over the
 gather J.v ``gather`` (ops/fem_jvp.make_fem_jvp): ``jv.plain`` is the
@@ -34,31 +36,42 @@ from pfhubbenchmarks_tpu_torch.ops import _lib
 from pfhubbenchmarks_tpu_torch.ops.fem_jvp import GatherLaunch
 
 NAME = "tri_box"
-# Kernel W's box per physics: owned vertex rows and columns (csrc/chac_box.cu
-# ChacBox, csrc/ach_box.cu AchBox; tests/test_torch_tri_box.py holds them
-# equal)
-TRI_BOX = {"chac": (7, 7), "ach": (7, 15)}
+# Kernel W's box per physics: owned vertex rows and columns (csrc/ch_box.cu
+# ChBox, csrc/chac_box.cu ChacBox, csrc/ach_box.cu AchBox;
+# tests/test_torch_tri_box.py holds them equal)
+TRI_BOX = {"ch": (7, 7), "chac": (7, 7), "ach": (7, 15)}
 RULE_POINTS = 4
 
 
-def tri_boxes(kind: str, ny: int, nx: int) -> tuple[int, int]:
-    """W's boxes along (y, x) of a grid of ny x nx cells: ceil((n + 1) / B),
-    one CTA each, x fastest."""
-    by, bx = TRI_BOX[kind]
+def grid_boxes(shape: tuple[int, int], ny: int, nx: int) -> tuple[int, int]:
+    """The boxes of ``shape`` = (BY, BX) owned vertices along (y, x) of a
+    grid of ny x nx cells: ceil((n + 1) / B), one CTA each, x fastest."""
+    by, bx = shape
     return (ny + by) // by, (nx + bx) // bx
 
 
-def box_ranges(kind: str, ny: int, nx: int, box: tuple[int, int]):
-    """Box ``box`` = (iy, ix): per axis (y, x) the vertices it owns, the
-    centres it owns (the cells with the same indices) and the cells it
-    evaluates (one halo cell below and to the left of the owned ones),
-    clipped to the grid."""
+def grid_box_ranges(shape: tuple[int, int], ny: int, nx: int,
+                    box: tuple[int, int]):
+    """Box ``box`` = (iy, ix) of ``shape``: per axis (y, x) the vertices it
+    owns, the centres it owns (the cells with the same indices) and the
+    cells it evaluates (one halo cell below and to the left of the owned
+    ones), clipped to the grid."""
     out = []
-    for n, b, i in zip((ny, nx), TRI_BOX[kind], box):
+    for n, b, i in zip((ny, nx), shape, box):
         o = i * b
         out.append((range(o, min(o + b, n + 1)), range(o, min(o + b, n)),
                     range(max(o - 1, 0), min(o + b, n))))
     return tuple(out)
+
+
+def tri_boxes(kind: str, ny: int, nx: int) -> tuple[int, int]:
+    """W's boxes along (y, x) at the physics ``kind``."""
+    return grid_boxes(TRI_BOX[kind], ny, nx)
+
+
+def box_ranges(kind: str, ny: int, nx: int, box: tuple[int, int]):
+    """``grid_box_ranges`` of W's box at the physics ``kind``."""
+    return grid_box_ranges(TRI_BOX[kind], ny, nx, box)
 
 
 class TriBoxPlan:

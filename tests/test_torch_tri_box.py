@@ -2,9 +2,10 @@
 boxes) on the CPU, where it cannot run:
 
 - the box constants of its launcher (``ops/tri_box.TRI_BOX``) are the C++
-  ones (``ChacBox`` in csrc/chac_box.cu, ``AchBox`` in csrc/ach_box.cu);
+  ones (``ChBox`` in csrc/ch_box.cu, ``ChacBox`` in csrc/chac_box.cu,
+  ``AchBox`` in csrc/ach_box.cu);
 - the box plan at 100^2, 350^2, 175^2, 50^2, 35^2, 25^2, 7^2 and 13 x 21
-  cells, for both boxes: every vertex and every centre is owned exactly
+  cells, for every box: every vertex and every centre is owned exactly
   once, and every owned node's cells lie in its box's evaluated cells,
   which lie in the kernel's local frame of (BY + 1) x (BX + 1) cells;
 - a numpy f32 transliteration of W's phases (stage the box, evaluate each
@@ -12,19 +13,20 @@ boxes) on the CPU, where it cannot run:
   jvp_node's order, all through the plan's indices) equals, bit for bit, a
   numpy transliteration of the gather's per-node loop (jvp_node: cells SW,
   SE, NE, NW, triangles ascending, points in order) with the same term
-  arithmetic, at 8^2 and 16^2 for BM2 (1, 2 and 4 order parameters, the
-  coupled operator) and BM3, ffc3; and it is the J.v: within rtol 2e-4 /
-  atol 2e-5 of the plain version;
+  arithmetic, at 8^2 and 16^2 for BM1, BM2 (1, 2 and 4 order parameters,
+  the coupled operator) and BM3, ffc3; and it is the J.v: within rtol 2e-4
+  / atol 2e-5 of the plain version;
 - the ``form="box"`` wrappers on the CPU (the plain version) against the
   JAX package's ``make_pallas_jvp`` in interpret mode at the JAX kernel
-  tests' rtol 2e-4 / atol 2e-5 (tests/test_pallas.py:36): BM2 with one
-  order parameter at 8^2 and BM3 at 16^2, J.v and b - J.v; a direct call of
-  W with CPU tensors raises;
+  tests' rtol 2e-4 / atol 2e-5 (tests/test_pallas.py:36): BM1 at 8^2, BM2
+  with one order parameter at 8^2 and BM3 at 16^2, J.v and b - J.v; a
+  direct call of W with CPU tensors raises;
 - the plan's refusals (the split operator, a rule of other than 4 points,
   Dirichlet rows, a physics with no instantiation);
 - the routing: ``lowp_jvp_factory`` and the exported A z (``mv_jv``) of
-  bench2 and bench3 ask for the box form (the tiled configuration: T10 for
-  the outer J.v), and on the CPU give the plain version's values.
+  bench1, bench2 and bench3 ask for the box form (the tiled configuration:
+  T10 for the outer J.v), and on the CPU give the plain version's values;
+  bench6's (Dirichlet rows, which W does not take) stay on the gather.
 """
 
 import dataclasses
@@ -36,10 +38,11 @@ import numpy as np
 import pytest
 import torch
 
+from pfhubbenchmarks_tpu.benchmarks.bench1 import make as make_jax1
 from pfhubbenchmarks_tpu.benchmarks.bench2 import make as make_jax2
 from pfhubbenchmarks_tpu.benchmarks.bench3 import make as make_jax3
 from pfhubbenchmarks_tpu.ops.pallas_residual import make_pallas_jvp
-from pfhubbenchmarks_tpu_torch.benchmarks import bench2, bench3
+from pfhubbenchmarks_tpu_torch.benchmarks import bench1, bench2, bench3, bench6
 from pfhubbenchmarks_tpu_torch.interop import state_from_numpy, state_to_numpy
 from pfhubbenchmarks_tpu_torch.ops import tri_box
 from pfhubbenchmarks_tpu_torch.ops.fem_jvp import MAX_CONST, MAX_Q
@@ -59,6 +62,8 @@ def _f(x):
 
 
 def _problem(kind, n, ne=4):
+    if kind == "ch":
+        return bench1.make(nx=n, ny=n)
     return (bench2.make(nx=n, ny=n, num_eta=ne) if kind == "chac"
             else bench3.make(nx=n, ny=n))
 
@@ -80,7 +85,8 @@ def _t(pair):
 
 
 def test_box_constants_are_the_kernels():
-    for kind, src, alias in (("chac", "chac_box.cu", "ChacBox"),
+    for kind, src, alias in (("ch", "ch_box.cu", "ChBox"),
+                             ("chac", "chac_box.cu", "ChacBox"),
                              ("ach", "ach_box.cu", "AchBox")):
         m = re.search(rf"using {alias} = pfh::TriBox<(\d+), (\d+), \d+, \d+>;",
                       (CSRC / src).read_text())
@@ -90,7 +96,7 @@ def test_box_constants_are_the_kernels():
             in (CSRC / "fem_tri_box.cuh").read_text())
 
 
-@pytest.mark.parametrize("kind", ["chac", "ach"])
+@pytest.mark.parametrize("kind", ["ch", "chac", "ach"])
 @pytest.mark.parametrize("dims", PLAN_DIMS)
 def test_box_plan_owns_each_node_once_and_holds_its_cells(kind, dims):
     ny, nx = dims
@@ -175,6 +181,17 @@ def _tangent_chac(k, dt, ne, u, d, gx, gy):
     return src, fx, fy
 
 
+def _tangent_ch(k, dt, u, d, gx, gy):
+    """phys_ch.cuh's CH::tangent, elementwise in f32."""
+    M, kappa, rho_s, ca, cb = k[:5]
+    c = u[0]
+    a = c - ca
+    b = cb - c
+    fpp = _f(2) * rho_s * ((b - a) * (b - a) - _f(2) * a * b)
+    return ([d[0] / dt, d[1] - fpp * d[0]], [M * gx[1], -kappa * gx[0]],
+            [M * gy[1], -kappa * gy[0]])
+
+
 def _tangent_ach(k, dt, u, d, gx, gy):
     """phys_ach.cuh's ACH::tangent, elementwise in f32."""
     D, W2, inv_tau, lam = k[:4]
@@ -197,7 +214,8 @@ class _Phys:
 
     def __init__(self, kind, ne, jv):
         self.F = jv.n_fields
-        self.state = (0,) + tuple(range(2, 2 + ne)) if kind == "chac" else (0, 1)
+        self.state = {"ch": (0,), "chac": (0,) + tuple(range(2, 2 + (ne or 0))),
+                      "ach": (0, 1)}[kind]
         self.P = _params(jv.plan.params[:-1])
         self.kind, self.ne = kind, ne
 
@@ -205,6 +223,8 @@ class _Phys:
         k = self.P["k"]
         if self.kind == "chac":
             return _tangent_chac(k, dt, self.ne, u, d, gx, gy)
+        if self.kind == "ch":
+            return _tangent_ch(k, dt, u, d, gx, gy)
         return _tangent_ach(k, dt, u, d, gx, gy)
 
     def terms(self, dt, wc, d, t, nq):
@@ -331,8 +351,8 @@ def box_jvp(ph, w, v, dt, nq, kind):
     return out_v, out_m
 
 
-@pytest.mark.parametrize("kind, ne", [("chac", 1), ("chac", 2), ("chac", 4),
-                                      ("ach", None)])
+@pytest.mark.parametrize("kind, ne", [("ch", None), ("chac", 1), ("chac", 2),
+                                      ("chac", 4), ("ach", None)])
 @pytest.mark.parametrize("n", [8, 16])
 def test_box_transliteration_is_the_gather_bit_for_bit(kind, ne, n):
     pb = _problem(kind, n, ne or 4)
@@ -341,7 +361,7 @@ def test_box_transliteration_is_the_gather_bit_for_bit(kind, ne, n):
     jv = pb.kernel_jvp(g, "cpu", form="box")
     ph = _Phys(kind, ne, jv)
     w, v, _ = _inputs(pb, seed=n + (ne or 0))
-    dt = _f(0.16 if kind == "chac" else 1.28)
+    dt = _f({"ch": 0.5, "chac": 0.16, "ach": 1.28}[kind])
     nq = g.tab().nq
     ref = gather_jvp(ph, w, v, dt, nq)
     got = box_jvp(ph, w, v, dt, nq, kind)
@@ -355,11 +375,12 @@ def test_box_transliteration_is_the_gather_bit_for_bit(kind, ne, n):
                                    atol=F32["atol"] * max(np.abs(b).max(), 1))
 
 
-@pytest.mark.parametrize("kind, n", [("chac", 8), ("ach", 16)])
+@pytest.mark.parametrize("kind, n", [("ch", 8), ("chac", 8), ("ach", 16)])
 def test_box_wrapper_matches_pallas_jvp(kind, n):
     pt = _problem(kind, n, 1)
-    pj = (make_jax2(nx=n, ny=n, num_eta=1) if kind == "chac"
-          else make_jax3(nx=n, ny=n))
+    pj = {"ch": lambda: make_jax1(nx=n, ny=n),
+          "chac": lambda: make_jax2(nx=n, ny=n, num_eta=1),
+          "ach": lambda: make_jax3(nx=n, ny=n)}[kind]()
     w, v, _ = _inputs(pt, seed=3)
     w0 = tuple(np.asarray(a, np.float32) for a in pj.initial_state())
     dt = 0.05
@@ -388,16 +409,17 @@ def test_box_plan_refusals():
     with pytest.raises(NotImplementedError, match="Dirichlet"):
         tri_box.TriBoxPlan(dataclasses.replace(launch, mask=mask))
     with pytest.raises(NotImplementedError, match="no instantiation"):
-        tri_box.TriBoxPlan(dataclasses.replace(launch, kind="ch"))
+        tri_box.TriBoxPlan(dataclasses.replace(launch, kind="chp"))
 
 
-@pytest.mark.parametrize("name", ["bench2", "bench3"])
+@pytest.mark.parametrize("name", ["bench1", "bench2", "bench3"])
 @pytest.mark.parametrize("tiled", [False, True])
 def test_outer_jvp_and_exported_az_take_the_box_form(name, tiled):
     from pfhubbenchmarks_tpu_torch.ops.fem_tile import multi_block
 
-    n = 16 if name == "bench2" else 14
-    pb = bench2.make(nx=n, ny=n) if name == "bench2" else bench3.make(nx=n, ny=n)
+    n = 14 if name == "bench3" else 16
+    pb = {"bench1": bench1.make, "bench2": bench2.make,
+          "bench3": bench3.make}[name](nx=n, ny=n)
     assert pb.outer_jvp_form == "box"
     if tiled:
         pb = dataclasses.replace(pb, solver=dataclasses.replace(
@@ -426,4 +448,27 @@ def test_outer_jvp_and_exported_az_take_the_box_form(name, tiled):
         assert torch.equal(a, b)
     z, az = build(w, w, dt).minv_matvec(v)
     for a, b in zip(az, plain(w, w, dt, z)):
+        assert torch.equal(a, b)
+
+
+def test_bench6_outer_jvp_stays_on_the_gather():
+    """bench6's outer J.v and exported A z have Dirichlet rows, which W does
+    not take: they stay kernel E's gather form."""
+    pb = bench6.make(nx=16, ny=16)
+    assert pb.outer_jvp_form == "gather"
+    made = []
+    kernel_jvp = pb.kernel_jvp
+
+    def recording(g, device, dirichlet=(), split=False, form="gather"):
+        made.append(form)
+        return kernel_jvp(g, device, dirichlet, split=split, form=form)
+
+    pb = dataclasses.replace(pb, kernel_jvp=recording)
+    jv = pb.lowp_jvp_factory("cpu")
+    pb.precond_builder("cpu")
+    assert made and set(made) == {"gather"}
+    w = tuple(t.float() for t in pb.initial_state("cpu"))
+    v = tuple(torch.ones_like(t) for t in w)
+    plain = kernel_jvp(pb.grid, "cpu", pb.dirichlet).plain
+    for a, b in zip(jv(w, w, 0.01)(v), plain(w, w, 0.01, v)):
         assert torch.equal(a, b)

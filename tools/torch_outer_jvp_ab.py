@@ -1,14 +1,19 @@
-"""Kernel W against the gather kernel it replaces, end to end, on the card:
-a benchmark's main path with its outer J.v and exported A z as kernel W
-(``box``, ``BenchmarkProblem.outer_jvp_form``, the main path of bench2 and
-bench3) and as the gather kernel (``gather``: F at BM2, G at BM3), in turns
-box, gather, gather, box per round, in one process on one card, so that the
-host's speed reaches both alike. Prints each run's wall, Krylov iterations
-over all attempts, ms per Krylov iteration and the launches, then the
-medians; the time columns and counts of the two forms must be equal (W
-computes the gather's bits).
+"""The box kernels against the gather kernels they replace, end to end, on
+the card: a benchmark's main path with its outer J.v and exported A z as
+kernel W (``BenchmarkProblem.outer_jvp_form`` "box", the main path of
+bench1, bench2 and bench3) and with the f32 residual of its cp line search
+as the residual box (``residual_form`` "box", bench2 and bench6), against
+the same path with the gather kernels (A at BM1, F at BM2, G at BM3; R),
+in turns box, gather, gather, box per round, in one process on one card,
+so that the host's speed reaches both alike. ``--part`` says which forms
+the two runs differ in: ``jvp`` the outer J.v, ``residual`` the residual,
+``all`` both (the others keep the problem's own form). Prints each run's
+wall, Krylov iterations over all attempts, ms per Krylov iteration and the
+launches, then the medians; the time columns and counts of the two forms
+must be equal (the boxes compute the gather kernels' bits).
 
-    python3 tools/torch_outer_jvp_ab.py [--bench bench2] [--rows N] [--rounds 1]
+    python3 tools/torch_outer_jvp_ab.py [--bench bench2] [--part all]
+                                        [--rows N] [--rounds 1]
 
 ``--rows`` cuts the run to its first N rows (default: the whole run). On the
 card only (``torch.cuda.is_available()``); a first short run of each form
@@ -35,11 +40,23 @@ from pfhubbenchmarks_tpu_torch.benchmarks.registry import get_benchmark  # noqa:
 from pfhubbenchmarks_tpu_torch.ops import _lib  # noqa: E402
 
 
-def run(problem, dev, rows, form: str) -> dict:
+def with_forms(problem, part: str, form: str):
+    """``problem`` with the forms of ``part`` ("jvp", "residual" or "all")
+    set to ``form`` where the problem runs them as boxes."""
+    kw = {}
+    if part in ("jvp", "all") and problem.outer_jvp_form == "box":
+        kw["outer_jvp_form"] = form
+    if part in ("residual", "all") and problem.residual_form == "box":
+        kw["residual_form"] = form
+    if not kw:
+        raise SystemExit(f"{problem.name} runs no box form of {part!r}")
+    return dataclasses.replace(problem, **kw)
+
+
+def run(problem, dev, rows, part: str, form: str) -> dict:
     """``problem``'s main path, its first ``rows`` steps (all if None), with
-    the outer J.v and the exported A z of form ``form``."""
-    runner = timeloop.Runner(dataclasses.replace(problem, outer_jvp_form=form),
-                             dev)
+    the forms of ``part`` set to ``form``."""
+    runner = timeloop.Runner(with_forms(problem, part, form), dev)
     torch.cuda.synchronize()
     _lib.reset_launches()
     t0 = time.perf_counter()
@@ -59,6 +76,7 @@ def run(problem, dev, rows, form: str) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bench", default="bench2")
+    ap.add_argument("--part", choices=("jvp", "residual", "all"), default="all")
     ap.add_argument("--rows", type=int, default=None)
     ap.add_argument("--rounds", type=int, default=1)
     args = ap.parse_args(argv)
@@ -71,14 +89,14 @@ def main(argv=None) -> None:
     print(f"{smi}; torch {torch.__version__}", flush=True)
     problem = get_benchmark(args.bench)
     for form in ("box", "gather"):   # warm-up: build, first launches
-        run(problem, dev, 2, form)
+        run(problem, dev, 2, args.part, form)
     runs = []
     for _ in range(args.rounds):
         for form in ("box", "gather", "gather", "box"):
-            r = run(problem, dev, args.rows, form)
+            r = run(problem, dev, args.rows, args.part, form)
             runs.append(r)
-            print(f"{args.bench} {len(r['times'])} rows, {form}: wall "
-                  f"{r['wall']:.3f} s, krylov_all {r['krylov']}, "
+            print(f"{args.bench} {len(r['times'])} rows, {args.part} {form}: "
+                  f"wall {r['wall']:.3f} s, krylov_all {r['krylov']}, "
                   f"{r['ms_per_krylov']:.4f} ms per Krylov iteration, "
                   f"launches {r['launches']}", flush=True)
     ref = runs[0]
@@ -96,8 +114,9 @@ def main(argv=None) -> None:
               f"{med[form]:.3f} s, median "
               f"{statistics.median(r['ms_per_krylov'] for r in mine):.4f} ms "
               f"per Krylov iteration over {len(mine)} runs", flush=True)
-    print(f"{args.bench}: time columns and counts equal; box - gather "
-          f"{med['box'] - med['gather']:+.3f} s of median wall", flush=True)
+    print(f"{args.bench} ({args.part}): time columns and counts equal; box - "
+          f"gather {med['box'] - med['gather']:+.3f} s of median wall",
+          flush=True)
     print(smi, flush=True)
 
 

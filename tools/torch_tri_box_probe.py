@@ -1,19 +1,23 @@
-"""Kernel W (the triangle-box J.v, ``csrc/fem_tri_box.cuh``) built with other
-box shapes, on this card.
+"""Kernel W (the triangle-box J.v, ``csrc/fem_tri_box.cuh``) and the residual
+box built with other box shapes, on this card.
 
-    python3 tools/torch_tri_box_probe.py [chac|ach|all]   (default all)
+    python3 tools/torch_tri_box_probe.py [ch|chac|ach|rchac|rchp|all]
+                                                          (default all)
 
 Each variant rewrites the ``TriBox<BY, BX, MIN_CTAS, QSPLIT>`` line of
-``csrc/chac_box.cu`` (BM2's coupled physics) or ``csrc/ach_box.cu`` (BM3's)
-in a copy of the sources under the ignored
-``pfhubbenchmarks_tpu_torch/_build/tri_box_probe/`` (the package's own build
-is untouched) and builds that source alone into a shared library, all
-variants in parallel. Each is held against the gather kernel it replaces
-(F at bench2 100^2 with 4 order parameters, G at bench3 350^2, both at ffc3)
-with ``torch.equal``, and timed per launch (40 launches queued behind a
-sleep kernel) beside F or G and T10 in the same call, in turns; with each
-shape's CTAs, recompute factor (evaluated cells over the grid's), registers,
-spills, shared bytes and CTAs per SM.
+``csrc/ch_box.cu`` (W at BM1's physics), ``csrc/chac_box.cu`` (BM2's
+coupled physics), ``csrc/ach_box.cu`` (BM3's), ``csrc/chac_rbox.cu`` (the
+residual box at BM2's) or ``csrc/chp_rbox.cu`` (at BM6's) in a copy of the
+sources under the ignored ``pfhubbenchmarks_tpu_torch/_build/tri_box_probe/``
+(the package's own build is untouched) and builds that source alone into a
+shared library, all variants in parallel. Each is held against the gather
+kernel it replaces (A at bench1 100^2, F at bench2 100^2 with 4 order
+parameters, G at bench3 350^2, all at ffc3; R at bench2 100^2 with 4 order
+parameters and at bench6 100^2 with its Dirichlet rows) with
+``torch.equal``, and timed per launch (40 launches queued behind a sleep
+kernel) beside the gather kernel and, for a J.v, T10 in the same call, in
+turns; with each shape's CTAs, recompute factor (evaluated cells over the
+grid's), registers, spills, shared bytes and CTAs per SM.
 
 Prints the card's name and power limit first and one JSON line last. Needs
 a CUDA device; it builds the port's kernels at first use.
@@ -35,13 +39,29 @@ sys.path.insert(0, ROOT)
 
 from pfhubbenchmarks_tpu_torch.ops import _lib  # noqa: E402
 
-# (BY, BX, MIN_CTAS, QSPLIT) per physics; the first is the package's
-SHAPES = {"chac": ((7, 7, 2, 1), (7, 7, 1, 2), (3, 7, 2, 2), (3, 7, 1, 4),
+# (BY, BX, MIN_CTAS, QSPLIT) per kind; the first is the package's
+SHAPES = {"ch": ((7, 7, 2, 2), (7, 7, 2, 1), (7, 7, 4, 1), (7, 7, 1, 4),
+                 (3, 7, 4, 1), (3, 7, 4, 2), (5, 5, 4, 1), (3, 3, 8, 1),
+                 (3, 3, 4, 2), (7, 15, 2, 1)),
+          "chac": ((7, 7, 2, 1), (7, 7, 1, 2), (3, 7, 2, 2), (3, 7, 1, 4),
                    (3, 3, 2, 4), (3, 3, 1, 4), (1, 7, 2, 4)),
           "ach": ((7, 15, 3, 1), (7, 15, 2, 1), (7, 15, 4, 1), (7, 7, 6, 1),
-                  (7, 7, 8, 1), (3, 15, 3, 2), (3, 7, 3, 4), (7, 15, 1, 2))}
-SOURCE = {"chac": "chac_box.cu", "ach": "ach_box.cu"}
-ALIAS = {"chac": "ChacBox", "ach": "AchBox"}
+                  (7, 7, 8, 1), (3, 15, 3, 2), (3, 7, 3, 4), (7, 15, 1, 2)),
+          "rchac": ((7, 7, 2, 1), (7, 7, 1, 2), (3, 7, 2, 2), (5, 5, 2, 1),
+                    (3, 3, 2, 4)),
+          "rchp": ((7, 7, 2, 1), (7, 7, 4, 1), (7, 7, 2, 2), (3, 7, 4, 2),
+                   (5, 5, 4, 1), (3, 3, 4, 2))}
+SOURCE = {"ch": "ch_box.cu", "chac": "chac_box.cu", "ach": "ach_box.cu",
+          "rchac": "chac_rbox.cu", "rchp": "chp_rbox.cu"}
+ALIAS = {"ch": "ChBox", "chac": "ChacBox", "ach": "AchBox",
+         "rchac": "ChacRBox", "rchp": "ChpRBox"}
+# the launcher's symbol and its int arguments before the box per kind
+SYMBOL = {"ch": "pfh_ch_box", "chac": "pfh_chac_box", "ach": "pfh_ach_box",
+          "rchac": "pfh_chac_rbox", "rchp": "pfh_chp_rbox"}
+# the benchmark each kind is probed on, its dt
+BENCH = {"ch": ("bench1", 0.5), "chac": ("bench2", 0.16),
+         "ach": ("bench3", 1.28), "rchac": ("bench2", 0.16),
+         "rchp": ("bench6", 0.32)}
 
 
 def smi() -> str:
@@ -76,7 +96,7 @@ def variant_build(kind, shape):
 
 
 def probe(kinds, out: dict) -> None:
-    from pfhubbenchmarks_tpu_torch.benchmarks import bench2, bench3
+    from pfhubbenchmarks_tpu_torch.benchmarks.registry import get_benchmark
 
     _lib.library()
     dev = torch.device("cuda", 0)
@@ -91,12 +111,10 @@ def probe(kinds, out: dict) -> None:
         if proc.returncode != 0:
             raise RuntimeError(f"{kind} {shape}: nvcc failed:\n{log[-4000:]}")
         vl = ctypes.CDLL(so)
-        if kind == "chac":
-            vl.pfh_chac_box.argtypes = [vp] + [i32] * 4 + [vp] * 8 + [i32, i32, vp]
-            vl.pfh_chac_box_info.argtypes = [i32, ip]
-        else:
-            vl.pfh_ach_box.argtypes = [vp] + [i32] * 3 + [vp] * 8 + [i32, i32, vp]
-            vl.pfh_ach_box_info.argtypes = [ip]
+        ne = kind.endswith("chac")   # the launcher takes ne before the box
+        getattr(vl, SYMBOL[kind]).argtypes = (
+            [vp] + [i32] * (4 if ne else 3) + [vp] * 8 + [i32, i32, vp])
+        getattr(vl, SYMBOL[kind] + "_info").argtypes = [i32, ip] if ne else [ip]
         libs[(kind, shape)] = vl
         print(f"{kind} {shape}: built; " + " | ".join(
             ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln),
@@ -104,32 +122,47 @@ def probe(kinds, out: dict) -> None:
     rng = np.random.default_rng(14)
     res = []
     for kind in kinds:
-        pb, dt = ((bench2.make(), 0.16) if kind == "chac"
-                  else (bench3.make(), 1.28))
+        name, dt = BENCH[kind]
+        pb = get_benchmark(name)
         g, F = pb.grid, pb.n_fields
         v0, m0 = g.interpolate(pb.ic_fns)
         w = tuple(torch.tensor(a + 0.01 * rng.standard_normal(a.shape),
                                dtype=torch.float32, device=dev) for a in (v0, m0))
+        for bc in pb.dirichlet:
+            w = (bc.apply_value(w[0]).contiguous(), w[1])
         v = tuple(torch.tensor(rng.standard_normal(t.shape), dtype=torch.float32,
                                device=dev) for t in w)
-        jv = pb.kernel_jvp(g, dev, form="box")
-        t10 = pb.kernel_jvp(g, dev, form="recompute")
-        ref = jv.gather.kernel(w, w, dt, v)
-        params = jv.plan.params.copy()
+        fns = {}
+        if kind.startswith("r"):
+            # the residual box at (w, w0 = the IC plus other noise)
+            w0 = tuple((t + 0.01 * x).contiguous() for t, x in zip(w, v))
+            rr = pb.kernel_residual(g, dev, pb.dirichlet, form="box")
+            plan, ref = rr.plan, rr.gather.kernel(w, w0, dt)
+            fns["gather"] = lambda: rr.gather.kernel(w, w0, dt)
+            mask, gv = (None if t is None else t.data_ptr()
+                        for t in plan.planes)
+            ops = (w[0], w[1], w0[0], w0[1])
+            extra = (mask, gv)
+        else:
+            jv = pb.kernel_jvp(g, dev, form="box")
+            t10 = pb.kernel_jvp(g, dev, form="recompute")
+            plan, ref = jv.plan, jv.gather.kernel(w, w, dt, v)
+            fns["gather"] = lambda: jv.gather.kernel(w, w, dt, v)
+            fns["T10"] = lambda: t10.kernel(w, w, dt, v)
+            ops = (w[0], w[1], v[0], v[1])
+            extra = (None, None)
+        params = plan.params.copy()
         params[-1] = dt
-        variant = jv.plan.variant
-        fns = {"gather": lambda: jv.gather.kernel(w, w, dt, v),
-               "T10": lambda: t10.kernel(w, w, dt, v)}
+        variant = plan.variant
         outs = {}
         for shape in SHAPES[kind]:
             vl = libs[(kind, shape)]
-            o = (torch.empty_like(v[0]), torch.empty_like(v[1]))
-            fn = getattr(vl, f"pfh_{kind}_box")
+            o = (torch.empty_like(w[0]), torch.empty_like(w[1]))
+            fn = getattr(vl, SYMBOL[kind])
 
             def run(fn=fn, o=o, shape=shape):
                 err = fn(params.ctypes.data, 4, *variant, shape[0], shape[1],
-                         w[0].data_ptr(), w[1].data_ptr(), v[0].data_ptr(),
-                         v[1].data_ptr(), None, None, o[0].data_ptr(),
+                         *(t.data_ptr() for t in ops), *extra, o[0].data_ptr(),
                          o[1].data_ptr(), g.ny, g.nx, _lib.stream_handle())
                 if err:
                     raise RuntimeError(f"{kind} {shape}: CUDA error {err}")
@@ -141,12 +174,14 @@ def probe(kinds, out: dict) -> None:
         rounds = [{k: _lib.device_ms(fn) * 1e3 for k, fn in fns.items()}
                   for _ in range(2)]
         us = {k: sum(r[k] for r in rounds) / 2 for k in fns}
+        t10_us = us.get("T10")
         print(f"{kind}: device us {pb.name} {g.ny}x{g.nx} ffc3: gather "
-              f"{us['gather']:.2f}, T10 {us['T10']:.2f}", flush=True)
+              f"{us['gather']:.2f}"
+              + (f", T10 {t10_us:.2f}" if t10_us else ""), flush=True)
         for shape in SHAPES[kind]:
             vl = libs[(kind, shape)]
             info = (ctypes.c_int * 5)()
-            getattr(vl, f"pfh_{kind}_box_info")(*variant, info)
+            getattr(vl, SYMBOL[kind] + "_info")(*variant, info)
             by, bx = shape[:2]
             boxes = ((g.ny + by) // by) * ((g.nx + bx) // bx)
             rf = 1.0
@@ -156,12 +191,14 @@ def probe(kinds, out: dict) -> None:
             bits = all(torch.equal(a, b) for a, b in zip(outs[shape], ref))
             row = dict(kind=kind, shape=shape, us=us[shape],
                        rounds=[r[shape] for r in rounds], gather_us=us["gather"],
-                       t10_us=us["T10"], boxes=boxes, recompute=rf, bits=bits,
+                       t10_us=t10_us, boxes=boxes, recompute=rf, bits=bits,
                        registers=info[0], local_bytes=info[1],
                        dynamic_smem=info[3], ctas_per_sm=info[4])
             res.append(row)
             print(f"{kind} {shape}: {us[shape]:.2f} us per launch (gather "
-                  f"{us['gather']:.2f}, T10 {us['T10']:.2f}); {boxes} CTAs, "
+                  f"{us['gather']:.2f}"
+                  + (f", T10 {t10_us:.2f}" if t10_us else "")
+                  + f"); {boxes} CTAs, "
                   f"recompute {rf:.3f}, {info[0]} registers, {info[1]} local "
                   f"bytes, {info[3]} B shared, {info[4]} CTAs/SM; "
                   f"{'bit-identical to the gather' if bits else 'DIFFERS'}",
@@ -173,13 +210,13 @@ def probe(kinds, out: dict) -> None:
 
 def main(argv) -> None:
     mode = argv[0] if argv else "all"
-    if mode not in ("chac", "ach", "all"):
+    if mode not in (*SHAPES, "all"):
         raise SystemExit(f"torch_tri_box_probe: unknown mode {mode!r}")
     if not torch.cuda.is_available():
         raise SystemExit("torch_tri_box_probe: no CUDA device")
     print(smi(), flush=True)
     out = {"device": torch.cuda.get_device_name(0), "smi": smi()}
-    probe(("chac", "ach") if mode == "all" else (mode,), out)
+    probe(tuple(SHAPES) if mode == "all" else (mode,), out)
     print(json.dumps(out), flush=True)
 
 
