@@ -227,21 +227,39 @@ Phases, each printing its results; any failure raises (non-zero exit):
    boxes, registers, spills, shared bytes and CTAs per SM
    (``residual_box_phase``).
 
-Phases 28 and 29 run between 7 and 8, phases 20-24 after 25 and 26. The
+30. kernel V (``vcycle_fused``: TPU row 5, a V-cycle apply and its exported
+   A z in one cooperative launch with a thread-block cluster dimension) at
+   the hierarchies of ``VCYCLE_CASES`` (bench1 100/50/25; bench2 with 4, 2
+   and 1 order parameters at 100/50/25; bench1 at 74 x 46 / 37 x 23), with
+   each benchmark's sweep counts, on the IC plus seeded noise injected down
+   and kernel N's planes: z and A z against the split apply (``.sequence``:
+   the descend chain, kernel L on the coarsest level, the ascend chain and
+   kernel W) with ``torch.equal`` and against itself on a rerun (both
+   required), against the plain version (TOL_F32); device us of V with the
+   plan's scopes and with the coarsest level on cluster 0 and on the grid,
+   of the coarsest phase alone in each scope (and on a cluster of 8), and
+   of the split apply; per-call us of V and the split apply in turns, the
+   plain version's; the bound; the cluster size, grid, registers, spills
+   and co-resident clusters (``vcycle_phase``).
+
+Phases 28, 29 and 30 run between 7 and 8, phases 20-24 after 25 and 26. The
 outer J.v and the exported A z of bench1 (4, 17), bench2 (8, 25),
 bench2_eta1 (26) and bench3 (10, 19) are kernel W: those phases require it
 and refuse A's, F's or G's launches; the tiled bench1 (14) and bench3 (15)
 require T10 and W. The f32 residual of the cp line search of bench6 (6,
 18), bench2 (8, 25) and bench2_eta1 (26) is the residual box: those phases
-require it and refuse R's launches. Every main-path phase prints its Newton
-and Krylov counts beside those of the smokes before the boxes of A and R
-(``COUNTS_BEFORE_BOXES``), its wall, and the
+require it and refuse R's launches. The apply with its exported A z of bench1 (4,
+17), bench2 (8, 25) and bench2_eta1 (26) is kernel V: those phases require it
+and refuse the chain kernels' and L's launches. Every main-path phase prints
+its Newton and Krylov counts beside those of the smokes before kernel V and
+before the boxes of A and R, which were equal (``COUNTS_BEFORE_BOXES``), its
+time column as equal to theirs or not, its wall, and the
 seconds of its multigrid builds and
 their share of its wall (the dense coarse inverse apart) beside those of the
 smokes before kernel N (PERF.md section 5), and refuses a ``torch.func.jvp`` block
 build on its path. Every 2D main path (4, 6, 8, 10, 14, 15, 17-19, 25, 26)
-requires kernel N. Every main-path phase on gather levels (4, 6, 8, 10,
-17-19, 25, 26) requires the two chain kernels and refuses B's and C's
+requires kernel N. Every other main-path phase on gather levels (6, 10,
+18, 19) requires the two chain kernels and refuses B's and C's
 launches (a gather level's sweeps run
 inside L, and inside the chain kernels) and the chains' and level steps'
 launch sequences (each chain is one launch); kernel L runs the coarsest
@@ -1175,6 +1193,15 @@ def preconditioner_calls(label, problem, dt):
           f"({n_l} kernel launches {launches}, {n_c} chain calls {calls}; "
           "17 for bench1, bench6, bench2 and 23 for bench3 before the chain "
           "kernels)", flush=True)
+    if hasattr(Minv, "minv_matvec"):
+        _lib.reset_launches()
+        Minv.minv_matvec(r)
+        torch.cuda.synchronize()
+        pair = {k: n for k, n in {**_lib.LAUNCHES, **_lib.CALLS}.items() if n}
+        print(f"{label}: one apply with its exported A z (FGMRES's pair): "
+              f"{sum(pair.values())} wrapper calls {pair} (4 before kernel "
+              "V on bench1's and bench2's paths: the two chains, L and W)",
+              flush=True)
     return n_l + n_c
 
 
@@ -1229,7 +1256,8 @@ def drive(label, problem, run, required, absent=GATHER_ABSENT,
           f"{krylov[0]}, {newton[1]} / {krylov[1]} over {len(st)} steps; "
           f"before kernel N: "
           f"{COUNTS_BEFORE_N.get((label, len(st)), 'not recorded')}; before "
-          f"the boxes of A and R: {gather if gather else 'not recorded'}"
+          f"kernel V (and before the boxes of A and R): "
+          f"{gather if gather else 'not recorded'}"
           f"{(' (equal)' if same else ' (DIFFERS)') if gather else ''}",
           flush=True)
     print(f"{label}: wall {wall:.3f} s (before kernel N, smokes A / "
@@ -1347,6 +1375,13 @@ def hold_trajectory(label, result, ref_csv, end_time, min_matched, interp_tol,
     interp = np.interp(ref[sel, 0], ours[:, 0], ours[:, 1])
     interp_rel = float(np.max(np.abs(interp - ref[sel, 1]) / np.abs(ref[sel, 1])))
     flips = flipped_decisions(ours[:, 0], ref[:, 0])
+    # the smokes before kernel V matched every row of each reference they
+    # ran to the end
+    print(f"{label}: time column {ours[:, 0].tolist()}; "
+          + (f"equal to the smokes' before kernel V on these {n} rows (rows "
+             f"of results/{ref_csv})" if k == n else "parts from the smokes' "
+             f"before kernel V, which matched every row of "
+             f"results/{ref_csv}"), flush=True)
     print(f"{label}: vs results/{ref_csv}: {len(ours)} rows to "
           f"t={ours[-1, 0]:.6g} against {len(ref)} to t={ref[-1, 0]:.6g}; "
           f"matched rows {k} (>= {min_matched}), tfe_rel on them "
@@ -1482,6 +1517,10 @@ def kernel_records():
         # bench6 in place of R
         "residual_box": Kernel("residual_box", csrc + "fem_tri_box.cuh",
                                "pfhubbenchmarks_tpu/ops/pallas_residual.py:226"),
+        # V: a whole V-cycle apply and its exported A z in one launch (row
+        # 5 with with_matvec), bench1's and bench2's apply
+        "vcycle_fused": Kernel("vcycle_fused", csrc + "vcycle_fused.cuh",
+                               replaces_vc),
         # N: the 2D node-block-Jacobi build, a port kernel with no TPU row
         "node_blocks": Kernel(
             "node_blocks", csrc + "node_blocks.cuh",
@@ -2010,6 +2049,11 @@ def fma_chain_phase(dev, K, paths):
 # what every 2D main path on gather levels launches besides its J.v
 CHAIN_2D = ("transfer_dyadic", "vcycle_descend_chain", "vcycle_ascend_chain",
             "node_blocks")
+# the paths of kernel V (bench1, bench2 and their variants): V, the builds'
+# D and N; no chain kernel and no L (their bodies run in V)
+FUSED_2D = ("vcycle_fused", "transfer_dyadic", "node_blocks")
+FUSED_ABSENT = GATHER_ABSENT + ("vcycle_descend_chain", "vcycle_ascend_chain",
+                                "lmr_sweep")
 
 
 def prefix_rows(t_start, phase, label, full, prefix, late_s):
@@ -2033,8 +2077,8 @@ def replay_phases(dev, t_start, paths, problem1, problem6, problem3):
                     BENCH1_REPLAY_PREFIX, BENCH1_REPLAY_LATE_S)
     paths["bench1 replay"], res1, _ = replay_phase(
         "phase 17: bench1 replay", problem1, dev, "bench1_replay.csv", n,
-        ("tri_box", "lmr_sweep") + CHAIN_2D, tfe_tol=1e-5, col2_tol=1e-9,
-        absent=GATHER_ABSENT + ("ch_jvp",))
+        FUSED_2D, tfe_tol=1e-5, col2_tol=1e-9,
+        absent=FUSED_ABSENT + ("ch_jvp",))
     st = rescued_at(res1, 65.5)
     print(f"phase 17: the step to t=65.5 (step {st.step}): "
           f"{st.rescue or 'its first attempt'}", flush=True)
@@ -2078,8 +2122,8 @@ def bench2_more_phases(dev, t_start, paths, problem2):
     from pfhubbenchmarks_tpu_torch import timeloop
     from pfhubbenchmarks_tpu_torch.benchmarks import registry
 
-    required = ("tri_box", "lmr_sweep", "residual_box") + CHAIN_2D
-    absent = GATHER_ABSENT + ("chac_jvp", "residual")
+    required = FUSED_2D + ("residual_box",)
+    absent = FUSED_ABSENT + ("chac_jvp", "residual")
     n = prefix_rows(t_start, 25, "bench2's replay", BENCH2_REPLAY_ROWS,
                     BENCH2_REPLAY_PREFIX, BENCH2_REPLAY_LATE_S)
     paths["bench2 replay"], res2, _ = replay_phase(
@@ -2912,6 +2956,158 @@ def chain_phase(dev, K, rng):
           flush=True)
 
 
+# phase 30: kernel V's hierarchies: (benchmark, order parameters, fine
+# (ny, nx) or None for the benchmark's own); 74 x 46 / 37 x 23 is a ragged
+# pair of bench1's physics
+VCYCLE_CASES = (("bench1", None, None), ("bench2", 4, None),
+                ("bench2", 2, None), ("bench2", 1, None),
+                ("bench1", None, (46, 74)))
+
+
+def vcycle_work(grids, F, s, jv_kw, mv_kw, groups, mv_grid):
+    """(bytes, flops) of one V apply: the right-hand side, every level's
+    state and in-group block planes in once, z and A z out once; the flops
+    of the descent's and the ascent's sweeps, transfers and residuals, the
+    coarsest sweeps and the exported J.v."""
+    K = len(grids) - 1
+    ns = jv_kw.get("ns", 1)
+    byts = 4 * 3 * F * nodes(grids[0])
+    for g in grids:
+        byts += 4 * ns * nodes(g) + bj_work(g, F, groups)[0] - 4 * 2 * F * nodes(g)
+    flops = sum(chain_work(grids, F, nu, nu_fine, ascend=up, jv_kw=jv_kw,
+                           groups=groups, masked=False)[1]
+                for nu, nu_fine, up in (
+                    (s.gmg_nu_pre, s.gmg_nu_fine_pre or s.gmg_nu_pre, False),
+                    (s.gmg_nu_post, s.gmg_nu_fine_post or s.gmg_nu_post,
+                     True)))
+    flops += sweep_work(grids[K], F, s.gmg_coarse_sweeps, jv_kw, groups)[1]
+    flops += jvp_work(mv_grid, F, **mv_kw)[1]
+    return byts, flops
+
+
+def vcycle_phase(dev, K, rng):
+    """Phase 30: kernel V (``vcycle_fused``: TPU row 5, the apply and its
+    exported A z in one launch) at the hierarchies of ``VCYCLE_CASES``, the
+    plan and the exported J.v of each benchmark's own multigrid build, with
+    its sweep counts, on the IC plus seeded noise injected down and kernel
+    N's planes of every level. Each case: z and A z against the split apply
+    (``.sequence``: the descend chain, L on the coarsest level, the ascend
+    chain and W) with ``torch.equal``, and against itself on a rerun (both
+    required); against the plain version (TOL_F32); device us per apply (40
+    behind a sleep kernel) of V as the plan routes it, of V with the
+    coarsest level on cluster 0 (of ``vf.CLUSTER`` and of 8 CTAs), on the
+    grid and with the two coarsest levels on cluster 0, of the coarsest
+    phase alone on cluster 0 (of both sizes) and on the grid, and of the
+    split apply; per-call us of V and the split apply in turns,
+    the plain version's; the bound (``vcycle_work``); the cluster size,
+    grid, registers, spills and co-resident clusters."""
+    from pfhubbenchmarks_tpu_torch.benchmarks import bench1, bench2
+    from pfhubbenchmarks_tpu_torch.ops import transfer as kt
+    from pfhubbenchmarks_tpu_torch.ops import vcycle_fused as vf
+
+    t30 = time.perf_counter()
+    f32 = torch.float32
+    rec = K["vcycle_fused"]
+    for name, ne, dims in VCYCLE_CASES:
+        if name == "bench1":
+            pb = bench1.make() if dims is None else bench1.make(
+                ny=dims[0], nx=dims[1])
+            dt, split, jv_kw, mv_kw = 0.5, False, {}, {}
+        else:
+            pb = bench2.make(num_eta=ne)
+            dt, split = 0.16, True
+            jv_kw = dict(ns=1 + ne, ops=chac_tangent_ops(ne, True))
+            mv_kw = dict(ns=1 + ne, ops=chac_tangent_ops(ne, False))
+        s, F = pb.solver, pb.n_fields
+        build = pb.precond_builder(dev)
+        vc, grids = build.vcycle, build.grids
+        if vc is None:
+            raise AssertionError(f"phase 30: {name}'s build does not route "
+                                 "its apply to kernel V")
+        plan = vc.plan
+        groups = pb.field_groups if split else None
+        v, m = grids[0].interpolate(pb.ic_fns)
+        w = tuple(torch.tensor(a, dtype=f32, device=dev) + torch.tensor(
+            0.01 * rng.standard_normal((F,) + a.shape[1:]), dtype=f32,
+            device=dev) for a in (v, m))
+        ws, pinvs = [], []
+        for l, g in enumerate(grids):
+            ws.append(w)
+            pinvs.append(node_plan(pb, g, dev, split).kernel(w, w, dt))
+            if l + 1 < len(grids):
+                w = kt.inject(w, grids[l + 1], g)
+        b = tuple(torch.tensor(rng.standard_normal((F,) + sh), dtype=f32,
+                               device=dev)
+                  for sh in (grids[0].vshape, grids[0].mshape))
+        args = (b, ws, ws, dt, pinvs)
+
+        def flat(out):
+            return [t.clone() for p in out for t in p]
+
+        got, again = flat(vc.kernel(*args)), flat(vc.kernel(*args))
+        grid = plan.grid
+        seq, seq2 = flat(vc.sequence(*args)), flat(vc.sequence(*args))
+        ref = flat(vc.plain(*args))
+        if any(not torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"V {name}: a rerun changed the bits")
+        if any(not torch.equal(a, c) for a, c in zip(got, seq)) or any(
+                not torch.equal(a, c) for a, c in zip(seq, seq2)):
+            d = max(float((a - c).abs().max()) for a, c in zip(got, seq))
+            raise AssertionError(f"V {name}: z and A z are not the split "
+                                 f"apply's bits (max abs diff {d:.3e})")
+        Kl = plan.K
+        z, az = (tuple(torch.empty_like(t) for t in b) for _ in range(2))
+
+        def launch(**kw):
+            return lambda: plan.launch(dev, ws, pinvs, dt, b, z, az, **kw)
+
+        coarse, C = vf.PHASES["coarse"], vf.CLUSTER
+        times = {"V": device_ms(lambda: vc.kernel(*args)),
+                 "V coarsest on cluster 0": device_ms(launch(
+                     cluster_from=Kl, cluster=C)),
+                 "V coarsest on a cluster of 8": device_ms(launch(
+                     cluster_from=Kl, cluster=8)),
+                 "V coarsest on the grid": device_ms(launch(
+                     cluster_from=Kl + 1, cluster=1)),
+                 "coarsest alone on cluster 0": device_ms(launch(
+                     cluster_from=Kl, cluster=C, phases=coarse)),
+                 "coarsest alone on a cluster of 8": device_ms(launch(
+                     cluster_from=Kl, cluster=8, phases=coarse)),
+                 "coarsest alone on the grid": device_ms(launch(
+                     cluster_from=Kl + 1, cluster=1, phases=coarse)),
+                 "the split apply": device_ms(lambda: vc.sequence(*args))}
+        if Kl >= 2:
+            times["V two coarsest levels on cluster 0"] = device_ms(launch(
+                cluster_from=Kl - 1, cluster=C))
+        per_call = interleaved_ms({"V": lambda: vc.kernel(*args),
+                                   "split": lambda: vc.sequence(*args)})
+        p_ms = once_ms(lambda: vc.plain(*args))
+        mv_grid = dataclasses.replace(grids[0], rule_name=pb.grid.rule_name)
+        work = vcycle_work(grids, F, s, jv_kw, mv_kw, groups, mv_grid)
+        b_ms, b_by = bound(work)
+        info = plan.info()
+        label = (f"{name}{f' NE={ne}' if ne else ''} "
+                 f"{'/'.join(f'{g.ny}x{g.nx}' for g in grids)}")
+        scope = "cluster 0" if plan.cluster_from == Kl else "the grid"
+        print(f"phase 30: V {label}: cluster {plan.cluster} CTAs, grid {grid} "
+              f"CTAs ({info['clusters']} co-resident clusters, "
+              f"{info['ctas_per_sm']} CTAs per SM), {info['registers']} "
+              f"registers, {info['local_bytes']} local bytes, "
+              f"{info['static_smem']} static shared bytes; the coarsest level "
+              f"({plan.coarse_ctas} CTAs of work) on {scope} by the plan's "
+              f"rule; device us per apply: "
+              + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in times.items())
+              + f"; per call V / split / plain {per_call['V'] * 1e3:.1f} / "
+              f"{per_call['split'] * 1e3:.1f} / {p_ms * 1e3:.1f} us; bound "
+              f"{b_ms * 1e3:.3f} us ({b_by}); z and A z equal the split "
+              f"apply's (torch.equal), rerun bit-identical", flush=True)
+        rec.check(label, got, ref, TOL_F32, (per_call["V"], p_ms), work,
+                  dev_ms=times["V"], main=(name == "bench1" and dims is None))
+    torch.cuda.synchronize()
+    print(f"phase 30: kernel V equals the split apply at every hierarchy "
+          f"({time.perf_counter() - t30:.1f} s)", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- phase 1: the card --------------------------------------------
@@ -3067,9 +3263,7 @@ def main() -> None:
     runner1 = timeloop.Runner(problem1, dev)
     paths["bench1"], result1, wall1, seconds1 = drive(
         "phase 4: bench1", problem1, lambda: runner1.run(verbose=True),
-        ("tri_box", "lmr_sweep", "transfer_dyadic", "vcycle_descend_chain",
-         "vcycle_ascend_chain", "node_blocks"),
-        absent=GATHER_ABSENT + ("ch_jvp",),
+        FUSED_2D, absent=FUSED_ABSENT + ("ch_jvp",),
         max_calls=MAX_CALLS_PER_APPLY["bench1"])
     hold_trajectory("phase 4: bench1", result1, "bench1_out.csv",
                     problem1.time.end_time, BENCH1_MIN_MATCHED,
@@ -3303,6 +3497,7 @@ def main() -> None:
     # against R, at their main shapes ---------------------------------------
     tri_box_phase(dev, K, rng)
     residual_box_phase(dev, K)
+    vcycle_phase(dev, K, rng)
 
     # ---- phase 8: bench2's main path at 100x100 -------------------------
     runner2 = timeloop.Runner(problem2, dev)
@@ -3313,9 +3508,8 @@ def main() -> None:
           flush=True)
     paths["bench2"], result2, wall2, seconds2 = drive(
         "phase 8: bench2", problem2, lambda: runner2.run(verbose=True),
-        ("tri_box", "lmr_sweep", "transfer_dyadic", "vcycle_descend_chain",
-         "vcycle_ascend_chain", "residual_box", "node_blocks"),
-        absent=GATHER_ABSENT + ("chac_jvp", "residual"),
+        FUSED_2D + ("residual_box",),
+        absent=FUSED_ABSENT + ("chac_jvp", "residual"),
         max_calls=MAX_CALLS_PER_APPLY["bench2"])
     hold_trajectory("phase 8: bench2", result2, "bench2_out.csv",
                     problem2.time.end_time, BENCH2_MIN_MATCHED,

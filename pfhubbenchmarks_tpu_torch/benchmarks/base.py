@@ -167,7 +167,7 @@ class BenchmarkProblem:
             self.n_fields, device=device,
             jvp_for=lambda g, split, form="gather": self.kernel_jvp(
                 g, device, self.dirichlet_for(g), split=split, form=form),
-            mv_form=self.outer_jvp_form,
+            mv_form=self.outer_jvp_form, fuse_vcycle=s.fuse_vcycle,
             tiled=self.tiled,
             field_groups=self.field_groups if field_split else None,
             dirichlet_for=self.dirichlet_for,

@@ -88,11 +88,13 @@ class SolverConfig:
     # TPU-only (z-slab Pallas kernels on the 3D level whose slab is the whole
     # grid): no-op. On a CUDA device kernel U covers every level in one launch.
     tiled_nb1_3d: bool = False
-    # TPU-only (how the V-cycle is split into Pallas calls): no-op. Every
-    # value computes the same cycle; the port always runs it as the descend
-    # and ascend chains (ops/vcycle_chain.py) around the coarsest solve.
-    # 'split_levels' (bench3: one Pallas descend/ascend pair per level) is
-    # accepted too: the chains loop over those level steps.
+    # How the V-cycle is split into launches; every value computes the same
+    # cycle. 'auto' (bench1, bench2): on the card, where the JAX package's
+    # fused-kernel gate holds (solve/gmg.py fused_gate), the apply with its
+    # exported A z is one launch of kernel V (ops/vcycle_fused.py) and the
+    # coarsest level is the sweeps; elsewhere, and for 'off', 'split_chain'
+    # (bench6) and 'split_levels' (bench3), the descend and ascend chains
+    # (ops/vcycle_chain.py) around the coarsest solve.
     fuse_vcycle: str = "auto"
     # 'gmg' only; 'none', 'block_jacobi' and 'dense' are not yet ported.
     precond: str = "gmg"

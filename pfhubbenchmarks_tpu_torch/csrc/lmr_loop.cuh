@@ -103,6 +103,23 @@ struct Node {
   __device__ __forceinline__ long at(int f) const { return f * n + i; }
 };
 
+__device__ __forceinline__ void loop_barrier() {
+  if (gridDim.x == 1)
+    __syncthreads();
+  else
+    cooperative_groups::this_grid().sync();
+}
+
+// The CTAs a phase's loops stride over and its barrier: here the whole grid
+// (kernel L, the chains). Kernel V (vcycle_fused.cuh) runs a level's phases
+// on cluster 0 alone through another scope with the same three members; a
+// loop strides over rank() of size() CTAs, so the bits do not depend on it.
+struct GridScope {
+  __device__ __forceinline__ int rank() const { return blockIdx.x; }
+  __device__ __forceinline__ int size() const { return gridDim.x; }
+  __device__ __forceinline__ void sync() const { loop_barrier(); }
+};
+
 // The level's phase 2, A z of the whole level into av/am, grid-stride, and
 // the CTAs and dynamic shared bytes it asks for. 2D: per node, the gather
 // J.v of Phys at NQ points; a Dirichlet row (mask != 0) gives z.
@@ -115,11 +132,12 @@ struct Level2 {
   static long blocks(const LoopArgs& A) {
     return blocks_for(A.nvert + A.ncell, kLoopThreads);
   }
+  template <class Sc>
   __device__ __forceinline__ static void az(const Params& P, const LoopArgs& A,
-                                            float*) {
+                                            float*, const Sc& sc) {
     const long N = A.nvert + A.ncell;
-    for (long idx = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-         idx < N; idx += static_cast<long>(gridDim.x) * blockDim.x) {
+    for (long idx = static_cast<long>(sc.rank()) * blockDim.x + threadIdx.x;
+         idx < N; idx += static_cast<long>(sc.size()) * blockDim.x) {
       const Node nd(A, idx);
       float acc[NF];
       jvp_node<Phys, NQ, LoadCG>(P, A.wv, A.wm, A.zv, A.zm, idx, A.ny, A.nx,
@@ -151,10 +169,11 @@ struct Level3 {
     return std::max(static_cast<long>(blocks_for(A.nvert, kLoopThreads)),
                     tet_boxes(A.nz, A.ny, A.nx));
   }
+  template <class Sc>
   __device__ __forceinline__ static void az(const Params& P, const LoopArgs& A,
-                                            float* smem) {
+                                            float* smem, const Sc& sc) {
     const long nbox = tet_boxes(A.nz, A.ny, A.nx);
-    for (long b = blockIdx.x; b < nbox; b += gridDim.x)
+    for (long b = sc.rank(); b < nbox; b += sc.size())
       tet_box<Phys, NQ, LoadCG>(P, A.wv, A.zv, nullptr, A.av, A.nz, A.ny, A.nx,
                                 b, smem);
   }
@@ -183,11 +202,13 @@ __device__ __forceinline__ void bj_node(const LoopArgs& A, const Node& nd,
 
 // Phase 3: the f64 partials of <Az, r>_g and <Az, Az>_g, C's stage 1 slot by
 // slot: slot (g, b) is block (b, g) of lmr_partials_kernel.
+template <class Sc>
 __device__ __forceinline__ void partial_slots(const LoopArgs& A,
-                                              double* s_num, double* s_den) {
+                                              double* s_num, double* s_den,
+                                              const Sc& sc) {
   const int t = threadIdx.x;
   const int nslots = A.G.n * A.nb;
-  for (int slot = blockIdx.x; slot < nslots; slot += gridDim.x) {
+  for (int slot = sc.rank(); slot < nslots; slot += sc.size()) {
     const int g = slot / A.nb, b = slot % A.nb;
     const long f0 = A.G.start[g];
     const long nf = A.G.start[g + 1] - f0;
@@ -222,13 +243,6 @@ __device__ __forceinline__ void partial_slots(const LoopArgs& A,
   }
 }
 
-__device__ __forceinline__ void loop_barrier() {
-  if (gridDim.x == 1)
-    __syncthreads();
-  else
-    cooperative_groups::this_grid().sync();
-}
-
 // The shared memory of the sweep loop: phase 3's tree, phase 4's staged
 // partials and the step lengths.
 struct LoopShared {
@@ -239,20 +253,21 @@ struct LoopShared {
 };
 
 // The n sweeps of one level (A.n_sweeps) on (x, r) in place: L's body, and
-// the sweeps of each level of the V-cycle chains (vcycle_chain.cuh), which
-// run it between their own grid barriers. Every loop is grid-stride and the
-// slots are C's partition, so the bits do not depend on the grid. A thread
-// reads r at its own nodes with plain loads: a caller that wrote r before
-// must have written those nodes from the same thread (the node loop below),
-// or put a grid barrier between.
-template <class Lv>
+// the sweeps of each level of the V-cycle chains (vcycle_chain.cuh) and of
+// kernel V (vcycle_fused.cuh), which run it between their own barriers.
+// Every loop strides over the scope's CTAs (the grid, or V's cluster 0) and
+// the slots are C's partition, so the bits do not depend on the scope. A
+// thread reads r at its own nodes with plain loads: a caller that wrote r
+// before must have written those nodes from the same thread (the node loop
+// below, in the same scope), or put a barrier between.
+template <class Lv, class Sc = GridScope>
 __device__ __forceinline__ void lmr_sweeps(const typename Lv::Params& P,
                                            const LoopArgs& A, LoopShared& sh,
-                                           float* smem) {
+                                           float* smem, const Sc& sc = Sc{}) {
   constexpr int NF = Lv::NF;
   const long N = A.nvert + A.ncell;
-  const long first = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long stride = static_cast<long>(gridDim.x) * blockDim.x;
+  const long first = static_cast<long>(sc.rank()) * blockDim.x + threadIdx.x;
+  const long stride = static_cast<long>(sc.size()) * blockDim.x;
 
   for (long idx = first; idx < N; idx += stride) {  // phase 1 of sweep 0
     const Node nd(A, idx);
@@ -263,11 +278,11 @@ __device__ __forceinline__ void lmr_sweeps(const typename Lv::Params& P,
     bj_node<NF>(A, nd, rr);
   }
   for (int s = 0; s < A.n_sweeps; ++s) {
-    loop_barrier();
-    Lv::az(P, A, smem);  // phase 2
-    loop_barrier();
-    partial_slots(A, sh.num, sh.den);  // phase 3
-    loop_barrier();
+    sc.sync();
+    Lv::az(P, A, smem, sc);  // phase 2
+    sc.sync();
+    partial_slots(A, sh.num, sh.den, sc);  // phase 3
+    sc.sync();
     // phase 4: alpha per group, as C's stage 2: the partials staged in
     // shared memory by the whole CTA at once, then summed in index order
     for (int i = threadIdx.x; i < 2 * A.G.n * A.nb; i += blockDim.x)

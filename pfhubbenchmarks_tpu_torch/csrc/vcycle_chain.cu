@@ -19,7 +19,8 @@ PFH_EXPORT int pfh_vcycle_chain_level_bytes() {
 // partials (f64), bv, bm (the right-hand side), xin_v, xin_m (the ascent's
 // iterate), tv, tm (the descent's restricted right-hand side), tmask (the
 // transfer's mask or null); ints: F, ny, nx, n_sweeps, nb, n_groups, R, nyc,
-// nxc; starts: n_groups + 1 ints or null (make_groups).
+// nxc; starts: n_groups + 1 ints or null (make_groups). R = 0 (with nyc = nxc
+// = 0) packs a level with no pair: kernel V's coarsest (vcycle_fused.cuh).
 PFH_EXPORT int pfh_vcycle_chain_pack(void* dst, const float* params,
                                      const float* weights,
                                      const void* const* ptrs, const int* ints,
@@ -27,9 +28,11 @@ PFH_EXPORT int pfh_vcycle_chain_pack(void* dst, const float* params,
   const int F = ints[0], ny = ints[1], nx = ints[2], n_sweeps = ints[3];
   const int nb = ints[4], n_groups = ints[5], R = ints[6];
   const int nyc = ints[7], nxc = ints[8];
+  const bool pair = R != 0;
   if (nb < 1 || nb > pfh::kLoopMaxSlots || n_sweeps < 0 ||
-      (R != 2 && R != 3 && R != 5 && R != 7) || (R != 2 && weights == nullptr) ||
-      ny != R * nyc || nx != R * nxc)
+      (pair && R != 2 && R != 3 && R != 5 && R != 7) ||
+      (pair && R != 2 && weights == nullptr) ||
+      (pair ? (ny != R * nyc || nx != R * nxc) : (nyc != 0 || nxc != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   pfh::ChainLevel c;
   std::memset(&c, 0, sizeof(c));

@@ -13,8 +13,9 @@ launches its kernel), so a run can show that its main path went through the
 kernels. The tiled LMR sweep loop (ops/lmr.py) and the launch sequences of
 the two V-cycle level steps and the two chains (ops/vcycle_chain.py
 ``.sequence``) are not kernels: they count their calls in ``CALLS``. The
-gather sweep loop is one kernel, L (``lmr_sweep``), and each chain of gather
-levels one launch of ``vcycle_descend_chain`` or ``vcycle_ascend_chain``.
+gather sweep loop is one kernel, L (``lmr_sweep``), each chain of gather
+levels one launch of ``vcycle_descend_chain`` or ``vcycle_ascend_chain``, and
+a whole V-cycle apply with its exported A z one of ``vcycle_fused`` (V).
 ``SECONDS`` holds the host seconds of the multigrid build and its stages,
 so a run can say what share of its wall they take.
 """
@@ -45,7 +46,7 @@ KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp", "ch3d_jvp",
            "transfer_general", "residual", "tile_jvp_recompute",
            "tile_jvp_seam", "tile_sweep", "fma_chain", "shard_sweep",
            "gridjvp_probe", "vcycle_descend_chain", "vcycle_ascend_chain",
-           "node_blocks", "tri_box", "residual_box")
+           "node_blocks", "tri_box", "residual_box", "vcycle_fused")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # launch sequences of the kernels that stand for one TPU kernel each
 CHAINS = ("tile_sweep_loop", "descend_level", "ascend_level",
@@ -117,6 +118,10 @@ class KernelLibrary:
         # the chain kernels: ascend, nq, the table, K, the CTAs needed, the
         # call's six pointers, the grid out, the stream
         chain = [i32, i32, vp, i32, i64] + [vp] * 6 + [ip, vp]
+        # kernel V: the two point counts, the table, K, the CTAs needed,
+        # the cluster, the first level on it, the phases, the call's six
+        # pointers, the grid out, the stream
+        fused = [i32, i32, vp, i32, i64, i32, i32, i32] + [vp] * 6 + [ip, vp]
         # kernel N: params, the state pair, the diagonals, the mask, the
         # planes out, the node counts, the stream
         nodeb = [vp] * 7 + [i64, i64, vp]
@@ -176,6 +181,10 @@ class KernelLibrary:
             "pfh_vcycle_chain_chp_info": [i32, i32, ip],
             "pfh_vcycle_chain_ach_info": [i32, i32, ip],
             "pfh_vcycle_chain_chac_info": [i32, i32, i32, i32, ip],
+            "pfh_vcycle_fused_ch": fused,
+            "pfh_vcycle_fused_chac": fused[:2] + [i32] + fused[2:],
+            "pfh_vcycle_fused_ch_info": [i32, ip],
+            "pfh_vcycle_fused_chac_info": [i32, i32, ip],
             "pfh_node_blocks_ch": nodeb,
             "pfh_node_blocks_chp": nodeb,
             "pfh_node_blocks_ach": nodeb,

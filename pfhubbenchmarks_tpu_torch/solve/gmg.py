@@ -5,7 +5,11 @@ Counterpart of ``pfhubbenchmarks_tpu/solve/gmg.py`` (``build_hierarchy``,
 350/175/35/7). One V-cycle serves every configuration: the ``split_chain``
 cycle of ``gmg.py:654-662``, which does the arithmetic of the
 ``split_levels`` recursion (:663-675) and of ``ops/pallas_vcycle.py:
-make_fused_vcycle`` too:
+make_fused_vcycle`` too. Where the JAX package runs that fused kernel
+(``fuse_vcycle`` "auto" and its gate, ``gmg.py:320-345``: bench1, bench2),
+``Minv.minv_matvec`` on CUDA tensors is one launch of kernel V
+(ops/vcycle_fused.py), the whole cycle below and its exported A z; its plain
+version, and ``Minv`` alone, are the split apply:
 
 - per-level linearization states injected once per build (kernel D for a
   dyadic pair, strided slicing for an odd ratio, through a transfer plan
@@ -35,8 +39,16 @@ make_fused_vcycle`` too:
   fine-level J.v (the fine grid's own rule) that FGMRES consumes in place of
   its outer matvec.
 
-``fuse_vcycle`` only chooses how the TPU splits this cycle into Pallas
-calls, so the port does not read it.
+``fuse_vcycle`` routes as in the JAX package: any value but "off",
+"split_levels" and "split_chain" takes kernel V wherever ``fused_gate``
+holds (CUDA tensors, at least two levels, all gather levels, every pair
+dyadic or of an equal odd ratio, no periodic grid, no Dirichlet rows on the
+fine level; the JAX package's VMEM gate has no counterpart). There the
+coarsest level is solved by the sweeps, never the dense inverse, as in the
+JAX package's fused kernel (``gmg.py:303-305``); V's plain version is the
+descend chain, the coarsest sweeps from zero, the ascend chain and the
+exported J.v. Elsewhere (the other values, bench3, bench6, the tiled
+configuration, CPU tensors) the split apply above runs.
 
 Field split (BM2, ``gmg.py:155-179``): ``terms`` is then the split
 ``terms_precond``, whose Jacobian is block diagonal by ``field_groups``: the
@@ -84,9 +96,11 @@ from pfhubbenchmarks_tpu_torch.ops import _lib
 from pfhubbenchmarks_tpu_torch.ops.fem_tile import multi_block
 from pfhubbenchmarks_tpu_torch.ops.lmr import make_level_sweep_loop
 from pfhubbenchmarks_tpu_torch.ops.node_blocks import NodeBlockPlan
-from pfhubbenchmarks_tpu_torch.ops.transfer import TransferPlan
+from pfhubbenchmarks_tpu_torch.ops.transfer import TransferPlan, equal_ratio
 from pfhubbenchmarks_tpu_torch.ops.vcycle_chain import (make_ascend_chain,
-                                                        make_descend_chain)
+                                                        make_descend_chain,
+                                                        one_launch)
+from pfhubbenchmarks_tpu_torch.ops.vcycle_fused import make_fused_vcycle
 from pfhubbenchmarks_tpu_torch.solve import tree as tr
 
 _RATIOS = (2, 3, 5, 7)
@@ -162,6 +176,33 @@ def _flat_maps(g: CrossedTriGrid, n_fields: int):
     return flatten, unflatten
 
 
+def _fusable(grids) -> bool:
+    """Every pair dyadic or of an equal odd ratio (the JAX package's
+    ``transfers_fusable``)."""
+    for fine, coarse in zip(grids, grids[1:]):
+        try:
+            equal_ratio(coarse, fine)
+        except (ValueError, NotImplementedError):
+            return False
+    return True
+
+
+def fused_gate(grids, jvs, level_bcs, fuse_vcycle: str,
+               device: torch.device | str) -> bool:
+    """Whether the apply with its exported A z runs as kernel V: the JAX
+    package's gate for ``make_fused_vcycle`` (``gmg.py:320-345``: not
+    "off", "split_levels" or "split_chain"; at least two levels; every pair
+    fusable; no periodic grid; the port's problems have no coordinate
+    terms) with the exported pair's (no Dirichlet rows on the fine level,
+    ``gmg.py:474-477``), on CUDA tensors (the JAX package's ``use_pallas``
+    resolves on its backend), with every level a gather level (a tiled level
+    runs the tile kernels)."""
+    return (fuse_vcycle not in ("off", "split_levels", "split_chain")
+            and torch.device(device).type == "cuda" and len(grids) >= 2
+            and one_launch(jvs) and not any(g.periodic for g in grids)
+            and _fusable(grids) and not level_bcs[0])
+
+
 def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
              device: torch.device | str, jvp_for, dirichlet_for=None,
              nu_pre: int = 2, nu_post: int = 2, nu_fine_pre: int = 0,
@@ -169,7 +210,8 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
              max_levels: int = 10, precond_rule: str | None = None,
              min_cells: int = 7, dense_coarse_max_dofs: int = 1500,
              cycle: str = "v", inner_mr: int = 1, field_groups=None,
-             tiled: bool = False, mv_form: str = "gather"):
+             tiled: bool = False, mv_form: str = "gather",
+             fuse_vcycle: str = "auto"):
     """Returns ``build(w, w0, dt) -> Minv`` applying one f32 V-cycle.
 
     ``jvp_for(g, split, form="gather")`` makes the J.v ``jv(w, w0, dt, v,
@@ -182,8 +224,10 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
     ``Minv.minv_matvec(r)``, where exposed, the pair (z, A z) with the
     coupled true-rule A, by the J.v of form ``mv_form`` ("box": kernel W,
     bench2 and bench3). ``build.grids`` is the hierarchy,
-    ``build.dense_coarse`` says whether the coarsest level is solved by the
-    dense inverse (else by ``coarse_sweeps`` LMR sweeps),
+    ``build.vcycle`` kernel V's cycle (ops/vcycle_fused.make_fused_vcycle)
+    where ``fused_gate`` holds (else None), ``build.dense_coarse`` says
+    whether the coarsest level is solved by the dense inverse (else by
+    ``coarse_sweeps`` LMR sweeps),
     ``build.tiled_levels`` which levels are routed to the tile kernels and
     ``build.node_blocks`` the levels' kernel-N plans. Each build adds its
     seconds to ``_lib.SECONDS['precond_build']``, and those of the dense
@@ -220,20 +264,32 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
         for g, jv, bcs in zip(grids, jvs, level_bcs)]
     injs = [TransferPlan(grids[l + 1], grids[l], n_fields, "inject")
             for l in range(L - 1)]
+    fused = fused_gate(grids, jvs, level_bcs, fuse_vcycle, device)
     dense_coarse = None
-    if coarse_dof_count(grids[-1], n_fields) <= dense_coarse_max_dofs:
+    if (not fused
+            and coarse_dof_count(grids[-1], n_fields) <= dense_coarse_max_dofs):
         residual_c = make_residual(grids[-1], terms, n_fields, device=device,
                                    dirichlet=level_bcs[-1],
                                    dtype=torch.float32)
         dense_coarse = make_dense_coarse(residual_c,
                                          *_flat_maps(grids[-1], n_fields))
-    coarse_sweep = make_level_sweep_loop(jvs[-1], coarse_sweeps, field_groups)
-    chain = None
-    if L >= 2:
-        chain = (make_descend_chain(grids, jvs, nu=nu_pre, nu_fine=nfp,
-                                    masks=masks, field_groups=field_groups),
-                 make_ascend_chain(grids, jvs, nu=nu_post, nu_fine=nfo,
-                                   masks=masks, field_groups=field_groups))
+    vcycle = chain = None
+    if fused:
+        vcycle = make_fused_vcycle(grids, jvs, mv_jv, nu_pre=nu_pre,
+                                   nu_post=nu_post, nu_fine_pre=nfp,
+                                   nu_fine_post=nfo,
+                                   coarse_sweeps=coarse_sweeps,
+                                   field_groups=field_groups)
+        coarse_sweep = vcycle.coarse
+        chain = (vcycle.descend, vcycle.ascend)
+    else:
+        coarse_sweep = make_level_sweep_loop(jvs[-1], coarse_sweeps,
+                                             field_groups)
+        if L >= 2:
+            chain = (make_descend_chain(grids, jvs, nu=nu_pre, nu_fine=nfp,
+                                        masks=masks, field_groups=field_groups),
+                     make_ascend_chain(grids, jvs, nu=nu_post, nu_fine=nfo,
+                                       masks=masks, field_groups=field_groups))
 
     def build(w, w0, dt):
         dtf = float(np.float32(dt))
@@ -273,6 +329,10 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
                             dtf, pinvs)
 
         def minv_matvec(r):
+            if vcycle is not None:
+                return vcycle(tr.cast(r, torch.float32),
+                              [st[0] for st in states],
+                              [st[1] for st in states], dtf, planes)
             z = Minv(r)
             return z, mv_jv(states[0][0], states[0][1], dtf, z)
 
@@ -281,6 +341,7 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
         return Minv
 
     build.grids = grids
+    build.vcycle = vcycle
     build.dense_coarse = dense_coarse is not None
     build.tiled_levels = [hasattr(jv, "tile_sweep") for jv in jvs]
     build.node_blocks = nb_plans

@@ -221,6 +221,7 @@ def test_launch_counters_untouched_by_plain_versions():
                                   "tile_jvp_seam", "tile_sweep", "fma_chain",
                                   "shard_sweep", "gridjvp_probe",
                                   "vcycle_descend_chain", "vcycle_ascend_chain",
-                                  "node_blocks", "tri_box", "residual_box"}
+                                  "node_blocks", "tri_box", "residual_box",
+                                  "vcycle_fused"}
     assert set(_lib.CALLS) == {"tile_sweep_loop", "descend_level",
                                "ascend_level", "descend_chain", "ascend_chain"}
