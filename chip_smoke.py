@@ -241,6 +241,23 @@ Phases, each printing its results; any failure raises (non-zero exit):
    of the split apply; per-call us of V and the split apply in turns, the
    plain version's; the bound; the cluster size, grid, registers, spills
    and co-resident clusters (``vcycle_phase``).
+31. the anisotropic bench3 (``bench3.make(anisotropy=True)``, the physics
+   "acha": the four-fold a(theta) read from the state's gradient), last
+   before the summary (``aniso_phase``): kernel W (``tri_box_acha``) at
+   350^2 ffc3 against its plain version, the gather form (``acha_jvp``,
+   ``torch.equal``, required), ``torch.func.jvp`` of the f64 residual (the
+   f32 one forms grad phi with the cancellation the kernels avoid) and a
+   rerun, with device us of both and per-call us of W / gather / plain /
+   ``torch.func.jvp``; the gather and kernel N (its "ach" kernel, to the
+   bit the isotropic plan's) at every dunavant2 level of 350/175/35/7; the
+   level steps and the two chains (``vcycle_{descend,ascend}_chain_acha``)
+   against their plain versions and sequences; then the anisotropic run at
+   350^2 over the 34 rows of ``tests/data/bench3_aniso_jax_rows.csv`` (the
+   JAX package's CPU run, ``tools/jax_bench3_aniso_rows.py``): time column
+   equal, TFE rel 1e-6, solid fraction rel 1e-5, each row's Newton count
+   that of the ``.json``, the Krylov counts printed beside it; it requires W,
+   both chains and N at those instantiations and refuses the gather, the
+   isotropic kernels and L.
 
 Phases 28, 29 and 30 run between 7 and 8, phases 20-24 after 25 and 26. The
 outer J.v and the exported A z of bench1 (4, 17), bench2 (8, 25),
@@ -301,7 +318,10 @@ depth (the launch cost cancelled). Kernel S's main shape is one shard of
 bench3 350^2 on 2 x 4, its ``launches`` those of the two dry runs; Q's is
 case a at 350^2 (``ms`` and ``plain_ms`` the whole J.v, slabs and fold),
 its ``launches`` those of the probe path (the fold counted as one more).
-The chain kernels' main shape is bench1's 100/50/25 (phase 23). Kernel N's
+The chain kernels' main shape is bench1's 100/50/25 (phase 23); the
+anisotropic instantiations' (``acha_jvp``, ``tri_box_acha`` and the
+``_acha`` chains, phase 31) bench3's 350^2 and 350/175/35/7, the gather's
+record naming W as ``comparison_of``. Kernel N's
 (``node_blocks``, a port kernel with no TPU row: its ``replaces`` names the
 JAX function it computes, and ``note`` says so) is bench2's 100^2 with the
 field-split tangent, its ``library_ms`` the ``torch.func.jvp`` build of the
@@ -453,9 +473,19 @@ def chac_tangent_ops(ne: int, split: bool) -> int:
 # AC + heat (ach_jvp.cu, F = 2, bench3): phi^2 and s = 1 - phi^2 2, dg/dU =
 # -lam s^2 2, dg/dphi = 1 - 3 phi^2 + 4 lam U phi s 6, dg 3, the two sources
 # (d/dt, the dg term, the difference) 6, the U fluxes 6, the phi fluxes 2.
+# AC + heat with the four-fold anisotropy (phys_acha.cuh, F = 2, the
+# anisotropic bench3), per point: phi^2 and s 2, g = (phi - lam U s) s 4,
+# dg/dU 2, dg/dphi 6 (lam U shared with g), dg 3, inv_tau dg + g d inv_tau
+# 3, the two sources 5; the flux terms, counted per point as "ach" counts
+# them: d theta 4, d inv_tau 3, d beta 1, the phi fluxes 10, the U fluxes 6.
 TANGENT_OPS = {2: 11, 3: 14,
                (6, "coupled"): chac_tangent_ops(4, False),
-               (6, "split"): chac_tangent_ops(4, True), "ach": 27}
+               (6, "split"): chac_tangent_ops(4, True), "ach": 27,
+               "acha": 25 + 24}
+# ACHA::tri, once per triangle: the gradient of phi 10, r^2 3, r 1, cos and
+# sin of theta 2, (cos + i sin)^m at m = 4 24, cos and sin of m (theta -
+# theta0) 6, a 2, beta 2, a''/a - beta^2 4, 1/r^2 1, inv_tau 2
+ACHA_TRI_OPS = 10 + 3 + 1 + 2 + 24 + 6 + 2 + 2 + 4 + 1 + 2
 
 
 def chac_residual_ops(ne: int) -> int:
@@ -538,18 +568,20 @@ def nodes(g) -> int:
     return (g.ny + 1) * (g.nx + 1) + g.ny * g.nx
 
 
-def jvp_work(g, F, masked=False, with_b=False, ops=None, ns=1):
+def jvp_work(g, F, masked=False, with_b=False, ops=None, ns=1, tri_ops=0):
     """(bytes, flops) of one J.v: ``ns`` state planes + F tangent planes (+
     b, mask) in, F planes out. Per triangle (4 per cell, 3 nodes each): the
-    F gradients (2 * (3 mul + 2 add) per field), and per quadrature point the
-    interpolation of the state and the F tangents (3 mul + 2 add each), the
-    tangent (``ops``, default TANGENT_OPS[F]) and the test-function
+    F gradients (2 * (3 mul + 2 add) per field) and ``tri_ops`` (a tangent
+    that reads the state's gradient: ACHA_TRI_OPS), and per quadrature point
+    the interpolation of the state and the F tangents (3 mul + 2 add each),
+    the tangent (``ops``, default TANGENT_OPS[F]) and the test-function
     contraction (3 nodes x 3 terms x mul + add per field)."""
     N, nq = nodes(g), g.tab().nq
     ops = TANGENT_OPS[F] if ops is None else ops
     byts = 4 * (ns * N + 2 * F * N + (F * N if with_b else 0)
                 + (F * (g.ny + 1) * (g.nx + 1) if masked else 0))
-    flops = g.ny * g.nx * 4 * (10 * F + nq * (5 * (ns + F) + ops + 18 * F))
+    flops = g.ny * g.nx * 4 * (10 * F + tri_ops
+                               + nq * (5 * (ns + F) + ops + 18 * F))
     return byts, flops
 
 
@@ -1297,13 +1329,15 @@ def drive(label, problem, run, required, absent=GATHER_ABSENT,
     return counts, result, wall, seconds
 
 
-def hold_rows(label, result, ref_csv, n_rows, tfe_tol=1e-6, col2_tol=1e-9):
-    """The run's rows against the first ``n_rows`` of ``ref_csv``: as many
-    rows, time column rtol 1e-9, the first observable within rel
-    ``tfe_tol`` and the second within rel ``col2_tol``."""
+def hold_rows(label, result, ref_csv, n_rows, tfe_tol=1e-6, col2_tol=1e-9,
+              ref_dir="results"):
+    """The run's rows against the first ``n_rows`` of ``ref_csv`` in
+    ``ref_dir`` (relative to the repo): as many rows, time column rtol 1e-9,
+    the first observable within rel ``tfe_tol`` and the second within rel
+    ``col2_tol``."""
     from pfhubbenchmarks_tpu_torch.io.csvout import read_csv
 
-    ref_rows, cols = read_csv(os.path.join(HERE, "results", ref_csv))
+    ref_rows, cols = read_csv(os.path.join(HERE, ref_dir, ref_csv))
     ref_rows = ref_rows[:n_rows]
     rows = result.rows
     if list(result.columns) != cols:
@@ -1316,11 +1350,11 @@ def hold_rows(label, result, ref_csv, n_rows, tfe_tol=1e-6, col2_tol=1e-9):
                            / np.abs(ref_rows[:, 1])))
     sol_rel = float(np.max(np.abs(rows[:, 2] - ref_rows[:, 2])
                            / np.abs(ref_rows[:, 2])))
-    print(f"{label}: vs results/{ref_csv} rows 1-{n_rows}: time column "
+    print(f"{label}: vs {ref_dir}/{ref_csv} rows 1-{n_rows}: time column "
           f"equal, tfe_rel={tfe_rel:.3e} (<={tfe_tol:g}), "
           f"{cols[2]}_rel={sol_rel:.3e} (<={col2_tol:g})", flush=True)
     if tfe_rel > tfe_tol or sol_rel > col2_tol:
-        raise AssertionError(f"{label}: rows disagree with results/{ref_csv}")
+        raise AssertionError(f"{label}: rows disagree with {ref_dir}/{ref_csv}")
 
 
 def run_main_path(label, runner, end_time, ref_csv, n_rows, required,
@@ -1521,6 +1555,21 @@ def kernel_records():
         # 5 with with_matvec), bench1's and bench2's apply
         "vcycle_fused": Kernel("vcycle_fused", csrc + "vcycle_fused.cuh",
                                replaces_vc),
+        # the anisotropic BM3's instantiations (phys_acha.cuh): W on its
+        # outer J.v and exported A z, the gather form (W's comparison, the
+        # chains' level J.v) and the two chains
+        "acha_jvp": Kernel("acha_jvp", csrc + "acha_jvp.cu", replaces_jv,
+                           comparison_of="tri_box_acha"),
+        "tri_box_acha": Kernel("tri_box_acha", csrc + "acha_box.cu",
+                               replaces_jv),
+        "vcycle_descend_chain_acha": Kernel(
+            "vcycle_descend_chain_acha", csrc + "vcycle_chain_acha.cu",
+            "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:652",
+            ("pfhubbenchmarks_tpu/ops/pallas_vcycle.py:566",)),
+        "vcycle_ascend_chain_acha": Kernel(
+            "vcycle_ascend_chain_acha", csrc + "vcycle_chain_acha.cu",
+            "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:798",
+            ("pfhubbenchmarks_tpu/ops/pallas_vcycle.py:939",)),
         # N: the 2D node-block-Jacobi build, a port kernel with no TPU row
         "node_blocks": Kernel(
             "node_blocks", csrc + "node_blocks.cuh",
@@ -3108,6 +3157,290 @@ def vcycle_phase(dev, K, rng):
           f"({time.perf_counter() - t30:.1f} s)", flush=True)
 
 
+# phase 31: the anisotropic bench3's gate, the JAX package's CPU run at
+# 350^2 (tools/jax_bench3_aniso_rows.py): its rows (.csv) and each row's
+# Newton and Krylov counts (.json)
+ANISO_ROWS = os.path.join("tests", "data", "bench3_aniso_jax_rows")
+
+
+def aniso_phase(dev, K, rng, paths):
+    """Phase 31: the anisotropic bench3 (``bench3.make(anisotropy=True)``,
+    the physics "acha", csrc/phys_acha.cuh). (a) At 350^2 ffc3 kernel W
+    (``tri_box_acha``) against its plain version (TOL_F32), against the
+    gather form (``acha_jvp``) with ``torch.equal`` and against itself on a
+    rerun (both required), and against ``torch.func.jvp`` of the f64
+    residual (the f32 one's distance to it printed), J.v and b - J.v; device us of W and the gather in turns,
+    per-call us of W / gather / plain / ``torch.func.jvp``, the bound,
+    registers and CTAs per SM; the distance to the isotropic W on the same
+    inputs. At each dunavant2 level of 350/175/35/7 the gather against its
+    plain version, and kernel N's "ach" instantiation (the plan of the
+    anisotropic physics) against its plain version and, to the bit, the
+    isotropic problem's plan. The level steps (a chain of one level, TPU
+    rows 6 and 9) at each pair and the two chains over the hierarchy (rows
+    7 and 8) with bench3's sweep counts: against their plain versions
+    (TOL_F32), their launch sequences (kernel L, D or H and the gather;
+    ``torch.equal`` printed) and a rerun (to the bit, required); device us
+    of kernel and sequence, per-call us of kernel / sequence / plain, the
+    bound, grid, registers and CTAs per SM. (b) The anisotropic run at
+    350^2 through ``Runner.run`` over the rows of ``ANISO_ROWS``: the time
+    column equal, TFE rel 1e-6, solid fraction rel 1e-5 and each row's
+    Newton count equal to the JAX run's; the Krylov counts printed beside
+    the JAX run's, not held. W, both chains and N must launch, and the
+    gather, the isotropic kernels and L must not."""
+    from pfhubbenchmarks_tpu_torch import timeloop
+    from pfhubbenchmarks_tpu_torch.benchmarks import bench3
+    from pfhubbenchmarks_tpu_torch.fem.assembly import make_residual
+    from pfhubbenchmarks_tpu_torch.ops import _lib
+    from pfhubbenchmarks_tpu_torch.ops import transfer as kt
+    from pfhubbenchmarks_tpu_torch.ops.vcycle_chain import (
+        make_ascend_chain, make_ascend_level, make_descend_chain,
+        make_descend_level)
+    from pfhubbenchmarks_tpu_torch.solve.gmg import build_hierarchy
+
+    t31 = time.perf_counter()
+    f32 = torch.float32
+    label = "phase 31: bench3 anisotropic"
+    pb, iso = bench3.make(anisotropy=True), bench3.make()
+    F, s, dt = pb.n_fields, pb.solver, 1.28
+    jv_kw = dict(ns=2, ops=TANGENT_OPS["acha"], tri_ops=ACHA_TRI_OPS)
+
+    def pair(g, scale=1.0):
+        return tuple(torch.tensor(scale * rng.standard_normal((F,) + sh),
+                                  dtype=f32, device=dev)
+                     for sh in (g.vshape, g.mshape))
+
+    def state(g):
+        v0, m0 = g.interpolate(pb.ic_fns)
+        return tuple((torch.tensor(a, dtype=f32, device=dev) + n).contiguous()
+                     for a, n in zip((v0, m0), pair(g, 0.01)))
+
+    def flat(out):
+        if isinstance(out, tuple) and len(out) == 3:   # (xs, bs, bc)
+            out = out[0] + out[1] + [out[2]]
+        elif isinstance(out, tuple) and len(out) == 2 and isinstance(
+                out[0], tuple):                          # (x, bc)
+            out = list(out)
+        else:
+            out = [out]
+        return [t.clone() for p in out for t in p]
+
+    # (a) W and the gather at 350^2 ffc3, the outer J.v
+    g = pb.grid
+    w, v, b = state(g), pair(g), pair(g)
+    jv = pb.kernel_jvp(g, dev, form="box")
+    gather = jv.gather
+    res = make_residual(g, pb.terms, F, device=dev, dtype=f32)
+    res64 = make_residual(g, pb.terms, F, device=dev, dtype=torch.float64)
+    w64, v64 = (tuple(t.double() for t in p) for p in (w, v))
+
+    def library():
+        return torch.func.jvp(lambda u: res(u, w, dt), (w,), (v,))[1]
+
+    # the reference: torch.func.jvp of the f64 residual. The f32 one forms
+    # grad phi as a sum of slot values near -1 and the rotation flux reads
+    # it through 1/|grad phi|, so it lies over 100x farther from the f64 J.v
+    # than the kernels, which form grad phi from differences (state_grad)
+    ref64 = tuple(t.float() for t in torch.func.jvp(
+        lambda u: res64(u, w64, dt), (w64,), (v64,))[1])
+
+    got = jv.kernel(w, w, dt, v) + jv.kernel(w, w, dt, v, b=b)
+    again = jv.kernel(w, w, dt, v) + jv.kernel(w, w, dt, v, b=b)
+    ref_g = gather.kernel(w, w, dt, v) + gather.kernel(w, w, dt, v, b=b)
+    fns = {"W": lambda: jv.kernel(w, w, dt, v),
+           "gather": lambda: gather.kernel(w, w, dt, v)}
+    per = interleaved_ms(fns)
+    p_ms = cuda_ms(lambda: jv.plain(w, w, dt, v), reps=10)
+    lib_ms = cuda_ms(library, reps=10)
+    rounds = [{k: device_ms(fn) for k, fn in fns.items()} for _ in range(2)]
+    dev_us = {k: statistics.mean(r[k] for r in rounds) * 1e3 for k in fns}
+    work = jvp_work(g, F, **jv_kw)
+    lab = "350x350 ffc3"
+    K["tri_box_acha"].check(f"{lab} Jv", got[:2], jv.plain(w, w, dt, v),
+                            TOL_F32, (per["W"], p_ms), work,
+                            library_ms=lib_ms, dev_ms=dev_us["W"] * 1e-3)
+    K["tri_box_acha"].check(f"{lab} b-Jv", got[2:],
+                            jv.plain(w, w, dt, v, b=b), TOL_F32)
+    K["tri_box_acha"].check(f"{lab} Jv vs torch.func.jvp of the f64 residual",
+                            got[:2], ref64, TOL_F32)
+    d_lib = max(float((x - y).abs().max()) for x, y in zip(library(), ref64))
+    d_w = max(float((x - y).abs().max()) for x, y in zip(got[:2], ref64))
+    K["acha_jvp"].check(f"{lab} Jv", ref_g[:2], jv.plain(w, w, dt, v), TOL_F32,
+                        (per["gather"], p_ms), work, library_ms=lib_ms,
+                        dev_ms=dev_us["gather"] * 1e-3)
+    K["acha_jvp"].check(f"{lab} b-Jv", ref_g[2:], jv.plain(w, w, dt, v, b=b),
+                        TOL_F32)
+    bits = all(torch.equal(x, y) for x, y in zip(got, ref_g))
+    rerun = all(torch.equal(x, y) for x, y in zip(got, again))
+    iso_w = iso.kernel_jvp(g, dev, form="box").kernel(w, w, dt, v)
+    scale = max(float(t.abs().max()) for t in got[:2])
+    d_iso = max(float((x - y).abs().max()) for x, y in zip(got[:2], iso_w))
+    info_w = jv.plan.info()
+    info_g = _lib.library().kernel_info("pfh_acha_jvp_info", 4)
+    b_ms, b_by = bound(work)
+    print(f"{label}: kernel W {lab}: vs the gather (J.v and b - J.v) "
+          f"{'bit-identical' if bits else 'DIFFERS'}, rerun "
+          f"{'bit-identical' if rerun else 'DIFFERS'}; device us W "
+          f"{dev_us['W']:.2f}, gather {dev_us['gather']:.2f} (rounds "
+          f"{[{k: round(x * 1e3, 2) for k, x in r.items()} for r in rounds]})"
+          f"; per call W / gather / plain / torch.func.jvp "
+          f"{per['W'] * 1e3:.1f} / {per['gather'] * 1e3:.1f} / "
+          f"{p_ms * 1e3:.1f} / {lib_ms * 1e3:.1f} us; bound "
+          f"{b_ms * 1e3:.3f} us ({b_by}); W {info_w['registers']} registers, "
+          f"{info_w['local_bytes']} local bytes, {info_w['ctas_per_sm']} CTAs "
+          f"per SM; the gather {info_g['registers']} registers, "
+          f"{info_g['local_bytes']} local bytes, {info_g['ctas_per_sm']} CTAs "
+          f"per SM; the isotropic W lies {d_iso:.3e} away ({d_iso / scale:.3e} "
+          f"of max|Jv|); from torch.func.jvp of the f64 residual W lies "
+          f"{d_w:.3e}, torch.func.jvp of the f32 residual {d_lib:.3e}",
+          flush=True)
+    if not (bits and rerun):
+        raise AssertionError(f"{label}: W differs from the gather or from "
+                             "itself on a rerun")
+
+    # the gather and kernel N at every dunavant2 level
+    grids = [dataclasses.replace(gg, rule_name=s.precond_rule)
+             for gg in build_hierarchy(pb.grid, min_cells=s.gmg_min_cells)]
+    assert [gg.nx for gg in grids] == [350, 175, 35, 7]
+    ws, pinvs, jvs = [], [], []
+    wl = state(grids[0])
+    for l, gl in enumerate(grids):
+        jvl = pb.kernel_jvp(gl, dev)
+        jvs.append(jvl)
+        vl, bl = pair(gl), pair(gl)
+        labl = f"dunavant2 {gl.ny}x{gl.nx}"
+        K["acha_jvp"].check(f"{labl} Jv", jvl.kernel(wl, wl, dt, vl),
+                            jvl.plain(wl, wl, dt, vl), TOL_F32)
+        K["acha_jvp"].check(f"{labl} b-Jv", jvl.kernel(wl, wl, dt, vl, b=bl),
+                            jvl.plain(wl, wl, dt, vl, b=bl), TOL_F32)
+        plan = node_plan(pb, gl, dev)
+        if plan._symbol != "pfh_node_blocks_ach":
+            raise AssertionError(f"{label}: kernel N's plan is {plan._symbol}")
+        pn = plan.kernel(wl, wl, dt)
+        K["node_blocks"].check(f"bench3 anisotropic {labl}", pn,
+                               plan.plain(wl, wl, dt), TOL_F32)
+        same = all(torch.equal(x, y) for x, y in
+                   zip(pn, node_plan(iso, gl, dev).kernel(wl, wl, dt)))
+        print(f"{label}: kernel N {labl}: the anisotropic plan launches "
+              f"{plan._symbol}, its planes "
+              f"{'bit-identical to' if same else 'DIFFER from'} the isotropic "
+              f"plan's", flush=True)
+        if not same:
+            raise AssertionError(f"{label}: kernel N's planes differ")
+        ws.append(wl)
+        pinvs.append(pn)
+        if l + 1 < len(grids):
+            wl = kt.inject(wl, grids[l + 1], gl)
+
+    # the level steps at each pair, then the chains over the hierarchy
+    nud = dict(nu=s.gmg_nu_pre, nu_fine=s.gmg_nu_fine_pre or s.gmg_nu_pre)
+    nua = dict(nu=s.gmg_nu_post, nu_fine=s.gmg_nu_fine_post or s.gmg_nu_post)
+    nc = len(grids) - 1
+    for l in range(nc):
+        fine, coarse = grids[l], grids[l + 1]
+        nu_d = nud["nu_fine"] if l == 0 else nud["nu"]
+        nu_a = nua["nu_fine"] if l == 0 else nua["nu"]
+        d = make_descend_level(fine, coarse, jvs[l], nu=nu_d)
+        a = make_ascend_level(fine, coarse, jvs[l], nu=nu_a)
+        bb, xc = pair(fine), pair(coarse)
+        dargs = (bb, ws[l], ws[l], dt, pinvs[l])
+        xp, _ = d.plain(*dargs)
+        aargs = (bb, xp, xc, ws[l], ws[l], dt, pinvs[l])
+        for step, args, nu, up in ((d, dargs, nu_d, False),
+                                   (a, aargs, nu_a, True)):
+            rec = K[step.plan.kernel_name]
+            kout, kagain = flat(step.kernel(*args)), flat(step.kernel(*args))
+            seq = flat(step.sequence(*args))
+            rec.check(f"level step {fine.nx}{'<-' if up else '->'}"
+                      f"{coarse.nx} nu={nu}", kout, flat(step.plain(*args)),
+                      TOL_F32)
+            same = all(torch.equal(x, y) for x, y in zip(kout, seq))
+            again_ok = all(torch.equal(x, y) for x, y in zip(kout, kagain))
+            print(f"{label}: level step {fine.nx}{'<-' if up else '->'}"
+                  f"{coarse.nx} nu={nu}: vs its sequence "
+                  f"{'bit-identical' if same else 'DIFFERS'}, rerun "
+                  f"{'bit-identical' if again_ok else 'DIFFERS'}", flush=True)
+            if not again_ok:
+                raise AssertionError(f"{label}: a level step's rerun differs")
+    desc = make_descend_chain(grids, jvs, **nud)
+    asc = make_ascend_chain(grids, jvs, **nua)
+    b0, xc = pair(grids[0]), pair(grids[-1])
+    dargs = (b0, ws[:nc], ws[:nc], dt, pinvs[:nc])
+    xs_s, bs_s, _ = desc.sequence(*dargs)
+    aargs = ([b0] + bs_s, xs_s, xc, ws[:nc], ws[:nc], dt, pinvs[:nc])
+    for chain, args, nus, up in ((desc, dargs, nud, False),
+                                 (asc, aargs, nua, True)):
+        rec = K[chain.plan.kernel_name]
+        kout, kagain = flat(chain.kernel(*args)), flat(chain.kernel(*args))
+        seq, ref = flat(chain.sequence(*args)), flat(chain.plain(*args))
+        if any(not torch.equal(x, y) for x, y in zip(kout, kagain)):
+            raise AssertionError(f"{rec.name}: a rerun changed the bits")
+        d_seq = max(float((x - y).abs().max()) for x, y in zip(kout, seq))
+        k_dev = device_ms(lambda: chain.kernel(*args))
+        s_dev = device_ms(lambda: chain.sequence(*args))
+        per_c = interleaved_ms({"kernel": lambda: chain.kernel(*args),
+                                "sequence": lambda: chain.sequence(*args)})
+        pc_ms = once_ms(lambda: chain.plain(*args))
+        cwork = chain_work(grids, F, nus["nu"], nus["nu_fine"], ascend=up,
+                           jv_kw=jv_kw, masked=False)
+        cb_ms, cb_by = bound(cwork)
+        info = chain.plan.info()
+        print(f"{label}: {rec.name} 350/175/35/7 nu={nus['nu_fine']}/"
+              f"{nus['nu']}: grid {chain.plan.grid} CTAs "
+              f"({info['ctas_per_sm']} per SM), {info['registers']} registers, "
+              f"{info['local_bytes']} local bytes; device {k_dev * 1e3:.2f} us "
+              f"vs the sequence's {s_dev * 1e3:.2f}; per call kernel / plain / "
+              f"sequence {per_c['kernel'] * 1e3:.1f} / {pc_ms * 1e3:.1f} / "
+              f"{per_c['sequence'] * 1e3:.1f} us; bound {cb_ms * 1e3:.3f} us "
+              f"({cb_by}); vs the sequence max abs diff {d_seq:.3e}"
+              f"{' (bit-identical)' if d_seq == 0.0 else ''}; rerun "
+              f"bit-identical", flush=True)
+        rec.check("bench3 anisotropic 350/175/35/7", kout, ref, TOL_F32,
+                  (per_c["kernel"], pc_ms), cwork, dev_ms=k_dev, main=True)
+        rec.check("bench3 anisotropic 350/175/35/7 vs the sequence", kout, seq,
+                  TOL_F32)
+    torch.cuda.synchronize()
+    print(f"{label}: kernels W, the gather, N and the chains agree with "
+          f"their plain versions ({time.perf_counter() - t31:.1f} s)",
+          flush=True)
+
+    # (b) the anisotropic run at 350^2 against the JAX package's rows
+    with open(os.path.join(HERE, ANISO_ROWS + ".json")) as f:
+        gate = json.load(f)
+    n_rows = len(gate["newton_iters"])
+    runner = timeloop.Runner(pb, dev)
+    build = runner.problem.precond_builder(dev)
+    if not build.dense_coarse:
+        raise AssertionError(f"{label}: the coarsest solve is not the dense "
+                             "inverse")
+    counts, result, wall, _ = drive(
+        label, pb, lambda: runner.run(max_steps=n_rows, verbose=True),
+        ("tri_box_acha", "transfer_dyadic", "vcycle_descend_chain_acha",
+         "vcycle_ascend_chain_acha", "node_blocks"),
+        absent=GATHER_ABSENT + ("acha_jvp", "ach_jvp", "tri_box",
+                                "vcycle_descend_chain", "vcycle_ascend_chain",
+                                "lmr_sweep"),
+        max_calls=MAX_CALLS_PER_APPLY["bench3"])
+    paths["bench3_aniso"] = counts
+    newton = [st.newton_iters for st in result.stats]
+    krylov = [st.krylov_iters for st in result.stats]
+    n_same = sum(a == b for a, b in zip(newton, gate["newton_iters"]))
+    print(f"{label}: {len(newton)} rows to t={result.rows[-1, 0]:.6g}, wall "
+          f"{wall:.3f} s on {smi_line()}; newton per row {newton} against the "
+          f"JAX run's {gate['newton_iters']} ({n_same} of {n_rows} equal); "
+          f"krylov per row {krylov} (sum {sum(krylov)}) against the JAX run's "
+          f"{gate['krylov_iters']} (sum {sum(gate['krylov_iters'])}; not "
+          f"held)", flush=True)
+    hold_rows(label, result, os.path.basename(ANISO_ROWS) + ".csv", n_rows,
+              tfe_tol=1e-6, col2_tol=1e-5,
+              ref_dir=os.path.dirname(ANISO_ROWS))
+    if newton != gate["newton_iters"]:
+        raise AssertionError(f"{label}: Newton counts differ from the JAX "
+                             "run's")
+    print(f"{label}: the run holds the JAX package's {n_rows} rows and Newton "
+          f"counts ({time.perf_counter() - t31:.1f} s for the phase)",
+          flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- phase 1: the card --------------------------------------------
@@ -3694,6 +4027,7 @@ def main() -> None:
     gridjvp_phase(dev, K, paths)
     sweep_loop_phase(dev, K, rng)
     chain_phase(dev, K, rng)
+    aniso_phase(dev, K, rng, paths)
 
     # ---- phase 27: summary -----------------------------------------------
     print(smi, flush=True)

@@ -59,6 +59,13 @@ __device__ __forceinline__ void slot_contrib(const JvpParams& P,
         gy[f] += P.Gs[t][s][1] * d[f][s];
       }
     }
+    // the triangle's coefficients from the state's gradient, once
+    [[maybe_unused]] typename TriOf<Phys>::type tri;
+    if constexpr (kReadsStateGrad<Phys>) {
+      float ugx[NS], ugy[NS];
+      state_grad<NS>(P, t, wc, ugx, ugy);
+      tri = Phys::tri(P, ugx, ugy);
+    }
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
       float u[NS], dq[NF];
@@ -74,7 +81,10 @@ __device__ __forceinline__ void slot_contrib(const JvpParams& P,
         for (int f = 0; f < NF; ++f) dq[f] += P.Bq[t][q][s] * d[f][s];
       }
       float src[NF], fx[NF], fy[NF];
-      Phys::tangent(P, u, dq, gx, gy, src, fx, fy);
+      if constexpr (kReadsStateGrad<Phys>)
+        Phys::tangent(P, u, tri, dq, gx, gy, src, fx, fy);
+      else
+        Phys::tangent(P, u, dq, gx, gy, src, fx, fy);
 #pragma unroll
       for (int f = 0; f < NF; ++f)
         acc[f] += P.WB[t][q][S] * src[f] + P.WGx[t][q][S] * fx[f]

@@ -134,6 +134,12 @@ __device__ __forceinline__ void tri_terms(const JvpParams& P,
       gy[f] += P.Gs[T][s][1] * d[f][s];
     }
   }
+  [[maybe_unused]] typename TriOf<Phys>::type tri;
+  if constexpr (kReadsStateGrad<Phys>) {
+    float ugx[NS], ugy[NS];
+    state_grad<NS>(P, T, wc, ugx, ugy);
+    tri = Phys::tri(P, ugx, ugy);
+  }
 #pragma unroll
   for (int q = 0; q < NQ; ++q) {
     if (q / kQPer != qg) continue;
@@ -150,7 +156,10 @@ __device__ __forceinline__ void tri_terms(const JvpParams& P,
       for (int f = 0; f < NF; ++f) dq[f] += P.Bq[T][q][s] * d[f][s];
     }
     float src[NF], fx[NF], fy[NF];
-    Phys::tangent(P, u, dq, gx, gy, src, fx, fy);
+    if constexpr (kReadsStateGrad<Phys>)
+      Phys::tangent(P, u, tri, dq, gx, gy, src, fx, fy);
+    else
+      Phys::tangent(P, u, dq, gx, gy, src, fx, fy);
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       const int S = j < 2 ? tri_vslot(T, j) : 4;

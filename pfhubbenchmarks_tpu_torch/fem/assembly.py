@@ -75,11 +75,19 @@ class QPContext:
     dt: torch.Tensor | float | None
 
 
-def _eval_qp(Bq, Gs, loc):
-    """loc [5, F, ny, nx] -> (u_q [F, 4, nq, ny, nx], du [F, 2, 4, 1, ny, nx])."""
+def _eval_qp(Bq, Gs, loc, centred=False):
+    """loc [5, F, ny, nx] -> (u_q [F, 4, nq, ny, nx], du [F, 2, 4, 1, ny, nx]).
+    ``centred``: the gradients from the slots' differences to the centre
+    (slot 4, in every triangle), as the kernels form the state's gradient
+    (csrc/fem_params.cuh ``state_grad``): the same function, since a
+    triangle's basis gradients sum to zero, without the cancellation of
+    slot values near each other."""
     uq = torch.einsum("tqs,sfyx->ftqyx", Bq, loc)
-    du = torch.einsum("tsd,sfyx->fdtyx", Gs, loc)[:, :, :, None]
-    return uq, du
+    if centred:
+        du = torch.einsum("tsd,sfyx->fdtyx", Gs[:, :4], loc[:4] - loc[4:5])
+    else:
+        du = torch.einsum("tsd,sfyx->fdtyx", Gs, loc)
+    return uq, du[:, :, :, None]
 
 
 def _as_tuples(uq, du):
@@ -155,8 +163,9 @@ def make_residual(
     return residual
 
 
-def _context(T: "TabTensors", grid: CrossedTriGrid, w, w0, dt) -> QPContext:
-    uq, du = _eval_qp(T.Bq, T.Gs, local_values(w, grid.ny, grid.nx))
+def _context(T: "TabTensors", grid: CrossedTriGrid, w, w0, dt,
+             centred=False) -> QPContext:
+    uq, du = _eval_qp(T.Bq, T.Gs, local_values(w, grid.ny, grid.nx), centred)
     u_t, du_t = _as_tuples(uq, du)
     if w0 is None:
         return QPContext(u=u_t, du=du_t, u0=None, du0=None, dt=dt)
@@ -192,12 +201,14 @@ def make_tangent_jvp(grid: CrossedTriGrid, tangent, *,
     flux)`` (``tctx`` holds v and its gradients at the quadrature points):
     the same function as ``torch.func.jvp`` of the residual, without forward
     AD. The rows of each ``DirichletBC`` are identity rows (the tangent of
-    ``u - g``)."""
+    ``u - g``). The state's gradient, which only a tangent that reads it
+    (the anisotropic BM3's) uses, is formed as the kernels form it
+    (``_eval_qp(centred=True)``)."""
     _check_grid(grid, False)
     T = TabTensors.make(grid, dtype, device)
 
     def jv(w, w0, dt, v):
-        rv, rm = _assemble(T, grid, tangent(_context(T, grid, w, w0, dt),
+        rv, rm = _assemble(T, grid, tangent(_context(T, grid, w, w0, dt, True),
                                             _context(T, grid, v, None, None)))
         for bc in dirichlet:
             rv = bc.put_rows(rv, bc.rows(v[0]))

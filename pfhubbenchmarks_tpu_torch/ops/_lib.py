@@ -46,8 +46,14 @@ KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp", "ch3d_jvp",
            "transfer_general", "residual", "tile_jvp_recompute",
            "tile_jvp_seam", "tile_sweep", "fma_chain", "shard_sweep",
            "gridjvp_probe", "vcycle_descend_chain", "vcycle_ascend_chain",
-           "node_blocks", "tri_box", "residual_box", "vcycle_fused")
+           "node_blocks", "tri_box", "residual_box", "vcycle_fused",
+           # the anisotropic BM3's instantiations, counted apart
+           "acha_jvp", "tri_box_acha", "vcycle_descend_chain_acha",
+           "vcycle_ascend_chain_acha")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+# the physics whose launches are counted under their own names,
+# ``<kernel>_<kind>`` (the anisotropic BM3's W and chains)
+COUNTED_APART = ("acha",)
 # launch sequences of the kernels that stand for one TPU kernel each
 CHAINS = ("tile_sweep_loop", "descend_level", "ascend_level",
           "descend_chain", "ascend_chain")
@@ -67,6 +73,11 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, CALLS, SECONDS):
         for k in counts:
             counts[k] = type(counts[k])(0)
+
+
+def counter(name: str, kind: str) -> str:
+    """The launch counter of kernel ``name`` at the physics ``kind``."""
+    return f"{name}_{kind}" if kind in COUNTED_APART else name
 
 
 def count_launch(name: str) -> None:
@@ -130,6 +141,7 @@ class KernelLibrary:
             "pfh_chp_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
             "pfh_chac_jvp": [vp, i32, i32, i32] + [vp] * 9 + [i32, i32, vp],
             "pfh_ach_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
+            "pfh_acha_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
             "pfh_jvp_param_floats": [],
             "pfh_ch3d_jvp": [vp, i32] + [vp] * 4 + [i32] * 3 + [vp],
             "pfh_ch3d_tile": [vp, i32] + [vp] * 4 + [i32] * 3 + [vp],
@@ -138,6 +150,7 @@ class KernelLibrary:
             "pfh_ch3d_jvp_info": [i32, ip],
             "pfh_lmr_loop_ch3d_info": [i32, ip],
             "pfh_ach_jvp_info": [i32, ip],
+            "pfh_acha_jvp_info": [i32, ip],
             "pfh_ach_tile_info": [i32, i32, ip],
             "pfh_block_jacobi_apply": [vp] * 6 + [i32, i64, i64, i32, vp, vp],
             "pfh_lmr_step": [vp] * 8 + [i64, i64, i32, i32, vp, vp, i32, vp,
@@ -149,6 +162,7 @@ class KernelLibrary:
             "pfh_lmr_loop_ch": [vp, i32] + loop2,
             "pfh_lmr_loop_chp": [vp, i32] + loop2,
             "pfh_lmr_loop_ach": [vp, i32] + loop2,
+            "pfh_lmr_loop_acha": [vp, i32] + loop2,
             "pfh_lmr_loop_chac": [vp, i32, i32, i32] + loop2,
             "pfh_lmr_loop_ch3d": [vp, i32] + [vp] * 6 + [
                 vp, i32, i32, vp, i32, i32, i32, i32, i32, ip, vp],
@@ -176,10 +190,12 @@ class KernelLibrary:
             "pfh_vcycle_chain_ch": chain,
             "pfh_vcycle_chain_chp": chain,
             "pfh_vcycle_chain_ach": chain,
+            "pfh_vcycle_chain_acha": chain,
             "pfh_vcycle_chain_chac": chain[:2] + [i32, i32] + chain[2:],
             "pfh_vcycle_chain_ch_info": [i32, i32, ip],
             "pfh_vcycle_chain_chp_info": [i32, i32, ip],
             "pfh_vcycle_chain_ach_info": [i32, i32, ip],
+            "pfh_vcycle_chain_acha_info": [i32, i32, ip],
             "pfh_vcycle_chain_chac_info": [i32, i32, i32, i32, ip],
             "pfh_vcycle_fused_ch": fused,
             "pfh_vcycle_fused_chac": fused[:2] + [i32] + fused[2:],
@@ -198,9 +214,11 @@ class KernelLibrary:
             "pfh_chac_box": [vp, i32, i32, i32, i32] + [vp] * 8 + [i32, i32,
                                                                 vp],
             "pfh_ach_box": [vp, i32, i32, i32] + [vp] * 8 + [i32, i32, vp],
+            "pfh_acha_box": [vp, i32, i32, i32] + [vp] * 8 + [i32, i32, vp],
             "pfh_ch_box": [vp, i32, i32, i32] + [vp] * 8 + [i32, i32, vp],
             "pfh_chac_box_info": [i32, ip],
             "pfh_ach_box_info": [ip],
+            "pfh_acha_box_info": [ip],
             "pfh_ch_box_info": [ip],
             # the residual box: params, nq (, ne), the box, the eight planes
             # (w, w0, mask, g, out), the grid's cells, the stream

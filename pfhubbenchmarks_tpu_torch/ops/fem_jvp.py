@@ -40,7 +40,8 @@ MAX_CONST = 12
 class KernelPhys:
     """A benchmark's physics as the gather kernels outside its own J.v
     take it (kernel S, ops/shard_sweep.py; kernel Q, ops/gridjvp.py):
-    ``kind`` the instantiation ("ch" BM1, "ach" BM3), ``tangent`` the
+    ``kind`` the instantiation ("ch" BM1, "ach" BM3, "acha" the anisotropic
+    BM3, which S and Q refuse), ``tangent`` the
     hand-written pointwise tangent (the plain version; ``Phys::tangent``
     mirrors it), ``constants`` the physics constants in the kernel's order
     (ops/ch_jvp.CONSTANTS, ops/ach_jvp.CONSTANTS)."""
@@ -54,8 +55,8 @@ class KernelPhys:
 class GatherLaunch:
     """What a gather J.v's launcher receives besides its operands and dt,
     as ``jv.launch`` carries it to kernel L (ops/lmr.py), which runs the
-    same body: ``kind`` the physics ("ch", "chp", "chac", "ach"; "ch3d" in
-    3D), ``head`` the parameter block without dt (tabulation, then the
+    same body: ``kind`` the physics ("ch", "chp", "chac", "ach", "acha";
+    "ch3d" in 3D), ``head`` the parameter block without dt (tabulation, then the
     constants), ``nq`` the rule's point count, ``variant`` the int arguments
     after it (kernel F's field count and operator), ``mask`` the Dirichlet
     vertex mask or None, ``dims`` the grid's cells ((ny, nx) or (nz, ny,

@@ -61,6 +61,9 @@ def make_gridjvp(grid: CrossedTriGrid, phys: KernelPhys, *, device: torch.device
     "ach": Q's tangent is BM3's). ``slabs`` is ``[2, nb (br + 1), nx + 1]``.
     ``q.jv`` is both, ``(Jz_v, Jz_m)``; ``q.plain``, ``q.kernel``,
     ``q.fold.plain`` and ``q.fold.kernel`` the versions."""
+    if phys.kind == "acha":
+        raise NotImplementedError("kernel Q at the anisotropic BM3's physics "
+                                  "is not yet ported")
     if phys.kind != "ach":
         raise ValueError(f"kernel Q has BM3's physics only, not {phys.kind!r}")
     if grid.periodic or grid.pad_to != (1, 1):

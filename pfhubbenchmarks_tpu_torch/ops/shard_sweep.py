@@ -39,6 +39,9 @@ def make_shard_sweep(slab: CrossedTriGrid, phys: KernelPhys, n_fields: int, *,
     ``[F, by+1, bx+1]``; ``pinv`` ``[F, F, ., .]``), ``mask`` the cell mask
     ``[by+1, bx+1]``; ``z`` and ``Az`` are pairs of owned windows
     ``[F, by, bx]``. ``s.plain`` and ``s.kernel`` are the two versions."""
+    if phys.kind == "acha":
+        raise NotImplementedError("kernel S at the anisotropic BM3's physics "
+                                  "is not yet ported")
     if phys.kind not in SYMBOLS:
         raise ValueError(f"kernel S has no {phys.kind!r} instantiation")
     if slab.periodic or slab.pad_to != (1, 1):

@@ -1,6 +1,6 @@
 """Kernel W (``csrc/fem_tri_box.cuh``; ``csrc/ch_box.cu`` at BM1's physics,
 ``csrc/chac_box.cu`` at BM2's coupled physics, ``csrc/ach_box.cu`` at
-BM3's): the crossed-P1 J.v over shared-memory triangle boxes, each
+BM3's, ``csrc/acha_box.cu`` at the anisotropic BM3's): the crossed-P1 J.v over shared-memory triangle boxes, each
 triangle's quadrature-point tangent evaluated once, every node summed in
 the gather's order.
 
@@ -24,7 +24,8 @@ operator; a plan refuses anything else when it is made.
 gather J.v ``gather`` (ops/fem_jvp.make_fem_jvp): ``jv.plain`` is the
 gather's plain version (the benchmark's hand-written tangent assembled in
 f32), taken for CPU tensors only; a CUDA tensor launches W, and nothing
-falls back. ``jv.gather`` is the gather J.v, W's comparison.
+falls back. ``jv.gather`` is the gather J.v, W's comparison. W counts its
+launches as ``tri_box``, at the anisotropic BM3 as ``tri_box_acha``.
 """
 
 from __future__ import annotations
@@ -37,9 +38,10 @@ from pfhubbenchmarks_tpu_torch.ops.fem_jvp import GatherLaunch
 
 NAME = "tri_box"
 # Kernel W's box per physics: owned vertex rows and columns (csrc/ch_box.cu
-# ChBox, csrc/chac_box.cu ChacBox, csrc/ach_box.cu AchBox;
-# tests/test_torch_tri_box.py holds them equal)
-TRI_BOX = {"ch": (7, 7), "chac": (7, 7), "ach": (7, 15)}
+# ChBox, csrc/chac_box.cu ChacBox, csrc/ach_box.cu AchBox, csrc/acha_box.cu
+# AchaBox; tests/test_torch_tri_box.py and tests/test_torch_bench3_aniso.py
+# hold them equal)
+TRI_BOX = {"ch": (7, 7), "chac": (7, 7), "ach": (7, 15), "acha": (7, 15)}
 RULE_POINTS = 4
 
 
@@ -97,6 +99,7 @@ class TriBoxPlan:
         self.boxes = tri_boxes(launch.kind, *launch.dims)
         self.variant = variant
         self.symbol = f"pfh_{launch.kind}_box"
+        self.name = _lib.counter(NAME, launch.kind)
         F = launch.n_fields
         ny, nx = launch.dims
         self.shapes = ((F, ny + 1, nx + 1), (F, ny, nx))
@@ -116,9 +119,9 @@ class TriBoxPlan:
     def __call__(self, w, v, dt, b=None):
         """``J(w, dt) v``, or ``b - J v``, by one launch of W."""
         ts = [*w, *v] + ([*b] if b is not None else [])
-        _lib.check_cuda(NAME, ts)
+        _lib.check_cuda(self.name, ts)
         for pair in (w, v) if b is None else (w, v, b):
-            _lib.check_shapes(NAME, pair, *self.shapes)
+            _lib.check_shapes(self.name, pair, *self.shapes)
         fn = self._fn or self._bind()
         out = (torch.empty_like(v[0]), torch.empty_like(v[1]))
         self.params[-1] = dt
@@ -130,7 +133,7 @@ class TriBoxPlan:
                  *self.dims, _lib.stream_handle())
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
-        _lib.count_launch(NAME)
+        _lib.count_launch(self.name)
         return out
 
     def info(self) -> dict:

@@ -33,7 +33,9 @@ Each step and chain has three versions:
 - ``.kernel``: one launch of the chain kernel over all of its levels (a
   level step is a chain of one level), through a ``ChainPlan`` built with
   it; counted as one ``vcycle_descend_chain`` or ``vcycle_ascend_chain``
-  launch in ``_lib.LAUNCHES``. It needs every level to be a gather level
+  launch in ``_lib.LAUNCHES`` (at the anisotropic BM3's physics "acha" as
+  ``vcycle_descend_chain_acha`` or ``vcycle_ascend_chain_acha``). It needs
+  every level to be a gather level
   (a J.v with ``jv.launch``, ops/fem_jvp.GatherLaunch), all of one physics
   and point count.
 - ``.sequence``: the launch sequence per level of the sweep loop (kernel L,
@@ -72,7 +74,7 @@ from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
 from pfhubbenchmarks_tpu_torch.ops import _lib, lmr
 from pfhubbenchmarks_tpu_torch.ops import transfer as kt
 
-_KINDS = ("ch", "chp", "chac", "ach")   # the physics the chain kernels take
+_KINDS = ("ch", "chp", "chac", "ach", "acha")   # the physics the chain kernels take
 _N_PTRS = 21                            # pfh_vcycle_chain_pack's pointers
 
 
@@ -191,8 +193,9 @@ class ChainPlan:
         self.n_fields = F
         self.n_groups = 1 if starts is None else len(starts) - 1
         self.symbol = "pfh_vcycle_chain_" + first.kind
-        self.kernel_name = ("vcycle_ascend_chain" if ascend
-                            else "vcycle_descend_chain")
+        self.kernel_name = _lib.counter(
+            "vcycle_ascend_chain" if ascend else "vcycle_descend_chain",
+            first.kind)
         # the most CTAs any phase of any level can use: its nodes, its
         # slots, its transfer's (field, output node) pairs
         # (a CTA is kernel L's, csrc/lmr_loop.cuh kLoopThreads)

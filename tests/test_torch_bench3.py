@@ -7,8 +7,9 @@
 - kernel G's plain version (``ach_jvp``) against ``make_pallas_jvp`` in
   interpret mode, both rules (ffc3, dunavant2), both forms, at 16^2;
 - block-Jacobi planes against the JAX package's (f32 tolerance);
-- the parameters and configs carry over; ``anisotropy=True`` raises "not
-  yet ported"; the host loop stops on ``abort_condition``, keeping the row.
+- the parameters and configs carry over; the host loop stops on
+  ``abort_condition``, keeping the row. (The anisotropic form:
+  tests/test_torch_bench3_aniso.py.)
 
 f32 tolerances are those of tests/test_pallas_vcycle.py (rtol 2e-4,
 atol 2e-5): the two sides sum in different orders.
@@ -169,11 +170,6 @@ def test_configs_and_params_carry_over():
     build = pt.precond_builder("cpu")
     assert [g.nx for g in build.grids] == [350, 175, 35, 7]
     assert build.dense_coarse   # 2 (8^2 + 7^2) = 226 dofs <= 1500
-
-
-def test_anisotropy_raises():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_torch(nx=14, ny=14, anisotropy=True)
 
 
 def test_host_loop_stops_on_abort_condition():

@@ -6,7 +6,8 @@ package, on seeded numpy inputs:
   ``make_fused_descend`` (TPU kernel 6) and ``make_fused_ascend`` (kernel 9)
   in interpret mode, at bench3's physics with the dunavant2 rule and its
   sweep counts (1 fine pre-sweep, 3 post-sweeps), on a dyadic pair (14 ->
-  7, kernel D's transfers) and a ratio-5 pair (35 -> 7, kernel H's);
+  7, kernel D's transfers) and a ratio-5 pair (35 -> 7, kernel H's); and
+  the anisotropic bench3's (``anisotropy=True``) on the dyadic pair;
 - the port's V-cycle for bench3 at 70^2 (levels 70/35/7, ratios 2 and 5,
   the exact dense 7^2 coarse: 226 dofs) against the JAX package's XLA
   ``make_gmg(use_pallas=False)``, z and the exported A z;
@@ -63,9 +64,11 @@ def _state(g, seed):
                  for a in (v, m))
 
 
-@pytest.mark.parametrize("nf,nc", [(14, 7), (35, 7)])
-def test_level_steps_match_pallas_level_kernels(nf, nc):
-    pj, pt = make_jax(nx=nf, ny=nf), make_torch(nx=nf, ny=nf)
+def _level_steps_vs_pallas(nf, nc, **kw):
+    """The level steps of bench3 (``kw``: its options) on (nf -> nc)
+    against ``make_fused_descend`` / ``make_fused_ascend`` in interpret
+    mode."""
+    pj, pt = make_jax(nx=nf, ny=nf, **kw), make_torch(nx=nf, ny=nf, **kw)
     jfine = dataclasses.replace(pj.grid, rule_name="dunavant2")
     jcoarse = dataclasses.replace(jfine, nx=nc, ny=nc)
     tfine = dataclasses.replace(pt.grid, rule_name="dunavant2")
@@ -101,6 +104,18 @@ def test_level_steps_match_pallas_level_kernels(nf, nc):
         assert tuple(got[0].shape) == tuple(ref[0].shape)
         for a, r in zip(state_to_numpy(got), ref):
             np.testing.assert_allclose(a, np.asarray(r), **F32)
+
+
+@pytest.mark.parametrize("nf,nc", [(14, 7), (35, 7)])
+def test_level_steps_match_pallas_level_kernels(nf, nc):
+    _level_steps_vs_pallas(nf, nc)
+
+
+def test_aniso_level_steps_match_pallas_level_kernels():
+    """The anisotropic bench3's level steps (the physics "acha", whose
+    tangent reads the state's gradient) against the Pallas level kernels
+    taking ``jax.jvp`` of the anisotropic terms, on the dyadic pair."""
+    _level_steps_vs_pallas(14, 7, anisotropy=True)
 
 
 def test_bench3_vcycle_with_dense_coarse_matches_xla_gmg():

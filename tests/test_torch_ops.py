@@ -222,6 +222,8 @@ def test_launch_counters_untouched_by_plain_versions():
                                   "shard_sweep", "gridjvp_probe",
                                   "vcycle_descend_chain", "vcycle_ascend_chain",
                                   "node_blocks", "tri_box", "residual_box",
-                                  "vcycle_fused"}
+                                  "vcycle_fused", "acha_jvp", "tri_box_acha",
+                                  "vcycle_descend_chain_acha",
+                                  "vcycle_ascend_chain_acha"}
     assert set(_lib.CALLS) == {"tile_sweep_loop", "descend_level",
                                "ascend_level", "descend_chain", "ascend_chain"}

@@ -1,21 +1,24 @@
 """Kernel W (the triangle-box J.v, ``csrc/fem_tri_box.cuh``) and the residual
 box built with other box shapes, on this card.
 
-    python3 tools/torch_tri_box_probe.py [ch|chac|ach|rchac|rchp|all]
+    python3 tools/torch_tri_box_probe.py [ch|chac|ach|acha|rchac|rchp|all]
                                                           (default all)
 
 Each variant rewrites the ``TriBox<BY, BX, MIN_CTAS, QSPLIT>`` line of
 ``csrc/ch_box.cu`` (W at BM1's physics), ``csrc/chac_box.cu`` (BM2's
-coupled physics), ``csrc/ach_box.cu`` (BM3's), ``csrc/chac_rbox.cu`` (the
+coupled physics), ``csrc/ach_box.cu`` (BM3's), ``csrc/acha_box.cu`` (the
+anisotropic BM3's), ``csrc/chac_rbox.cu`` (the
 residual box at BM2's) or ``csrc/chp_rbox.cu`` (at BM6's) in a copy of the
 sources under the ignored ``pfhubbenchmarks_tpu_torch/_build/tri_box_probe/``
 (the package's own build is untouched) and builds that source alone into a
 shared library, all variants in parallel. Each is held against the gather
 kernel it replaces (A at bench1 100^2, F at bench2 100^2 with 4 order
-parameters, G at bench3 350^2, all at ffc3; R at bench2 100^2 with 4 order
+parameters, G at bench3 350^2, the anisotropic gather at the anisotropic
+bench3's 350^2, all at ffc3; R at bench2 100^2 with 4 order
 parameters and at bench6 100^2 with its Dirichlet rows) with
 ``torch.equal``, and timed per launch (40 launches queued behind a sleep
-kernel) beside the gather kernel and, for a J.v, T10 in the same call, in
+kernel) beside the gather kernel and, for a J.v with a tile form, T10 in
+the same call, in
 turns; with each shape's CTAs, recompute factor (evaluated cells over the
 grid's), registers, spills, shared bytes and CTAs per SM.
 
@@ -47,21 +50,29 @@ SHAPES = {"ch": ((7, 7, 2, 2), (7, 7, 2, 1), (7, 7, 4, 1), (7, 7, 1, 4),
                    (3, 3, 2, 4), (3, 3, 1, 4), (1, 7, 2, 4)),
           "ach": ((7, 15, 3, 1), (7, 15, 2, 1), (7, 15, 4, 1), (7, 7, 6, 1),
                   (7, 7, 8, 1), (3, 15, 3, 2), (3, 7, 3, 4), (7, 15, 1, 2)),
+          "acha": ((7, 15, 3, 1), (7, 15, 2, 1), (7, 15, 4, 1), (7, 7, 6, 1),
+                   (7, 7, 4, 1), (3, 15, 3, 2), (7, 15, 1, 2)),
           "rchac": ((7, 7, 2, 1), (7, 7, 1, 2), (3, 7, 2, 2), (5, 5, 2, 1),
                     (3, 3, 2, 4)),
           "rchp": ((7, 7, 2, 1), (7, 7, 4, 1), (7, 7, 2, 2), (3, 7, 4, 2),
                    (5, 5, 4, 1), (3, 3, 4, 2))}
 SOURCE = {"ch": "ch_box.cu", "chac": "chac_box.cu", "ach": "ach_box.cu",
+          "acha": "acha_box.cu",
           "rchac": "chac_rbox.cu", "rchp": "chp_rbox.cu"}
-ALIAS = {"ch": "ChBox", "chac": "ChacBox", "ach": "AchBox",
+ALIAS = {"ch": "ChBox", "chac": "ChacBox", "ach": "AchBox", "acha": "AchaBox",
          "rchac": "ChacRBox", "rchp": "ChpRBox"}
 # the launcher's symbol and its int arguments before the box per kind
 SYMBOL = {"ch": "pfh_ch_box", "chac": "pfh_chac_box", "ach": "pfh_ach_box",
+          "acha": "pfh_acha_box",
           "rchac": "pfh_chac_rbox", "rchp": "pfh_chp_rbox"}
 # the benchmark each kind is probed on, its dt
 BENCH = {"ch": ("bench1", 0.5), "chac": ("bench2", 0.16),
-         "ach": ("bench3", 1.28), "rchac": ("bench2", 0.16),
-         "rchp": ("bench6", 0.32)}
+         "ach": ("bench3", 1.28), "acha": ("bench3", 1.28),
+         "rchac": ("bench2", 0.16), "rchp": ("bench6", 0.32)}
+# the benchmark's options per kind
+OPTIONS = {"acha": dict(anisotropy=True)}
+# the kinds with a tile form (T10) to time beside
+TILED = ("ch", "chac", "ach")
 
 
 def smi() -> str:
@@ -123,7 +134,7 @@ def probe(kinds, out: dict) -> None:
     res = []
     for kind in kinds:
         name, dt = BENCH[kind]
-        pb = get_benchmark(name)
+        pb = get_benchmark(name, **OPTIONS.get(kind, {}))
         g, F = pb.grid, pb.n_fields
         v0, m0 = g.interpolate(pb.ic_fns)
         w = tuple(torch.tensor(a + 0.01 * rng.standard_normal(a.shape),
@@ -145,10 +156,11 @@ def probe(kinds, out: dict) -> None:
             extra = (mask, gv)
         else:
             jv = pb.kernel_jvp(g, dev, form="box")
-            t10 = pb.kernel_jvp(g, dev, form="recompute")
             plan, ref = jv.plan, jv.gather.kernel(w, w, dt, v)
             fns["gather"] = lambda: jv.gather.kernel(w, w, dt, v)
-            fns["T10"] = lambda: t10.kernel(w, w, dt, v)
+            if kind in TILED:
+                t10 = pb.kernel_jvp(g, dev, form="recompute")
+                fns["T10"] = lambda: t10.kernel(w, w, dt, v)
             ops = (w[0], w[1], v[0], v[1])
             extra = (None, None)
         params = plan.params.copy()
