@@ -24,7 +24,11 @@ Phases, each printing its results; any failure raises (non-zero exit):
    call and on the device; at 100->50 the host path of one restriction in
    parts (checks, allocation, stream handle, ctypes call; 1,000 calls
    each), the plan's and the old path's (a copy of the launch path before
-   the plans, around the new kernel).
+   the plans, around the new kernel); kernel N at every level
+   (``node_blocks_phase``) and N's one-launch build of the hierarchy
+   (``node_build_phase``: every level's planes and the injected states in
+   one launch, held to the per-level launches of N and the injections with
+   ``torch.equal``).
 4. bench1's main path: the port's bench1 at full size (100x100) through
    ``Runner.run``, the whole adaptive run to its final time (t = 1000, the
    JAX run's 74 rows to t = 1025.5), held against the committed
@@ -42,19 +46,26 @@ Phases, each printing its results; any failure raises (non-zero exit):
    of the residual; the transfers at every pair as in phase 3, with the
    problem's Dirichlet masks (the main path's case) and without; the
    descend and ascend chains' launch sequences against their plain twins;
-   kernel N at every level with the Dirichlet masks, as in phase 3.
+   kernel N at every level with the Dirichlet masks and the one-launch
+   build, as in phase 3; kernel W at BM6's physics (``tri_box_chp``,
+   bench6's outer J.v: the triangle box with the Dirichlet rows in its
+   store) at 100^2 and 37 x 23, with and without the mask, J.v and b - J.v,
+   against E with ``torch.equal`` (required), its plain version and
+   ``torch.func.jvp`` of the f64 residual (``chp_box_phase``).
 6. bench6's main path: the port's bench6 at full size (100x100) through
    ``Runner.run`` to t = 3.19; the 14 rows against the committed
    ``results/bench6_out.csv`` (time column rtol 1e-9, TFE rel 1e-6, solute
    rel 1e-9); each kernel and chain of that path must have launched, kernel
-   R (the f32 residual of the cp line search) among them.
+   R (the f32 residual of the cp line search) among them. Its outer J.v
+   is kernel W at BM6's physics (``tri_box_chp``), and E must not launch.
 7. the same checks at bench2's shapes (F = 6, levels 100^2/50^2/25^2): the
    CH+AC J.v (kernel F), coupled at ffc3 and field-split at dunavant1, both
    forms, with 4 order parameters at every level and with 1 and 2 at 100^2,
    also against ``torch.func.jvp`` of the residual; block-Jacobi and LMR
    with the field groups; kernel N as in phase 3, field-split (the main
    path's) and coupled, with 4 order parameters at every level and with 1
-   and 2 at 100^2; both chains' launch sequences with the groups; the warm
+   and 2 at 100^2, and the one-launch build of each of those six
+   hierarchies; both chains' launch sequences with the groups; the warm
    multigrid build of the hierarchy (kernel N per level and the
    injections, median of 5); the transfers (D, F = 6) at every pair as in
    phase 3.
@@ -77,7 +88,8 @@ Phases, each printing its results; any failure raises (non-zero exit):
    the host path of H's restriction at 175->35;
    block-Jacobi and LMR at 350^2; both level steps (TPU kernels 6 and 9) at
    each of the three pairs, their launch sequences and their kernels (a
-   chain kernel of one level); kernel N at every level as in phase 3; and
+   chain kernel of one level); kernel N at every level and the one-launch
+   build (its injections at ratios 2, 5 and 5) as in phase 3; and
    the warm multigrid build of the 4-level hierarchy, with and without the
    dense 7^2 inverse, timed (medians of 5).
 10. bench3's main path: the port's bench3 at full size (350x350) through
@@ -249,15 +261,16 @@ Phases, each printing its results; any failure raises (non-zero exit):
    f32 one forms grad phi with the cancellation the kernels avoid) and a
    rerun, with device us of both and per-call us of W / gather / plain /
    ``torch.func.jvp``; the gather and kernel N (its "ach" kernel, to the
-   bit the isotropic plan's) at every dunavant2 level of 350/175/35/7; the
+   bit the isotropic plan's) at every dunavant2 level of 350/175/35/7 and
+   the run's one-launch build (its "ach" kernel); the
    level steps and the two chains (``vcycle_{descend,ascend}_chain_acha``)
    against their plain versions and sequences; then the anisotropic run at
    350^2 over the 34 rows of ``tests/data/bench3_aniso_jax_rows.csv`` (the
    JAX package's CPU run, ``tools/jax_bench3_aniso_rows.py``): time column
    equal, TFE rel 1e-6, solid fraction rel 1e-5, each row's Newton count
    that of the ``.json``, the Krylov counts printed beside it; it requires W,
-   both chains and N at those instantiations and refuses the gather, the
-   isotropic kernels and L.
+   both chains and N's one-launch build at those instantiations and refuses
+   the gather, the isotropic kernels and L.
 
 Phases 28, 29 and 30 run between 7 and 8, phases 20-24 after 25 and 26. The
 outer J.v and the exported A z of bench1 (4, 17), bench2 (8, 25),
@@ -274,12 +287,16 @@ time column as equal to theirs or not, its wall, and the
 seconds of its multigrid builds and
 their share of its wall (the dense coarse inverse apart) beside those of the
 smokes before kernel N (PERF.md section 5), and refuses a ``torch.func.jvp`` block
-build on its path. Every 2D main path (4, 6, 8, 10, 14, 15, 17-19, 25, 26)
-requires kernel N. Every other main-path phase on gather levels (6, 10,
-18, 19) requires the two chain kernels and refuses B's and C's
-launches (a gather level's sweeps run
-inside L, and inside the chain kernels) and the chains' and level steps'
-launch sequences (each chain is one launch); kernel L runs the coarsest
+build on its path; where ``COUNTS_BEFORE_BOXES`` records its step count, its
+Newton and Krylov counts must equal those. Every 2D main path (4, 6, 8, 10,
+14, 15, 17-19, 25, 26, 31) requires N's one-launch build, one launch per
+multigrid build (``node_build`` launches equal to the builds), and refuses
+the per-level N (``node_blocks``). Every other main-path phase on gather
+levels (6, 10, 18, 19) requires the two chain kernels and refuses B's and
+C's launches (a gather level's sweeps run
+inside L, and inside the chain kernels), the chains' and level steps'
+launch sequences (each chain is one launch) and D (the builds' injections
+run in N's one launch); kernel L runs the coarsest
 level's sweeps where that is not the dense inverse, and bench1_3d's K-cycle
 (12). The tiled runs (14, 15) keep the chains' launch sequences, and their
 tiled levels sweep with TS and C. Each main-path phase also prints the
@@ -325,7 +342,11 @@ record naming W as ``comparison_of``. Kernel N's
 (``node_blocks``, a port kernel with no TPU row: its ``replaces`` names the
 JAX function it computes, and ``note`` says so) is bench2's 100^2 with the
 field-split tangent, its ``library_ms`` the ``torch.func.jvp`` build of the
-same planes and its ``device_ms`` one launch queued behind a sleep kernel.
+same planes and its ``device_ms`` one launch queued behind a sleep kernel;
+it names N's one-launch form (``node_build``, bench2's split build of
+100/50/25 its main shape, ``library_ms`` null) as ``comparison_of``, and E
+(``chp_jvp``) names W at BM6's physics (``tri_box_chp``, its main shape
+bench6's 100^2 with the Dirichlet mask).
 ``chains`` lists
 the tiled sweep loop and the launch sequences of the two V-cycle level
 steps and the two chains, which stand for TPU kernels 13 (the tiled sweep
@@ -432,10 +453,12 @@ BUILDS_BEFORE_N = {
 # paths: two chain launches and the coarsest solve (one L launch; bench3's
 # dense inverse makes none)
 MAX_CALLS_PER_APPLY = {"bench1": 5, "bench6": 5, "bench2": 5, "bench3": 4}
-# on a gather path no level runs B or C (their bodies run in L) and no chain
-# runs as its launch sequence (it is one launch of a chain kernel)
+# on a gather path no level runs B or C (their bodies run in L), no chain
+# runs as its launch sequence (it is one launch of a chain kernel), and no
+# build launches N per level or injects by D (N's one launch does both)
 GATHER_ABSENT = ("block_jacobi_apply", "lmr_step", "descend_level",
-                 "ascend_level", "descend_chain", "ascend_chain")
+                 "ascend_level", "descend_chain", "ascend_chain",
+                 "node_blocks", "transfer_dyadic")
 TOL_R = dict(rtol=1e-5, atol_scale=1e-5)     # tests/test_pallas.py:22-28
 TOL_EXACT = dict(rtol=0.0, atol_scale=0.0)
 HBM_BYTES_PER_S = 3.35e12
@@ -1122,6 +1145,185 @@ def node_blocks_phase(phase, label, K, problem, grids, dt, dev, state_on,
             raise AssertionError(f"kernel N {lab}: a rerun gives other bits")
 
 
+def node_build_work(grids, F, ns, tangent_ops, masked=False):
+    """(bytes, flops) of N's one-launch build over ``grids``: kernel N's
+    work at each level (``node_blocks_work``, the finest level's mask only
+    where ``masked``: the coarse levels' Dirichlet rows are masks too) and
+    the coarse levels' injected states: 2F planes of w and w0 read and
+    written. A coarse level's ``ns`` state planes are among the 2F it
+    reads, so they are not counted again; the composed index is not
+    counted, since a dyadic or odd ratio gives it by arithmetic."""
+    byts = flops = 0
+    for l, g in enumerate(grids):
+        b, f = node_blocks_work(g, F, ns, tangent_ops, masked)
+        byts += b + (4 * (4 * F - ns) * nodes(g) if l else 0)
+        flops += f
+    return byts, flops
+
+
+def flat_build(out):
+    """The tensors of a build's ``(states, planes)``: the coarse levels'
+    injected states, then every level's planes."""
+    states, planes = out
+    return ([t for pair in states[1:] for half in pair for t in half]
+            + [t for p in planes for t in p])
+
+
+def node_build_phase(phase, label, K, problem, dt, dev, state_on, ns=1,
+                     ops=None, main=False):
+    """N's one-launch build (``node_build``) of ``problem``'s hierarchy,
+    the plan its main path builds (``precond_builder(...).node_build``), on
+    the IC plus noise (w) and other noise (w0): against the per-level
+    launches of N and the injections it replaces (``.sequence``) with
+    ``torch.equal`` on every level's planes and every coarse level's
+    injected states, and against itself on a rerun (both required); against
+    its plain version (TOL_F32); device us of both forms (launches queued
+    behind a sleep kernel, two rounds in turns) and per-call us in turns,
+    the wrapper calls of one build in each form, the bound
+    (``node_build_work``), registers, spills and CTAs per SM. ``main``: N's
+    one-launch main shape in the kernel line (bench2's split build)."""
+    from pfhubbenchmarks_tpu_torch.ops import _lib
+
+    nb = problem.precond_builder(dev).node_build
+    grids, F = nb.grids, problem.n_fields
+    ops = TANGENT_OPS[F] if ops is None else ops
+    w, w0 = state_on(problem, grids[0]), state_on(problem, grids[0])
+    got = nb.kernel(w, w0, dt)
+    again = nb.kernel(w, w0, dt)
+    torch.cuda.synchronize()
+    before = sum(_lib.LAUNCHES.values())
+    ref = nb.sequence(w, w0, dt)
+    torch.cuda.synchronize()
+    seq_calls = sum(_lib.LAUNCHES.values()) - before + sum(
+        inj.R != 2 for inj in nb.injs)   # an odd-ratio injection: slicing
+    bits = all(torch.equal(x, y) for x, y in zip(flat_build(got),
+                                                  flat_build(ref)))
+    rerun = all(torch.equal(x, y) for x, y in zip(flat_build(got),
+                                                   flat_build(again)))
+    fns = {"build": lambda: nb.kernel(w, w0, dt),
+           "sequence": lambda: nb.sequence(w, w0, dt)}
+    per = interleaved_ms(fns)
+    rounds = [{k: device_ms(fn) for k, fn in fns.items()} for _ in range(2)]
+    dev_us = {k: statistics.mean(r[k] for r in rounds) * 1e3 for k in fns}
+    plain_ms = cuda_ms(lambda: nb.plain(w, w0, dt), reps=5)
+    work = node_build_work(grids, F, ns, ops, nb.mask is not None)
+    lab = f"{label} {'/'.join(str(g.nx) for g in grids)}"
+    K["node_build"].check(lab, flat_build(got), flat_build(nb.plain(w, w0, dt)),
+                          TOL_F32, (per["build"], plain_ms), work,
+                          dev_ms=dev_us["build"] * 1e-3, main=main)
+    info = nb.info()
+    print(f"phase {phase}: N's one-launch build {lab}: vs the per-level N "
+          f"and injections {'bit-identical' if bits else 'DIFFERS'} (every "
+          f"level's planes and states), rerun "
+          f"{'bit-identical' if rerun else 'DIFFERS'}; device us one launch "
+          f"{dev_us['build']:.2f}, per-level sequence {dev_us['sequence']:.2f}"
+          f" (rounds {[{k: round(x * 1e3, 2) for k, x in r.items()} for r in rounds]}); "
+          f"per call {per['build'] * 1e3:.1f} us vs {per['sequence'] * 1e3:.1f}"
+          f" us (plain {plain_ms * 1e3:.1f} us); wrapper calls per build 1 vs "
+          f"{seq_calls}; bound {bound(work)[0] * 1e3:.3f} us "
+          f"({bound(work)[1]}); {info['registers']} registers, "
+          f"{info['local_bytes']} local bytes, {info['ctas_per_sm']} CTAs per "
+          f"SM", flush=True)
+    if not (bits and rerun):
+        raise AssertionError(f"{label}: N's one-launch build differs from the "
+                             "per-level launches or from itself on a rerun")
+
+
+def chp_box_phase(dev, K, rng):
+    """Phase 5's kernel W at BM6's physics (``tri_box_chp``: the triangle
+    box with the Dirichlet rows of phi in its store), bench6's outer J.v, at
+    ffc3 at 100^2 and 37 x 23, with and without the Dirichlet mask, J.v and
+    b - J.v: against kernel E (``jv.gather``) with ``torch.equal`` and
+    against itself on a rerun (both required), against its plain version
+    and ``torch.func.jvp`` of the f64 residual (TOL_F32); device us of W and
+    E (two rounds in turns), per-call us in turns with the plain version's
+    and the library's (``torch.func.jvp`` of the f32 residual), the bound
+    (``jvp_work`` with the mask), boxes, registers, spills, shared bytes and
+    CTAs per SM. The masked 100^2 J.v is its main shape."""
+    from pfhubbenchmarks_tpu_torch.benchmarks import bench6
+    from pfhubbenchmarks_tpu_torch.fem.assembly import make_residual
+
+    f32, f64, dt = torch.float32, torch.float64, 0.32
+    KW = K["tri_box_chp"]
+
+    def pair(g, F, scale=1.0):
+        return tuple(torch.tensor(scale * rng.standard_normal((F,) + s),
+                                  dtype=f32, device=dev)
+                     for s in (g.vshape, g.mshape))
+
+    for size in (100, (37, 23)):
+        ny, nx = (size, size) if isinstance(size, int) else size
+        pb = bench6.make(nx=nx, ny=ny)
+        g, F = pb.grid, pb.n_fields
+        assert g.rule_name == "ffc3" and pb.outer_jvp_form == "box"
+        v0, m0 = g.interpolate(pb.ic_fns)
+        w = tuple(torch.tensor(a, dtype=f32, device=dev) + n
+                  for a, n in zip((v0, m0), pair(g, F, 0.01)))
+        for bc in pb.dirichlet:
+            w = (bc.apply_value(w[0]).contiguous(), w[1])
+        v, b = pair(g, F), pair(g, F)
+        for bcs in (pb.dirichlet, ()):
+            jv = pb.kernel_jvp(g, dev, bcs, form="box")
+            gather = jv.gather
+            lab = (f"bench6 ffc3 {g.ny}x{g.nx} "
+                   f"{'masked' if bcs else 'unmasked'}")
+            main = size == 100 and bool(bcs)
+            got = jv.kernel(w, w, dt, v)
+            got_b = jv.kernel(w, w, dt, v, b=b)
+            again = jv.kernel(w, w, dt, v) + jv.kernel(w, w, dt, v, b=b)
+            ref_g = gather.kernel(w, w, dt, v) + gather.kernel(w, w, dt, v, b=b)
+            res64 = make_residual(g, pb.terms, F, device=dev, dirichlet=bcs,
+                                  dtype=f64)
+            w64, v64 = (tuple(t.double() for t in p) for p in (w, v))
+            lib64 = torch.func.jvp(lambda u: res64(u, w64, dt), (w64,),
+                                   (v64,))[1]
+            res32 = make_residual(g, pb.terms, F, device=dev, dirichlet=bcs,
+                                  dtype=f32)
+
+            def library(res32=res32):
+                return torch.func.jvp(lambda u: res32(u, w, dt), (w,), (v,))[1]
+
+            fns = {"W": lambda: jv.kernel(w, w, dt, v),
+                   "E": lambda: gather.kernel(w, w, dt, v)}
+            per = interleaved_ms(fns)
+            rounds = [{k: device_ms(fn) for k, fn in fns.items()}
+                      for _ in range(2)]
+            dev_us = {k: statistics.mean(r[k] for r in rounds) * 1e3
+                      for k in fns}
+            timing = (per["W"], cuda_ms(lambda: jv.plain(w, w, dt, v), reps=10))
+            library_ms = cuda_ms(library, reps=10)
+            work = jvp_work(g, F, masked=bool(bcs))
+            KW.check(f"{lab} Jv", got, jv.plain(w, w, dt, v), TOL_F32, timing,
+                     work, library_ms=library_ms, dev_ms=dev_us["W"] * 1e-3,
+                     main=main)
+            KW.check(f"{lab} b-Jv", got_b, jv.plain(w, w, dt, v, b=b), TOL_F32)
+            KW.check(f"{lab} Jv vs torch.func.jvp of the f64 residual", got,
+                     tuple(t.float() for t in lib64), TOL_F32)
+            rerun = all(torch.equal(x, y) for x, y in zip(got + got_b, again))
+            diff = max(float((x - y).abs().max())
+                       for x, y in zip(got + got_b, ref_g))
+            bits = all(torch.equal(x, y) for x, y in zip(got + got_b, ref_g))
+            info = jv.plan.info()
+            print(f"phase 5: kernel W at BM6 {lab}: vs E (J.v and b - J.v) "
+                  f"{'bit-identical' if bits else f'DIFFERS by {diff:.3e}'}, "
+                  f"rerun {'bit-identical' if rerun else 'DIFFERS'}; device "
+                  f"us W {dev_us['W']:.2f}, E {dev_us['E']:.2f} (rounds "
+                  f"{[{k: round(x * 1e3, 2) for k, x in r.items()} for r in rounds]}"
+                  f"); per call W {per['W'] * 1e3:.1f} us, E "
+                  f"{per['E'] * 1e3:.1f} us, plain {timing[1] * 1e3:.1f} us, "
+                  f"library {library_ms * 1e3:.1f} us; bound "
+                  f"{bound(work)[0] * 1e3:.3f} us ({bound(work)[1]}); boxes "
+                  f"{jv.plan.boxes} of {jv.plan.box}; {info['registers']} "
+                  f"registers, {info['local_bytes']} local bytes, "
+                  f"{info['dynamic_smem']} shared bytes, {info['ctas_per_sm']}"
+                  f" CTAs per SM", flush=True)
+            if not (bits and rerun):
+                raise AssertionError(f"W at BM6 {lab}: differs from E by "
+                                     f"{diff:.3e} or from itself on a rerun")
+            if main:
+                K["chp_jvp"].device_ms = dev_us["E"] * 1e-3
+
+
 class Kernel:
     """Per-kernel aggregate of the comparisons against the plain twins."""
 
@@ -1251,8 +1453,12 @@ def drive(label, problem, run, required, absent=GATHER_ABSENT,
     their body runs inside kernel L; the chains' launch sequences, which a
     chain of gather levels does not run: it is one launch of a chain
     kernel). Then print the wrapper calls of one preconditioner apply at
-    the run's first dt, at most ``max_calls`` where given. Returns the
-    counts, the run's result, its wall seconds and the stage seconds."""
+    the run's first dt, at most ``max_calls`` where given. On a 2D path
+    every multigrid build must be one launch of N's one-launch form
+    (``node_build`` launches equal to the builds, ``_lib.ENTRIES``), and
+    where ``COUNTS_BEFORE_BOXES`` records the run's step count its Newton
+    and Krylov counts must equal those. Returns the counts, the run's
+    result, its wall seconds and the stage seconds."""
     from pfhubbenchmarks_tpu_torch.ops import _lib
 
     torch.cuda.synchronize()
@@ -1264,6 +1470,7 @@ def drive(label, problem, run, required, absent=GATHER_ABSENT,
     launches = dict(_lib.LAUNCHES)
     calls = dict(_lib.CALLS)
     seconds = dict(_lib.SECONDS)
+    n_builds = _lib.ENTRIES["precond_build"]
     rows = result.rows
     st = result.stats
     g = problem.grid
@@ -1302,7 +1509,7 @@ def drive(label, problem, run, required, absent=GATHER_ABSENT,
           f"newton_all per step {[s.newton_iters_all for s in st]}, "
           f"retries per step {[s.retries for s in st]}", flush=True)
     build_s, dense_s = seconds["precond_build"], seconds["dense_coarse"]
-    print(f"{label}: multigrid builds {build_s:.3f} s over "
+    print(f"{label}: multigrid builds {build_s:.3f} s, {n_builds} builds over "
           f"{sum(s.newton_iters_all for s in st)} Newton iterations, share "
           f"{build_s / wall:.4f} of the {wall:.3f} s wall (of it the dense "
           f"coarse inverse {dense_s:.3f} s, share {dense_s / wall:.4f}; the "
@@ -1316,6 +1523,16 @@ def drive(label, problem, run, required, absent=GATHER_ABSENT,
         raise AssertionError(f"{label}: the torch.func.jvp block build ran "
                              "on the main path")
     counts = {**launches, **calls}
+    if getattr(g, "dim", 2) == 2:
+        print(f"{label}: {n_builds} multigrid builds, {launches['node_build']} "
+              f"launches of N's one-launch build, {launches['node_blocks']} of "
+              f"the per-level N", flush=True)
+        if launches["node_build"] != n_builds:
+            raise AssertionError(f"{label}: {launches['node_build']} build "
+                                 f"launches for {n_builds} multigrid builds")
+    if gather is not None and not same:
+        raise AssertionError(f"{label}: Newton / Krylov counts differ from "
+                             f"{gather}")
     missing = [k for k in required if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{label}: did not run on the main path: {missing}")
@@ -1479,7 +1696,9 @@ def kernel_records():
     csrc = "pfhubbenchmarks_tpu_torch/csrc/"
     K = {
         "ch_jvp": Kernel("ch_jvp", csrc + "ch_jvp.cu", replaces_jv),
-        "chp_jvp": Kernel("chp_jvp", csrc + "chp_jvp.cu", replaces_jv),
+        # E: W at BM6's physics took its place on bench6's outer J.v
+        "chp_jvp": Kernel("chp_jvp", csrc + "chp_jvp.cu", replaces_jv,
+                          comparison_of="tri_box_chp"),
         "chac_jvp": Kernel("chac_jvp", csrc + "chac_jvp.cu", replaces_jv),
         "ach_jvp": Kernel("ach_jvp", csrc + "ach_jvp.cu", replaces_jv),
         # the z-slab J.v (row 16) and the whole-array one (row 14): U on
@@ -1570,14 +1789,29 @@ def kernel_records():
             "vcycle_ascend_chain_acha", csrc + "vcycle_chain_acha.cu",
             "pfhubbenchmarks_tpu/ops/pallas_vcycle.py:798",
             ("pfhubbenchmarks_tpu/ops/pallas_vcycle.py:939",)),
-        # N: the 2D node-block-Jacobi build, a port kernel with no TPU row
+        # N: the 2D node-block-Jacobi build of one level, a port kernel
+        # with no TPU row; its one-launch form took its place on the paths
         "node_blocks": Kernel(
             "node_blocks", csrc + "node_blocks.cuh",
             "pfhubbenchmarks_tpu/solve/precond.py:54",
+            comparison_of="node_build",
             note="a port kernel with no TPU row: the JAX package builds "
                  "these blocks with jax.jvp in XLA (make_block_jacobi, "
                  "outside any Pallas kernel); library_ms is the port's "
                  "torch.func.jvp build of the same planes"),
+        # N's one-launch form: every level's planes and the injected states
+        # of a whole multigrid build in one launch, lanes per node
+        "node_build": Kernel(
+            "node_build", csrc + "node_blocks.cuh",
+            "pfhubbenchmarks_tpu/solve/precond.py:54",
+            note="a port kernel with no TPU row: the whole 2D multigrid "
+                 "build (kernel N at every level and the state injections) "
+                 "in one launch; library_ms null (no one PyTorch call "
+                 "builds the planes)"),
+        # W at BM6's physics with its Dirichlet rows: bench6's outer J.v in
+        # place of E
+        "tri_box_chp": Kernel("tri_box_chp", csrc + "chp_box.cu",
+                              replaces_jv),
     }
     seq = ("level J.v (ch_jvp, chp_jvp, chac_jvp or ach_jvp)", "lmr_sweep",
            "transfer_dyadic")
@@ -1988,7 +2222,7 @@ def tile_phases(dev, K, C, noise_pair, state_on, residual_jvp, paths, refs):
     # ---- phases 14 and 15: bench1 and bench3 in the tiled configuration ---
     tiled_required = ("tile_jvp_recompute", "tile_jvp_seam", "tile_sweep",
                       "tile_sweep_loop", "lmr_step", "transfer_dyadic",
-                      "descend_chain", "ascend_chain", "node_blocks")
+                      "descend_chain", "ascend_chain", "node_build")
     # a tiled level's sweeps are TS and C, a gather level's L: no B
     for phase, label, pb, end, n_rows, ref_csv, tols, more in (
             (14, "bench1", p1, None, BENCH1_TILED_ROWS, "bench1_out.csv",
@@ -2008,7 +2242,8 @@ def tile_phases(dev, K, C, noise_pair, state_on, residual_jvp, paths, refs):
             f"phase {phase}: {label} tiled", runner, end, ref_csv, n_rows,
             tiled_required + more, absent=("block_jacobi_apply",
                                            "vcycle_descend_chain",
-                                           "vcycle_ascend_chain"), **tols)
+                                           "vcycle_ascend_chain",
+                                           "node_blocks"), **tols)
         paths[f"{label} tiled"] = counts
         ref, ref_wall = refs[label]
         ref_st = ref.stats[:n_rows]
@@ -2095,12 +2330,12 @@ def fma_chain_phase(dev, K, paths):
           f"({time.perf_counter() - t16:.1f} s)", flush=True)
 
 
-# what every 2D main path on gather levels launches besides its J.v
-CHAIN_2D = ("transfer_dyadic", "vcycle_descend_chain", "vcycle_ascend_chain",
-            "node_blocks")
-# the paths of kernel V (bench1, bench2 and their variants): V, the builds'
-# D and N; no chain kernel and no L (their bodies run in V)
-FUSED_2D = ("vcycle_fused", "transfer_dyadic", "node_blocks")
+# what every 2D main path on gather levels launches besides its J.v: the
+# two chains and N's one-launch build (the injections within it)
+CHAIN_2D = ("vcycle_descend_chain", "vcycle_ascend_chain", "node_build")
+# the paths of kernel V (bench1, bench2 and their variants): V and N's
+# one-launch build; no chain kernel and no L (their bodies run in V)
+FUSED_2D = ("vcycle_fused", "node_build")
 FUSED_ABSENT = GATHER_ABSENT + ("vcycle_descend_chain", "vcycle_ascend_chain",
                                 "lmr_sweep")
 
@@ -2139,8 +2374,9 @@ def replay_phases(dev, t_start, paths, problem1, problem6, problem3):
                     BENCH6_REPLAY_PREFIX, BENCH6_REPLAY_LATE_S)
     paths["bench6 replay"], _, _ = replay_phase(
         "phase 18: bench6 replay", problem6, dev, "bench6_replay.csv", n,
-        ("chp_jvp", "residual_box", "lmr_sweep") + CHAIN_2D, tfe_tol=1e-6,
-        col2_tol=1e-9, absent=GATHER_ABSENT + ("residual",))
+        ("tri_box_chp", "residual_box", "lmr_sweep") + CHAIN_2D,
+        tfe_tol=1e-6, col2_tol=1e-9,
+        absent=GATHER_ABSENT + ("residual", "chp_jvp"))
 
     n = prefix_rows(t_start, 19, "bench3", BENCH3_REPLAY_ROWS,
                     BENCH3_REPLAY_PREFIX, BENCH3_REPLAY_LATE_S)
@@ -3330,6 +3566,9 @@ def aniso_phase(dev, K, rng, paths):
         pinvs.append(pn)
         if l + 1 < len(grids):
             wl = kt.inject(wl, grids[l + 1], gl)
+    # the anisotropic run's build in one launch (its "ach" kernel)
+    node_build_phase(31, "bench3 anisotropic", K, pb, dt, dev,
+                     lambda _pb, gg: state(gg), ns=2, ops=TANGENT_OPS["ach"])
 
     # the level steps at each pair, then the chains over the hierarchy
     nud = dict(nu=s.gmg_nu_pre, nu_fine=s.gmg_nu_fine_pre or s.gmg_nu_pre)
@@ -3414,8 +3653,8 @@ def aniso_phase(dev, K, rng, paths):
                              "inverse")
     counts, result, wall, _ = drive(
         label, pb, lambda: runner.run(max_steps=n_rows, verbose=True),
-        ("tri_box_acha", "transfer_dyadic", "vcycle_descend_chain_acha",
-         "vcycle_ascend_chain_acha", "node_blocks"),
+        ("tri_box_acha", "vcycle_descend_chain_acha",
+         "vcycle_ascend_chain_acha", "node_build"),
         absent=GATHER_ABSENT + ("acha_jvp", "ach_jvp", "tri_box",
                                 "vcycle_descend_chain", "vcycle_ascend_chain",
                                 "lmr_sweep"),
@@ -3585,6 +3824,7 @@ def main() -> None:
     node_blocks_phase(3, "bench1", K, problem1,
                       [dataclasses.replace(g, rule_name=s1.precond_rule)
                        for g in grids1], dt, dev, state_on)
+    node_build_phase(3, "bench1", K, problem1, dt, dev, state_on)
     check_stream_handle("phase 3")
     check_transfers("phase 3", problem1, grids1, 2, "bench1", breakdown=(100,))
     torch.cuda.synchronize()
@@ -3652,6 +3892,8 @@ def main() -> None:
     check_bj_lmr(problem6, grids6, F6, "bench6")
     node_blocks_phase(5, "bench6 masked", K, problem6, grids6, dt6, dev,
                       state_on)
+    node_build_phase(5, "bench6 masked", K, problem6, dt6, dev, state_on)
+    chp_box_phase(dev, K, rng)
     check_transfers("phase 5", problem6, grids6, F6, "bench6")
 
     # the chains, on the injected per-level states and their block planes
@@ -3702,9 +3944,9 @@ def main() -> None:
           flush=True)
     paths["bench6"], _, _, _ = run_main_path(
         "phase 6: bench6", runner6, None, "bench6_out.csv", BENCH6_ROWS,
-        ("chp_jvp", "vcycle_descend_chain", "vcycle_ascend_chain",
-         "lmr_sweep", "transfer_dyadic", "residual_box", "node_blocks"),
-        absent=GATHER_ABSENT + ("residual",),
+        ("tri_box_chp", "vcycle_descend_chain", "vcycle_ascend_chain",
+         "lmr_sweep", "residual_box", "node_build"),
+        absent=GATHER_ABSENT + ("residual", "chp_jvp"),
         max_calls=MAX_CALLS_PER_APPLY["bench6"])
 
     # ---- phase 7: kernels, sweep loop and chains at bench2's shapes -----
@@ -3760,6 +4002,16 @@ def main() -> None:
                 pb, grids2 if num_eta == 4 else grids2[:1], dt2, dev, state_on,
                 split=split, ns=1 + num_eta, ops=chac_tangent_ops(num_eta, split),
                 main=num_eta == 4 and split, library_at=int(num_eta == 4))
+            # kernel V takes BM2's split levels only: the coupled build is
+            # the chains'
+            node_build_phase(
+                7, f"bench2 NE={num_eta} {'split' if split else 'coupled'}", K,
+                dataclasses.replace(pb, solver=dataclasses.replace(
+                    pb.solver, field_split=split,
+                    fuse_vcycle=pb.solver.fuse_vcycle if split
+                    else "split_chain")), dt2, dev, state_on,
+                ns=1 + num_eta, ops=chac_tangent_ops(num_eta, split),
+                main=num_eta == 4 and split)
     check_transfers("phase 7", problem2, grids2, F2, "bench2")
 
     # the per-level split states, block planes (kernel N) and J.v of the
@@ -3896,6 +4148,8 @@ def main() -> None:
     check_bj_lmr(problem3, grids3[:1], F3, "bench3", rule=s3.precond_rule)
     node_blocks_phase(9, "bench3", K, problem3, grids3, dt3, dev, state_on,
                       ns=2, ops=TANGENT_OPS["ach"])
+    node_build_phase(9, "bench3", K, problem3, dt3, dev, state_on, ns=2,
+                     ops=TANGENT_OPS["ach"])
 
     # the level steps (TPU kernels 6 and 9) on the injected per-level states
     # and their block planes, with bench3's sweep counts
@@ -3997,8 +4251,8 @@ def main() -> None:
         raise AssertionError("bench3's coarsest solve is not the dense inverse")
     paths["bench3"], result3, wall3, seconds3 = run_main_path(
         "phase 10: bench3", runner3, None, "bench3_out.csv", BENCH3_ROWS,
-        ("tri_box", "transfer_dyadic", "vcycle_descend_chain",
-         "vcycle_ascend_chain", "node_blocks"),
+        ("tri_box", "vcycle_descend_chain", "vcycle_ascend_chain",
+         "node_build"),
         absent=GATHER_ABSENT + ("ach_jvp",),
         tfe_tol=1e-6, col2_tol=1e-5, max_calls=MAX_CALLS_PER_APPLY["bench3"])
     n_builds3 = sum(st.newton_iters_all for st in result3.stats)

@@ -12,8 +12,9 @@ matvec (the JAX package re-sets those rows after its kernel,
 J.v of ``terms_precond``, the field-split operator of
 ``SolverConfig.field_split``; ``form`` "recompute" or "seam" the tile
 kernels T10 or T12 (ops/fem_tile.py) in place of the gather kernel, "box"
-kernel W (ops/tri_box.py, BM1, BM2 and BM3), which ``outer_jvp_form`` gives
-the outer J.v and the exported A z of bench1, bench2 and bench3.
+kernel W (ops/tri_box.py, BM1, BM2, BM3 and BM6 with its Dirichlet rows),
+which ``outer_jvp_form`` gives the outer J.v and the exported A z of bench1,
+bench2, bench3 and bench6 (whose Dirichlet rows leave it no exported A z).
 ``kernel_residual(grid, device, dirichlet, form="gather")`` makes the f32
 residual of kernel R (ops/fem_residual.py), where the benchmark has one, or
 for ``form`` "box" the residual box (ops/residual_box.py, BM2 and BM6),
@@ -85,8 +86,8 @@ class BenchmarkProblem:
     abort_condition: Callable[[dict], bool] | None = None
     # the form of kernel_jvp for the outer f32 J.v (T10 in its place in the
     # tiled configuration) and the exported A z on the true-rule grid:
-    # "gather", or "box" (kernel W, ops/tri_box.py; bench1, bench2 and
-    # bench3)
+    # "gather", or "box" (kernel W, ops/tri_box.py; bench1, bench2, bench3
+    # and bench6)
     outer_jvp_form: str = "gather"
     # the form of kernel_residual for the f32 residual of the cp line search
     # (residual_lowp): "gather" (kernel R), or "box" (the residual box,

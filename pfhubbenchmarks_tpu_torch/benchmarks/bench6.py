@@ -130,14 +130,14 @@ def make(nx: int = 100, ny: int = 100, Lx: float = 100.0, Ly: float = 100.0,
     def kernel_jvp(grid, device, dirichlet=(), split=False, form="gather"):
         if split:
             raise NotImplementedError("bench6 has no field-split operator")
-        if form != "gather":
+        if form not in ("gather", "box"):
             raise NotImplementedError(
                 "bench6 has no tile kernels (SolverConfig.tiled_grid_kernels "
                 "is ported for bench1, bench2 and bench3)")
         from pfhubbenchmarks_tpu_torch.ops.chp_jvp import make_chp_jvp
 
         return make_chp_jvp(grid, terms_tangent, kernel_constants(p),
-                            device=device, dirichlet=dirichlet)
+                            device=device, dirichlet=dirichlet, form=form)
 
     def kernel_residual(grid, device, dirichlet=(), form="gather"):
         from pfhubbenchmarks_tpu_torch.ops.chp_jvp import make_chp_residual
@@ -158,6 +158,7 @@ def make(nx: int = 100, ny: int = 100, Lx: float = 100.0, Ly: float = 100.0,
         csv_columns=("time", "total_free_energy", "total_solute"),
         kernel_jvp=kernel_jvp,
         kernel_residual=kernel_residual,
+        outer_jvp_form="box",
         residual_form="box",
         **{"time": TimeConfig(dt0=1e-2, dt_min=1e-4, end_time=3.0,
                               grow_threshold=5, dt_max=0.32),

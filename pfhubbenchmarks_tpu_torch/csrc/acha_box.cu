@@ -26,10 +26,11 @@ using AchaBox = pfh::TriBox<7, 15, 3, 1>;
 PFH_EXPORT int pfh_acha_box(const float* params, int nq, int by, int bx,
                             const float* wv, const float* wm, const float* tv,
                             const float* tm, const float* bv, const float* bm,
-                            float* ov, float* om, int ny, int nx, void* stream) {
-  return pfh::launch_tri_box<pfh::ACHA, AchaBox>(params, nq, by, bx, wv, wm,
-                                                 tv, tm, bv, bm, ov, om, ny,
-                                                 nx, stream);
+                            const float* mask, float* ov, float* om, int ny,
+                            int nx, void* stream) {
+  return pfh::launch_tri_box<pfh::ACHA, AchaBox>(
+      params, nq, by, bx, wv, wm, tv, tm, bv, bm, mask, ov, om, ny, nx,
+      stream);
 }
 
 // Registers, spill bytes, shared bytes and co-resident CTAs per SM of W

@@ -37,10 +37,11 @@ using ChBox = pfh::TriBox<7, 7, 2, 2>;
 PFH_EXPORT int pfh_ch_box(const float* params, int nq, int by, int bx,
                           const float* wv, const float* wm, const float* tv,
                           const float* tm, const float* bv, const float* bm,
-                          float* ov, float* om, int ny, int nx, void* stream) {
-  return pfh::launch_tri_box<pfh::CH, ChBox>(params, nq, by, bx, wv, wm, tv,
-                                             tm, bv, bm, ov, om, ny, nx,
-                                             stream);
+                          const float* mask, float* ov, float* om, int ny,
+                          int nx, void* stream) {
+  return pfh::launch_tri_box<pfh::CH, ChBox>(
+      params, nq, by, bx, wv, wm, tv, tm, bv, bm, mask, ov, om, ny, nx,
+      stream);
 }
 
 // Registers, spill bytes, shared bytes and co-resident CTAs per SM of W at

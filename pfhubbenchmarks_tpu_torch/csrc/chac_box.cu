@@ -25,10 +25,11 @@ using ChacBox = pfh::TriBox<7, 7, 2, 1>;
 template <int NE>
 int launch_ne(const float* params, int nq, int by, int bx, const float* wv,
               const float* wm, const float* tv, const float* tm,
-              const float* bv, const float* bm, float* ov, float* om, int ny,
-              int nx, void* stream) {
+              const float* bv, const float* bm, const float* mask, float* ov,
+              float* om, int ny, int nx, void* stream) {
   return pfh::launch_tri_box<pfh::CHAC<NE, false>, ChacBox>(
-      params, nq, by, bx, wv, wm, tv, tm, bv, bm, ov, om, ny, nx, stream);
+      params, nq, by, bx, wv, wm, tv, tm, bv, bm, mask, ov, om, ny, nx,
+      stream);
 }
 
 }  // namespace
@@ -38,18 +39,18 @@ int launch_ne(const float* params, int nq, int by, int bx, const float* wv,
 PFH_EXPORT int pfh_chac_box(const float* params, int nq, int ne, int by,
                             int bx, const float* wv, const float* wm,
                             const float* tv, const float* tm, const float* bv,
-                            const float* bm, float* ov, float* om, int ny,
-                            int nx, void* stream) {
+                            const float* bm, const float* mask, float* ov,
+                            float* om, int ny, int nx, void* stream) {
   switch (ne) {
     case 1:
-      return launch_ne<1>(params, nq, by, bx, wv, wm, tv, tm, bv, bm, ov, om,
-                          ny, nx, stream);
+      return launch_ne<1>(params, nq, by, bx, wv, wm, tv, tm, bv, bm, mask,
+                          ov, om, ny, nx, stream);
     case 2:
-      return launch_ne<2>(params, nq, by, bx, wv, wm, tv, tm, bv, bm, ov, om,
-                          ny, nx, stream);
+      return launch_ne<2>(params, nq, by, bx, wv, wm, tv, tm, bv, bm, mask,
+                          ov, om, ny, nx, stream);
     case 4:
-      return launch_ne<4>(params, nq, by, bx, wv, wm, tv, tm, bv, bm, ov, om,
-                          ny, nx, stream);
+      return launch_ne<4>(params, nq, by, bx, wv, wm, tv, tm, bv, bm, mask,
+                          ov, om, ny, nx, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

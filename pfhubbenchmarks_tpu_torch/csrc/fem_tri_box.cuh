@@ -6,13 +6,18 @@
 //
 // Computes, as the gather body (fem_jvp.cuh) does,
 //     out = J(w, dt) v        (b == nullptr), or   out = b - J(w, dt) v
-// in f32 on the unpadded v and m planes of fem_params.cuh, with no Dirichlet
-// rows, at a 4-point rule (ffc3, the outer rule). It is the outer Krylov J.v
-// and the exported A z of bench1 (ch_box.cu), bench2 (chac_box.cu) and
-// bench3 (ach_box.cu), in place of kernels A, F and G there; all replace
-// pfhubbenchmarks_tpu/ops/pallas_residual.py:make_pallas_jvp (:198). A, F
-// and G stay built: every multigrid level, kernel L and the chains run the
-// gather body.
+// in f32 on the unpadded v and m planes of fem_params.cuh, at a 4-point rule
+// (ffc3, the outer rule); with kMask, the Dirichlet rows of a 0/1 vertex
+// mask as jvp_store has them (on a masked row the tangent value itself, then
+// b - value where b is given), else none. It is the outer Krylov J.v and
+// the exported A z of bench1 (ch_box.cu), bench2 (chac_box.cu) and bench3
+// (ach_box.cu), in place of kernels A, F and G there, and the outer J.v of
+// bench6 with its Dirichlet rows (chp_box.cu, kMask), in place of kernel E;
+// all replace pfhubbenchmarks_tpu/ops/pallas_residual.py:make_pallas_jvp
+// (:198), whose BM6 rows the JAX package re-sets after the kernel
+// (pfhubbenchmarks_tpu/benchmarks/base.py:201-215) as the masked store
+// does. A, E, F and G stay built: every multigrid level, kernel L and the
+// chains run the gather body.
 //
 // Why: a gather thread (one per node) evaluates the tangent of every
 // triangle it touches, so each (triangle, point) tangent is evaluated once
@@ -267,13 +272,14 @@ __device__ __forceinline__ void sum_owned(const float* __restrict__ terms,
   }
 }
 
-template <class Phys, int NQ, class Box>
+template <class Phys, int NQ, class Box, bool kMask>
 __global__ void __launch_bounds__(Box::kThreads, Box::kMinCtas)
 tri_box_kernel(const JvpParams P, const float* __restrict__ wv,
                const float* __restrict__ wm, const float* __restrict__ tv,
                const float* __restrict__ tm, const float* __restrict__ bv,
-               const float* __restrict__ bm, float* __restrict__ ov,
-               float* __restrict__ om, int ny, int nx) {
+               const float* __restrict__ bm, const float* __restrict__ mask,
+               float* __restrict__ ov, float* __restrict__ om, int ny,
+               int nx) {
   constexpr int NF = Phys::NF;
   constexpr int NS = Phys::NS;
   extern __shared__ float tri_smem[];
@@ -306,58 +312,68 @@ tri_box_kernel(const JvpParams P, const float* __restrict__ wv,
   __syncthreads();
 
   // 3. one thread per owned node: its terms in jvp_node's order, then the
-  // store of jvp_store
+  // store of jvp_store (with kMask, a masked vertex row the tangent value)
   sum_owned<NF, NQ, Box>(terms, oy, ox, ny, nx,
                          [&](bool vert, long i, const float (&acc)[NF]) {
     const float* b = vert ? bv : bm;
     float* o = vert ? ov : om;
     const long n = vert ? nvert : ncell;
 #pragma unroll
-    for (int f = 0; f < NF; ++f)
-      o[f * n + i] = (b != nullptr) ? __ldg(b + f * n + i) - acc[f] : acc[f];
+    for (int f = 0; f < NF; ++f) {
+      float val = acc[f];
+      if constexpr (kMask) {
+        if (vert && mask != nullptr && __ldg(mask + f * n + i) != 0.f)
+          val = __ldg(tv + f * n + i);
+      }
+      o[f * n + i] = (b != nullptr) ? __ldg(b + f * n + i) - val : val;
+    }
   });
 }
 
 // The dynamic shared bytes of one instantiation of kernel W, allowed once
 // (above 48 KB a kernel must ask for them).
-template <class Phys, int NQ, class Box>
+template <class Phys, int NQ, class Box, bool kMask>
 inline cudaError_t tri_box_smem(int* bytes) {
   *bytes = static_cast<int>(sizeof(float)) * tri_box_floats<Phys, NQ, Box>();
   static const cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(tri_box_kernel<Phys, NQ, Box>),
+      reinterpret_cast<const void*>(tri_box_kernel<Phys, NQ, Box, kMask>),
       cudaFuncAttributeMaxDynamicSharedMemorySize, *bytes);
   return err;
 }
 
 // Host launcher: params as launch_fem_jvp's (fem_jvp.cuh); by, bx the box
-// the caller planned with, which must be Box's. One CTA per box. Takes the
-// 4-point rule only.
-template <class Phys, class Box>
+// the caller planned with, which must be Box's; mask the Dirichlet vertex
+// mask or null, which only a kMask instantiation takes. One CTA per box.
+// Takes the 4-point rule only.
+template <class Phys, class Box, bool kMask = false>
 int launch_tri_box(const float* params, int nq, int by, int bx,
                    const float* wv, const float* wm, const float* tv,
                    const float* tm, const float* bv, const float* bm,
-                   float* ov, float* om, int ny, int nx, void* stream) {
-  if (nq != 4 || by != Box::BY || bx != Box::BX)
+                   const float* mask, float* ov, float* om, int ny, int nx,
+                   void* stream) {
+  if (nq != 4 || by != Box::BY || bx != Box::BX
+      || (!kMask && mask != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   int bytes = 0;
-  const cudaError_t err = tri_box_smem<Phys, 4, Box>(&bytes);
+  const cudaError_t err = tri_box_smem<Phys, 4, Box, kMask>(&bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const JvpParams P = load_params(params);
-  tri_box_kernel<Phys, 4, Box>
+  tri_box_kernel<Phys, 4, Box, kMask>
       <<<tri_boxes<Box>(ny, nx), Box::kThreads, bytes,
-         static_cast<cudaStream_t>(stream)>>>(P, wv, wm, tv, tm, bv, bm, ov,
-                                              om, ny, nx);
+         static_cast<cudaStream_t>(stream)>>>(P, wv, wm, tv, tm, bv, bm, mask,
+                                              ov, om, ny, nx);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Registers, spill bytes, shared bytes and co-resident CTAs per SM of W
 // (common.cuh kernel_info).
-template <class Phys, class Box>
+template <class Phys, class Box, bool kMask = false>
 int tri_box_info(int* out) {
   int bytes = 0;
-  const cudaError_t err = tri_box_smem<Phys, 4, Box>(&bytes);
+  const cudaError_t err = tri_box_smem<Phys, 4, Box, kMask>(&bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return kernel_info(tri_box_kernel<Phys, 4, Box>, Box::kThreads, bytes, out);
+  return kernel_info(tri_box_kernel<Phys, 4, Box, kMask>, Box::kThreads, bytes,
+                     out);
 }
 
 // ---- The residual box: kernel R's residual over triangle boxes -----------

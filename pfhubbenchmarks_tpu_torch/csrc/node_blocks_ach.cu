@@ -1,6 +1,7 @@
 // Kernel N, node_blocks, for BM3's isotropic Allen-Cahn + heat (phys_ach.cuh):
-// the node-block-Jacobi inverses of one 2D multigrid level in one launch
-// (node_blocks.cuh).
+// the node-block-Jacobi inverses of one 2D multigrid level in one launch,
+// and of every level of a hierarchy with the build's state injections in
+// one launch (node_build_kernel; node_blocks.cuh).
 
 #include "node_blocks.cuh"
 #include "phys_ach.cuh"
@@ -15,4 +16,20 @@ PFH_EXPORT int pfh_node_blocks_ach(const float* params, const float* wv,
 
 PFH_EXPORT int pfh_node_blocks_ach_info(int* out) {
   return pfh::node_blocks_info<pfh::ACH>(out);
+}
+
+// The one-launch build over every level of a hierarchy (node_build_kernel).
+PFH_EXPORT int pfh_node_build_ach(const float* params, const long long* rec,
+                                  int nlev, long total, const float* wv,
+                                  const float* wm, const float* w0v,
+                                  const float* w0m, const float* diag,
+                                  const float* mask, const int* src,
+                                  float* planes, float* states, void* stream) {
+  return pfh::node_build<pfh::ACH>(params, rec, nlev, total, wv, wm, w0v,
+                                   w0m, diag, mask, src, planes, states,
+                                   stream);
+}
+
+PFH_EXPORT int pfh_node_build_ach_info(int* out) {
+  return pfh::node_build_info<pfh::ACH>(out);
 }

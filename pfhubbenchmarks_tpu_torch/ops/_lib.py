@@ -17,7 +17,8 @@ gather sweep loop is one kernel, L (``lmr_sweep``), each chain of gather
 levels one launch of ``vcycle_descend_chain`` or ``vcycle_ascend_chain``, and
 a whole V-cycle apply with its exported A z one of ``vcycle_fused`` (V).
 ``SECONDS`` holds the host seconds of the multigrid build and its stages,
-so a run can say what share of its wall they take.
+so a run can say what share of its wall they take, and ``ENTRIES`` how many
+times each ran.
 """
 
 from __future__ import annotations
@@ -47,13 +48,17 @@ KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp", "ch3d_jvp",
            "tile_jvp_seam", "tile_sweep", "fma_chain", "shard_sweep",
            "gridjvp_probe", "vcycle_descend_chain", "vcycle_ascend_chain",
            "node_blocks", "tri_box", "residual_box", "vcycle_fused",
+           # N's one-launch build of a hierarchy; W at BM6's physics with its
+           # Dirichlet rows (bench6's outer J.v, counted apart from W)
+           "node_build", "tri_box_chp",
            # the anisotropic BM3's instantiations, counted apart
            "acha_jvp", "tri_box_acha", "vcycle_descend_chain_acha",
            "vcycle_ascend_chain_acha")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # the physics whose launches are counted under their own names,
-# ``<kernel>_<kind>`` (the anisotropic BM3's W and chains)
-COUNTED_APART = ("acha",)
+# ``<kernel>_<kind>`` (the anisotropic BM3's W and chains), and the
+# (kernel, physics) pairs counted so (W at BM6's physics, bench6's outer J.v)
+COUNTED_APART = ("acha", ("tri_box", "chp"))
 # launch sequences of the kernels that stand for one TPU kernel each
 CHAINS = ("tile_sweep_loop", "descend_level", "ascend_level",
           "descend_chain", "ascend_chain")
@@ -65,19 +70,22 @@ CALLS = dict.fromkeys(CHAINS, 0)
 # within it (``jacfwd`` and ``torch.linalg.inv``, plain torch, bench3), and
 # the ``torch.func.jvp`` block build, which no main path runs
 SECONDS = {"precond_build": 0.0, "dense_coarse": 0.0, "jvp_blocks": 0.0}
+# the times each stage ran (a run's multigrid builds: ``precond_build``)
+ENTRIES = dict.fromkeys(SECONDS, 0)
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count, every chain's call count and every
-    stage's seconds to 0."""
-    for counts in (LAUNCHES, CALLS, SECONDS):
+    stage's seconds and entries to 0."""
+    for counts in (LAUNCHES, CALLS, SECONDS, ENTRIES):
         for k in counts:
             counts[k] = type(counts[k])(0)
 
 
 def counter(name: str, kind: str) -> str:
     """The launch counter of kernel ``name`` at the physics ``kind``."""
-    return f"{name}_{kind}" if kind in COUNTED_APART else name
+    apart = kind in COUNTED_APART or (name, kind) in COUNTED_APART
+    return f"{name}_{kind}" if apart else name
 
 
 def count_launch(name: str) -> None:
@@ -90,7 +98,8 @@ def count_call(name: str) -> None:
 
 @contextlib.contextmanager
 def timed(name: str, probe: torch.Tensor):
-    """Adds the seconds of the block to ``SECONDS[name]``. For a CUDA
+    """Adds the seconds of the block to ``SECONDS[name]`` and one to
+    ``ENTRIES[name]``. For a CUDA
     ``probe`` the card is synchronized at both ends, so the block's queued
     device work counts and earlier work does not."""
     on_card = not on_cpu(probe)
@@ -101,6 +110,7 @@ def timed(name: str, probe: torch.Tensor):
     if on_card:
         torch.cuda.synchronize(probe.device)
     SECONDS[name] += time.perf_counter() - t0
+    ENTRIES[name] += 1
 
 
 def _nvcc() -> str:
@@ -136,6 +146,10 @@ class KernelLibrary:
         # kernel N: params, the state pair, the diagonals, the mask, the
         # planes out, the node counts, the stream
         nodeb = [vp] * 7 + [i64, i64, vp]
+        # N's one-launch build: params, the table, its levels and nodes,
+        # the two state pairs, the diagonals, masks and composed index, the
+        # planes and states out, the stream
+        nbuild = [vp, vp, i32, i64] + [vp] * 10
         sig = {
             "pfh_ch_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
             "pfh_chp_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
@@ -209,13 +223,24 @@ class KernelLibrary:
             "pfh_node_blocks_chp_info": [ip],
             "pfh_node_blocks_ach_info": [ip],
             "pfh_node_blocks_chac_info": [i32, i32, ip],
-            # kernel W: params, nq (, ne), the box, the eight planes, the
+            "pfh_node_build_ch": nbuild,
+            "pfh_node_build_chp": nbuild,
+            "pfh_node_build_ach": nbuild,
+            "pfh_node_build_chac": nbuild[:1] + [i32, i32] + nbuild[1:],
+            "pfh_node_build_ch_info": [ip],
+            "pfh_node_build_chp_info": [ip],
+            "pfh_node_build_ach_info": [ip],
+            "pfh_node_build_chac_info": [i32, i32, ip],
+            # kernel W: params, nq (, ne), the box, the eight planes and
+            # the Dirichlet vertex mask (null but at BM6's physics), the
             # grid's cells, the stream
-            "pfh_chac_box": [vp, i32, i32, i32, i32] + [vp] * 8 + [i32, i32,
+            "pfh_chac_box": [vp, i32, i32, i32, i32] + [vp] * 9 + [i32, i32,
                                                                 vp],
-            "pfh_ach_box": [vp, i32, i32, i32] + [vp] * 8 + [i32, i32, vp],
-            "pfh_acha_box": [vp, i32, i32, i32] + [vp] * 8 + [i32, i32, vp],
-            "pfh_ch_box": [vp, i32, i32, i32] + [vp] * 8 + [i32, i32, vp],
+            "pfh_ach_box": [vp, i32, i32, i32] + [vp] * 9 + [i32, i32, vp],
+            "pfh_acha_box": [vp, i32, i32, i32] + [vp] * 9 + [i32, i32, vp],
+            "pfh_ch_box": [vp, i32, i32, i32] + [vp] * 9 + [i32, i32, vp],
+            "pfh_chp_box": [vp, i32, i32, i32] + [vp] * 9 + [i32, i32, vp],
+            "pfh_chp_box_info": [ip],
             "pfh_chac_box_info": [i32, ip],
             "pfh_ach_box_info": [ip],
             "pfh_acha_box_info": [ip],

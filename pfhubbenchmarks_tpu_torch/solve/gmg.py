@@ -11,15 +11,17 @@ make_fused_vcycle`` too. Where the JAX package runs that fused kernel
 (ops/vcycle_fused.py), the whole cycle below and its exported A z; its plain
 version, and ``Minv`` alone, are the split apply:
 
-- per-level linearization states injected once per build (kernel D for a
-  dyadic pair, strided slicing for an odd ratio, through a transfer plan
-  per pair built with the cycle, ops/transfer.TransferPlan), and per-level
-  node-block-Jacobi inverses: on CUDA tensors one launch of kernel N per
-  level (ops/node_blocks.NodeBlockPlan, built with the cycle from the
-  level's gather J.v), on CPU tensors its plain version, the hand-written
-  tangent with one-hot directions (solve/precond.
-  make_block_jacobi_tangent); the ``torch.func.jvp`` build
-  (``make_block_jacobi``) is not on this path;
+- per-level linearization states injected once per build and per-level
+  node-block-Jacobi inverses: on CUDA tensors one launch of kernel N's
+  one-launch form for the whole build (ops/node_blocks.NodeBuildPlan,
+  built with the cycle from the levels' ``NodeBlockPlan`` s, each from the
+  level's gather J.v), which writes every level's planes and the coarse
+  levels' injected states, each coarse node copied from the finest level;
+  on CPU tensors its plain version, per level the hand-written tangent with
+  one-hot directions (solve/precond.make_block_jacobi_tangent) and the
+  chained injections (ops/transfer.TransferPlan: kernel D's plain version
+  for a dyadic pair, strided slicing for an odd ratio); the
+  ``torch.func.jvp`` build (``make_block_jacobi``) is not on this path;
 - ``descend_chain`` (ops/vcycle_chain.py): per level the descend step (TPU
   kernel 6): local-minimal-residual pre-sweeps from zero (per sweep z =
   P^-1 r, A z by the level J.v's body, the alpha step and both axpys: kernel
@@ -78,7 +80,7 @@ gather kernels. A chain with a routed level runs as its launch sequence
 choice made once when the chains are built, from the levels' J.v.
 
 On CUDA tensors every step above except the dense coarse inverse (built
-and applied) and the odd-ratio injection is a hand-written kernel launch;
+and applied) is a hand-written kernel launch;
 on CPU tensors the same code runs the plain versions. The W-cycle, GCR
 ``inner_mr`` and semicoarsened or periodic hierarchies are not yet ported.
 """
@@ -95,8 +97,9 @@ from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
 from pfhubbenchmarks_tpu_torch.ops import _lib
 from pfhubbenchmarks_tpu_torch.ops.fem_tile import multi_block
 from pfhubbenchmarks_tpu_torch.ops.lmr import make_level_sweep_loop
-from pfhubbenchmarks_tpu_torch.ops.node_blocks import NodeBlockPlan
-from pfhubbenchmarks_tpu_torch.ops.transfer import TransferPlan, equal_ratio
+from pfhubbenchmarks_tpu_torch.ops.node_blocks import (NodeBlockPlan,
+                                                       NodeBuildPlan)
+from pfhubbenchmarks_tpu_torch.ops.transfer import equal_ratio
 from pfhubbenchmarks_tpu_torch.ops.vcycle_chain import (make_ascend_chain,
                                                         make_descend_chain,
                                                         one_launch)
@@ -229,7 +232,8 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
     whether the coarsest level is solved by the dense inverse (else by
     ``coarse_sweeps`` LMR sweeps),
     ``build.tiled_levels`` which levels are routed to the tile kernels and
-    ``build.node_blocks`` the levels' kernel-N plans. Each build adds its
+    ``build.node_blocks`` the levels' kernel-N plans and
+    ``build.node_build`` the one-launch build over them. Each build adds its
     seconds to ``_lib.SECONDS['precond_build']``, and those of the dense
     inverse within it to ``_lib.SECONDS['dense_coarse']``. ``terms`` is the
     weak form the levels linearize (the dense coarse residual's, and the
@@ -262,8 +266,7 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
         g, jv if hasattr(jv, "launch") else jvp_for(g, split), terms,
         device=device, dirichlet=bcs)
         for g, jv, bcs in zip(grids, jvs, level_bcs)]
-    injs = [TransferPlan(grids[l + 1], grids[l], n_fields, "inject")
-            for l in range(L - 1)]
+    node_build = NodeBuildPlan(grids, nb_plans, device=device)
     fused = fused_gate(grids, jvs, level_bcs, fuse_vcycle, device)
     dense_coarse = None
     if (not fused
@@ -294,15 +297,9 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
     def build(w, w0, dt):
         dtf = float(np.float32(dt))
         with _lib.timed("precond_build", w[0]):
-            wl = tr.cast(w, torch.float32)
-            w0l = tr.cast(w0, torch.float32)
-            states, planes = [], []
-            for l in range(L):
-                states.append((wl, w0l))
-                planes.append(nb_plans[l](wl, w0l, dtf))
-                if l + 1 < L:
-                    wl = injs[l](wl)
-                    w0l = injs[l](w0l)
+            states, planes = node_build(tr.cast(w, torch.float32),
+                                        tr.cast(w0, torch.float32), dtf)
+            wl, w0l = states[-1]
             Jinv_coarse = None
             if dense_coarse is not None:
                 with _lib.timed("dense_coarse", wl[0]):
@@ -345,4 +342,5 @@ def make_gmg(grid: CrossedTriGrid, terms, n_fields: int, *,
     build.dense_coarse = dense_coarse is not None
     build.tiled_levels = [hasattr(jv, "tile_sweep") for jv in jvs]
     build.node_blocks = nb_plans
+    build.node_build = node_build
     return build

@@ -224,6 +224,7 @@ def test_launch_counters_untouched_by_plain_versions():
                                   "node_blocks", "tri_box", "residual_box",
                                   "vcycle_fused", "acha_jvp", "tri_box_acha",
                                   "vcycle_descend_chain_acha",
-                                  "vcycle_ascend_chain_acha"}
+                                  "vcycle_ascend_chain_acha", "node_build",
+                                  "tri_box_chp"}
     assert set(_lib.CALLS) == {"tile_sweep_loop", "descend_level",
                                "ascend_level", "descend_chain", "ascend_chain"}

@@ -3,7 +3,7 @@ boxes) on the CPU, where it cannot run:
 
 - the box constants of its launcher (``ops/tri_box.TRI_BOX``) are the C++
   ones (``ChBox`` in csrc/ch_box.cu, ``ChacBox`` in csrc/chac_box.cu,
-  ``AchBox`` in csrc/ach_box.cu);
+  ``AchBox`` in csrc/ach_box.cu, ``ChpBox`` in csrc/chp_box.cu);
 - the box plan at 100^2, 350^2, 175^2, 50^2, 35^2, 25^2, 7^2 and 13 x 21
   cells, for every box: every vertex and every centre is owned exactly
   once, and every owned node's cells lie in its box's evaluated cells,
@@ -14,19 +14,24 @@ boxes) on the CPU, where it cannot run:
   numpy transliteration of the gather's per-node loop (jvp_node: cells SW,
   SE, NE, NW, triangles ascending, points in order) with the same term
   arithmetic, at 8^2 and 16^2 for BM1, BM2 (1, 2 and 4 order parameters,
-  the coupled operator) and BM3, ffc3; and it is the J.v: within rtol 2e-4
-  / atol 2e-5 of the plain version;
+  the coupled operator), BM3 and BM6 with its Dirichlet rows (both stores:
+  a masked vertex row is the tangent value, jvp_store's), ffc3; and it is
+  the J.v: within rtol 2e-4 / atol 2e-5 of the plain version;
 - the ``form="box"`` wrappers on the CPU (the plain version) against the
   JAX package's ``make_pallas_jvp`` in interpret mode at the JAX kernel
   tests' rtol 2e-4 / atol 2e-5 (tests/test_pallas.py:36): BM1 at 8^2, BM2
-  with one order parameter at 8^2 and BM3 at 16^2, J.v and b - J.v; a
-  direct call of W with CPU tensors raises;
+  with one order parameter at 8^2, BM3 at 16^2 and BM6 at 8^2 with its
+  Dirichlet rows (re-set to v after the Pallas kernel, as the JAX package's
+  ``benchmarks/base.py:201-215`` does), J.v and b - J.v; a direct call of
+  W with CPU tensors raises;
 - the plan's refusals (the split operator, a rule of other than 4 points,
-  Dirichlet rows, a physics with no instantiation);
+  Dirichlet rows at a physics whose box takes none, a physics with no
+  instantiation);
 - the routing: ``lowp_jvp_factory`` and the exported A z (``mv_jv``) of
   bench1, bench2 and bench3 ask for the box form (the tiled configuration:
   T10 for the outer J.v), and on the CPU give the plain version's values;
-  bench6's (Dirichlet rows, which W does not take) stay on the gather.
+  bench6's outer J.v asks for the box form with its Dirichlet rows, and its
+  levels stay on the gather (kernel E).
 """
 
 import dataclasses
@@ -41,6 +46,7 @@ import torch
 from pfhubbenchmarks_tpu.benchmarks.bench1 import make as make_jax1
 from pfhubbenchmarks_tpu.benchmarks.bench2 import make as make_jax2
 from pfhubbenchmarks_tpu.benchmarks.bench3 import make as make_jax3
+from pfhubbenchmarks_tpu.benchmarks.bench6 import make as make_jax6
 from pfhubbenchmarks_tpu.ops.pallas_residual import make_pallas_jvp
 from pfhubbenchmarks_tpu_torch.benchmarks import bench1, bench2, bench3, bench6
 from pfhubbenchmarks_tpu_torch.interop import state_from_numpy, state_to_numpy
@@ -64,6 +70,8 @@ def _f(x):
 def _problem(kind, n, ne=4):
     if kind == "ch":
         return bench1.make(nx=n, ny=n)
+    if kind == "chp":
+        return bench6.make(nx=n, ny=n)
     return (bench2.make(nx=n, ny=n, num_eta=ne) if kind == "chac"
             else bench3.make(nx=n, ny=n))
 
@@ -87,7 +95,8 @@ def _t(pair):
 def test_box_constants_are_the_kernels():
     for kind, src, alias in (("ch", "ch_box.cu", "ChBox"),
                              ("chac", "chac_box.cu", "ChacBox"),
-                             ("ach", "ach_box.cu", "AchBox")):
+                             ("ach", "ach_box.cu", "AchBox"),
+                             ("chp", "chp_box.cu", "ChpBox")):
         m = re.search(rf"using {alias} = pfh::TriBox<(\d+), (\d+), \d+, \d+>;",
                       (CSRC / src).read_text())
         assert tri_box.TRI_BOX[kind] == (int(m.group(1)), int(m.group(2)))
@@ -96,7 +105,7 @@ def test_box_constants_are_the_kernels():
             in (CSRC / "fem_tri_box.cuh").read_text())
 
 
-@pytest.mark.parametrize("kind", ["ch", "chac", "ach"])
+@pytest.mark.parametrize("kind", ["ch", "chac", "ach", "chp"])
 @pytest.mark.parametrize("dims", PLAN_DIMS)
 def test_box_plan_owns_each_node_once_and_holds_its_cells(kind, dims):
     ny, nx = dims
@@ -192,6 +201,18 @@ def _tangent_ch(k, dt, u, d, gx, gy):
             [M * gy[1], -kappa * gy[0]])
 
 
+def _tangent_chp(k, dt, u, d, gx, gy):
+    """phys_chp.cuh's CHP::tangent, elementwise in f32."""
+    M, kappa, rho, ca, cb, kk, eps = k[:7]
+    c = u[0]
+    a = c - ca
+    b = cb - c
+    fpp = _f(2) * rho * ((b - a) * (b - a) - _f(2) * a * b)
+    return ([d[0] / dt, d[1] - fpp * d[0] - kk * d[2], kk * d[0] / eps],
+            [M * gx[1], -kappa * gx[0], -gx[2]],
+            [M * gy[1], -kappa * gy[0], -gy[2]])
+
+
 def _tangent_ach(k, dt, u, d, gx, gy):
     """phys_ach.cuh's ACH::tangent, elementwise in f32."""
     D, W2, inv_tau, lam = k[:4]
@@ -215,7 +236,7 @@ class _Phys:
     def __init__(self, kind, ne, jv):
         self.F = jv.n_fields
         self.state = {"ch": (0,), "chac": (0,) + tuple(range(2, 2 + (ne or 0))),
-                      "ach": (0, 1)}[kind]
+                      "ach": (0, 1), "chp": (0,)}[kind]
         self.P = _params(jv.plan.params[:-1])
         self.kind, self.ne = kind, ne
 
@@ -225,6 +246,8 @@ class _Phys:
             return _tangent_chac(k, dt, self.ne, u, d, gx, gy)
         if self.kind == "ch":
             return _tangent_ch(k, dt, u, d, gx, gy)
+        if self.kind == "chp":
+            return _tangent_chp(k, dt, u, d, gx, gy)
         return _tangent_ach(k, dt, u, d, gx, gy)
 
     def terms(self, dt, wc, d, t, nq):
@@ -258,10 +281,11 @@ def _slots(pv, pm):
     return (pv[:-1, :-1], pv[:-1, 1:], pv[1:, 1:], pv[1:, :-1], pm)
 
 
-def gather_jvp(ph, w, v, dt, nq):
+def gather_jvp(ph, w, v, dt, nq, mask=None):
     """jvp_node: each node's terms added from 0, cells SW, SE, NE, NW (the
     vertex as slot 0..3), triangles holding the slot ascending, points in
-    order; a centre its cell's four triangles."""
+    order; a centre its cell's four triangles. Then jvp_store: a vertex row
+    where ``mask`` is nonzero is the tangent value itself."""
     (wv, wm), (tv, tm) = w, v
     wc = [_slots(wv[f], wm[f]) for f in ph.state]
     d = [_slots(tv[f], tm[f]) for f in range(ph.F)]
@@ -282,14 +306,17 @@ def gather_jvp(ph, w, v, dt, nq):
         for q in range(nq):
             for f in range(ph.F):
                 acc_m[f] += T[t][q][2][f]
+    if mask is not None:
+        acc_v = np.where(mask != 0, tv, acc_v)
     return acc_v, acc_m
 
 
-def box_jvp(ph, w, v, dt, nq, kind):
+def box_jvp(ph, w, v, dt, nq, kind, mask=None):
     """W through the plan: per box, stage the planes of the local frame
     (cells oy - 1 .. oy + BY, vertices one more; NaN where nothing is
     staged), evaluate the plan's cells into local terms (NaN elsewhere), then
-    sum each owned node's local terms in jvp_node's order."""
+    sum each owned node's local terms in jvp_node's order and store it, an
+    owned vertex's masked row as the tangent value (the kMask store)."""
     (wv, wm), (tv, tm) = w, v
     F = ph.F
     ny, nx = wm.shape[1:]
@@ -339,6 +366,8 @@ def box_jvp(ph, w, v, dt, nq, kind):
                             for q in range(nq):
                                 for f in range(F):
                                     acc[f] += T[t][q][j][f][ly, lx]
+                    if mask is not None:
+                        acc = np.where(mask[:, y, x] != 0, tv[:, y, x], acc)
                     out_v[:, y, x] = acc
             for y in cy:
                 for x in cx:
@@ -352,19 +381,27 @@ def box_jvp(ph, w, v, dt, nq, kind):
 
 
 @pytest.mark.parametrize("kind, ne", [("ch", None), ("chac", 1), ("chac", 2),
-                                      ("chac", 4), ("ach", None)])
+                                      ("chac", 4), ("ach", None),
+                                      ("chp", None)])
 @pytest.mark.parametrize("n", [8, 16])
 def test_box_transliteration_is_the_gather_bit_for_bit(kind, ne, n):
     pb = _problem(kind, n, ne or 4)
     g = pb.grid
     assert g.rule_name == "ffc3"
-    jv = pb.kernel_jvp(g, "cpu", form="box")
+    jv = pb.kernel_jvp(g, "cpu", pb.dirichlet, form="box")
     ph = _Phys(kind, ne, jv)
     w, v, _ = _inputs(pb, seed=n + (ne or 0))
-    dt = _f({"ch": 0.5, "chac": 0.16, "ach": 1.28}[kind])
+    if pb.dirichlet:
+        wv = torch.as_tensor(w[0])
+        for bc in pb.dirichlet:
+            wv = bc.apply_value(wv)
+        w = (wv.numpy(), w[1])
+    mask = None if jv.plan.mask is None else jv.plan.mask.numpy()
+    assert (mask is not None) == (kind == "chp")
+    dt = _f({"ch": 0.5, "chac": 0.16, "ach": 1.28, "chp": 0.32}[kind])
     nq = g.tab().nq
-    ref = gather_jvp(ph, w, v, dt, nq)
-    got = box_jvp(ph, w, v, dt, nq, kind)
+    ref = gather_jvp(ph, w, v, dt, nq, mask)
+    got = box_jvp(ph, w, v, dt, nq, kind, mask)
     for a, b in zip(got, ref):
         assert np.isfinite(a).all()
         assert np.array_equal(a, b)
@@ -375,19 +412,29 @@ def test_box_transliteration_is_the_gather_bit_for_bit(kind, ne, n):
                                    atol=F32["atol"] * max(np.abs(b).max(), 1))
 
 
-@pytest.mark.parametrize("kind, n", [("ch", 8), ("chac", 8), ("ach", 16)])
+@pytest.mark.parametrize("kind, n", [("ch", 8), ("chac", 8), ("ach", 16),
+                                     ("chp", 8)])
 def test_box_wrapper_matches_pallas_jvp(kind, n):
     pt = _problem(kind, n, 1)
     pj = {"ch": lambda: make_jax1(nx=n, ny=n),
           "chac": lambda: make_jax2(nx=n, ny=n, num_eta=1),
-          "ach": lambda: make_jax3(nx=n, ny=n)}[kind]()
+          "ach": lambda: make_jax3(nx=n, ny=n),
+          "chp": lambda: make_jax6(nx=n, ny=n)}[kind]()
     w, v, _ = _inputs(pt, seed=3)
     w0 = tuple(np.asarray(a, np.float32) for a in pj.initial_state())
     dt = 0.05
     ref = make_pallas_jvp(pj.grid, pj.terms, pt.n_fields)(
         tuple(map(jnp.asarray, w)), tuple(map(jnp.asarray, w0)), dt,
         tuple(map(jnp.asarray, v)), interpret=True)
-    jv = pt.kernel_jvp(pt.grid, "cpu", form="box")
+    # the Dirichlet rows the JAX package re-sets after its kernel
+    # (benchmarks/base.py:201-215): v there
+    ref = (np.asarray(ref[0]).copy(), np.asarray(ref[1]))
+    for bc in pj.dirichlet:
+        f, i = bc.field, bc.index
+        rows = np.s_[f, :, i] if bc.side in ("left", "right") else np.s_[f, i, :]
+        ref[0][rows] = v[0][rows]
+    assert bool(pj.dirichlet) == (kind == "chp")
+    jv = pt.kernel_jvp(pt.grid, "cpu", pt.dirichlet, form="box")
     for a, b in zip(state_to_numpy(jv(_t(w), _t(w0), dt, _t(v))), ref):
         np.testing.assert_allclose(a, np.asarray(b), **F32)
     res = jv(_t(w), _t(w0), dt, _t(v), b=_t(w0))   # the form b - J v
@@ -409,7 +456,10 @@ def test_box_plan_refusals():
     with pytest.raises(NotImplementedError, match="Dirichlet"):
         tri_box.TriBoxPlan(dataclasses.replace(launch, mask=mask))
     with pytest.raises(NotImplementedError, match="no instantiation"):
-        tri_box.TriBoxPlan(dataclasses.replace(launch, kind="chp"))
+        tri_box.TriBoxPlan(dataclasses.replace(launch, kind="ch3d"))
+    # at BM6's physics the mask is taken, and counted apart
+    assert tri_box.TriBoxPlan(dataclasses.replace(
+        launch, kind="chp", mask=mask)).name == "tri_box_chp"
 
 
 @pytest.mark.parametrize("name", ["bench1", "bench2", "bench3"])
@@ -451,24 +501,29 @@ def test_outer_jvp_and_exported_az_take_the_box_form(name, tiled):
         assert torch.equal(a, b)
 
 
-def test_bench6_outer_jvp_stays_on_the_gather():
-    """bench6's outer J.v and exported A z have Dirichlet rows, which W does
-    not take: they stay kernel E's gather form."""
+def test_bench6_outer_jvp_takes_the_box_form():
+    """bench6's outer J.v is kernel W at BM6's physics with its Dirichlet
+    rows (the box form); its levels stay kernel E's gather form, and with
+    Dirichlet rows on the fine level it exports no A z."""
     pb = bench6.make(nx=16, ny=16)
-    assert pb.outer_jvp_form == "gather"
+    assert pb.outer_jvp_form == "box"
     made = []
     kernel_jvp = pb.kernel_jvp
 
     def recording(g, device, dirichlet=(), split=False, form="gather"):
-        made.append(form)
+        made.append((g.nx, g.rule_name, form, bool(dirichlet)))
         return kernel_jvp(g, device, dirichlet, split=split, form=form)
 
     pb = dataclasses.replace(pb, kernel_jvp=recording)
     jv = pb.lowp_jvp_factory("cpu")
-    pb.precond_builder("cpu")
-    assert made and set(made) == {"gather"}
+    assert made == [(16, "ffc3", "box", True)]
+    build = pb.precond_builder("cpu")
+    assert all(f == "gather" for (_, r, f, _) in made[1:] if r != "ffc3")
     w = tuple(t.float() for t in pb.initial_state("cpu"))
     v = tuple(torch.ones_like(t) for t in w)
+    assert not hasattr(build(w, w, 0.01), "minv_matvec")
+    box = kernel_jvp(pb.grid, "cpu", pb.dirichlet, form="box")
+    assert box.plan.name == "tri_box_chp" and box.plan.mask is not None
     plain = kernel_jvp(pb.grid, "cpu", pb.dirichlet).plain
     for a, b in zip(jv(w, w, 0.01)(v), plain(w, w, 0.01, v)):
         assert torch.equal(a, b)

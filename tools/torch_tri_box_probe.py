@@ -1,20 +1,22 @@
 """Kernel W (the triangle-box J.v, ``csrc/fem_tri_box.cuh``) and the residual
 box built with other box shapes, on this card.
 
-    python3 tools/torch_tri_box_probe.py [ch|chac|ach|acha|rchac|rchp|all]
-                                                          (default all)
+    python3 tools/torch_tri_box_probe.py [ch|chac|ach|acha|chp|rchac|rchp|all]
+                                                              (default all)
 
 Each variant rewrites the ``TriBox<BY, BX, MIN_CTAS, QSPLIT>`` line of
 ``csrc/ch_box.cu`` (W at BM1's physics), ``csrc/chac_box.cu`` (BM2's
 coupled physics), ``csrc/ach_box.cu`` (BM3's), ``csrc/acha_box.cu`` (the
-anisotropic BM3's), ``csrc/chac_rbox.cu`` (the
+anisotropic BM3's), ``csrc/chp_box.cu`` (BM6's, with its Dirichlet mask),
+``csrc/chac_rbox.cu`` (the
 residual box at BM2's) or ``csrc/chp_rbox.cu`` (at BM6's) in a copy of the
 sources under the ignored ``pfhubbenchmarks_tpu_torch/_build/tri_box_probe/``
 (the package's own build is untouched) and builds that source alone into a
 shared library, all variants in parallel. Each is held against the gather
 kernel it replaces (A at bench1 100^2, F at bench2 100^2 with 4 order
 parameters, G at bench3 350^2, the anisotropic gather at the anisotropic
-bench3's 350^2, all at ffc3; R at bench2 100^2 with 4 order
+bench3's 350^2, E at bench6 100^2 with its Dirichlet rows, all at ffc3; R
+at bench2 100^2 with 4 order
 parameters and at bench6 100^2 with its Dirichlet rows) with
 ``torch.equal``, and timed per launch (40 launches queued behind a sleep
 kernel) beside the gather kernel and, for a J.v with a tile form, T10 in
@@ -52,22 +54,25 @@ SHAPES = {"ch": ((7, 7, 2, 2), (7, 7, 2, 1), (7, 7, 4, 1), (7, 7, 1, 4),
                   (7, 7, 8, 1), (3, 15, 3, 2), (3, 7, 3, 4), (7, 15, 1, 2)),
           "acha": ((7, 15, 3, 1), (7, 15, 2, 1), (7, 15, 4, 1), (7, 7, 6, 1),
                    (7, 7, 4, 1), (3, 15, 3, 2), (7, 15, 1, 2)),
+          "chp": ((7, 7, 2, 2), (7, 7, 2, 1), (7, 7, 4, 1), (7, 7, 1, 4),
+                  (3, 7, 4, 2), (5, 5, 4, 1), (3, 3, 4, 2), (7, 15, 2, 1)),
           "rchac": ((7, 7, 2, 1), (7, 7, 1, 2), (3, 7, 2, 2), (5, 5, 2, 1),
                     (3, 3, 2, 4)),
           "rchp": ((7, 7, 2, 1), (7, 7, 4, 1), (7, 7, 2, 2), (3, 7, 4, 2),
                    (5, 5, 4, 1), (3, 3, 4, 2))}
 SOURCE = {"ch": "ch_box.cu", "chac": "chac_box.cu", "ach": "ach_box.cu",
-          "acha": "acha_box.cu",
+          "acha": "acha_box.cu", "chp": "chp_box.cu",
           "rchac": "chac_rbox.cu", "rchp": "chp_rbox.cu"}
 ALIAS = {"ch": "ChBox", "chac": "ChacBox", "ach": "AchBox", "acha": "AchaBox",
-         "rchac": "ChacRBox", "rchp": "ChpRBox"}
+         "chp": "ChpBox", "rchac": "ChacRBox", "rchp": "ChpRBox"}
 # the launcher's symbol and its int arguments before the box per kind
 SYMBOL = {"ch": "pfh_ch_box", "chac": "pfh_chac_box", "ach": "pfh_ach_box",
-          "acha": "pfh_acha_box",
+          "acha": "pfh_acha_box", "chp": "pfh_chp_box",
           "rchac": "pfh_chac_rbox", "rchp": "pfh_chp_rbox"}
 # the benchmark each kind is probed on, its dt
 BENCH = {"ch": ("bench1", 0.5), "chac": ("bench2", 0.16),
          "ach": ("bench3", 1.28), "acha": ("bench3", 1.28),
+         "chp": ("bench6", 0.32),
          "rchac": ("bench2", 0.16), "rchp": ("bench6", 0.32)}
 # the benchmark's options per kind
 OPTIONS = {"acha": dict(anisotropy=True)}
@@ -123,8 +128,10 @@ def probe(kinds, out: dict) -> None:
             raise RuntimeError(f"{kind} {shape}: nvcc failed:\n{log[-4000:]}")
         vl = ctypes.CDLL(so)
         ne = kind.endswith("chac")   # the launcher takes ne before the box
+        # a J.v box takes the mask after b, the residual box mask and g first
+        planes = 8 if kind.startswith("r") else 9
         getattr(vl, SYMBOL[kind]).argtypes = (
-            [vp] + [i32] * (4 if ne else 3) + [vp] * 8 + [i32, i32, vp])
+            [vp] + [i32] * (4 if ne else 3) + [vp] * planes + [i32, i32, vp])
         getattr(vl, SYMBOL[kind] + "_info").argtypes = [i32, ip] if ne else [ip]
         libs[(kind, shape)] = vl
         print(f"{kind} {shape}: built; " + " | ".join(
@@ -155,14 +162,15 @@ def probe(kinds, out: dict) -> None:
             ops = (w[0], w[1], w0[0], w0[1])
             extra = (mask, gv)
         else:
-            jv = pb.kernel_jvp(g, dev, form="box")
+            jv = pb.kernel_jvp(g, dev, pb.dirichlet, form="box")
             plan, ref = jv.plan, jv.gather.kernel(w, w, dt, v)
             fns["gather"] = lambda: jv.gather.kernel(w, w, dt, v)
             if kind in TILED:
                 t10 = pb.kernel_jvp(g, dev, form="recompute")
                 fns["T10"] = lambda: t10.kernel(w, w, dt, v)
             ops = (w[0], w[1], v[0], v[1])
-            extra = (None, None)
+            extra = (None, None, None if plan.mask is None
+                     else plan.mask.data_ptr())
         params = plan.params.copy()
         params[-1] = dt
         variant = plan.variant
