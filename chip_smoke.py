@@ -271,8 +271,34 @@ Phases, each printing its results; any failure raises (non-zero exit):
    that of the ``.json``, the Krylov counts printed beside it; it requires W,
    both chains and N's one-launch build at those instantiations and refuses
    the gather, the isotropic kernels and L.
+32. kernels U and L at bench6_3d's physics with the Dirichlet mask
+   (``chp3d_tile``, ``lmr_loop_chp3d``: port kernels with no TPU row, the
+   JAX package runs bench6_3d on XLA) at its levels 50^3 and 25^3, ffc3,
+   the x-face rows of phi masked (``chp3d_phase``): U's J.v and b - J.v
+   against its plain version and ``torch.func.jvp`` of the f32 residual
+   with its BC rows (TOL_F32), its masked rows equal to v and b - v
+   (``torch.equal``), a rerun to the bit; L with 2 sweeps against its plain
+   version (TOL_F32), its sequence B, U, C and a rerun (to the bit, both
+   required); device and per-call us of each beside its plain version, the
+   library call (U) and the sequence (L), the bounds (CHP3D_OPS), the
+   ptxas lines of both sources and registers, spills and CTAs per SM.
+33. bench6_3d's main path (``bench6_3d_phases``): at 20^3 the whole run (9
+   rows to t = 3.83) against every row of ``tests/data/bench6_3d_jax_rows_20``
+   (the JAX package's CPU run, ``tools/jax_bench6_3d_rows.py``), and at its
+   published 50^3 the whole run to t >= 3 with the rows that
+   ``tests/data/bench6_3d_jax_rows`` holds checked (only those rows if the
+   smoke has run BENCH6_3D_LATE_S by then, which it says): time column
+   rtol 1e-9, TFE rel 1e-6, solute rel 1e-9, each row's Newton count that
+   of the ``.json`` (the Krylov counts printed beside them); on every row
+   phi on its x faces to 1e-9 (every accepted state), the solute conserved
+   to rel 1e-10 of row 1 and TFE decreasing. U and L at CHP3 are required,
+   L launched 4 times per Krylov iteration (every sweep loop) and U more
+   than 3 times (the outer J.v and each level's b - A x), one
+   preconditioner apply 6 wrapper calls; the CH3 U and L, B, C, the 2D
+   kernels and the chains are refused.
 
-Phases 28, 29 and 30 run between 7 and 8, phases 20-24 after 25 and 26. The
+Phases 28, 29 and 30 run between 7 and 8, phases 32 and 33 after 12, phases
+20-24 after 25 and 26. The
 outer J.v and the exported A z of bench1 (4, 17), bench2 (8, 25),
 bench2_eta1 (26) and bench3 (10, 19) are kernel W: those phases require it
 and refuse A's, F's or G's launches; the tiled bench1 (14) and bench3 (15)
@@ -346,7 +372,11 @@ same planes and its ``device_ms`` one launch queued behind a sleep kernel;
 it names N's one-launch form (``node_build``, bench2's split build of
 100/50/25 its main shape, ``library_ms`` null) as ``comparison_of``, and E
 (``chp_jvp``) names W at BM6's physics (``tri_box_chp``, its main shape
-bench6's 100^2 with the Dirichlet mask).
+bench6's 100^2 with the Dirichlet mask). U and L at bench6_3d's physics
+(``chp3d_tile``, ``lmr_loop_chp3d``, phase 32) are port kernels with no TPU
+row (``note``); their main shape is bench6_3d's 50^3 at ffc3 with the mask
+(L with 2 sweeps, ``library_ms`` null), their launches those of phase 33's
+two runs.
 ``chains`` lists
 the tiled sweep loop and the launch sequences of the two V-cycle level
 steps and the two chains, which stand for TPU kernels 13 (the tiled sweep
@@ -388,6 +418,12 @@ BENCH1_3D_ROWS = 24                   # results/bench1_3d_out.csv, to t = 52.7
 BENCH1_3D_PREFIX_ROWS = 10            # to t = 12.7, if the smoke runs late
 BENCH1_3D_LATE_S = 1000.0
 JAX_BENCH1_3D_NEWTON = (98, 102)      # accepted, over all attempts
+# bench6_3d (phase 33): the JAX package's CPU rows (tools/jax_bench6_3d_rows.py)
+# at 20^3 (the whole run) and at 50^3 (its first rows); the 50^3 run is cut
+# to the rows of its file if the smoke has run BENCH6_3D_LATE_S by then
+BENCH6_3D_ROWS_20 = "bench6_3d_jax_rows_20"
+BENCH6_3D_ROWS_50 = "bench6_3d_jax_rows"
+BENCH6_3D_LATE_S = 900.0
 # kernel L's device us per call in 3D before kernel U, over kernel I's gather
 # body (2 sweeps; PERF.md)
 L3D_BEFORE_U_US = {50: 99.3, 25: 42.2}
@@ -1029,19 +1065,30 @@ def chain_work(grids, F, nu, nu_fine, ascend: bool, jv_kw=None, groups=None,
 # product (1) and its weighted contraction into the 4 vertices (8).
 CH3D_TET_OPS = 2 * (3 + 3 + 2 + 11 + 4 + 4)
 CH3D_POINT_OPS = 7 + 7 + 4 + 1 + 8
+# BM6's tangent in 3D (phys_chp3d.cuh), counted as CH3D's: per tet the same
+# 27 operations for each of its three fields (phi's gradient, its flux
+# -grad(dphi), the contraction, the mass action on k dc / epsilon, the sums;
+# the coupling -k dphi folds into mu's mass action), per point the same
+# f''(c) dc (the only term that varies within a tet).
+CHP3D_TET_OPS = 3 * (3 + 3 + 2 + 11 + 4 + 4)
+CHP3D_POINT_OPS = CH3D_POINT_OPS
+CH3D_OPS = (CH3D_TET_OPS, CH3D_POINT_OPS)
+CHP3D_OPS = (CHP3D_TET_OPS, CHP3D_POINT_OPS)
 
 
-def jvp3d_work(g, F=2, ns=1, with_b=False):
-    """(bytes, flops) of one 3D J.v of BM1: ``ns`` state planes + F tangent
-    planes (+ b) in, F planes out, over the (nz+1)(ny+1)(nx+1) vertices; each
-    of the 6 tets of a cell counted once (CH3D_TET_OPS, CH3D_POINT_OPS per
-    point; kernel I evaluates each tet once per vertex, 4 times, kernel U
-    once per box that holds its cell, 1.5 times on average), and for b - J v
-    one subtraction per node and field."""
+def jvp3d_work(g, F=2, ns=1, with_b=False, ops=CH3D_OPS, masked=False):
+    """(bytes, flops) of one 3D J.v: ``ns`` state planes + F tangent planes
+    (+ b, + the F mask planes when ``masked``) in, F planes out, over the
+    (nz+1)(ny+1)(nx+1) vertices; each of the 6 tets of a cell counted once
+    (``ops``: the operations per tet and per point, BM1's CH3D_OPS or BM6's
+    CHP3D_OPS; kernel I evaluates each tet once per vertex, 4 times, kernel
+    U once per box that holds its cell, 1.5 times on average), and for
+    b - J v one subtraction per node and field."""
     N, nq = g.n_vertices, g.tab().nq
     assert nq >= 4, "the count takes the mass matrix as exact (degree 2)"
-    byts = 4 * N * (ns + 2 * F + (F if with_b else 0))
-    flops = (g.nz * g.ny * g.nx * 6 * (CH3D_TET_OPS + nq * CH3D_POINT_OPS)
+    tet_ops, point_ops = ops
+    byts = 4 * N * (ns + 2 * F + (F if with_b else 0) + (F if masked else 0))
+    flops = (g.nz * g.ny * g.nx * 6 * (tet_ops + nq * point_ops)
              + (F * N if with_b else 0))
     return byts, flops
 
@@ -1056,12 +1103,14 @@ def lmr3d_work(g, F=2):
     return 4 * 6 * F * N, 8 * F * N
 
 
-def sweep3d_work(g, n, F=2):
-    """n sweeps: the state plane, the block planes and (x, r) in once, (x, r)
-    out once; the flops of n block-Jacobi applies, J.v and LMR steps."""
+def sweep3d_work(g, n, F=2, ops=CH3D_OPS, masked=False):
+    """n sweeps: the state plane, the block planes, (x, r) (and the mask
+    planes) in once, (x, r) out once; the flops of n block-Jacobi applies,
+    J.v and LMR steps."""
     N = g.n_vertices
-    byts = 4 * N * (1 + F * F + 4 * F)
-    flops = n * (jvp3d_work(g, F)[1] + bj3d_work(g, F)[1] + lmr3d_work(g, F)[1])
+    byts = 4 * N * (1 + F * F + 4 * F + (F if masked else 0))
+    flops = n * (jvp3d_work(g, F, ops=ops)[1] + bj3d_work(g, F)[1]
+                 + lmr3d_work(g, F)[1])
     return byts, flops
 
 
@@ -1812,6 +1861,28 @@ def kernel_records():
         # place of E
         "tri_box_chp": Kernel("tri_box_chp", csrc + "chp_box.cu",
                               replaces_jv),
+        # U and L at bench6_3d's physics with the Dirichlet mask: port
+        # kernels with no TPU row (the JAX package runs bench6_3d on XLA)
+        "chp3d_tile": Kernel(
+            "chp3d_tile", csrc + "chp3d_tile.cu",
+            "pfhubbenchmarks_tpu/benchmarks/bench1_3d.py:114",
+            ("pfhubbenchmarks_tpu/ops/pallas3d.py:294",),
+            note="a port kernel with no TPU row: the JAX package's outer "
+                 "J.v factory returns None with Dirichlet faces "
+                 "(bench1_3d.py:114-120) and its 3D cycle skips the Pallas "
+                 "kernels on levels with BC rows (solve/gmg3d.py:93), so "
+                 "bench6_3d's J.v runs on XLA; U's body (row 16's "
+                 "counterpart) at BM6's physics with the mask"),
+        "lmr_loop_chp3d": Kernel(
+            "lmr_loop_chp3d", csrc + "lmr_loop_chp3d.cu",
+            "pfhubbenchmarks_tpu/solve/gmg3d.py:93",
+            ("pfhubbenchmarks_tpu/ops/pallas3d.py:182",),
+            note="a port kernel with no TPU row: the JAX package's 3D cycle "
+                 "sweeps bench6_3d's levels on XLA (solve/gmg3d.py:93 skips "
+                 "the Pallas sweep kernels on levels with BC rows); L's 3D "
+                 "form (row 15's counterpart) at BM6's physics with the "
+                 "mask; library_ms null (no one PyTorch call runs n LMR "
+                 "sweeps)"),
     }
     seq = ("level J.v (ch_jvp, chp_jvp, chac_jvp or ach_jvp)", "lmr_sweep",
            "transfer_dyadic")
@@ -2057,6 +2128,262 @@ def bench1_3d_phases(dev, K, C, rng, t_start, paths):
           f"({build_s / n_builds * 1e3:.1f} ms each; phase 11's warm build "
           f"{build_ms['with the dense inverse']:.1f} ms), share "
           f"{build_s / wall:.4f} of the {wall:.3f} s run", flush=True)
+
+
+def ptxas_lines(source: str) -> list[str]:
+    """The ``-Xptxas -v`` lines of one source's build (registers, spills,
+    stack) from the library's build log; empty when the library was loaded
+    from an earlier build."""
+    from pfhubbenchmarks_tpu_torch.ops import _lib
+
+    log = _lib.library().build_log
+    head = f"== {source}\n"
+    if head not in log:
+        return []
+    part = log.split(head, 1)[1].split("\n== ", 1)[0]
+    return [ln.strip() for ln in part.splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+
+
+def chp3d_phase(dev, K, rng):
+    """Phase 32: kernels U and L at bench6_3d's physics with the Dirichlet
+    mask (``chp3d_tile``, ``lmr_loop_chp3d``) at its levels 50^3 and 25^3,
+    ffc3, with the level's x-face rows of phi masked. U: J.v and b - J.v
+    against the plain version (TOL_F32) and ``torch.func.jvp`` of the f32
+    residual with its BC rows (its library call); the masked rows equal to
+    v (b - v) with ``torch.equal``; a rerun to the bit; device us (launches
+    queued behind a sleep kernel) and per-call us of U, the plain version
+    and the library call; the bound (CHP3D_OPS). L with the level's sweep
+    count (2): against its plain version (TOL_F32), its launch sequence B,
+    U, C (``torch.equal``, required: L runs U's body) and a rerun (to the
+    bit); device and per-call us of L and the sequence; the bound. The
+    ptxas lines of both sources, and registers, spills and CTAs per SM of
+    each instantiation."""
+    from pfhubbenchmarks_tpu_torch.benchmarks import bench6_3d
+    from pfhubbenchmarks_tpu_torch.fem.assembly3d import make_residual3d
+    from pfhubbenchmarks_tpu_torch.ops import _lib, lmr
+    from pfhubbenchmarks_tpu_torch.solve import gmg3d
+    from pfhubbenchmarks_tpu_torch.solve import transfer3d as t3
+    from pfhubbenchmarks_tpu_torch.solve.precond import make_block_jacobi3d
+
+    t32 = time.perf_counter()
+    f32 = torch.float32
+    label = "phase 32"
+    pb = bench6_3d.make()
+    s, F, dt = pb.solver, pb.n_fields, 0.32
+    grids = gmg3d.build_hierarchy3d(pb.grid)
+    assert [g.nx for g in grids] == [50, 25, 5] and grids[0].tab().nq == 8
+    lib = _lib.library()
+    for src in ("chp3d_tile.cu", "lmr_loop_chp3d.cu"):
+        print(f"{label}: ptxas {src}: {ptxas_lines(src) or 'not in this log'}",
+              flush=True)
+    KU, KL = K["chp3d_tile"], K["lmr_loop_chp3d"]
+    (v0,) = grids[0].interpolate(pb.ic_fns)
+    w = pb.initial_state(dev)
+    w = (w[0].to(f32) + torch.tensor(0.01 * rng.standard_normal(v0.shape),
+                                     dtype=f32, device=dev),)
+    for l, g in enumerate(grids[:2]):
+        bcs = pb.dirichlet_for(g)
+        jv = pb.kernel_jvp(g, dev, bcs)
+        mask = jv.launch.mask != 0
+        v, b = ((torch.tensor(rng.standard_normal((F,) + g.vshape), dtype=f32,
+                              device=dev),) for _ in range(2))
+        res = make_residual3d(g, pb.terms, F, device=dev, dirichlet=bcs,
+                              dtype=f32)
+
+        def library(w=w, v=v, res=res):
+            return torch.func.jvp(lambda u: res(u, w, dt), (w,), (v,))[1]
+
+        lab = f"bench6_3d {g.nz}^3 ffc3"
+        u_dev = device_ms(lambda: jv.kernel(w, w, dt, v))
+        u_ms = cuda_ms(lambda: jv.kernel(w, w, dt, v))
+        plain_ms = cuda_ms(lambda: jv.plain(w, w, dt, v), reps=10)
+        lib_ms = cuda_ms(library, reps=5)
+        got, again = jv.kernel(w, w, dt, v), jv.kernel(w, w, dt, v)
+        work = jvp3d_work(g, F, ops=CHP3D_OPS, masked=True)
+        KU.check(f"{lab} Jv", got, jv.plain(w, w, dt, v), TOL_F32,
+                 (u_ms, plain_ms), work, library_ms=lib_ms, dev_ms=u_dev,
+                 main=l == 0)
+        KU.check(f"{lab} Jv vs torch.func.jvp", got, library(), TOL_F32)
+        got_b = jv.kernel(w, w, dt, v, b=b)
+        KU.check(f"{lab} b-Jv", got_b, jv.plain(w, w, dt, v, b=b), TOL_F32)
+        if not torch.equal(got[0], again[0]):
+            raise AssertionError(f"U at CHP3 {lab}: a rerun changed the bits")
+        if not (torch.equal(got[0][mask], v[0][mask])
+                and torch.equal(got_b[0][mask], (b[0] - v[0])[mask])):
+            raise AssertionError(f"U at CHP3 {lab}: a masked row is not v "
+                                 "(b - v)")
+        info = lib.kernel_info("pfh_chp3d_tile_info", jv.launch.nq)
+        b_ms, b_by = bound(work)
+        print(f"{label}: U {lab}: device {u_dev * 1e3:.2f} us per launch; per "
+              f"call U / plain / torch.func.jvp {u_ms * 1e3:.1f} / "
+              f"{plain_ms * 1e3:.1f} / {lib_ms * 1e3:.1f} us; bound "
+              f"{b_ms * 1e3:.3f} us ({b_by}); {int(mask.sum())} masked rows "
+              f"equal v and b - v; rerun bit-identical; {info} on "
+              f"{smi_line()}", flush=True)
+
+        # L with the level's sweeps, against its plain version and sequence
+        pinv = make_block_jacobi3d(g, pb.terms_tangent, F, device=dev,
+                                   dirichlet=bcs)(w, w, dt).pinv_planes
+        for n in sorted({s.gmg_nu_pre, s.gmg_nu_post}):
+            sweep = lmr.make_lmr_sweep_loop(jv, n)
+            r0 = torch.tensor(rng.standard_normal((F,) + g.vshape), dtype=f32,
+                              device=dev)
+
+            def run(version, r0=r0, sweep=sweep):
+                x, r = (torch.zeros_like(r0),), (r0.clone(),)
+                return getattr(sweep, version)(x, r, w, w, dt, *pinv)
+
+            kout, kagain = run("kernel"), run("kernel")
+            seq, ref = run("sequence"), run("plain")
+            kflat, seqflat = kout[0] + kout[1], seq[0] + seq[1]
+            same = all(torch.equal(a, c) for a, c in zip(kflat, seqflat))
+            if not all(torch.equal(a, c) for a, c in
+                       zip(kflat, kagain[0] + kagain[1])):
+                raise AssertionError(f"L at CHP3 {lab}: a rerun changed the "
+                                     "bits")
+            l_dev = device_ms(lambda: run("kernel"))
+            s_dev = device_ms(lambda: run("sequence"))
+            per = interleaved_ms({"kernel": lambda: run("kernel"),
+                                  "sequence": lambda: run("sequence")})
+            p_ms = once_ms(lambda: run("plain"))
+            swork = sweep3d_work(g, n, F, ops=CHP3D_OPS, masked=True)
+            KL.check(f"{lab} n={n}", kflat, ref[0] + ref[1], TOL_F32,
+                     (per["kernel"], p_ms), swork, dev_ms=l_dev, main=l == 0)
+            lb_ms, lb_by = bound(swork)
+            d_seq = max(float((a - c).abs().max())
+                        for a, c in zip(kflat, seqflat))
+            print(f"{label}: L {lab} n={n}: device {l_dev * 1e3:.2f} us vs the "
+                  f"sequence B, U, C's {s_dev * 1e3:.2f}; per call "
+                  f"{per['kernel'] * 1e3:.1f} vs {per['sequence'] * 1e3:.1f} "
+                  f"us, plain {p_ms * 1e3:.1f} us; bound {lb_ms * 1e3:.3f} us "
+                  f"({lb_by}); vs the sequence max abs diff {d_seq:.3e}"
+                  f"{' (bit-identical)' if same else ''}; rerun bit-identical; "
+                  f"{lib.kernel_info('pfh_lmr_loop_chp3d_info', jv.launch.nq)}",
+                  flush=True)
+            if not same:
+                raise AssertionError(f"L at CHP3 {lab}: not the bits of its "
+                                     "sequence B, U, C")
+        w = t3.inject3d_any(grids[l + 1], g)(w)
+    torch.cuda.synchronize()
+    print(f"{label}: U and L at CHP3 with the mask agree with their plain "
+          f"versions ({time.perf_counter() - t32:.1f} s)", flush=True)
+
+
+def bench6_3d_run(label, problem, dev, gate_name, max_steps=None):
+    """bench6_3d's main path through ``Runner.run`` (``drive``: U and L at
+    CHP3 required, the other J.v kernels, B, C and the chains refused),
+    with every accepted state's phi checked on its x faces; then the rows
+    that ``tests/data/<gate_name>.csv`` holds against the run's (time column
+    rtol 1e-9, TFE rel 1e-6, solute rel 1e-9) and the ``.json``'s Newton
+    counts; the solute conserved to rel 1e-10 of row 1 and TFE decreasing
+    on every row; every sweep loop one launch of L (4 per apply) and every
+    J.v one of U. Returns ``drive``'s counts and the result."""
+    from pfhubbenchmarks_tpu_torch import timeloop
+
+    with open(os.path.join(HERE, "tests", "data", gate_name + ".json")) as f:
+        gate = json.load(f)
+    runner = timeloop.Runner(problem, dev)
+    faces = []
+    inner = runner.step
+
+    def step(*a):
+        res, obs = inner(*a)
+        if res.converged:
+            (v,) = res.x
+            faces.append(max(float((bc.rows(v) - torch.as_tensor(
+                bc.g, dtype=v.dtype, device=v.device)).abs().max())
+                for bc in problem.dirichlet))
+        return res, obs
+
+    runner.step = step
+    counts, result, wall, _ = drive(
+        label, problem, lambda: runner.run(max_steps=max_steps, verbose=True),
+        ("chp3d_tile", "lmr_loop_chp3d"),
+        absent=GATHER_ABSENT + ("ch3d_tile", "ch3d_jvp", "lmr_sweep",
+                                "vcycle_descend_chain", "vcycle_ascend_chain",
+                                "node_build", "vcycle_fused", "tri_box_chp",
+                                "chp_jvp"),
+        max_calls=6)
+    st = result.stats
+    k_all = sum(x.krylov_iters_all for x in st)
+    n_u, n_l = counts["chp3d_tile"], counts["lmr_loop_chp3d"]
+    print(f"{label}: {len(st)} rows to t={result.rows[-1, 0]:.6g}, wall "
+          f"{wall:.3f} s on {smi_line()}; launches U {n_u}, L {n_l} over "
+          f"{k_all} Krylov iterations (all attempts): L {n_l / k_all:.3f} and U "
+          f"{n_u / k_all:.3f} per iteration; phi on its faces max |phi - g| "
+          f"{max(faces):.3e} over {len(faces)} accepted states", flush=True)
+    if n_l != 4 * k_all or n_u <= 3 * k_all:
+        raise AssertionError(f"{label}: a sweep loop or a J.v ran outside U "
+                             "and L")
+    if len(faces) != len(st) or max(faces) > 1e-9:
+        raise AssertionError(f"{label}: phi is off its Dirichlet faces")
+    rows = result.rows
+    sol_drift = float(np.max(np.abs(rows[:, 2] / rows[0, 2] - 1.0)))
+    print(f"{label}: solute drift from row 1 {sol_drift:.3e} (<= 1e-10); TFE "
+          f"decreasing on every row: {bool(np.all(np.diff(rows[:, 1]) < 0))}",
+          flush=True)
+    if sol_drift > 1e-10 or not np.all(np.diff(rows[:, 1]) < 0):
+        raise AssertionError(f"{label}: solute not conserved or TFE not "
+                             "decreasing")
+    n_ref = len(gate["newton_iters"])
+    k = min(n_ref, len(rows))
+    newton = [x.newton_iters for x in st]
+    krylov = [x.krylov_iters for x in st]
+    print(f"{label}: newton per row {newton} against the JAX run's "
+          f"{gate['newton_iters']}; krylov per row {krylov} against the JAX "
+          f"run's {gate['krylov_iters']} (not held)", flush=True)
+    hold_rows(label, dataclasses.replace(result, rows=rows[:k]),
+              gate_name + ".csv", n_ref, tfe_tol=1e-6, col2_tol=1e-9,
+              ref_dir=os.path.join("tests", "data"))
+    if newton[:k] != gate["newton_iters"][:k]:
+        raise AssertionError(f"{label}: Newton counts differ from the JAX "
+                             "run's")
+    return counts, result
+
+
+def bench6_3d_phases(dev, K, rng, t_start, paths):
+    """Phases 32 and 33: U and L at bench6_3d's physics (``chp3d_phase``),
+    then bench6_3d's main path at 20^3 (the whole run, against every row of
+    the JAX package's ``tests/data/bench6_3d_jax_rows_20``) and at its
+    published 50^3 (the whole run to t >= 3, the rows of
+    ``tests/data/bench6_3d_jax_rows`` held; only those rows if the smoke has
+    run BENCH6_3D_LATE_S by then). Adds the main paths' counts to
+    ``paths``."""
+    from pfhubbenchmarks_tpu_torch.benchmarks import bench6_3d
+
+    chp3d_phase(dev, K, rng)
+    t33 = time.perf_counter()
+    label = "phase 33: bench6_3d 20^3"
+    counts, result = bench6_3d_run(label, bench6_3d.make(nx=20, ny=20, nz=20),
+                                   dev, BENCH6_3D_ROWS_20)
+    if result.rows[-1, 0] < 3.0:
+        raise AssertionError(f"{label}: the run stopped before t = 3")
+    paths["bench6_3d 20^3"] = counts
+    label = "phase 33: bench6_3d"
+    problem = bench6_3d.make()
+    max_steps = None
+    elapsed = time.perf_counter() - t_start
+    if elapsed > BENCH6_3D_LATE_S:
+        with open(os.path.join(HERE, "tests", "data",
+                               BENCH6_3D_ROWS_50 + ".json")) as f:
+            max_steps = len(json.load(f)["newton_iters"])
+        print(f"{label}: the smoke has run {elapsed:.0f} s (> "
+              f"{BENCH6_3D_LATE_S:.0f} s): bench6_3d runs the {max_steps} rows "
+              f"of the JAX package's 50^3 file only", flush=True)
+    build = problem.precond_builder(dev)
+    print(f"{label}: hierarchy {[g.nx for g in build.grids]} at ffc3, "
+          f"build.dense_coarse={build.dense_coarse}", flush=True)
+    if not build.dense_coarse:
+        raise AssertionError(f"{label}: the coarsest solve is not the dense "
+                             "inverse")
+    counts, result = bench6_3d_run(label, problem, dev, BENCH6_3D_ROWS_50,
+                                   max_steps)
+    if max_steps is None and result.rows[-1, 0] < 3.0:
+        raise AssertionError(f"{label}: the run stopped before t = 3")
+    paths["bench6_3d"] = counts
+    print(f"phase 33: bench6_3d's two runs ({time.perf_counter() - t33:.1f} s)",
+          flush=True)
 
 
 def tile_phases(dev, K, C, noise_pair, state_on, residual_jvp, paths, refs):
@@ -4268,6 +4595,7 @@ def main() -> None:
           f"{dense_s3 / wall3:.4f})", flush=True)
 
     bench1_3d_phases(dev, K, C, rng, t_start, paths)
+    bench6_3d_phases(dev, K, rng, t_start, paths)
 
     # bench1's first rows and their wall (the sum of their steps' walls)
     wall1_prefix = sum(st.wall for st in result1.stats[:BENCH1_TILED_ROWS])

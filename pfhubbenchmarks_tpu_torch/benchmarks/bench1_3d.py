@@ -29,7 +29,8 @@ from pfhubbenchmarks_tpu_torch.benchmarks.bench1 import (Bench1Params, ic_c,
                                                          kernel_constants,
                                                          make_terms)
 from pfhubbenchmarks_tpu_torch.config import SolverConfig, TimeConfig
-from pfhubbenchmarks_tpu_torch.fem.assembly3d import (make_functional3d,
+from pfhubbenchmarks_tpu_torch.fem.assembly3d import (DirichletBC3D,
+                                                      make_functional3d,
                                                       make_residual3d)
 from pfhubbenchmarks_tpu_torch.fem.grid3d import TetGrid
 
@@ -49,11 +50,12 @@ class Benchmark3DProblem:
     ic_fns: list                          # per-field fn(x, y, z)
     observables: dict
     csv_columns: tuple
-    # (grid, device) -> jv(w, w0, dt, v, b=None), the f32 J.v of terms
+    # (grid, device, dirichlet=()) -> jv(w, w0, dt, v, b=None), the f32 J.v
+    # of terms with the identity rows of the DirichletBC3D faces dirichlet
     kernel_jvp: Callable
     time: TimeConfig = TimeConfig()
     solver: SolverConfig = SolverConfig()
-    # face Dirichlet specs (bench6_3d, poisson3d): not yet ported
+    # (field, face, fn(c1, c2)) specs -> DirichletBC3D (fem/assembly3d.py)
     dirichlet_spec: tuple = ()
     needs_coords: bool = False
     dtype: torch.dtype = torch.float64
@@ -65,19 +67,23 @@ class Benchmark3DProblem:
     def n_fields(self) -> int:
         return len(self.field_names)
 
-    def dirichlet_for(self, grid: TetGrid) -> tuple:
-        if self.dirichlet_spec:
-            raise NotImplementedError(
-                "3D Dirichlet faces are not yet ported to the PyTorch package")
-        return ()
+    def dirichlet_for(self, grid: TetGrid) -> tuple[DirichletBC3D, ...]:
+        """The faces of ``dirichlet_spec`` on ``grid`` (every multigrid level
+        rebuilds its own)."""
+        return tuple(DirichletBC3D.make(grid, f, face, fn)
+                     for (f, face, fn) in self.dirichlet_spec)
 
     @property
-    def dirichlet(self) -> tuple:
+    def dirichlet(self) -> tuple[DirichletBC3D, ...]:
         return self.dirichlet_for(self.grid)
 
     def initial_state(self, device: torch.device | str):
+        """The IC interpolated at the vertices, with the BC values set."""
         (v,) = self.grid.interpolate(self.ic_fns)
-        return (torch.as_tensor(v, dtype=self.dtype, device=device),)
+        v = torch.as_tensor(v, dtype=self.dtype, device=device)
+        for bc in self.dirichlet:
+            v = bc.apply_value(v)
+        return (v,)
 
     def residual(self, device: torch.device | str, dtype=None):
         return make_residual3d(self.grid, self.terms, self.n_fields,
@@ -97,8 +103,8 @@ class Benchmark3DProblem:
 
     def lowp_jvp_factory(self, device: torch.device | str):
         """``factory(x_lp, wprev_lp, dt_lp) -> jvp(v)``: the outer f32 J.v on
-        the true-rule grid (kernel U at ffc3)."""
-        jv = self.kernel_jvp(self.grid, device)
+        the true-rule grid (kernel U at ffc3), with the Dirichlet rows."""
+        jv = self.kernel_jvp(self.grid, device, self.dirichlet)
 
         def factory(x_lp, wprev_lp, dt_lp):
             return lambda v: jv(x_lp, wprev_lp, dt_lp, v)
@@ -113,8 +119,8 @@ class Benchmark3DProblem:
 
         return make_gmg3d(
             self.grid, self.terms, self.n_fields, device=device,
-            jvp_for=lambda g: self.kernel_jvp(g, device),
-            tangent=self.terms_tangent,
+            jvp_for=lambda g: self.kernel_jvp(g, device, self.dirichlet_for(g)),
+            tangent=self.terms_tangent, dirichlet_for=self.dirichlet_for,
             nu_pre=s.gmg_nu_pre, nu_post=s.gmg_nu_post,
             nu_fine_pre=s.gmg_nu_fine_pre, nu_fine_post=s.gmg_nu_fine_post,
             coarse_sweeps=s.gmg_coarse_sweeps, max_levels=s.gmg_max_levels,
@@ -142,11 +148,11 @@ def make(nx: int = 50, ny: int = 50, nz: int = 50, Lx: float = 100.0,
         dc = ctx.du[0]
         return f_chem(c) + p.kappa / 2.0 * (dc[0] ** 2 + dc[1] ** 2 + dc[2] ** 2)
 
-    def kernel_jvp(grid, device):
+    def kernel_jvp(grid, device, dirichlet=()):
         from pfhubbenchmarks_tpu_torch.ops.fem_jvp3d import make_ch3d_jvp
 
         return make_ch3d_jvp(grid, terms_tangent, kernel_constants(p),
-                             device=device)
+                             device=device, dirichlet=dirichlet)
 
     return Benchmark3DProblem(
         name="bench1_3d",

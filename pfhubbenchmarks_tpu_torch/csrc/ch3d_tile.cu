@@ -2,7 +2,8 @@
 // Kuhn-tet grid (bench1_3d) over shared-memory tet boxes, (w, dt, v) -> Jv,
 // f32; fields (c, mu) on one vertex grid [2, nz+1, ny+1, nx+1]. The body is
 // fem_tet_tile.cuh's (each tet of a box evaluated once), the pointwise
-// tangent phys_ch3d.cuh's, the arguments kernel I's (ch3d_jvp.cu).
+// tangent phys_ch3d.cuh's, the arguments kernel I's (ch3d_jvp.cu) with the
+// Dirichlet mask after b, which this instantiation (no kMask) takes null.
 //
 // Replaces pfhubbenchmarks_tpu/ops/pallas3d.py:make_tiled_jvp3d (:294, the
 // z-slab J.v: the outer Krylov matvec at ffc3 and every level's residual J.v
@@ -18,28 +19,15 @@
 #include "phys_ch3d.cuh"
 
 PFH_EXPORT int pfh_ch3d_tile(const float* params, int nq, const float* wv,
-                             const float* tv, const float* bv, float* ov,
-                             int nz, int ny, int nx, void* stream) {
-  return pfh::launch_tet_tile<pfh::CH3>(params, nq, wv, tv, bv, ov, nz, ny, nx,
-                                        stream);
+                             const float* tv, const float* bv,
+                             const float* mask, float* ov, int nz, int ny,
+                             int nx, void* stream) {
+  return pfh::launch_tet_tile<pfh::CH3, false>(params, nq, wv, tv, bv, mask, ov,
+                                               nz, ny, nx, stream);
 }
 
 // Registers, spill bytes, static and dynamic shared bytes and co-resident
 // CTAs per SM of U at nq points (common.cuh kernel_info).
-template <int NQ>
-static int ch3d_tile_info(int* out) {
-  int bytes = 0;
-  const cudaError_t err = pfh::tet_tile_smem<pfh::CH3, NQ>(&bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return pfh::kernel_info(pfh::tet_tile_kernel<pfh::CH3, NQ>, pfh::kTetThreads,
-                          bytes, out);
-}
-
 PFH_EXPORT int pfh_ch3d_tile_info(int nq, int* out) {
-  switch (nq) {
-    case 8: return ch3d_tile_info<8>(out);
-    case 4: return ch3d_tile_info<4>(out);
-    case 1: return ch3d_tile_info<1>(out);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return pfh::tet_tile_info<pfh::CH3, false>(nq, out);
 }

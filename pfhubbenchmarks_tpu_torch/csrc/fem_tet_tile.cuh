@@ -50,9 +50,20 @@
 // 750,000 tets (the halo layers), each tet once where kernel I evaluated
 // every tet once per vertex (4 times). A box's 512 cells take two rounds of
 // 256 threads; the staged operands are ~1.5x the planes' bytes, from L2;
-// per box 2 barriers. At 8 points the kernel is held to three CTAs per SM
-// (80 registers and ~170 bytes of stack), which measured faster than the
-// unbounded body at one CTA per SM.
+// per box 2 barriers. At 8 points the kernel is held to Phys::kTetMinCtas8
+// CTAs per SM: CH3 three (80 registers and ~170 bytes of stack), which
+// measured faster than the unbounded body at one CTA per SM; CHP3 one (226
+// registers, no spills), which measured 62.3 us at bench6_3d's 50^3 and 17.9
+// at 25^3 against 62.6 / 22.5 at two CTAs (128 registers, 320 bytes of stack)
+// and 86.0 / 28.1 at three (tools/torch_tile_probe.py bound; NVIDIA H100 80GB
+// HBM3, 700 W).
+//
+// Dirichlet rows (kMask, bench6_3d's phi faces): with kMask a vertex whose
+// mask entry ([F, nz+1, ny+1, nx+1], 0/1) is nonzero stores the tangent
+// value v (or b - v) in place of its assembled sum: the J.v of a residual
+// whose row there is u - g, as the 2D box's store does (fem_tri_box.cuh
+// tri_box_kernel). The mask is read in phase 3 only, so the assembled rows
+// and their order do not change; without kMask the store is the one before.
 #pragma once
 
 #include "fem_jvp3d.cuh"
@@ -167,11 +178,13 @@ __device__ __forceinline__ void tet_rows(const Jvp3Params& P,
 // (LoadRO, or LoadCG for kernel L's z, written earlier in the launch). smem:
 // tet_box_floats<Phys>() floats. Every thread of the CTA calls it with the
 // same b; it holds 2 barriers and needs none before the next box's call.
-template <class Phys, int NQ, class Ld>
+// With kMask a nonzero entry of mask (null: none) makes the row v's.
+template <class Phys, int NQ, bool kMask, class Ld>
 __device__ __forceinline__ void tet_box(const Jvp3Params& P,
                                         const float* __restrict__ wv,
                                         const float* __restrict__ tv,
                                         const float* __restrict__ bv,
+                                        const float* __restrict__ mask,
                                         float* __restrict__ ov, int nz, int ny,
                                         int nx, long b, float* smem) {
   constexpr int NF = Phys::NF;
@@ -256,57 +269,91 @@ __device__ __forceinline__ void tet_box(const Jvp3Params& P,
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
       const long o = f * nvert + node;
-      ov[o] = (bv != nullptr) ? __ldg(bv + o) - acc[f] : acc[f];
+      float val = acc[f];
+      if constexpr (kMask) {
+        if (mask != nullptr && __ldg(mask + o) != 0.f) val = Ld::ld(tv + o);
+      }
+      ov[o] = (bv != nullptr) ? __ldg(bv + o) - val : val;
     }
   }
 }
 
-// At 8 points held to three CTAs per SM (see the header).
-template <class Phys, int NQ>
-__global__ void __launch_bounds__(kTetThreads, NQ >= 8 ? 3 : 1)
+// At 8 points held to Phys::kTetMinCtas8 CTAs per SM (see the header).
+template <class Phys, int NQ, bool kMask>
+__global__ void __launch_bounds__(kTetThreads, NQ >= 8 ? Phys::kTetMinCtas8 : 1)
 tet_tile_kernel(const Jvp3Params P, const float* __restrict__ wv,
                 const float* __restrict__ tv, const float* __restrict__ bv,
-                float* __restrict__ ov, int nz, int ny, int nx) {
+                const float* __restrict__ mask, float* __restrict__ ov, int nz,
+                int ny, int nx) {
   extern __shared__ float tet_smem[];
-  tet_box<Phys, NQ, LoadRO>(P, wv, tv, bv, ov, nz, ny, nx, blockIdx.x,
-                            tet_smem);
+  tet_box<Phys, NQ, kMask, LoadRO>(P, wv, tv, bv, mask, ov, nz, ny, nx,
+                                   blockIdx.x, tet_smem);
 }
 
 // The dynamic shared bytes of one instantiation of kernel U, allowed once
 // (above 48 KB a kernel must ask for them).
-template <class Phys, int NQ>
+template <class Phys, int NQ, bool kMask>
 inline cudaError_t tet_tile_smem(int* bytes) {
   *bytes = static_cast<int>(sizeof(float)) * tet_box_floats<Phys>();
   static const cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(tet_tile_kernel<Phys, NQ>),
+      reinterpret_cast<const void*>(tet_tile_kernel<Phys, NQ, kMask>),
       cudaFuncAttributeMaxDynamicSharedMemorySize, *bytes);
   return err;
 }
 
-template <class Phys, int NQ>
+template <class Phys, int NQ, bool kMask>
 int launch_tet_tile_nq(const Jvp3Params& P, const float* wv, const float* tv,
-                       const float* bv, float* ov, int nz, int ny, int nx,
-                       cudaStream_t s) {
+                       const float* bv, const float* mask, float* ov, int nz,
+                       int ny, int nx, cudaStream_t s) {
   int bytes = 0;
-  const cudaError_t err = tet_tile_smem<Phys, NQ>(&bytes);
+  const cudaError_t err = tet_tile_smem<Phys, NQ, kMask>(&bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto* k = tet_tile_kernel<Phys, NQ>;
+  auto* k = tet_tile_kernel<Phys, NQ, kMask>;
   k<<<static_cast<unsigned>(tet_boxes(nz, ny, nx)), kTetThreads, bytes, s>>>(
-      P, wv, tv, bv, ov, nz, ny, nx);
+      P, wv, tv, bv, mask, ov, nz, ny, nx);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Host launcher, with launch_fem_jvp3d's arguments: one CTA per box.
-template <class Phys>
+// Host launcher, with launch_fem_jvp3d's arguments and the Dirichlet mask
+// after b (null: none; an instantiation without kMask refuses one): one CTA
+// per box.
+template <class Phys, bool kMask>
 int launch_tet_tile(const float* params, int nq, const float* wv,
-                    const float* tv, const float* bv, float* ov, int nz, int ny,
-                    int nx, void* stream) {
+                    const float* tv, const float* bv, const float* mask,
+                    float* ov, int nz, int ny, int nx, void* stream) {
+  if (!kMask && mask != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const Jvp3Params P = load_params3(params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nq) {
-    case 8: return launch_tet_tile_nq<Phys, 8>(P, wv, tv, bv, ov, nz, ny, nx, s);
-    case 4: return launch_tet_tile_nq<Phys, 4>(P, wv, tv, bv, ov, nz, ny, nx, s);
-    case 1: return launch_tet_tile_nq<Phys, 1>(P, wv, tv, bv, ov, nz, ny, nx, s);
+    case 8:
+      return launch_tet_tile_nq<Phys, 8, kMask>(P, wv, tv, bv, mask, ov, nz, ny,
+                                                nx, s);
+    case 4:
+      return launch_tet_tile_nq<Phys, 4, kMask>(P, wv, tv, bv, mask, ov, nz, ny,
+                                                nx, s);
+    case 1:
+      return launch_tet_tile_nq<Phys, 1, kMask>(P, wv, tv, bv, mask, ov, nz, ny,
+                                                nx, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Registers, spill bytes, static and dynamic shared bytes and co-resident
+// CTAs per SM of U at nq points (common.cuh kernel_info).
+template <class Phys, bool kMask, int NQ>
+int tet_tile_info_nq(int* out) {
+  int bytes = 0;
+  const cudaError_t err = tet_tile_smem<Phys, NQ, kMask>(&bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return kernel_info(tet_tile_kernel<Phys, NQ, kMask>, kTetThreads, bytes, out);
+}
+
+template <class Phys, bool kMask>
+int tet_tile_info(int nq, int* out) {
+  switch (nq) {
+    case 8: return tet_tile_info_nq<Phys, kMask, 8>(out);
+    case 4: return tet_tile_info_nq<Phys, kMask, 4>(out);
+    case 1: return tet_tile_info_nq<Phys, kMask, 1>(out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

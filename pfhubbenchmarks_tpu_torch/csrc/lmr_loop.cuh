@@ -84,7 +84,7 @@ struct LoopArgs {
   const float* pm;
   const float* wv;    // linearization state
   const float* wm;
-  const float* mask;  // [F, vertices] Dirichlet rows (2D), or null
+  const float* mask;  // [F, vertices] Dirichlet rows, or null
   double* partials;   // 2 * G.n * nb
   long nvert, ncell;
   int nz, ny, nx;
@@ -157,8 +157,9 @@ struct Level2 {
 
 // ... and 3D (Kuhn tets): kernel U's body (fem_tet_tile.cuh) per box, in
 // U's order, so that L gives the bits of the launch sequence B, U, C. The
-// CTA is U's (kLoopThreads == kTetThreads).
-template <class Phys, int NQ>
+// CTA is U's (kLoopThreads == kTetThreads). With kMask a Dirichlet row
+// (mask != 0) gives z, as U's store and the 2D gather's do.
+template <class Phys, int NQ, bool kMask = false>
 struct Level3 {
   using Params = Jvp3Params;
   static constexpr int NF = Phys::NF;
@@ -174,8 +175,8 @@ struct Level3 {
                                             float* smem, const Sc& sc) {
     const long nbox = tet_boxes(A.nz, A.ny, A.nx);
     for (long b = sc.rank(); b < nbox; b += sc.size())
-      tet_box<Phys, NQ, LoadCG>(P, A.wv, A.zv, nullptr, A.av, A.nz, A.ny, A.nx,
-                                b, smem);
+      tet_box<Phys, NQ, kMask, LoadCG>(P, A.wv, A.zv, nullptr, A.mask, A.av,
+                                       A.nz, A.ny, A.nx, b, smem);
   }
 };
 static_assert(kLoopThreads == kTetThreads, "L's 3D A z runs U's CTA");
@@ -412,16 +413,19 @@ int launch_lmr_loop2(const float* params, int nq, const LoopArgs& A,
 }
 
 // ... and of a 3D one (keast1, keast2, ffc3: 1, 4 or 8 points).
-template <class Phys>
+template <class Phys, bool kMask>
 int launch_lmr_loop3(const float* params, int nq, const LoopArgs& A,
                      int one_cta, int* grid_out, void* stream) {
   switch (nq) {
     case 1:
-      return launch_lmr_loop<Level3<Phys, 1>>(params, A, one_cta, grid_out, stream);
+      return launch_lmr_loop<Level3<Phys, 1, kMask>>(params, A, one_cta,
+                                                     grid_out, stream);
     case 4:
-      return launch_lmr_loop<Level3<Phys, 4>>(params, A, one_cta, grid_out, stream);
+      return launch_lmr_loop<Level3<Phys, 4, kMask>>(params, A, one_cta,
+                                                     grid_out, stream);
     case 8:
-      return launch_lmr_loop<Level3<Phys, 8>>(params, A, one_cta, grid_out, stream);
+      return launch_lmr_loop<Level3<Phys, 8, kMask>>(params, A, one_cta,
+                                                     grid_out, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -429,7 +433,9 @@ int launch_lmr_loop3(const float* params, int nq, const LoopArgs& A,
 
 // The launch of a 2D level of physics Phys, and of a 3D one (null m
 // pointers, ncell = 0): the operands as LoopArgs names them; nb: the slots
-// per group; starts: n_groups + 1 host ints (make_groups) or null.
+// per group; starts: n_groups + 1 host ints (make_groups) or null. A 3D
+// level's Dirichlet mask comes after its cells (null: none; an
+// instantiation without kMask refuses one).
 template <class Phys>
 int lmr_loop2(const float* params, int nq, float* xv, float* xm, float* rv,
               float* rm, float* zv, float* zm, float* av, float* am,
@@ -445,18 +451,40 @@ int lmr_loop2(const float* params, int nq, float* xv, float* xm, float* rv,
   return launch_lmr_loop2<Phys>(params, nq, A, one_cta, grid_out, stream);
 }
 
-template <class Phys>
+template <class Phys, bool kMask = false>
 int lmr_loop3(const float* params, int nq, float* xv, float* rv, float* zv,
               float* av, const float* pv, const float* wv, double* partials,
               int nb, int n_groups, const int* starts, int n_sweeps, int nz,
-              int ny, int nx, int one_cta, int* grid_out, void* stream) {
+              int ny, int nx, const float* mask, int one_cta, int* grid_out,
+              void* stream) {
+  if (!kMask && mask != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   LoopArgs A{xv, nullptr, rv, nullptr, zv, nullptr, av, nullptr, pv, nullptr,
-             wv, nullptr, nullptr, partials,
+             wv, nullptr, mask, partials,
              static_cast<long>(nz + 1) * (ny + 1) * (nx + 1), 0, nz, ny, nx,
              n_sweeps, nb, FieldGroups{}};
   if (!make_groups(Phys::NF, n_groups, starts, &A.G))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_lmr_loop3<Phys>(params, nq, A, one_cta, grid_out, stream);
+  return launch_lmr_loop3<Phys, kMask>(params, nq, A, one_cta, grid_out, stream);
+}
+
+// Registers, spill bytes, static and dynamic shared bytes and co-resident
+// CTAs per SM of L's 3D form at nq points (common.cuh kernel_info).
+template <class Phys, bool kMask, int NQ>
+int lmr_loop3_info_nq(int* out) {
+  using Lv = Level3<Phys, NQ, kMask>;
+  const cudaError_t err = allow_loop_smem<Lv>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return kernel_info(lmr_loop_kernel<Lv>, kLoopThreads, Lv::kSmemBytes, out);
+}
+
+template <class Phys, bool kMask = false>
+int lmr_loop3_info(int nq, int* out) {
+  switch (nq) {
+    case 4: return lmr_loop3_info_nq<Phys, kMask, 4>(out);
+    case 8: return lmr_loop3_info_nq<Phys, kMask, 8>(out);
+    case 1: return lmr_loop3_info_nq<Phys, kMask, 1>(out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace pfh

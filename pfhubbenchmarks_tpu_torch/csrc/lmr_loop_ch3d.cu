@@ -4,7 +4,7 @@
 // [2, nz+1, ny+1, nx+1]. Replaces
 // pfhubbenchmarks_tpu/ops/pallas3d.py:make_pallas_lmr_sweep_loop3d (:182) and
 // make_tiled_lmr_sweep3d (:347, whose per-slab dots with alpha outside are
-// the slots of phase 3).
+// the slots of phase 3). No Dirichlet rows: the mask argument is null.
 
 #include "lmr_loop.cuh"
 #include "phys_ch3d.cuh"
@@ -14,29 +14,15 @@ PFH_EXPORT int pfh_lmr_loop_ch3d(const float* params, int nq, float* xv,
                                  const float* pv, const float* wv,
                                  double* partials, int nb, int n_groups,
                                  const int* starts, int n_sweeps, int nz,
-                                 int ny, int nx, int one_cta, int* grid_out,
-                                 void* stream) {
+                                 int ny, int nx, const float* mask,
+                                 int one_cta, int* grid_out, void* stream) {
   return pfh::lmr_loop3<pfh::CH3>(params, nq, xv, rv, zv, av, pv, wv, partials,
                                   nb, n_groups, starts, n_sweeps, nz, ny, nx,
-                                  one_cta, grid_out, stream);
+                                  mask, one_cta, grid_out, stream);
 }
 
 // Registers, spill bytes, static and dynamic shared bytes and co-resident
 // CTAs per SM of L's 3D form at nq points (common.cuh kernel_info).
-template <int NQ>
-static int lmr_loop_ch3d_info(int* out) {
-  using Lv = pfh::Level3<pfh::CH3, NQ>;
-  const cudaError_t err = pfh::allow_loop_smem<Lv>();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return pfh::kernel_info(pfh::lmr_loop_kernel<Lv>, pfh::kLoopThreads,
-                          Lv::kSmemBytes, out);
-}
-
 PFH_EXPORT int pfh_lmr_loop_ch3d_info(int nq, int* out) {
-  switch (nq) {
-    case 4: return lmr_loop_ch3d_info<4>(out);
-    case 8: return lmr_loop_ch3d_info<8>(out);
-    case 1: return lmr_loop_ch3d_info<1>(out);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return pfh::lmr_loop3_info<pfh::CH3>(nq, out);
 }

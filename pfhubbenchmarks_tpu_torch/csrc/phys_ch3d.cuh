@@ -15,6 +15,8 @@ namespace pfh {
 struct CH3 {
   static constexpr int NF = 2;
   static constexpr int NS = 1;  // the tangent reads c only
+  // kernel U's CTAs per SM at 8 points (fem_tet_tile.cuh)
+  static constexpr int kTetMinCtas8 = 3;
   __host__ __device__ static constexpr int state_field(int) { return 0; }
   __device__ __forceinline__ static void tangent(
       const Jvp3Params& P, const float (&u)[NS], const float (&d)[NF],

@@ -12,8 +12,10 @@ State: ``w = (v,)`` with v ``[F, Z, Y, X]`` (fem/grid3d.py).
 ``make_tangent_jvp3d`` assembles a hand-written pointwise tangent the same
 way: the plain version of the 3D J.v kernel (ops/fem_jvp3d.py).
 
-Face Dirichlet conditions (``DirichletBC3D``) and coordinate-dependent terms
-are not yet ported: the residual factories raise for them.
+Face Dirichlet conditions (``DirichletBC3D``, bench6_3d's phi faces): the
+residual's rows there are ``u - g``, the J.v's rows ``v``; ``bc_mask3d`` is
+the 0/1 plane of those rows that the kernels read. Coordinate-dependent
+terms are not yet ported: the factories raise for them.
 """
 
 from __future__ import annotations
@@ -72,11 +74,103 @@ class TabTensors3D:
                      for d in range(3)))
 
 
-def _check(dirichlet=(), needs_coords: bool = False):
-    if dirichlet:
-        raise NotImplementedError(
-            "3D Dirichlet faces (DirichletBC3D) are not yet ported to the "
-            "PyTorch package")
+@dataclasses.dataclass(frozen=True)
+class DirichletBC3D:
+    """Strong BC on one boundary face of the vertex grid, one field.
+
+    Counterpart of ``pfhubbenchmarks_tpu/fem/assembly3d.py:DirichletBC3D``
+    (the reference's face-located dirichletbc, dolfinx/poisson3d.py:59-86).
+    ``face`` is one of 'x0'/'x1'/'y0'/'y1'/'z0'/'z1' (the plane where that
+    coordinate is 0 or L); ``g`` holds the nodal boundary values over the
+    stored face shape (host numpy, padding entries 0), evaluated once at
+    construction; ``index`` is the grid plane along the face normal.
+    Residual rows become ``u - g``. The row updates are out of place, so
+    ``torch.func`` can trace them."""
+
+    field: int
+    face: str      # 'x0' | 'x1' | 'y0' | 'y1' | 'z0' | 'z1'
+    g: np.ndarray  # x faces: [Z, Y]; y faces: [Z, X]; z faces: [Y, X]
+    index: int
+
+    @staticmethod
+    def make(grid: TetGrid, field: int, face: str, fn) -> "DirichletBC3D":
+        """``fn(c1, c2)`` maps the two in-face coordinates to boundary data:
+        x faces get (y, z), y faces (x, z), z faces (x, y)."""
+        Z, Y, X = grid.vshape
+        ax = face[0]
+        if face not in ("x0", "x1", "y0", "y1", "z0", "z1"):
+            raise ValueError(f"unknown face {face!r}")
+        if ax == "x":
+            c1 = np.arange(grid.ny + 1) * grid.hy
+            c2 = np.arange(grid.nz + 1) * grid.hz
+            stored, index = (Z, Y), 0 if face == "x0" else grid.nx
+        elif ax == "y":
+            c1 = np.arange(grid.nx + 1) * grid.hx
+            c2 = np.arange(grid.nz + 1) * grid.hz
+            stored, index = (Z, X), 0 if face == "y0" else grid.ny
+        else:
+            c1 = np.arange(grid.nx + 1) * grid.hx
+            c2 = np.arange(grid.ny + 1) * grid.hy
+            stored, index = (Y, X), 0 if face == "z0" else grid.nz
+        C1, C2 = np.meshgrid(c1, c2, indexing="xy")  # [n2, n1]
+        g = np.zeros(stored)
+        g[: c2.size, : c1.size] = np.broadcast_to(
+            np.asarray(fn(C1, C2), np.float64), C1.shape)
+        return DirichletBC3D(field=field, face=face, g=g, index=index)
+
+    @property
+    def axis(self) -> int:
+        """The axis of a field volume [Z, Y, X] that the index selects."""
+        return {"x": 2, "y": 1, "z": 0}[self.face[0]]
+
+    def rows(self, v: torch.Tensor) -> torch.Tensor:
+        """The BC face of a vertex array [F, Z, Y, X]."""
+        return v[self.field].select(self.axis, self.index)
+
+    def put_rows(self, v: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """A copy of ``v`` with its BC face replaced by ``rows``."""
+        vol = torch.select_scatter(v[self.field], rows, self.axis, self.index)
+        return torch.select_scatter(v, vol, 0, self.field)
+
+    def apply_residual(self, rv, v, g=None):
+        """Replace the BC rows with ``u - g`` (padding rows stay 0 - 0 = 0);
+        ``g`` may be given as a tensor of ``rv``'s dtype and device."""
+        if g is None:
+            g = torch.as_tensor(self.g, dtype=rv.dtype, device=rv.device)
+        return self.put_rows(rv, self.rows(v) - g)
+
+    def apply_value(self, v):
+        """Set the BC values into a state array (initial guesses)."""
+        return self.put_rows(v, torch.as_tensor(self.g, dtype=v.dtype,
+                                                device=v.device))
+
+
+def bc_mask3d(grid: TetGrid, bcs, n_fields: int) -> np.ndarray | None:
+    """0/1 float32 mask [F, Z, Y, X] of the Dirichlet vertex rows of the
+    ``DirichletBC3D`` faces ``bcs``, or None without BCs: what kernels U and
+    L read (ops/fem_jvp3d.py)."""
+    if not bcs:
+        return None
+    m = np.zeros((n_fields,) + grid.vshape, np.float32)
+    ext = (grid.nz + 1, grid.ny + 1, grid.nx + 1)
+    for bc in bcs:
+        sel = [slice(0, n) for n in ext]
+        sel[bc.axis] = bc.index
+        m[(bc.field, *sel)] = 1.0
+    return m
+
+
+def zero_bc_rows3d(w, bcs):
+    """``(v,)`` with the rows of ``bcs`` set to 0, out of place: the
+    multigrid cycle keeps restricted residuals and prolonged corrections out
+    of the constraint rows (solve/gmg3d.py)."""
+    (v,) = w
+    for bc in bcs:
+        v = bc.put_rows(v, torch.zeros_like(bc.rows(v)))
+    return (v,)
+
+
+def _check(needs_coords: bool = False):
     if needs_coords:
         raise NotImplementedError(
             "coordinate-dependent terms are not yet ported to the PyTorch "
@@ -118,29 +212,39 @@ def _assemble(T: TabTensors3D, grid: TetGrid, source_flux):
 def make_residual3d(grid: TetGrid, terms: Callable, n_fields: int, *,
                     device: torch.device | str, dirichlet=(),
                     needs_coords: bool = False, dtype=torch.float64):
-    """Build ``residual(w, w0, dt) -> (rv,)`` for a system's weak form."""
+    """Build ``residual(w, w0, dt) -> (rv,)`` for a system's weak form.
+    The rows of each ``DirichletBC3D`` in ``dirichlet`` become ``u - g``."""
     del n_fields  # the field count follows from the state
-    _check(dirichlet, needs_coords)
+    _check(needs_coords)
     T = TabTensors3D.make(grid, dtype, device)
+    bc_g = [torch.as_tensor(bc.g, dtype=dtype, device=device)
+            for bc in dirichlet]
 
     def residual(w, w0, dt):
-        return _assemble(T, grid, terms(_context(T, grid, w, w0, dt)))
+        (rv,) = _assemble(T, grid, terms(_context(T, grid, w, w0, dt)))
+        for bc, g in zip(dirichlet, bc_g):
+            rv = bc.apply_residual(rv, w[0], g)
+        return (rv,)
 
     return residual
 
 
 def make_tangent_jvp3d(grid: TetGrid, tangent, *, device: torch.device | str,
-                       dtype=torch.float64):
+                       dirichlet=(), dtype=torch.float64):
     """Build ``jv(w, w0, dt, v) -> (rv,)``, the J.v of ``make_residual3d``
     assembled from a hand-written pointwise ``tangent(ctx, tctx) ->
     (source, flux)`` (``tctx`` holds v and its gradients at the quadrature
     points): the function ``torch.func.jvp`` of the residual computes,
-    without forward AD."""
+    without forward AD. The rows of each ``DirichletBC3D`` are identity rows
+    (the tangent of ``u - g``)."""
     T = TabTensors3D.make(grid, dtype, device)
 
     def jv(w, w0, dt, v):
-        return _assemble(T, grid, tangent(_context(T, grid, w, w0, dt),
-                                          _context(T, grid, v, None, None)))
+        (rv,) = _assemble(T, grid, tangent(_context(T, grid, w, w0, dt),
+                                           _context(T, grid, v, None, None)))
+        for bc in dirichlet:
+            rv = bc.put_rows(rv, bc.rows(v[0]))
+        return (rv,)
 
     return jv
 
@@ -149,7 +253,7 @@ def make_functional3d(grid: TetGrid, density: Callable, *,
                       device: torch.device | str, needs_coords: bool = False,
                       dtype=torch.float64):
     """Build ``value(w) -> scalar tensor`` for an integral functional."""
-    _check((), needs_coords)
+    _check(needs_coords)
     T = TabTensors3D.make(grid, dtype, device)
     full_shape = (6, T.Bq.shape[1], grid.nz, grid.ny, grid.nx)
 

@@ -13,7 +13,8 @@ launches its kernel), so a run can show that its main path went through the
 kernels. The tiled LMR sweep loop (ops/lmr.py) and the launch sequences of
 the two V-cycle level steps and the two chains (ops/vcycle_chain.py
 ``.sequence``) are not kernels: they count their calls in ``CALLS``. The
-gather sweep loop is one kernel, L (``lmr_sweep``), each chain of gather
+gather sweep loop is one kernel, L (``lmr_sweep``; ``lmr_loop_chp3d`` at
+bench6_3d's physics), each chain of gather
 levels one launch of ``vcycle_descend_chain`` or ``vcycle_ascend_chain``, and
 a whole V-cycle apply with its exported A z one of ``vcycle_fused`` (V).
 ``SECONDS`` holds the host seconds of the multigrid build and its stages,
@@ -53,12 +54,17 @@ KERNELS = ("ch_jvp", "chp_jvp", "chac_jvp", "ach_jvp", "ch3d_jvp",
            "node_build", "tri_box_chp",
            # the anisotropic BM3's instantiations, counted apart
            "acha_jvp", "tri_box_acha", "vcycle_descend_chain_acha",
-           "vcycle_ascend_chain_acha")
+           "vcycle_ascend_chain_acha",
+           # U and L at bench6_3d's physics with the Dirichlet mask
+           "chp3d_tile", "lmr_loop_chp3d")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # the physics whose launches are counted under their own names,
 # ``<kernel>_<kind>`` (the anisotropic BM3's W and chains), and the
 # (kernel, physics) pairs counted so (W at BM6's physics, bench6's outer J.v)
 COUNTED_APART = ("acha", ("tri_box", "chp"))
+# (kernel, physics) pairs counted under a name of their own: L at bench6_3d's
+# physics
+COUNTED_AS = {("lmr_sweep", "chp3d"): "lmr_loop_chp3d"}
 # launch sequences of the kernels that stand for one TPU kernel each
 CHAINS = ("tile_sweep_loop", "descend_level", "ascend_level",
           "descend_chain", "ascend_chain")
@@ -84,6 +90,8 @@ def reset_launches() -> None:
 
 def counter(name: str, kind: str) -> str:
     """The launch counter of kernel ``name`` at the physics ``kind``."""
+    if (name, kind) in COUNTED_AS:
+        return COUNTED_AS[(name, kind)]
     apart = kind in COUNTED_APART or (name, kind) in COUNTED_APART
     return f"{name}_{kind}" if apart else name
 
@@ -136,6 +144,8 @@ class KernelLibrary:
         # kernel L: the operands, then partials, nb, groups, n_sweeps, the
         # grid's cells, one_cta, the grid out, the stream
         loop2 = [vp] * 13 + [vp, i32, i32, vp, i32, i32, i32, i32, ip, vp]
+        loop3 = [vp, i32] + [vp] * 6 + [vp, i32, i32, vp, i32, i32, i32, i32,
+                                        vp, i32, ip, vp]
         # the chain kernels: ascend, nq, the table, K, the CTAs needed, the
         # call's six pointers, the grid out, the stream
         chain = [i32, i32, vp, i32, i64] + [vp] * 6 + [ip, vp]
@@ -158,7 +168,12 @@ class KernelLibrary:
             "pfh_acha_jvp": [vp, i32] + [vp] * 9 + [i32, i32, vp],
             "pfh_jvp_param_floats": [],
             "pfh_ch3d_jvp": [vp, i32] + [vp] * 4 + [i32] * 3 + [vp],
-            "pfh_ch3d_tile": [vp, i32] + [vp] * 4 + [i32] * 3 + [vp],
+            # kernel U: params, nq, w, v, b, the Dirichlet mask, out, the
+            # grid's cells, the stream
+            "pfh_ch3d_tile": [vp, i32] + [vp] * 5 + [i32] * 3 + [vp],
+            "pfh_chp3d_tile": [vp, i32] + [vp] * 5 + [i32] * 3 + [vp],
+            "pfh_chp3d_tile_info": [i32, ip],
+            "pfh_lmr_loop_chp3d_info": [i32, ip],
             "pfh_jvp3_param_floats": [],
             "pfh_ch3d_tile_info": [i32, ip],
             "pfh_ch3d_jvp_info": [i32, ip],
@@ -178,8 +193,11 @@ class KernelLibrary:
             "pfh_lmr_loop_ach": [vp, i32] + loop2,
             "pfh_lmr_loop_acha": [vp, i32] + loop2,
             "pfh_lmr_loop_chac": [vp, i32, i32, i32] + loop2,
-            "pfh_lmr_loop_ch3d": [vp, i32] + [vp] * 6 + [
-                vp, i32, i32, vp, i32, i32, i32, i32, i32, ip, vp],
+            # kernel L in 3D: the operands, partials, nb, groups, n_sweeps,
+            # the grid's cells, the Dirichlet mask, one_cta, the grid out,
+            # the stream
+            "pfh_lmr_loop_ch3d": loop3,
+            "pfh_lmr_loop_chp3d": loop3,
             "pfh_shard_sweep_ch": [vp, i32] + [vp] * 11 + [i32, i32, vp],
             "pfh_shard_sweep_ach": [vp, i32] + [vp] * 11 + [i32, i32, vp],
             "pfh_gridjvp_probe": [i32, vp, i32] + [vp] * 6 + [i32] * 3 + [vp],

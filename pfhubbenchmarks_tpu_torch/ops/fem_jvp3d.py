@@ -14,7 +14,12 @@ or ``b - J v`` when ``b`` is given, as an f32 1-leaf state ``(v,)``. One
 kernel serves the 1-, 4- and 8-point tet rules (keast1, keast2 on the
 multigrid levels, ffc3 for the outer matvec): the tabulation, the physics
 constants and ``dt`` are launch arguments. ``make_ch3d_jvp`` is U (and I)
-for bench1_3d's Cahn-Hilliard.
+for bench1_3d's Cahn-Hilliard; ``make_chp3d_jvp`` U for bench6_3d's
+Cahn-Hilliard + Poisson (``chp3d_tile``, csrc/chp3d_tile.cu), whose face
+Dirichlet rows of phi (``DirichletBC3D``) the kernel's store sets to ``v``
+(or ``b - v``) from a 0/1 mask (fem/assembly3d.bc_mask3d): the J.v of a
+residual whose rows there are ``u - g``. It replaces no TPU kernel (the JAX
+package runs bench6_3d's J.v on XLA); I is not built at its physics.
 
 The plain version is the benchmark's hand-written pointwise ``tangent``
 (which the kernels' ``Phys::tangent`` mirrors) assembled in f32 by the
@@ -28,7 +33,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pfhubbenchmarks_tpu_torch.fem.assembly3d import make_tangent_jvp3d
+from pfhubbenchmarks_tpu_torch.fem.assembly3d import (bc_mask3d,
+                                                      make_tangent_jvp3d)
 from pfhubbenchmarks_tpu_torch.fem.grid3d import _TETS, TetGrid
 from pfhubbenchmarks_tpu_torch.ops import _lib
 from pfhubbenchmarks_tpu_torch.ops.fem_jvp import GatherLaunch
@@ -38,6 +44,7 @@ RULE_POINTS = (1, 4, 8)
 MAX_CONST = 12
 # physics constants of kernels I and U, in their parameter order
 CH_CONSTANTS = ("M", "kappa", "rho_s", "c_alpha", "c_beta")
+CHP_CONSTANTS = ("M", "kappa", "rho", "c_alpha", "c_beta", "k", "epsilon")
 # Kernel U's box: the owned vertices along (z, y, x) (csrc/fem_tet_tile.cuh
 # kBoxZ, kBoxY, kBoxX; tests/test_torch_tet_tile.py holds them equal).
 TET_BOX = (7, 7, 7)
@@ -115,26 +122,34 @@ def with_dt3(head: np.ndarray, dt: float, name: str) -> np.ndarray:
 
 
 def make_fem_jvp3d(grid: TetGrid, tangent, n_fields: int, *, kind: str,
-                   constants: tuple[float, ...], device: torch.device | str):
+                   constants: tuple[float, ...], device: torch.device | str,
+                   dirichlet=(), masked: bool = False, gather: bool = True):
     """``tangent(ctx, tctx) -> (source, flux)`` is the pointwise tangent of
     the benchmark's terms that the kernels compute, ``kind`` the physics of
     the C launchers (``pfh_{kind}_tile``, U; ``pfh_{kind}_jvp``, I; and kernel
     L's ``pfh_lmr_loop_{kind}``), whose names also count the launches;
-    ``constants`` the physics constants in the kernels' order. ``jv.plain``
-    and ``jv.kernel`` (U) are the two versions, ``jv.gather`` kernel I;
-    ``jv.launch`` (ops/fem_jvp.GatherLaunch) is what the kernels' launchers
-    receive."""
+    ``constants`` the physics constants in the kernels' order; ``dirichlet``
+    the ``DirichletBC3D`` faces, whose rows are ``v`` (identity rows), which
+    only a ``masked`` instantiation (kMask) takes; ``gather``: kernel I is
+    built at this physics. ``jv.plain`` and ``jv.kernel`` (U) are the two
+    versions, ``jv.gather`` kernel I; ``jv.launch`` (ops/fem_jvp.GatherLaunch)
+    is what the kernels' launchers receive."""
     if grid.pad_to != (1, 1, 1):
         raise NotImplementedError(f"{kind}: the 3D kernels take unpadded grids")
     if len(constants) > MAX_CONST:
         raise ValueError(f"{kind}: at most {MAX_CONST} constants")
+    if dirichlet and not masked:
+        raise NotImplementedError(f"{kind}: the kernels have no Dirichlet rows "
+                                  "at this physics")
     tangent_jv = make_tangent_jvp3d(grid, tangent, device=device,
-                                    dtype=torch.float32)
+                                    dirichlet=dirichlet, dtype=torch.float32)
     const = np.zeros(MAX_CONST, np.float32)
     const[: len(constants)] = constants
+    mask_np = bc_mask3d(grid, dirichlet, n_fields)
     launch = GatherLaunch(
         kind=kind, head=np.concatenate([pack_tabulation3d(grid), const]),
-        nq=grid.tab().nq, variant=(), mask=None,
+        nq=grid.tab().nq, variant=(),
+        mask=None if mask_np is None else torch.as_tensor(mask_np, device=device),
         dims=(grid.nz, grid.ny, grid.nx), n_fields=n_fields)
     vshape = (n_fields,) + grid.vshape
 
@@ -142,42 +157,65 @@ def make_fem_jvp3d(grid: TetGrid, tangent, n_fields: int, *, kind: str,
         (jv_,) = tangent_jv(w, w0, dt, v)
         return (jv_,) if b is None else (b[0] - jv_,)
 
-    def launcher(name):
+    def launcher(name, with_mask):
         def run(w, w0, dt, v, b=None):
             del w0  # the tangents do not read the previous time level
             ts = [w[0], v[0]] + ([b[0]] if b is not None else [])
-            _lib.check_cuda(name, ts)
+            mask = launch.mask if with_mask else None
+            _lib.check_cuda(name, ts + ([mask] if mask is not None else []))
             for t in ts:
                 if tuple(t.shape) != vshape:
                     raise ValueError(f"{name}: shape {tuple(t.shape)}, "
                                      f"expected {vshape}")
             out = torch.empty_like(v[0])
             params = with_dt3(launch.head, dt, name)
+            # U's launchers take the mask after b (null: none); I's take none
+            mask_arg = ((None if mask is None else mask.data_ptr(),)
+                        if with_mask else ())
             _lib.library().call(
                 f"pfh_{name}", params.ctypes.data, launch.nq, w[0].data_ptr(),
                 v[0].data_ptr(), None if b is None else b[0].data_ptr(),
-                out.data_ptr(), grid.nz, grid.ny, grid.nx, _lib.stream_handle())
+                *mask_arg, out.data_ptr(), grid.nz, grid.ny, grid.nx,
+                _lib.stream_handle())
             _lib.count_launch(name)
             return (out,)
         return run
 
-    kernel = launcher(f"{kind}_tile")
+    kernel = launcher(f"{kind}_tile", True)
 
     def jv(w, w0, dt, v, b=None):
         return (plain if _lib.on_cpu(v[0]) else kernel)(w, w0, dt, v, b)
 
+    def not_built(*args, **kw):
+        raise NotImplementedError(f"kernel I is not built at the physics "
+                                  f"{kind!r}")
+
     jv.plain = plain
     jv.kernel = kernel
-    jv.gather = launcher(f"{kind}_jvp")
+    jv.gather = launcher(f"{kind}_jvp", False) if gather else not_built
     jv.launch = launch
     return jv
 
 
 def make_ch3d_jvp(grid: TetGrid, tangent, constants: dict, *,
-                  device: torch.device | str):
+                  device: torch.device | str, dirichlet=()):
     """Kernel U (and I as ``jv.gather``) for the 2-field (c, mu) system of
     bench1_3d; ``tangent`` is bench1's ``terms_tangent``
-    (benchmarks/bench1.make_terms)."""
+    (benchmarks/bench1.make_terms). Its kernels have no Dirichlet rows."""
     return make_fem_jvp3d(grid, tangent, 2, kind="ch3d",
                           constants=tuple(constants[k] for k in CH_CONSTANTS),
-                          device=device)
+                          device=device, dirichlet=dirichlet)
+
+
+def make_chp3d_jvp(grid: TetGrid, tangent, constants: dict, *,
+                   device: torch.device | str, dirichlet=()):
+    """Kernel U at BM6's physics (``chp3d_tile``) for the 3-field (c, mu,
+    phi) system of bench6_3d, with the rows of the ``DirichletBC3D`` faces
+    ``dirichlet`` set to ``v`` by the mask; ``tangent`` is bench6's
+    ``terms_tangent`` (benchmarks/bench6.make_terms). Kernel L's 3D form at
+    this physics is ``lmr_loop_chp3d``; ``jv.gather`` raises (I is not built
+    here)."""
+    return make_fem_jvp3d(grid, tangent, 3, kind="chp3d",
+                          constants=tuple(constants[k] for k in CHP_CONSTANTS),
+                          device=device, dirichlet=dirichlet, masked=True,
+                          gather=False)

@@ -25,9 +25,10 @@ and ``make_pallas_lmr_sweep`` (n sweeps in one Pallas call) and
 blocks, with partial dots and alpha outside the kernel: L's slots), and in
 3D ``ops/pallas3d.py:make_pallas_lmr_sweep_loop3d`` and
 ``make_tiled_lmr_sweep3d`` (z slabs instead of row blocks). It takes the
-level's physics from ``jv.launch`` (ops/fem_jvp.GatherLaunch) and gives the
-bits of the launch sequence B, the level J.v, C per sweep, which stays as
-``sweep.sequence``. On a level routed to the tile kernels (ops/fem_tile.py)
+level's physics from ``jv.launch`` (ops/fem_jvp.GatherLaunch), its Dirichlet
+mask with it (2D, and a 3D level of bench6_3d, whose launches count as
+``lmr_loop_chp3d``), and gives the bits of the launch sequence B, the level
+J.v, C per sweep, which stays as ``sweep.sequence``. On a level routed to the tile kernels (ops/fem_tile.py)
 ``make_tile_sweep_loop`` is a sequence of TS (B and the level J.v in one
 launch) and C; ``make_level_sweep_loop`` picks by the level's J.v.
 
@@ -332,22 +333,25 @@ def lmr_sweep_kernel(launch, n_sweeps: int, x, r, w, dt, pinv, groups=None,
     partials = torch.empty(2 * max(n_groups, 1) * nb, dtype=torch.float64,
                            device=x[0].device)
     grid = ctypes.c_int(0)
-    tail = (partials.data_ptr(), nb, n_groups, c_starts, n_sweeps,
-            *launch.dims, int(one_cta), ctypes.byref(grid),
-            _lib.stream_handle())
+    mask_ptr = None if launch.mask is None else launch.mask.data_ptr()
+    head = (partials.data_ptr(), nb, n_groups, c_starts, n_sweeps,
+            *launch.dims)
+    tail = (int(one_cta), ctypes.byref(grid), _lib.stream_handle())
     lib = _lib.library()
     if len(shapes) == 1:
+        # a 3D level's mask comes after its cells
         params = with_dt3(launch.head, dt, "lmr_sweep")
         lib.call("pfh_lmr_loop_" + launch.kind, params.ctypes.data, launch.nq,
                  x[0].data_ptr(), r[0].data_ptr(), z[0].data_ptr(),
-                 az[0].data_ptr(), pinv[0].data_ptr(), w[0].data_ptr(), *tail)
+                 az[0].data_ptr(), pinv[0].data_ptr(), w[0].data_ptr(), *head,
+                 mask_ptr, *tail)
     else:
         params = with_dt(launch.head, dt, "lmr_sweep")
         lib.call("pfh_lmr_loop_" + launch.kind, params.ctypes.data, launch.nq,
                  *launch.variant, *_ptrs(x), *_ptrs(r), *_ptrs(z), *_ptrs(az),
-                 *_ptrs(pinv), *_ptrs(w),
-                 None if launch.mask is None else launch.mask.data_ptr(), *tail)
-    _lib.count_launch("lmr_sweep")
+                 *_ptrs(pinv), *_ptrs(w), mask_ptr, *head, *tail)
+    _lib.count_launch(_lib.COUNTED_AS.get(("lmr_sweep", launch.kind),
+                                          "lmr_sweep"))
     return grid.value
 
 

@@ -23,11 +23,19 @@ and 5).
   that is not the coarsest is ``mr_accel``, ``kcycle`` GCR-combined
   recursive cycles with their ``A z`` directions kept orthogonal.
 
+Face Dirichlet rows (``dirichlet_for(grid)``, bench6_3d's phi faces, JAX
+``gmg3d.py:227-240``): every level is rediscretized with its own faces
+(``level_bcs``): the level J.v's rows there are identity rows (kernels U
+and L's mask), the block-Jacobi rows unit rows, and the dense coarse
+Jacobian's rows those of ``u - g``; the residual restricted to a coarse
+level and the correction prolonged to a fine one are zeroed on the
+constraint rows (``zero_bc_rows3d``), which otherwise carry the PDE
+residual.
+
 The transfers are plain torch (solve/transfer3d.py), as in the JAX package
 (XLA, outside Pallas). ``Minv`` exports no ``(z, A z)`` pair, so FGMRES calls
-its outer J.v every iteration, as in the JAX package. The W-cycle, the
-``inner_mr`` wrapper of the finest cycle and face Dirichlet rows
-(``zero_bc_rows``) are not yet ported.
+its outer J.v every iteration, as in the JAX package. The W-cycle and the
+``inner_mr`` wrapper of the finest cycle are not yet ported.
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from pfhubbenchmarks_tpu_torch.fem.assembly3d import make_residual3d
+from pfhubbenchmarks_tpu_torch.fem.assembly3d import (make_residual3d,
+                                                      zero_bc_rows3d)
 from pfhubbenchmarks_tpu_torch.fem.grid3d import TetGrid
 from pfhubbenchmarks_tpu_torch.ops import _lib
 from pfhubbenchmarks_tpu_torch.ops.lmr import make_lmr_sweep_loop
@@ -90,7 +99,7 @@ def _flat_maps(g: TetGrid, n_fields: int):
 
 
 def make_gmg3d(grid: TetGrid, terms, n_fields: int, *,
-               device: torch.device | str, jvp_for, tangent,
+               device: torch.device | str, jvp_for, tangent, dirichlet_for=None,
                nu_pre: int = 2, nu_post: int = 2, nu_fine_pre: int = 0,
                nu_fine_post: int = 0, coarse_sweeps: int = 24,
                max_levels: int = 10, precond_rule: str | None = None,
@@ -99,7 +108,9 @@ def make_gmg3d(grid: TetGrid, terms, n_fields: int, *,
     """Returns ``build(w, w0, dt) -> Minv`` applying one f32 cycle.
 
     ``jvp_for(g)`` makes the level J.v ``jv(w, w0, dt, v, b=None)`` on grid
-    ``g`` (kernel U, ops/fem_jvp3d.py); ``tangent`` is the benchmark's
+    ``g`` (kernel U, ops/fem_jvp3d.py) with the identity rows of
+    ``dirichlet_for(g)`` (the level's ``DirichletBC3D`` faces, none by
+    default); ``tangent`` is the benchmark's
     hand-written pointwise tangent (the block-Jacobi build); ``terms`` its
     weak form (the dense coarse Jacobian). ``precond_rule`` rediscretizes the
     whole hierarchy at a cheaper tet rule (bench1_3d: keast2). ``build.grids``
@@ -112,15 +123,19 @@ def make_gmg3d(grid: TetGrid, terms, n_fields: int, *,
     if precond_rule:
         grids = [dataclasses.replace(g, rule_name=precond_rule) for g in grids]
     L = len(grids)
+    dirichlet_for = dirichlet_for or (lambda g: ())
+    level_bcs = [dirichlet_for(g) for g in grids]
     jvs = [jvp_for(g) for g in grids]
-    bj_builders = [make_block_jacobi3d(g, tangent, n_fields, device=device)
-                   for g in grids]
+    bj_builders = [make_block_jacobi3d(g, tangent, n_fields, device=device,
+                                       dirichlet=bcs)
+                   for g, bcs in zip(grids, level_bcs)]
     Ps = [prolong3d_any(grids[l + 1], grids[l]) for l in range(L - 1)]
     Rs = [restrict3d_any(grids[l + 1], grids[l]) for l in range(L - 1)]
     injs = [inject3d_any(grids[l + 1], grids[l]) for l in range(L - 1)]
     dense_coarse = None
     if coarse_dof_count(grids[-1], n_fields) <= dense_coarse_max_dofs:
         residual_c = make_residual3d(grids[-1], terms, n_fields, device=device,
+                                     dirichlet=level_bcs[-1],
                                      dtype=torch.float32)
         dense_coarse = make_dense_coarse(residual_c,
                                          *_flat_maps(grids[-1], n_fields))
@@ -190,7 +205,9 @@ def make_gmg3d(grid: TetGrid, terms, n_fields: int, *,
             x = tr.zeros_like(b)
             r = tuple(t.clone() for t in b)
             smooth(l, x, r, (nu_fine_pre or nu_pre) if l == 0 else nu_pre)
-            x = tr.add(x, Ps[l](coarse_visit(l + 1, Rs[l](r))))
+            rc = zero_bc_rows3d(Rs[l](r), level_bcs[l + 1])
+            x = tr.add(x, zero_bc_rows3d(Ps[l](coarse_visit(l + 1, rc)),
+                                         level_bcs[l]))
             r = jvp(l, x, b)
             smooth(l, x, r, (nu_fine_post or nu_post) if l == 0 else nu_post)
             return x

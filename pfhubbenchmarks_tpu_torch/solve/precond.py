@@ -226,11 +226,9 @@ def make_block_jacobi3d(grid: TetGrid, tangent, n_fields: int, *,
     gradient axis at a time for the fluxes), which gives the numbers
     ``jax.jvp`` of ``terms`` gives there, without forward AD. Returns
     ``build(w, w0, dt) -> Minv``; ``Minv.pinv_planes`` is the 1-tuple of
-    [F, F, Z, Y, X] inverse planes kernel B reads. Face Dirichlet rows are
-    not yet ported."""
-    if dirichlet:
-        raise NotImplementedError(
-            "3D Dirichlet faces are not yet ported to the PyTorch package")
+    [F, F, Z, Y, X] inverse planes kernel B reads. The rows of each
+    ``DirichletBC3D`` in ``dirichlet`` are unit rows (the residual row is
+    ``u - g``), as in the JAX package (``precond.py:198-208``)."""
     d = grid.node_diagonals()
     Z, Y, X = grid.vshape
 
@@ -268,6 +266,12 @@ def make_block_jacobi3d(grid: TetGrid, tangent, n_fields: int, *,
                                          for fl in flux]) * stiff_d[ax]
             cols.append(col)
         P = torch.movedim(torch.stack(cols, dim=-1), 0, -2)   # [Z, Y, X, F, F]
+        for bc in dirichlet:
+            row = torch.zeros(F, dtype=P.dtype, device=P.device)
+            row[bc.field] = 1.0
+            at = [slice(None)] * 3
+            at[bc.axis] = bc.index
+            P[(*at, bc.field)] = row
         planes = (small_inv(P).permute(3, 4, 0, 1, 2).contiguous(),)
 
         def Minv(r):

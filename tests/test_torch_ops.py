@@ -225,6 +225,7 @@ def test_launch_counters_untouched_by_plain_versions():
                                   "vcycle_fused", "acha_jvp", "tri_box_acha",
                                   "vcycle_descend_chain_acha",
                                   "vcycle_ascend_chain_acha", "node_build",
-                                  "tri_box_chp"}
+                                  "tri_box_chp", "chp3d_tile",
+                                  "lmr_loop_chp3d"}
     assert set(_lib.CALLS) == {"tile_sweep_loop", "descend_level",
                                "ascend_level", "descend_chain", "ascend_chain"}

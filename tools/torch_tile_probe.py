@@ -1,7 +1,8 @@
 """Why the 2D tile J.v (T12) gained only 1.4x over the gather J.v (G), and
 the box shape of the 3D tile J.v (U), on this card.
 
-    python3 tools/torch_tile_probe.py [t12|box|all] [--no-ncu]   (default all)
+    python3 tools/torch_tile_probe.py [t12|box|bound|all] [--no-ncu]
+                                                              (default all)
 
 ``t12``: bench3's J.v at 350^2 (F = 2, the AC + heat tangent) at dunavant2
 (3 points, the levels' rule) and ffc3 (4 points), for kernel G
@@ -27,6 +28,14 @@ atol 2e-5 x max|ref|) and timed per launch at bench1_3d's keast2 50^3 and
 25^3 and ffc3 50^3, beside kernel I in the same call; with each shape's
 recompute factor, CTAs, registers and shared memory.
 
+``bound``: kernel U at bench6_3d's physics (``csrc/chp3d_tile.cu``, CHP3
+with the Dirichlet mask) built alone with each launch bound of
+``BOUND_CTAS`` at 8 points (``-DPFH_CHP3D_MIN_CTAS=n``, under the ignored
+``_build/tet_bound_probe/``), each held against the package's U (the bits)
+and its plain version, and timed per launch at bench6_3d's ffc3 50^3 and
+25^3 with the mask, the variants in turns in two rounds; with each one's
+registers, spill bytes and CTAs per SM and its ptxas lines.
+
 Prints the card's name and power limit first and one JSON line last. Needs
 a CUDA device; it builds the port's kernels at first use.
 """
@@ -51,6 +60,9 @@ from pfhubbenchmarks_tpu_torch.ops import _lib  # noqa: E402
 
 # box shapes (x, y, z) of the sweep; the first is the package's
 BOX_SHAPES = ((7, 7, 7), (8, 8, 5), (8, 8, 6), (15, 7, 3), (16, 8, 4), (8, 4, 4))
+# kernel U's CTAs per SM at 8 points at BM6's physics (phys_chp3d.cuh
+# PFH_CHP3D_MIN_CTAS) of the ``bound`` sweep
+BOUND_CTAS = (1, 2, 3)
 
 
 def smi() -> str:
@@ -216,7 +228,7 @@ def box(out: dict) -> None:
             raise RuntimeError(f"box {shape}: nvcc failed:\n{log[-4000:]}")
         vl = ctypes.CDLL(so)
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        vl.pfh_ch3d_tile.argtypes = [vp, i32] + [vp] * 4 + [i32] * 3 + [vp]
+        vl.pfh_ch3d_tile.argtypes = [vp, i32] + [vp] * 5 + [i32] * 3 + [vp]
         vl.pfh_ch3d_tile_info.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
         libs[shape] = vl
         print(f"box {shape}: built; " + " | ".join(
@@ -242,7 +254,7 @@ def box(out: dict) -> None:
             def run(vl=vl, o=o):
                 err = vl.pfh_ch3d_tile(params.ctypes.data, jv.launch.nq,
                                        w[0].data_ptr(), v[0].data_ptr(), None,
-                                       o.data_ptr(), n, n, n,
+                                       None, o.data_ptr(), n, n, n,
                                        _lib.stream_handle())
                 if err:
                     raise RuntimeError(f"box {shape}: CUDA error {err}")
@@ -277,10 +289,97 @@ def box(out: dict) -> None:
     out["box"] = res
 
 
+def bound(out: dict) -> None:
+    from pfhubbenchmarks_tpu_torch.benchmarks import bench6_3d
+    from pfhubbenchmarks_tpu_torch.ops.fem_jvp3d import with_dt3
+
+    _lib.library()
+    dev = torch.device("cuda", 0)
+    builds = {}
+    for n in BOUND_CTAS:
+        d = os.path.join(str(_lib.BUILD_DIR), "tet_bound_probe", str(n))
+        os.makedirs(d, exist_ok=True)
+        so = os.path.join(d, "libtetbound.so")
+        # -fno-gnu-unique: each variant keeps its own function-local statics
+        builds[n] = (so, subprocess.Popen(
+            [_lib._nvcc(), *_lib.NVCC_FLAGS, f"-DPFH_CHP3D_MIN_CTAS={n}",
+             "-Xcompiler", "-fno-gnu-unique", "-shared", "-o", so,
+             os.path.join(str(_lib.CSRC), "chp3d_tile.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs, ptxas = {}, {}
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    for n, (so, proc) in builds.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"bound {n}: nvcc failed:\n{log[-4000:]}")
+        vl = ctypes.CDLL(so)
+        vl.pfh_chp3d_tile.argtypes = [vp, i32] + [vp] * 5 + [i32] * 3 + [vp]
+        vl.pfh_chp3d_tile_info.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+        libs[n] = vl
+        ptxas[n] = [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+        print(f"bound {n}: built; " + " | ".join(ptxas[n]), flush=True)
+    pb = bench6_3d.make()
+    rng = np.random.default_rng(19)
+    dt = 0.32
+    res = []
+    for size in (50, 25):
+        g = dataclasses.replace(pb.grid, nx=size, ny=size, nz=size)
+        w = pb.initial_state(dev)
+        if size != 50:
+            from pfhubbenchmarks_tpu_torch.solve import transfer3d as t3
+
+            w = t3.inject3d_any(g, pb.grid)(w)
+        w = (w[0].float() + 0.01 * torch.tensor(
+            rng.standard_normal(w[0].shape), dtype=torch.float32, device=dev),)
+        v = (torch.tensor(rng.standard_normal(w[0].shape), dtype=torch.float32,
+                          device=dev),)
+        jv = pb.kernel_jvp(g, dev, pb.dirichlet_for(g))
+        ref = jv.plain(w, w, dt, v)[0]
+        pkg = jv.kernel(w, w, dt, v)[0]
+        params = with_dt3(jv.launch.head, dt, "bound probe")
+        outs = {n: torch.empty_like(v[0]) for n in libs}
+
+        def run(n):
+            err = libs[n].pfh_chp3d_tile(
+                params.ctypes.data, jv.launch.nq, w[0].data_ptr(),
+                v[0].data_ptr(), None, jv.launch.mask.data_ptr(),
+                outs[n].data_ptr(), size, size, size, _lib.stream_handle())
+            if err:
+                raise RuntimeError(f"bound {n}: CUDA error {err}")
+
+        us = {n: [] for n in libs}
+        for _ in range(2):
+            for n in libs:
+                us[n].append(_lib.device_ms(lambda n=n: run(n)) * 1e3)
+        scale = float(ref.abs().max())
+        for n, vl in libs.items():
+            run(n)
+            torch.cuda.synchronize()
+            info = (ctypes.c_int * 5)()
+            vl.pfh_chp3d_tile_info(jv.launch.nq, info)
+            row = dict(min_ctas=n, n=size, us=us[n],
+                       same_bits_as_package=bool(torch.equal(outs[n], pkg)),
+                       ok=bool(torch.allclose(outs[n], ref, rtol=2e-4,
+                                              atol=2e-5 * max(scale, 1.0))),
+                       registers=info[0], local_bytes=info[1],
+                       ctas_per_sm=info[4], ptxas=ptxas[n])
+            res.append(row)
+            print(f"bound {n} ffc3 {size}^3: {us[n][0]:.2f} / {us[n][1]:.2f} "
+                  f"us per launch; {info[0]} registers, {info[1]} local bytes, "
+                  f"{info[4]} CTAs/SM; bits of the package's U "
+                  f"{row['same_bits_as_package']}; plain "
+                  f"{'ok' if row['ok'] else 'FAIL'}", flush=True)
+            if not row["ok"]:
+                raise AssertionError(f"bound {n} disagrees with the plain "
+                                     "version")
+    out["bound"] = res
+
+
 def main(argv) -> None:
     mode = argv[0] if argv else "all"
     run_ncu = "--no-ncu" not in argv
-    if mode not in ("t12", "box", "all"):
+    if mode not in ("t12", "box", "bound", "all"):
         raise SystemExit(f"torch_tile_probe: unknown mode {mode!r}")
     if not torch.cuda.is_available():
         raise SystemExit("torch_tile_probe: no CUDA device")
@@ -290,6 +389,8 @@ def main(argv) -> None:
         t12(out, run_ncu)
     if mode in ("box", "all"):
         box(out)
+    if mode in ("bound", "all"):
+        bound(out)
     print(json.dumps(out), flush=True)
 
 
