@@ -297,8 +297,29 @@ Phases, each printing its results; any failure raises (non-zero exit):
    preconditioner apply 6 wrapper calls; the CH3 U and L, B, C, the 2D
    kernels and the chains are refused.
 
+34-36. the f64 linear branch (``linear_phases``; no kernel: the JAX package
+   runs it in XLA): poisson at 64^2 (34), poisson3d at 32^3 (35) and elast
+   at 250 x 10 (36), their published sizes, through ``timeloop.run`` on the
+   card, each held to the JAX package's CPU row of
+   ``tests/data/linear_jax_rows.json`` (``tools/jax_linear_rows.py``): the
+   time column and the Newton count (1) equal, the observables within rel
+   1e-6, the Krylov counts printed beside the JAX run's (not held). The
+   port's L2 rates on the card: poisson at 16/32/64 in 1.8-2.3, poisson3d
+   at 12/24 in 1.7-2.4 (tests/test_manufactured.py's bounds). elast's
+   strain energy within abs 5e-11 of ``results/elast_out.csv`` (half a
+   unit of its last printed digit) and its tip deflection within rel 1e-6
+   of it (the CSV's tip is the TPU run's, 2.5e-9 from the JAX package's CPU
+   run); the dense build's parts (the J columns, the LU, the explicit
+   inverse; ``_lib.SECONDS``) in the run and in a warm build, one apply's
+   CUDA-event time, the solve's wall and its peak
+   ``torch.cuda.max_memory_allocated``. Each problem runs once more under
+   ``HostFloats``: every aten op of the run is watched, and a
+   floating-point result on the CPU of more than ``HOST_FLOATS_MAX``
+   elements (anything larger than FGMRES's Hessenberg column) fails the
+   phase; the final state must be on the card. No kernel may launch.
+
 Phases 28, 29 and 30 run between 7 and 8, phases 32 and 33 after 12, phases
-20-24 after 25 and 26. The
+20-24 after 25 and 26, phases 34-36 after 31. The
 outer J.v and the exported A z of bench1 (4, 17), bench2 (8, 25),
 bench2_eta1 (26) and bench3 (10, 19) are kernel W: those phases require it
 and refuse A's, F's or G's launches; the tiled bench1 (14) and bench3 (15)
@@ -401,6 +422,8 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # bench1's whole adaptive run (phase 4): the tools/check_trajectories.py
@@ -2384,6 +2407,204 @@ def bench6_3d_phases(dev, K, rng, t_start, paths):
     paths["bench6_3d"] = counts
     print(f"phase 33: bench6_3d's two runs ({time.perf_counter() - t33:.1f} s)",
           flush=True)
+
+
+# phases 34-36: the JAX package's CPU rows of the linear problems
+# (tools/jax_linear_rows.py), by run label
+LINEAR_ROWS = os.path.join("tests", "data", "linear_jax_rows.json")
+# the largest floating-point CPU result a linear run may make: FGMRES's
+# Hessenberg column (restart + 1 <= 51 values) is read to the host
+HOST_FLOATS_MAX = 64
+
+
+class HostFloats(TorchDispatchMode):
+    """Watches every aten op run under it and counts, by op, those that
+    give a floating-point CPU tensor of more than ``HOST_FLOATS_MAX``
+    elements: a run on the card that makes one has left the card. Host
+    data becoming a tensor (``lift_fresh``: the problem's tabulations,
+    coordinates and boundary values, uploaded as they are built) is counted
+    apart, in ``uploads``."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = {}
+        self.n_ops = 0
+        self.uploads = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.n_ops += 1
+        if func.__name__.startswith("lift_fresh"):
+            self.uploads += 1
+            return out
+        for t in tree_leaves(out):
+            if (isinstance(t, torch.Tensor) and t.device.type == "cpu"
+                    and t.is_floating_point() and t.numel() > HOST_FLOATS_MAX):
+                self.ops[str(func)] = self.ops.get(str(func), 0) + 1
+        return out
+
+
+def linear_run(label, name, kwargs, dev):
+    """One run of ``name`` (``make(**kwargs)``) through ``timeloop.run`` on
+    ``dev``: the launch counts and stage seconds set to 0 just before, the
+    peak memory statistics reset; no kernel may launch and the state must
+    be f64 on the card. Returns the result, its wall seconds, the stage
+    seconds and the peak bytes allocated."""
+    from pfhubbenchmarks_tpu_torch import timeloop
+    from pfhubbenchmarks_tpu_torch.benchmarks.registry import get_benchmark
+    from pfhubbenchmarks_tpu_torch.ops import _lib
+
+    problem = get_benchmark(name, **kwargs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    result = timeloop.run(problem, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: n for k, n in {**_lib.LAUNCHES, **_lib.CALLS}.items() if n}
+    if launched:
+        raise AssertionError(f"{label}: kernels launched on the f64 branch: "
+                             f"{launched}")
+    if any(t.device.type != dev.type or t.dtype != torch.float64
+           for t in result.state):
+        raise AssertionError(f"{label}: the state is not f64 on the card")
+    return result, wall, dict(_lib.SECONDS), torch.cuda.max_memory_allocated()
+
+
+def hold_linear_row(label, result, ref, rtol=1e-6):
+    """The run's one row against the JAX package's row ``ref`` (a run of
+    ``LINEAR_ROWS``): time column equal, Newton counts equal, each
+    observable within ``rtol``; the Krylov counts printed beside the JAX
+    run's. Returns the observables' largest relative difference."""
+    rows = result.rows
+    newton = [s.newton_iters for s in result.stats]
+    krylov = [s.krylov_iters for s in result.stats]
+    ref_rows = np.asarray(ref["rows"])
+    if list(result.columns) != ref["columns"] or rows.shape != ref_rows.shape:
+        raise AssertionError(f"{label}: rows {rows.shape} {result.columns} vs "
+                             f"the JAX run's {ref_rows.shape} {ref['columns']}")
+    rel = np.abs(rows[:, 1:] / ref_rows[:, 1:] - 1.0)
+    print(f"{label}: row {rows.tolist()} against the JAX package's CPU row "
+          f"{ref_rows.tolist()}: rel {rel.tolist()} (<= {rtol:g}); newton "
+          f"{newton} (the JAX run's {ref['newton_iters']}), krylov {krylov} "
+          f"(the JAX run's {ref['krylov_iters']}, not held)", flush=True)
+    if not np.array_equal(rows[:, 0], ref_rows[:, 0]):
+        raise AssertionError(f"{label}: the time column differs")
+    if newton != ref["newton_iters"]:
+        raise AssertionError(f"{label}: Newton counts differ")
+    if not np.isfinite(rows).all() or float(rel.max()) > rtol:
+        raise AssertionError(f"{label}: the row differs from the JAX run's")
+    return float(rel.max())
+
+
+def linear_rates(label, name, sizes, lo, hi, dev):
+    """The port's L2 rates on the card: ``name`` at each of ``sizes`` (cells
+    per axis), log2 of the ratio of successive L2 errors over the ratio of
+    sizes, each in (``lo``, ``hi``)."""
+    errs = []
+    for n in sizes:
+        kw = {"nx": n, "ny": n} | ({"nz": n} if name == "poisson3d" else {})
+        result, _, _, _ = linear_run(label, name, kw, dev)
+        errs.append(float(np.sqrt(result.rows[0, 1])))
+    rates = [math.log(errs[i] / errs[i + 1]) / math.log(sizes[i + 1] / sizes[i])
+             for i in range(len(sizes) - 1)]
+    print(f"{label}: L2 errors {errs} at {list(sizes)}, rates {rates} (in "
+          f"{lo}-{hi})", flush=True)
+    if not all(lo < r < hi for r in rates):
+        raise AssertionError(f"{label}: the L2 rates leave {lo}-{hi}")
+
+
+def linear_checked(label, name, kwargs, dev):
+    """``linear_run`` under ``HostFloats``: no op may give a floating-point
+    CPU tensor of more than ``HOST_FLOATS_MAX`` elements."""
+    watch = HostFloats()
+    with watch:
+        linear_run(label, name, kwargs, dev)
+    print(f"{label}: {watch.n_ops} aten ops watched ({watch.uploads} host "
+          f"arrays lifted to tensors), floating-point CPU results of more "
+          f"than {HOST_FLOATS_MAX} elements: {watch.ops or 'none'}",
+          flush=True)
+    if watch.ops:
+        raise AssertionError(f"{label}: the run left the card: {watch.ops}")
+
+
+def linear_phases(dev):
+    """Phases 34-36: poisson, poisson3d and elast at their published sizes
+    on the card against the JAX package's CPU rows, the L2 rates, elast
+    against ``results/elast_out.csv`` and its dense build in parts."""
+    from pfhubbenchmarks_tpu_torch.benchmarks.elast import make as make_elast
+    from pfhubbenchmarks_tpu_torch.io.csvout import read_csv
+    from pfhubbenchmarks_tpu_torch.ops import _lib
+
+    with open(os.path.join(HERE, LINEAR_ROWS)) as f:
+        jax_rows = json.load(f)["runs"]
+    smi = smi_line()
+    walls = {}
+    for phase, key, name, kwargs in (
+            (34, "poisson 64x64", "poisson", {"nx": 64, "ny": 64}),
+            (35, "poisson3d 32^3", "poisson3d", {"nx": 32, "ny": 32, "nz": 32})):
+        label = f"phase {phase}: {key}"
+        t_phase = time.perf_counter()
+        result, wall, _, peak = linear_run(label, name, kwargs, dev)
+        walls[key] = wall
+        print(f"{label}: wall {wall:.3f} s on {smi}, peak "
+              f"{peak / 2**20:.1f} MiB allocated", flush=True)
+        hold_linear_row(label, result, jax_rows[key])
+        linear_checked(label, name, kwargs, dev)
+        if name == "poisson":
+            linear_rates(label, name, (16, 32, 64), 1.8, 2.3, dev)
+        else:
+            linear_rates(label, name, (12, 24), 1.7, 2.4, dev)
+        print(f"{label}: phase {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+
+    label, key = "phase 36: elast 250x10", "elast 250x10"
+    t_phase = time.perf_counter()
+    result, wall, seconds, peak = linear_run(label, "elast", {}, dev)
+    walls[key] = wall
+    parts = {k: seconds[k] * 1e3 for k in ("dense_jacobian", "dense_lu",
+                                           "dense_inverse")}
+    print(f"{label}: wall {wall:.3f} s on {smi}, peak {peak / 2**30:.3f} GiB "
+          f"allocated; the dense build in the run: J columns "
+          f"{parts['dense_jacobian']:.2f} ms, LU {parts['dense_lu']:.2f} ms, "
+          f"explicit inverse {parts['dense_inverse']:.2f} ms", flush=True)
+    hold_linear_row(label, result, jax_rows[key])
+    csv_rows, _ = read_csv(os.path.join(HERE, "results", "elast_out.csv"))
+    energy, tip = result.rows[0, 1], result.rows[0, 2]
+    d_energy = abs(energy - csv_rows[0, 1])
+    r_tip = abs(tip / csv_rows[0, 2] - 1.0)
+    print(f"{label}: against results/elast_out.csv {csv_rows[0].tolist()}: "
+          f"strain_energy abs {d_energy:.3e} (<= 5e-11), tip_deflection rel "
+          f"{r_tip:.3e} (<= 1e-6; abs {abs(tip - csv_rows[0, 2]):.3e})",
+          flush=True)
+    if d_energy > 5e-11 or r_tip > 1e-6:
+        raise AssertionError(f"{label}: the row differs from elast_out.csv")
+    linear_checked(label, "elast", {}, dev)
+    # a warm build and one apply, by CUDA events
+    problem = make_elast()
+    w = problem.initial_state(dev)
+    build = problem.precond_builder(dev)
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    t_b = time.perf_counter()
+    Minv = build(w, w, 1.0)
+    torch.cuda.synchronize()
+    warm = {k: _lib.SECONDS[k] * 1e3 for k in parts}
+    if Minv.inverse.device.type != dev.type or Minv.inverse.dtype != torch.float64:
+        raise AssertionError(f"{label}: the dense inverse is not f64 on the "
+                             "card")
+    r = tuple(torch.randn_like(t) for t in w)
+    apply_ms = cuda_ms(lambda: Minv(r), reps=20)
+    print(f"{label}: warm build {(time.perf_counter() - t_b) * 1e3:.2f} ms: J "
+          f"columns {warm['dense_jacobian']:.2f} ms, LU {warm['dense_lu']:.2f} "
+          f"ms, explicit inverse {warm['dense_inverse']:.2f} ms; one apply "
+          f"{apply_ms:.4f} ms (n = {Minv.inverse.shape[0]}, f64)", flush=True)
+    del Minv
+    print(f"{label}: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"phases 34-36: walls poisson 64^2 {walls['poisson 64x64']:.3f} s, "
+          f"poisson3d 32^3 {walls['poisson3d 32^3']:.3f} s, elast 250x10 "
+          f"{walls[key]:.3f} s on {smi}", flush=True)
 
 
 def tile_phases(dev, K, C, noise_pair, state_on, residual_jvp, paths, refs):
@@ -4610,6 +4831,7 @@ def main() -> None:
     sweep_loop_phase(dev, K, rng)
     chain_phase(dev, K, rng)
     aniso_phase(dev, K, rng, paths)
+    linear_phases(dev)
 
     # ---- phase 27: summary -----------------------------------------------
     print(smi, flush=True)

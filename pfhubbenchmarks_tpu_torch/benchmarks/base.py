@@ -28,6 +28,14 @@ VMEM) routes the outer J.v of a grid with more than one row block
 (ops/fem_tile.multi_block) to T10, and the levels of the multigrid
 hierarchy with no Dirichlet rows and more than one row block to T12 and
 the tiled sweep loop (solve/gmg.py).
+
+The linear benchmarks (poisson, elast) have no ``kernel_jvp``: they run the
+f64 Krylov branch (``SolverConfig.mixed_precision=False``, solve/newton.py),
+whose J.v is ``torch.func.jvp`` of the f64 residual, with a ``precond``
+other than 'gmg' (``precond_builder``: ``solve/precond.BUILDERS``), as the
+JAX package runs them in XLA. ``needs_coords`` gives their forms the
+quadrature points' coordinates, ``custom_observables`` their non-integral
+observables (elast's tip deflection, fem/sample.py).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from pfhubbenchmarks_tpu_torch.config import SolverConfig, TimeConfig
 from pfhubbenchmarks_tpu_torch.fem.assembly import (DirichletBC, make_functional,
                                                     make_residual)
 from pfhubbenchmarks_tpu_torch.fem.grid import CrossedTriGrid
+from pfhubbenchmarks_tpu_torch.solve.precond import BUILDERS
 
 
 @dataclasses.dataclass
@@ -55,8 +64,9 @@ class BenchmarkProblem:
     csv_columns: tuple[str, ...]
     # (grid, device, dirichlet, split=False, form="gather") -> jv(w, w0, dt,
     # v, b=None), the f32 J.v of terms (split: of terms_precond; form: the
-    # gather kernel or a tile kernel's form)
-    kernel_jvp: Callable
+    # gather kernel or a tile kernel's form); None for the f64 branch's
+    # benchmarks, which mixed precision then refuses
+    kernel_jvp: Callable | None = None
     # (grid, device, dirichlet, form="gather") -> res(w, w0, dt), the f32
     # residual of kernel R (form "box": the residual box), or None (the
     # plain f32 assembly then serves)
@@ -77,6 +87,8 @@ class BenchmarkProblem:
     # always use ``terms``.
     terms_precond: Callable | None = None
     field_groups: tuple | None = None
+    # the forms read the quadrature points' coordinates (ctx.x, ctx.y)
+    needs_coords: bool = False
     dtype: torch.dtype = torch.float64
     # optional scaling applied to an observable value after integration
     # (bench3's solid fraction over the domain area)
@@ -93,6 +105,10 @@ class BenchmarkProblem:
     # (residual_lowp): "gather" (kernel R), or "box" (the residual box,
     # ops/residual_box.py; bench2 and bench6)
     residual_form: str = "gather"
+    # non-integral observables: name -> fn(state) -> scalar tensor (point
+    # samples by fem/sample.py: elast's tip deflection)
+    custom_observables: dict[str, Callable] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def n_fields(self) -> int:
@@ -115,7 +131,9 @@ class BenchmarkProblem:
 
     def residual(self, device: torch.device | str, dtype=None):
         return make_residual(self.grid, self.terms, self.n_fields, device=device,
-                             dirichlet=self.dirichlet, dtype=dtype or self.dtype)
+                             dirichlet=self.dirichlet,
+                             needs_coords=self.needs_coords,
+                             dtype=dtype or self.dtype)
 
     @property
     def mixed_precision(self) -> bool:
@@ -142,8 +160,17 @@ class BenchmarkProblem:
         """``factory(x_lp, wprev_lp, dt_lp) -> jvp(v)``: the outer f32 J.v
         on the true-rule grid, whose Dirichlet rows equal ``v``, of the form
         ``outer_jvp_form``; T10 in the tiled configuration on a grid of
-        several row blocks."""
+        several row blocks. None on the f64 branch (no mixed precision);
+        mixed precision without ``kernel_jvp`` raises."""
         from pfhubbenchmarks_tpu_torch.ops.fem_tile import multi_block
+
+        if not self.mixed_precision:
+            return None
+        if self.kernel_jvp is None:
+            raise NotImplementedError(
+                f"{self.name}: mixed precision needs a kernel J.v, which is "
+                "not yet ported for it (mixed_precision=False runs the f64 "
+                "branch)")
 
         form = ("recompute" if self.tiled and multi_block(self.grid)
                 else self.outer_jvp_form)
@@ -155,9 +182,24 @@ class BenchmarkProblem:
         return factory
 
     def precond_builder(self, device: torch.device | str):
+        """The build of ``solver.precond``, as the JAX package dispatches it
+        (``base.py:244-284``): 'gmg' the kernels' V-cycle (f32; with
+        ``mixed_precision=False`` it raises: an f64 V-cycle is not yet
+        ported), else ``solve/precond.BUILDERS`` in the Krylov dtype."""
         s = self.solver
         if s.precond != "gmg":
-            raise NotImplementedError(f"precond={s.precond!r} is not yet ported")
+            kry_dtype = torch.float32 if self.mixed_precision else self.dtype
+            if s.precond == "none":
+                return BUILDERS["none"]()
+            extra = dict(impl=s.dense_impl) if s.precond == "dense" else {}
+            return BUILDERS[s.precond](
+                self.grid, self.terms, self.n_fields, device=device,
+                dirichlet=self.dirichlet, dtype=kry_dtype,
+                needs_coords=self.needs_coords, **extra)
+        if not self.mixed_precision:
+            raise NotImplementedError(
+                f"{self.name}: precond='gmg' with mixed_precision=False (an "
+                "f64 V-cycle) is not yet ported: the cycle kernels are f32")
         from pfhubbenchmarks_tpu_torch.solve.gmg import make_gmg
 
         # field split: the hierarchy linearizes terms_precond (block
@@ -183,9 +225,11 @@ class BenchmarkProblem:
         out = {}
         for name, density in self.observables.items():
             fn = make_functional(self.grid, density, device=device,
+                                 needs_coords=self.needs_coords,
                                  dtype=self.dtype)
             scale = self.observable_scale.get(name)
             if scale is not None:
                 fn = (lambda f, sc: (lambda w: f(w) * sc))(fn, scale)
             out[name] = fn
+        out.update(self.custom_observables)
         return out

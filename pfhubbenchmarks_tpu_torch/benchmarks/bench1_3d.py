@@ -38,21 +38,25 @@ from pfhubbenchmarks_tpu_torch.fem.grid3d import TetGrid
 @dataclasses.dataclass
 class Benchmark3DProblem:
     """3D counterpart of ``BenchmarkProblem`` (one vertex grid, states
-    ``(v,)``); the factory methods take the device explicitly, as there."""
+    ``(v,)``); the factory methods take the device explicitly, as there.
+    A benchmark without ``terms_tangent`` and ``kernel_jvp`` (poisson3d)
+    runs the f64 Krylov branch (``mixed_precision=False``) with the
+    block-Jacobi of ``torch.func.jvp`` of its terms."""
 
     name: str
     grid: TetGrid
     field_names: tuple
     terms: Callable                       # QPContext -> (source, flux)
-    # the hand-written pointwise tangent of terms (kernel U's physics, the
-    # block-Jacobi blocks)
-    terms_tangent: Callable
     ic_fns: list                          # per-field fn(x, y, z)
     observables: dict
     csv_columns: tuple
+    # the hand-written pointwise tangent of terms (kernel U's physics, the
+    # multigrid's block-Jacobi blocks), or None
+    terms_tangent: Callable | None = None
     # (grid, device, dirichlet=()) -> jv(w, w0, dt, v, b=None), the f32 J.v
-    # of terms with the identity rows of the DirichletBC3D faces dirichlet
-    kernel_jvp: Callable
+    # of terms with the identity rows of the DirichletBC3D faces dirichlet,
+    # or None (the f64 branch; mixed precision then raises)
+    kernel_jvp: Callable | None = None
     time: TimeConfig = TimeConfig()
     solver: SolverConfig = SolverConfig()
     # (field, face, fn(c1, c2)) specs -> DirichletBC3D (fem/assembly3d.py)
@@ -60,6 +64,8 @@ class Benchmark3DProblem:
     needs_coords: bool = False
     dtype: torch.dtype = torch.float64
     abort_condition: Callable | None = None
+    # non-integral observables: name -> fn(state) -> scalar tensor
+    custom_observables: dict = dataclasses.field(default_factory=dict)
     # TPU-only (rows per dispatch of the segmented whole-run loop): no-op.
     fused_seg_rows: int | None = None
 
@@ -103,7 +109,15 @@ class Benchmark3DProblem:
 
     def lowp_jvp_factory(self, device: torch.device | str):
         """``factory(x_lp, wprev_lp, dt_lp) -> jvp(v)``: the outer f32 J.v on
-        the true-rule grid (kernel U at ffc3), with the Dirichlet rows."""
+        the true-rule grid (kernel U at ffc3), with the Dirichlet rows. None
+        on the f64 branch; mixed precision without ``kernel_jvp`` raises."""
+        if not self.mixed_precision:
+            return None
+        if self.kernel_jvp is None:
+            raise NotImplementedError(
+                f"{self.name}: mixed precision needs a kernel J.v, which is "
+                "not yet ported for it (mixed_precision=False runs the f64 "
+                "branch)")
         jv = self.kernel_jvp(self.grid, device, self.dirichlet)
 
         def factory(x_lp, wprev_lp, dt_lp):
@@ -112,9 +126,25 @@ class Benchmark3DProblem:
         return factory
 
     def precond_builder(self, device: torch.device | str):
+        """'gmg': the K-cycle or V-cycle of solve/gmg3d.py (f32 kernels; an
+        f64 cycle raises). Every other ``precond`` is the block-Jacobi of
+        ``torch.func.jvp`` of the terms in the Krylov dtype, as the JAX
+        package builds it for any value but 'gmg' (``bench1_3d.py:162-164``;
+        ROADMAP Queue 3)."""
         s = self.solver
         if s.precond != "gmg":
-            raise NotImplementedError(f"precond={s.precond!r} is not yet ported")
+            from pfhubbenchmarks_tpu_torch.solve.precond import (
+                make_block_jacobi3d_terms)
+
+            return make_block_jacobi3d_terms(
+                self.grid, self.terms, self.n_fields, device=device,
+                dirichlet=self.dirichlet,
+                dtype=torch.float32 if self.mixed_precision else self.dtype,
+                needs_coords=self.needs_coords)
+        if not self.mixed_precision:
+            raise NotImplementedError(
+                f"{self.name}: precond='gmg' with mixed_precision=False (an "
+                "f64 cycle) is not yet ported: the cycle kernels are f32")
         from pfhubbenchmarks_tpu_torch.solve.gmg3d import make_gmg3d
 
         return make_gmg3d(
@@ -129,10 +159,12 @@ class Benchmark3DProblem:
             dense_coarse_max_dofs=s.gmg_dense_coarse_max_dofs)
 
     def observable_fns(self, device: torch.device | str):
-        return {name: make_functional3d(self.grid, density, device=device,
-                                        needs_coords=self.needs_coords,
-                                        dtype=self.dtype)
-                for name, density in self.observables.items()}
+        out = {name: make_functional3d(self.grid, density, device=device,
+                                       needs_coords=self.needs_coords,
+                                       dtype=self.dtype)
+               for name, density in self.observables.items()}
+        out.update(self.custom_observables)
+        return out
 
 
 def make(nx: int = 50, ny: int = 50, nz: int = 50, Lx: float = 100.0,

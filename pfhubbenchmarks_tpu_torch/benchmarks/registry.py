@@ -6,9 +6,11 @@ Run a ported benchmark as::
         [--device cuda|cpu] [--end-time T] [--max-steps N] [--nx N --ny N]
         [--replay CSV] [--out CSV]
 
-(``bench2``, ``bench3``, ``bench6``, ``bench1_3d`` and ``bench6_3d`` alike,
-the 3D ones with ``--nz N`` too; ``bench2_eta1`` and ``bench2_eta2`` are BM2 with 1 and 2
-order parameters, the reference's reduced variants). ``--replay CSV``
+(``bench2``, ``bench3``, ``bench6``, ``bench1_3d``, ``bench6_3d`` and the
+linear validation problems ``poisson``, ``poisson3d`` and ``elast`` alike,
+the 3D ones with ``--nz N`` too; ``bench2_eta1`` and ``bench2_eta2`` are BM2
+with 1 and 2 order parameters, the reference's reduced variants).
+``bench1_periodic`` is not yet ported. ``--replay CSV``
 steps on the time grid of a CSV's column 0 (``timeloop.run(time_grid=...)``,
 with ``replay_partial``: a step no rescue rung solves ends the run with its
 rows), and writes the rows in the same schema.
@@ -31,6 +33,9 @@ _BENCHMARKS = {
     "bench3": "pfhubbenchmarks_tpu_torch.benchmarks.bench3",
     "bench6": "pfhubbenchmarks_tpu_torch.benchmarks.bench6",
     "bench6_3d": "pfhubbenchmarks_tpu_torch.benchmarks.bench6_3d",
+    "elast": "pfhubbenchmarks_tpu_torch.benchmarks.elast",
+    "poisson": "pfhubbenchmarks_tpu_torch.benchmarks.poisson",
+    "poisson3d": "pfhubbenchmarks_tpu_torch.benchmarks.poisson3d",
 }
 
 # JAX CLI flags the PyTorch slice does not implement yet (name -> takes a value)

@@ -8,7 +8,8 @@ the slice cannot honour is accepted at its default and raises in
 say which.
 
 Precision policy: f64 Newton residuals and observables, f32 Krylov and
-multigrid, and TF32 off everywhere. The TF32 switches below are set once,
+multigrid (f64 Krylov on the linear benchmarks, ``mixed_precision=False``),
+and TF32 off everywhere. The TF32 switches below are set once,
 when this module is imported: a TF32 matmul keeps ~3 decimal digits, the
 Hopper form of the reduced-precision matmul hazard the JAX package fixes
 with ``jax_default_matmul_precision='highest'``.
@@ -59,7 +60,10 @@ class SolverConfig:
     gmres_restart: int = 30
     # LGMRES augmentation: not yet ported (0 only).
     fgmres_aug: int = 0
-    # True only: the kernels are f32, so a full-f64 Krylov solve is not ported.
+    # True: f32 Krylov on the benchmark's kernel J.v. False: the f64 Krylov
+    # branch (solve/newton.py: J.v by torch.func.jvp of the f64 residual,
+    # f64 FGMRES; poisson, poisson3d, elast), with any precond but 'gmg',
+    # whose cycle kernels are f32 (an f64 V-cycle is not yet ported).
     mixed_precision: bool = True
     # Two-stage f32/f64 Newton residual (solve/newton.py).
     fast_residual: bool = False
@@ -96,7 +100,10 @@ class SolverConfig:
     # (bench6) and 'split_levels' (bench3), the descend and ascend chains
     # (ops/vcycle_chain.py) around the coarsest solve.
     fuse_vcycle: str = "auto"
-    # 'gmg' only; 'none', 'block_jacobi' and 'dense' are not yet ported.
+    # 'gmg' (the kernels' V-cycle); 'block_jacobi' (pointwise blocks by
+    # torch.func.jvp of the terms), 'dense' (the whole Jacobian's LU inverse,
+    # 2D) and 'none' (solve/precond.py). In 3D every value but 'gmg' is
+    # block-Jacobi, as in the JAX package (benchmarks/bench1_3d.py).
     precond: str = "gmg"
     # Field-split preconditioning: the V-cycle linearizes the problem's
     # terms_precond (block diagonal by its field_groups); the exported A z
@@ -108,7 +115,9 @@ class SolverConfig:
     # 'newton' (a build per Newton iteration) and 'solve' (one build per
     # solve, at the initial guess).
     precond_lag: str = "newton"
-    # Only read by precond='dense', which is not yet ported: no-op.
+    # Read by precond='dense': 'auto' and 'lapack' are its LU form in the
+    # working dtype; 'mxu' (the TPU's mxu_inverse) is not yet ported, and
+    # dense_refine_iters, its refinement passes, is a no-op.
     dense_impl: str = "auto"
     dense_refine_iters: int = 3
     precond_rule: str | None = None
@@ -138,8 +147,9 @@ _SLICE_ONLY = {
     "line_search": ("basic", "cp"),
     "krylov": "fgmres",
     "fgmres_aug": 0,
-    "mixed_precision": True,
-    "precond": "gmg",
+    "mixed_precision": (True, False),
+    "precond": ("gmg", "block_jacobi", "dense", "none"),
+    "dense_impl": ("auto", "lapack"),
     "precond_lag": ("newton", "solve"),
     "krylov_operator": "true",
     "gmg_cycle": "v",
@@ -157,6 +167,11 @@ def check_supported(cfg: SolverConfig) -> None:
             raise NotImplementedError(
                 f"SolverConfig.{name}={value!r} is not yet ported to the "
                 f"PyTorch package (only {' or '.join(map(repr, ok))})")
+    if cfg.precond == "gmg" and not cfg.mixed_precision:
+        raise NotImplementedError(
+            "SolverConfig(precond='gmg', mixed_precision=False), an f64 "
+            "V-cycle, is not yet ported to the PyTorch package: its cycle "
+            "kernels are f32")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -73,6 +73,11 @@ class QPContext:
     u0: tuple | None
     du0: tuple | None
     dt: torch.Tensor | float | None
+    # global coordinates of the quadrature points, for coordinate-dependent
+    # forms (``needs_coords``): [4, nq, ny, nx] (3D: [6, nq, nz, ny, nx])
+    x: torch.Tensor | None = None
+    y: torch.Tensor | None = None
+    z: torch.Tensor | None = None   # 3D only
 
 
 def _eval_qp(Bq, Gs, loc, centred=False):
@@ -127,11 +132,7 @@ class TabTensors:
 # residual / functional factories
 # ---------------------------------------------------------------------------
 
-def _check_grid(grid: CrossedTriGrid, needs_coords: bool):
-    if needs_coords:
-        raise NotImplementedError(
-            "coordinate-dependent terms are not yet ported to the PyTorch "
-            "package")
+def _check_grid(grid: CrossedTriGrid):
     if grid.periodic:
         raise NotImplementedError(
             "periodic grids are not yet ported to the PyTorch package")
@@ -148,14 +149,18 @@ def make_residual(
     dtype=torch.float64,
 ):
     """Build ``residual(w, w0, dt) -> (rv, rm)`` for a system's weak form.
-    The rows of each ``DirichletBC`` in ``dirichlet`` become ``u - g``."""
+    The rows of each ``DirichletBC`` in ``dirichlet`` become ``u - g``;
+    ``needs_coords`` puts the quadrature points' coordinates into ``ctx.x``
+    and ``ctx.y``."""
     del n_fields  # the field count follows from the state
-    _check_grid(grid, needs_coords)
+    _check_grid(grid)
     T = TabTensors.make(grid, dtype, device)
+    coords = qpoint_tensors(grid, dtype, device) if needs_coords else {}
     bc_g = [torch.as_tensor(bc.g, dtype=dtype, device=device) for bc in dirichlet]
 
     def residual(w, w0, dt):
-        rv, rm = _assemble(T, grid, terms(_context(T, grid, w, w0, dt)))
+        rv, rm = _assemble(T, grid, terms(_context(T, grid, w, w0, dt,
+                                                   coords=coords)))
         for bc, g in zip(dirichlet, bc_g):
             rv = bc.apply_residual(rv, w[0], g)
         return rv, rm
@@ -163,15 +168,33 @@ def make_residual(
     return residual
 
 
+def qpoint_tensors(grid, dtype, device) -> dict:
+    """``grid.qpoint_coords()`` as the tensors ``x``, ``y`` (3D also ``z``)
+    of ``QPContext``, keyed by their field names."""
+    return {k: torch.as_tensor(a, dtype=dtype, device=device)
+            for k, a in zip("xyz", grid.qpoint_coords())}
+
+
 def _context(T: "TabTensors", grid: CrossedTriGrid, w, w0, dt,
-             centred=False) -> QPContext:
+             centred=False, coords=None) -> QPContext:
+    """``coords``: the ``qpoint_tensors`` of a coordinate-dependent form."""
     uq, du = _eval_qp(T.Bq, T.Gs, local_values(w, grid.ny, grid.nx), centred)
     u_t, du_t = _as_tuples(uq, du)
     if w0 is None:
-        return QPContext(u=u_t, du=du_t, u0=None, du0=None, dt=dt)
+        return QPContext(u=u_t, du=du_t, u0=None, du0=None, dt=dt,
+                         **(coords or {}))
     u0q, du0 = _eval_qp(T.Bq, T.Gs, local_values(w0, grid.ny, grid.nx))
     u0_t, du0_t = _as_tuples(u0q, du0)
-    return QPContext(u=u_t, du=du_t, u0=u0_t, du0=du0_t, dt=dt)
+    return QPContext(u=u_t, du=du_t, u0=u0_t, du0=du0_t, dt=dt,
+                     **(coords or {}))
+
+
+def broadcast_term(z, shape, proto: torch.Tensor) -> torch.Tensor:
+    """A pointwise term broadcast to ``shape``: a tensor, or a constant
+    (elast's body force) made a tensor of ``proto``'s dtype and device."""
+    if not torch.is_tensor(z):
+        z = proto.new_full((), z)
+    return torch.broadcast_to(z, shape)
 
 
 def slot_contributions(T: "TabTensors", grid: CrossedTriGrid, source_flux):
@@ -179,9 +202,13 @@ def slot_contributions(T: "TabTensors", grid: CrossedTriGrid, source_flux):
     and slot: [5, F, ny, nx], before the scatter."""
     source, flux = source_flux
     full_shape = (4, T.WB.shape[1], grid.ny, grid.nx)
-    src = torch.stack([torch.broadcast_to(s, full_shape) for s in source])
-    fx = torch.stack([torch.broadcast_to(f[0], full_shape) for f in flux])
-    fy = torch.stack([torch.broadcast_to(f[1], full_shape) for f in flux])
+
+    def stacked(terms):
+        return torch.stack([broadcast_term(z, full_shape, T.WB) for z in terms])
+
+    src = stacked(source)
+    fx = stacked([f[0] for f in flux])
+    fy = stacked([f[1] for f in flux])
     return (torch.einsum("tqs,ftqyx->sfyx", T.WB, src)
             + torch.einsum("tqs,ftqyx->sfyx", T.WGx, fx)
             + torch.einsum("tqs,ftqyx->sfyx", T.WGy, fy))
@@ -204,7 +231,7 @@ def make_tangent_jvp(grid: CrossedTriGrid, tangent, *,
     ``u - g``). The state's gradient, which only a tangent that reads it
     (the anisotropic BM3's) uses, is formed as the kernels form it
     (``_eval_qp(centred=True)``)."""
-    _check_grid(grid, False)
+    _check_grid(grid)
     T = TabTensors.make(grid, dtype, device)
 
     def jv(w, w0, dt, v):
@@ -225,16 +252,15 @@ def make_functional(
     needs_coords: bool = False,
     dtype=torch.float64,
 ):
-    """Build ``value(w) -> scalar tensor`` for an integral functional."""
-    _check_grid(grid, needs_coords)
+    """Build ``value(w) -> scalar tensor`` for an integral functional;
+    ``needs_coords`` as in ``make_residual``."""
+    _check_grid(grid)
     T = TabTensors.make(grid, dtype, device)
+    coords = qpoint_tensors(grid, dtype, device) if needs_coords else {}
     full_shape = (4, grid.tab().nq, grid.ny, grid.nx)
-    ny, nx = grid.ny, grid.nx
 
     def value(w):
-        uq, du = _eval_qp(T.Bq, T.Gs, local_values(w, ny, nx))
-        u_t, du_t = _as_tuples(uq, du)
-        ctx = QPContext(u=u_t, du=du_t, u0=None, du0=None, dt=None)
+        ctx = _context(T, grid, w, None, None, coords=coords)
         e = torch.broadcast_to(density(ctx), full_shape)
         return torch.einsum("tq,tqyx->", T.wq, e)
 

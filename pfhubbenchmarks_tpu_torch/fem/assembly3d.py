@@ -15,7 +15,8 @@ way: the plain version of the 3D J.v kernel (ops/fem_jvp3d.py).
 Face Dirichlet conditions (``DirichletBC3D``, bench6_3d's phi faces): the
 residual's rows there are ``u - g``, the J.v's rows ``v``; ``bc_mask3d`` is
 the 0/1 plane of those rows that the kernels read. Coordinate-dependent
-terms are not yet ported: the factories raise for them.
+forms (``needs_coords``, poisson3d) get the quadrature points' coordinates
+in ``ctx.x``, ``ctx.y`` and ``ctx.z``.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as tF
 
-from pfhubbenchmarks_tpu_torch.fem.assembly import QPContext
+from pfhubbenchmarks_tpu_torch.fem.assembly import (QPContext, broadcast_term,
+                                                    qpoint_tensors)
 from pfhubbenchmarks_tpu_torch.fem.grid3d import TetGrid, _SLOT_XYZ
 
 
@@ -170,13 +172,6 @@ def zero_bc_rows3d(w, bcs):
     return (v,)
 
 
-def _check(needs_coords: bool = False):
-    if needs_coords:
-        raise NotImplementedError(
-            "coordinate-dependent terms are not yet ported to the PyTorch "
-            "package")
-
-
 def _eval_qp(T: TabTensors3D, loc):
     """loc [8, F, nz, ny, nx] -> per-field tuples of values [6, nq, ...]
     and gradients (3 x [6, 1, ...])."""
@@ -187,13 +182,17 @@ def _eval_qp(T: TabTensors3D, loc):
             tuple((du[i, 0], du[i, 1], du[i, 2]) for i in range(n)))
 
 
-def _context(T: TabTensors3D, grid: TetGrid, w, w0, dt) -> QPContext:
+def _context(T: TabTensors3D, grid: TetGrid, w, w0, dt,
+             coords=None) -> QPContext:
+    """``coords``: the ``qpoint_tensors`` of a coordinate-dependent form."""
     nz, ny, nx = grid.nz, grid.ny, grid.nx
     u_t, du_t = _eval_qp(T, local_values3d(w, nz, ny, nx))
     if w0 is None:
-        return QPContext(u=u_t, du=du_t, u0=None, du0=None, dt=dt)
+        return QPContext(u=u_t, du=du_t, u0=None, du0=None, dt=dt,
+                         **(coords or {}))
     u0_t, du0_t = _eval_qp(T, local_values3d(w0, nz, ny, nx))
-    return QPContext(u=u_t, du=du_t, u0=u0_t, du0=du0_t, dt=dt)
+    return QPContext(u=u_t, du=du_t, u0=u0_t, du0=du0_t, dt=dt,
+                     **(coords or {}))
 
 
 def _assemble(T: TabTensors3D, grid: TetGrid, source_flux):
@@ -201,10 +200,11 @@ def _assemble(T: TabTensors3D, grid: TetGrid, source_flux):
     scattered to ``(rv,)``."""
     source, flux = source_flux
     full_shape = (6, T.Bq.shape[1], grid.nz, grid.ny, grid.nx)
-    src = torch.stack([torch.broadcast_to(s, full_shape) for s in source])
+    src = torch.stack([broadcast_term(s, full_shape, T.WB) for s in source])
     r_loc = torch.einsum("tqs,ftqzyx->sfzyx", T.WB, src)
     for d in range(3):
-        fd = torch.stack([torch.broadcast_to(f[d], full_shape) for f in flux])
+        fd = torch.stack([broadcast_term(f[d], full_shape, T.WB)
+                          for f in flux])
         r_loc = r_loc + torch.einsum("tqs,ftqzyx->sfzyx", T.WG[d], fd)
     return scatter_add3d(r_loc, grid.vshape, grid.nz, grid.ny, grid.nx)
 
@@ -213,15 +213,18 @@ def make_residual3d(grid: TetGrid, terms: Callable, n_fields: int, *,
                     device: torch.device | str, dirichlet=(),
                     needs_coords: bool = False, dtype=torch.float64):
     """Build ``residual(w, w0, dt) -> (rv,)`` for a system's weak form.
-    The rows of each ``DirichletBC3D`` in ``dirichlet`` become ``u - g``."""
+    The rows of each ``DirichletBC3D`` in ``dirichlet`` become ``u - g``;
+    ``needs_coords`` puts the quadrature points' coordinates into ``ctx.x``,
+    ``ctx.y`` and ``ctx.z``."""
     del n_fields  # the field count follows from the state
-    _check(needs_coords)
     T = TabTensors3D.make(grid, dtype, device)
+    coords = qpoint_tensors(grid, dtype, device) if needs_coords else {}
     bc_g = [torch.as_tensor(bc.g, dtype=dtype, device=device)
             for bc in dirichlet]
 
     def residual(w, w0, dt):
-        (rv,) = _assemble(T, grid, terms(_context(T, grid, w, w0, dt)))
+        (rv,) = _assemble(T, grid, terms(_context(T, grid, w, w0, dt,
+                                                  coords=coords)))
         for bc, g in zip(dirichlet, bc_g):
             rv = bc.apply_residual(rv, w[0], g)
         return (rv,)
@@ -252,13 +255,14 @@ def make_tangent_jvp3d(grid: TetGrid, tangent, *, device: torch.device | str,
 def make_functional3d(grid: TetGrid, density: Callable, *,
                       device: torch.device | str, needs_coords: bool = False,
                       dtype=torch.float64):
-    """Build ``value(w) -> scalar tensor`` for an integral functional."""
-    _check(needs_coords)
+    """Build ``value(w) -> scalar tensor`` for an integral functional;
+    ``needs_coords`` as in ``make_residual3d``."""
     T = TabTensors3D.make(grid, dtype, device)
+    coords = qpoint_tensors(grid, dtype, device) if needs_coords else {}
     full_shape = (6, T.Bq.shape[1], grid.nz, grid.ny, grid.nx)
 
     def value(w):
-        ctx = _context(T, grid, w, None, None)
+        ctx = _context(T, grid, w, None, None, coords=coords)
         e = torch.broadcast_to(density(ctx), full_shape)
         return torch.einsum("tq,tqzyx->", T.wq, e)
 

@@ -194,6 +194,17 @@ class CrossedTriGrid:
         m = np.stack([np.broadcast_to(f(cx, cy), cx.shape) for f in fns]).astype(dtype)
         return self.pad_state(v, m)
 
+    def qpoint_coords(self) -> tuple[np.ndarray, np.ndarray]:
+        """Global (x, y) of all quadrature points, each [4, nq, ny, nx]
+        (coordinate-dependent forms: poisson's manufactured forcing)."""
+        tab = self.tab()
+        full = tab.wq.shape + (self.ny, self.nx)
+        ox = np.arange(self.nx) * self.hx
+        oy = np.arange(self.ny) * self.hy
+        gx = tab.xq[..., 0][:, :, None, None] + ox[None, None, None, :]
+        gy = tab.xq[..., 1][:, :, None, None] + oy[None, None, :, None]
+        return np.broadcast_to(gx, full).copy(), np.broadcast_to(gy, full).copy()
+
     # ---- diagonal helpers for preconditioning ----
 
     def node_diagonals(self) -> dict[str, tuple[np.ndarray, np.ndarray]]:

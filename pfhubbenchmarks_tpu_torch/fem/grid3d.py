@@ -12,8 +12,8 @@ order and each tet's vertex list below is already DOLFIN-sorted).
 
 State: ``w = (v,)``, a 1-tuple, so the pair linear algebra of
 solve/tree.py, the Krylov solver and Newton apply unchanged.
-Quadrature-point coordinates (``qpoint_coords``, for coordinate-dependent
-forms) are not yet ported.
+``qpoint_coords`` gives the quadrature points' global coordinates, which
+coordinate-dependent forms read (poisson3d).
 """
 
 from __future__ import annotations
@@ -118,6 +118,21 @@ class TetGrid:
 
     def tab(self) -> Tabulation3D:
         return tabulate3d(self.hx, self.hy, self.hz, get_tet_rule(self.rule_name))
+
+    def qpoint_coords(self):
+        """Global (x, y, z) of all quadrature points, each [6, nq, nz, ny,
+        nx] (coordinate-dependent forms: poisson3d's forcing)."""
+        tab = self.tab()
+        full = tab.wq.shape + (self.nz, self.ny, self.nx)
+        ox = np.arange(self.nx) * self.hx
+        oy = np.arange(self.ny) * self.hy
+        oz = np.arange(self.nz) * self.hz
+        gx = tab.xq[..., 0][:, :, None, None, None] + ox[None, None, None, None, :]
+        gy = tab.xq[..., 1][:, :, None, None, None] + oy[None, None, None, :, None]
+        gz = tab.xq[..., 2][:, :, None, None, None] + oz[None, None, :, None, None]
+        return (np.broadcast_to(gx, full).copy(),
+                np.broadcast_to(gy, full).copy(),
+                np.broadcast_to(gz, full).copy())
 
     def vertex_coords(self):
         z, y, x = np.meshgrid(np.arange(self.nz + 1) * self.hz,

@@ -2,8 +2,8 @@
 thing: states as tuples of numpy arrays (2D pairs ``(v, m)``, 3D 1-tuples
 ``(v,)`` with v ``[F, Z, Y, X]``), configs as ``dataclasses.asdict`` dicts,
 benchmark parameters as dicts of numpy or Python scalars (bench1_3d takes
-``Bench1Params``). Nothing here imports jax: the JAX side hands over plain
-numpy and Python values.
+``Bench1Params``, elast ``ElastParams``). Nothing here imports jax: the JAX
+side hands over plain numpy and Python values.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from pfhubbenchmarks_tpu_torch.benchmarks.bench1 import Bench1Params
 from pfhubbenchmarks_tpu_torch.benchmarks.bench2 import Bench2Params
 from pfhubbenchmarks_tpu_torch.benchmarks.bench3 import Bench3Params
 from pfhubbenchmarks_tpu_torch.benchmarks.bench6 import Bench6Params
+from pfhubbenchmarks_tpu_torch.benchmarks.elast import ElastParams
 from pfhubbenchmarks_tpu_torch.config import SolverConfig, TimeConfig
 
 
@@ -53,10 +54,10 @@ def time_config_from_dict(d: dict) -> TimeConfig:
 def problem_params_from_numpy(d: dict, params_cls=Bench1Params):
     """``dataclasses.asdict`` of a JAX benchmark's parameters (values may be
     numpy scalars) -> the port's ``params_cls`` (``Bench1Params``,
-    ``Bench2Params``, ``Bench3Params`` or ``Bench6Params``); the integer
-    fields (bench3's ``m``) stay integers."""
+    ``Bench2Params``, ``Bench3Params``, ``Bench6Params`` or
+    ``ElastParams``); the integer fields (bench3's ``m``) stay integers."""
     if params_cls not in (Bench1Params, Bench2Params, Bench3Params,
-                          Bench6Params):
+                          Bench6Params, ElastParams):
         raise ValueError(f"no ported parameters {params_cls!r}")
     ints = {f.name for f in dataclasses.fields(params_cls)
             if f.type in (int, "int")}

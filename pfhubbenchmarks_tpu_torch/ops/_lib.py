@@ -73,9 +73,13 @@ CALLS = dict.fromkeys(CHAINS, 0)
 
 # host seconds of stages: the whole multigrid build (kernel N's planes, the
 # injections and the dense coarse inverse) and the dense coarse inverse
-# within it (``jacfwd`` and ``torch.linalg.inv``, plain torch, bench3), and
-# the ``torch.func.jvp`` block build, which no main path runs
-SECONDS = {"precond_build": 0.0, "dense_coarse": 0.0, "jvp_blocks": 0.0}
+# within it (``jacfwd`` and ``torch.linalg.inv``, plain torch, bench3); the
+# ``torch.func.jvp`` block build, which only the f64 linear branch's
+# block-Jacobi runs on a main path (poisson, poisson3d); and the three parts
+# of the dense preconditioner's build (elast, solve/precond.py): the J
+# columns, the LU and the explicit inverse
+SECONDS = {"precond_build": 0.0, "dense_coarse": 0.0, "jvp_blocks": 0.0,
+           "dense_jacobian": 0.0, "dense_lu": 0.0, "dense_inverse": 0.0}
 # the times each stage ran (a run's multigrid builds: ``precond_build``)
 ENTRIES = dict.fromkeys(SECONDS, 0)
 

@@ -10,10 +10,19 @@ per Krylov iteration. Convergence mirrors SNES defaults:
   diverged:  ||F|| > divtol ||F0||, NaN, a linear solve that made no
              progress, the stall abort, or max_it
 
-Mixed precision: the residual and the state are f64; the Krylov solve
-(J.v, basis, preconditioner) runs in f32. The J.v comes from
-``lowp_jvp_factory`` (kernel A or E on CUDA, its plain ``torch.func.jvp``
-version on CPU).
+The linear solve of a Newton iteration takes one of two branches, as in
+the JAX package (``newton.py:257-280``):
+
+- Mixed precision (``SolverConfig.mixed_precision``, every time-dependent
+  benchmark): the residual and the state are f64; the Krylov solve (J.v,
+  basis, preconditioner) runs in f32. The J.v comes from
+  ``lowp_jvp_factory``, the benchmark's hand-written kernel on CUDA (its
+  plain version on CPU tensors); without one the solver raises.
+- f64 (``mixed_precision=False``: poisson, poisson3d, elast): the J.v is
+  ``torch.func.jvp`` of the f64 residual at the iterate, FGMRES runs in
+  f64, and the preconditioner's output is cast to the state's dtype (the
+  JAX package's ``Mc``). No kernel is on this branch: the JAX package runs
+  it in XLA.
 
 Line searches: 'basic' (the full step) and 'cp' (one secant step on
 ``<F(x + l d), d>``, ``newton.py:60-79``). With ``fast_linesearch`` the cp
@@ -79,16 +88,37 @@ def newton_direction(krylov, lowp_jvp_factory, Minv, x, F, w_prev_lp, dt_lp,
     return tr.cast(sol.x, x[0].dtype), sol
 
 
+def f64_direction(krylov, res_fn, Minv, x, F, krylov_kwargs):
+    """The f64 branch's linear solve: ``J d = -F`` in the state's dtype, with
+    J.v = ``torch.func.jvp`` of ``res_fn`` (the f64 residual) at ``x``, and
+    ``Minv``'s output cast to that dtype; the wrapper also keeps a (z, A z)
+    pair from FGMRES, as the JAX package's ``Mc`` does. Returns ``d`` and the
+    Krylov result."""
+    dtype = F[0].dtype
+
+    def jvp_fn(v):
+        return torch.func.jvp(res_fn, (x,), (v,))[1]
+
+    sol = krylov(jvp_fn, tr.neg(F), Minv=lambda r: tr.cast(Minv(r), dtype),
+                 **krylov_kwargs)
+    return sol.x, sol
+
+
 def make_newton_solver(residual, cfg: SolverConfig, precond_build, *,
                        lowp_jvp_factory, residual_lowp=None):
     """Build ``solve(w_guess, w_prev, dt) -> NewtonResult``.
 
     ``residual(w, w_prev, dt)`` is the f64 assembled residual;
     ``precond_build(w, w_prev, dt) -> Minv``; ``lowp_jvp_factory(x, w_prev,
-    dt) -> jvp(v)`` gives the f32 Krylov operator at the f32 state;
+    dt) -> jvp(v)`` gives the f32 Krylov operator at the f32 state (None on
+    the f64 branch, ``cfg.mixed_precision`` False, which never reads it);
     ``residual_lowp`` is the f32 residual the fast cp line search reads.
     """
     check_supported(cfg)
+    if cfg.mixed_precision and lowp_jvp_factory is None:
+        raise ValueError("mixed precision needs the f32 Krylov operator "
+                         "(lowp_jvp_factory); the f64 branch is "
+                         "mixed_precision=False")
     krylov = SOLVERS[cfg.krylov]
     if cfg.krylov_forcing == "ew" and cfg.ew_dt_min is None:
         warnings.warn(
@@ -156,8 +186,12 @@ def make_newton_solver(residual, cfg: SolverConfig, precond_build, *,
                           rtol=cfg.krylov_rtol if gated else eta)
             Minv = (Minv_lagged if Minv_lagged is not None
                     else precond_build(x, w_prev, dt))
-            d, sol = newton_direction(krylov, lowp_jvp_factory, Minv, x, F,
-                                      w_prev_lp, dt_lp, kw)
+            if cfg.mixed_precision:
+                d, sol = newton_direction(krylov, lowp_jvp_factory, Minv, x,
+                                          F, w_prev_lp, dt_lp, kw)
+            else:
+                d, sol = f64_direction(
+                    krylov, lambda u: residual(u, w_prev, dt), Minv, x, F, kw)
             lam = (_cp_step(res_ls, x, d, F, normF)
                    if cfg.line_search == "cp" else 1.0)
             xn = tr.axpy(lam, d, x)

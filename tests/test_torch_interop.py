@@ -131,7 +131,7 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(line_search="bt"), dict(krylov="gmres"), dict(precond="block_jacobi"),
+    dict(line_search="bt"), dict(krylov="gmres"), dict(dense_impl="mxu"),
     dict(krylov_operator="precond_rule"), dict(gmg_cycle="w"), dict(gmg_inner_mr=2),
     dict(mixed_precision=False), dict(fgmres_aug=2),
     dict(field_split_alphas=False),
